@@ -1,0 +1,150 @@
+"""TransField — learned "gradient" lifting scalar features to tangent fields.
+
+Counterpart of ``fieldconv_tpu/ops/trans_field.py`` (gather and dense
+banded routes).  Two aggregations over the support edges, using two columns
+of the stencil:
+
+  contribAng[i,c,r] = -Σ_e (x[j]-x[i]) · sten1[e,r]
+  contribMag[i,c,r] =  Σ_e  x[j]       · |sten0[e,r]|
+
+then per-(out,in) zonal banks turn these into an angle and a magnitude that
+are recombined as ρ·e^{iφ} and summed over input channels.  Every function
+accepts optional leading mesh-batch axes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..precomp.banded import CompressedBandedTable, window_blocks
+from ..precomp.edge_table import EdgeTable
+from ..utils.complexops import cpolar, soft_abs, soft_absolute, soft_angle
+from .band_conv import _hats_from_r
+from .field_conv import gather_rows, resolve_d_chunk
+
+
+def trans_field_contrib(x, table: EdgeTable, lift_cols=(0, 1),
+                        d_chunk: int = 128):
+    """Aggregate the angular (complex) and magnitude (real) contributions
+    over the padded-CSR table.
+
+    x: (..., N, C) real scalar features.
+    lift_cols: indices into the K axis of fwxp selecting the two stencil
+      columns ((0, 1) replicates the classification notebook's use of the
+      unsliced stencil).
+    Returns contribAng (..., N, C, R, 2), contribMag (..., N, C, R).
+    """
+    k0, k1 = lift_cols
+
+    def chunk(src_c, rsten_c, fw0_c, fw1_c):
+        xs = gather_rows(x, src_c)                          # (..., N, DB, C)
+        xdiff = xs - x[..., :, None, :]                     # x_j - x_i
+        sten1 = rsten_c[..., None] * fw1_c[..., None, :]    # (..., N, DB, R, 2)
+        sten0 = rsten_c[..., None] * fw0_c[..., None, :]
+        sten0_abs = soft_abs(sten0)                         # (..., N, DB, R)
+        ang = -torch.einsum("...ndc,...ndrp->...ncrp", xdiff, sten1)
+        mag = torch.einsum("...ndc,...ndr->...ncr", xs, sten0_abs)
+        return ang, mag
+
+    D = table.d_slots
+    d_chunk = resolve_d_chunk(D, d_chunk)
+    ang = mag = None
+    for lo in range(0, D, d_chunk):
+        sl = slice(lo, lo + d_chunk)
+        a, m = chunk(table.src[..., sl], table.rsten[..., sl, :],
+                     table.fwxp[..., sl, k0, :], table.fwxp[..., sl, k1, :])
+        ang = a if ang is None else ang + a
+        mag = m if mag is None else mag + m
+    return ang, mag
+
+
+def trans_field_weight(contrib_ang, contrib_mag, zonal_ang, zonal_mag, phase,
+                       ftype):
+    """Contract with zonal banks and recombine.
+
+    contrib_ang: (..., N, C, R, 2); contrib_mag: (..., N, C, R)
+    zonal_ang, zonal_mag: (O, C, R); phase: (O, C)
+    Returns (..., N, O, 2).
+    """
+    A = torch.einsum("...ncrp,ocr->...nocp", contrib_ang, zonal_ang)
+    phi = soft_angle(A)                                    # (..., N, O, C)
+    if ftype == 1:
+        phi = phi + phase
+    M = torch.einsum("...ncr,ocr->...noc", contrib_mag, zonal_mag)
+    rho = soft_absolute(M)
+    return torch.sum(cpolar(rho, phi), dim=-2)             # sum over in-channels
+
+
+def _phasor_power(pr, pi, f: int):
+    """(pr + i·pi)^f for integer f (|f| small: repeated multiplication)."""
+    cr, ci = torch.ones_like(pr), torch.zeros_like(pi)
+    qr, qi = (pr, pi) if f >= 0 else (pr, -pi)
+    for _ in range(abs(f)):
+        cr, ci = cr * qr - ci * qi, cr * qi + ci * qr
+    return cr, ci
+
+
+def trans_field_banded_contrib(x, comp: CompressedBandedTable,
+                               lift_cols=(0, 1)):
+    """Gather-free TransField aggregation over the banded slot layout.
+
+    Same math as :func:`trans_field_contrib` with the ``x[src]`` gather
+    replaced by block-shift windowing of x over the CompressedBandedTable
+    planes.  Stencil columns are rebuilt from the compressed planes: radial
+    hats from the r plane, fwxp_k = wxp·e^{ikθ} from phasor powers.  The
+    magnitude stencil uses rsten·|wxp|, which differs from the gather
+    path's softAbs(rsten⊗fwxp) only on slots whose magnitude is below
+    EPS=1e-7.
+
+    x: (..., N, C) real scalars, N == comp.n_pad; comp.sten_band carries
+    the same leading mesh axes.
+    Returns contribAng (..., N, C, R, 2), contribMag (..., N, C, R).
+    """
+    sten = comp.sten_band                          # (..., nb, 5, TB, W')
+    nb, TB = sten.shape[-4], sten.shape[-2]
+    nh, B, R = comp.nh, comp.band_limit, comp.n_rings
+    N, C = x.shape[-2:]
+    lead = x.shape[:-2]
+
+    xs = window_blocks(x, TB, nh)                  # (..., nb, W', C)
+
+    rv = sten[..., 0, :, :]                        # (..., nb, TB, W')
+    hats = _hats_from_r(rv, R)                     # (R, ..., nb, TB, W')
+    pr, pi = sten[..., 1, :, :], sten[..., 2, :, :]
+    wr, wi = sten[..., 3, :, :], sten[..., 4, :, :]
+
+    k0, k1 = lift_cols
+    e1r, e1i = _phasor_power(pr, pi, k1 - B)
+    f1 = torch.stack([wr * e1r - wi * e1i, wr * e1i + wi * e1r], -1)
+
+    # angular: -Σ_w hats[r]·f1[p]·(xs[w,c] − x[t,c])
+    #        = -(Σ_w hats·f1·xs[w]  −  x[t]·Σ_w hats·f1)
+    s1 = hats[..., None] * f1                      # (R, ..., nb, TB, W', 2)
+    part = torch.einsum("r...btwp,...bwc->...btcrp", s1, xs)
+    ssum = torch.sum(s1, dim=-2).movedim(0, -2)    # (..., nb, TB, R, 2)
+    xt = x.reshape(*lead, nb, TB, C)
+    ang = -(part - xt[..., None, None] * ssum[..., None, :, :])
+
+    # magnitude: Σ_w hats[r]·|wxp|·xs[w,c]  (|fwxp_k| = |wxp|)
+    wmag = torch.sqrt(wr * wr + wi * wi)           # (..., nb, TB, W')
+    sm = hats * wmag                               # (R, ..., nb, TB, W')
+    mag = torch.einsum("r...btw,...bwc->...btcr", sm, xs)
+
+    return ang.reshape(*lead, N, C, R, 2), mag.reshape(*lead, N, C, R)
+
+
+def trans_field(x, table, zonal_ang, zonal_mag, phase, ftype,
+                lift_cols=(0, 1), d_chunk: int = 128, comp=None):
+    """TransField lift.  A CompressedBandedTable ``comp`` routes the
+    aggregation to the gather-free banded path; None uses the padded-CSR
+    gather path."""
+    if isinstance(comp, CompressedBandedTable):
+        ang, mag = trans_field_banded_contrib(x, comp, lift_cols=lift_cols)
+    elif comp is not None:
+        raise NotImplementedError(
+            f"the {type(comp).__name__} lift is not ported yet (ROADMAP "
+            "Queue 1: the panel and compact layouts)")
+    else:
+        ang, mag = trans_field_contrib(x, table, lift_cols=lift_cols,
+                                       d_chunk=d_chunk)
+    return trans_field_weight(ang, mag, zonal_ang, zonal_mag, phase, ftype)
