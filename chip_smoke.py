@@ -3,12 +3,13 @@
     python3 chip_smoke.py            # from the repository root
 
 Phases, any failure exits non-zero:
-  1. build every CUDA kernel from csrc/ and print the card's name and
-     power limit;
-  2. hold the K1 kernel (fused banded field-conv forward) against its plain
-     PyTorch version on the card: at the two serving shapes, on the real
-     stencils of the records below, and on a dense random stencil with
-     nh=4 that reaches past both ends of g;
+  1. build every CUDA kernel from csrc/ (one nvcc per source, all at once)
+     and print the card's name and power limit;
+  2. hold K1's forward and backward kernels (fused banded field conv)
+     against their plain PyTorch versions on the card: at the two serving
+     shapes, on the real stencils of the records below, and on a dense
+     random stencil with nh=4 that reaches past both ends of g; the
+     backward must also give bitwise-equal results on a second call;
   3. serve the SHREC11 classification network (the CLASSIFICATION preset:
      nf=32, B=2, R=6, ftype=1, 30 classes, random weights from a seed)
      through Predictor(banded_tb=128, device="cuda"): one batch of 8
@@ -16,8 +17,16 @@ Phases, any failure exits non-zero:
      record of 8192 samples with degree 128.  Each batch must launch K1
      five times; classes and logits must match the same Predictor on the
      CPU, which runs the plain versions;
-  4. time K1, its plain version and each request shape;
-  5. print the kernels line, the card line and the result line.
+  4. train the same network with fit(banded_tb=128, batch_size=8,
+     device="cuda") on 16 SHREC11-sized records (2 batches) for 2 epochs,
+     testing on 8 more, checkpointing into a temporary directory.  Each
+     step must launch K1's forward and backward five times each, every
+     loss must be finite, and the first epoch's losses must match the same
+     fit on the CPU (plain versions);
+  5. time both kernels and their plain versions, each request shape, a
+     training step, and one forward and backward of five convs at
+     bench.py's shape;
+  6. print the kernels line, the card line and the result line.
 
 Records are synthetic, built with numpy from --seed in the manner of
 bench.py::build_synthetic_tables: unique sources within ±bandwidth of each
@@ -28,22 +37,31 @@ target (the locality RCM ordering gives real meshes), log-map radius in
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from fieldconv_tpu_torch import kernels
-from fieldconv_tpu_torch.data.base import MeshRecord
+from fieldconv_tpu_torch.data.base import MeshRecord, shared_bucket
 from fieldconv_tpu_torch.deploy import Predictor
-from fieldconv_tpu_torch.ops.band_conv import (band_fused_fwd,
-                                               band_fused_fwd_reference)
+from fieldconv_tpu_torch.ops.band_conv import (band_fused_bwd,
+                                               band_fused_bwd_reference,
+                                               band_fused_fwd,
+                                               band_fused_fwd_reference,
+                                               field_conv_banded)
+from fieldconv_tpu_torch.train.checkpoint import CheckpointManager
 from fieldconv_tpu_torch.train.config import PRESETS
-from fieldconv_tpu_torch.train.loop import build_model
+from fieldconv_tpu_torch.train.loop import build_model, fit, make_batches
+from fieldconv_tpu_torch.train.trainer import make_train_step
 
 # H100 SXM data-sheet peaks (dense, 700 W): HBM bytes/s and f32 FLOP/s
 # outside the tensor cores
@@ -52,10 +70,19 @@ PEAK_F32_FLOP_S = 67e12
 N_CLASSES = 30
 TB = 128
 # K1 against its plain version: f32 sums in another order over W' ≤ 1152
-# slots and R·M = 1920 filter terms; held to 1e-4 of the output's scale
+# slots and R·M = 1920 filter terms; held to 1e-4 of the output's scale.
+# The backward's dg and dw each to 1e-4 of their own scale: dw sums over
+# every target of every mesh (up to 8192 rows) in another order.
 K1_RTOL_SCALE = 1e-4
 # served logits, card against CPU: every op sums in another order
 LOGIT_RTOL, LOGIT_ATOL = 1e-3, 1e-4
+# training losses, card against CPU.  Step 1 sees the same weights, so it
+# differs only by summation order, as the logits do.  Step 2 follows one
+# Adam update, whose direction m̂/sqrt(v̂) is ±1 per parameter at step 1:
+# a gradient entry near zero whose sign differs between the two devices
+# moves its parameter by 2·lr, so that step is held more loosely.
+LOSS_ATOL_STEP1, LOSS_ATOL_LATER = 2e-4, 2e-3
+TRAIN_EPOCHS = 2          # on the card: 2 batches of 8 -> 4 steps
 
 
 def check(cond, msg):
@@ -151,6 +178,13 @@ def request_breakdown(fn, top=6):
     return wall_ms, busy, kern[:top]
 
 
+def kernel_name(key):
+    """The function name in a profiler key such as
+    "void (anonymous namespace)::bwd_dg_kernel<5, 6>(float const*, ...)"."""
+    m = re.search(r"(\w+)(?:<[^>(]*>)?\(", key)
+    return m.group(1) if m else key
+
+
 def time_host(fn, reps=5):
     """Median wall ms of fn() (which must end in a device sync)."""
     fn()
@@ -174,34 +208,67 @@ def k1_inputs(sten, R, C, O2, gen):
     return g, wmat
 
 
+def _stencil_counts(sten, R):
+    """Nonzero radial weights and occupied (target, slot) pairs (any
+    nonzero radial weight) of a stencil of R rings."""
+    rs = sten[:, :, :R]
+    return (int(torch.count_nonzero(rs).item()),
+            int((rs != 0).any(dim=2).sum().item()))
+
+
 def k1_bound(g, sten, wmat):
-    """Least time for one call: bytes (each input read once, y written
-    once) over HBM rate, and the f32 operations this data needs over the
-    f32 rate.  The stencil term takes the cheaper of two orders: per
-    occupied slot (any nonzero radial weight of target t at slot w) form
-    h_k = f_k·G_k once (6C flops per k) and per nonzero radial weight
-    add rs·h_k (4C per k); or per nonzero radial weight scale f_k by it
-    (2 per k) and add the complex product (8C per k).  Plus the filter
-    contraction 2·N·R·M·O2."""
+    """Least time for one forward call: bytes (each input read once, y
+    written once) over HBM rate, and the f32 operations this data needs
+    over the f32 rate.  The stencil term takes the cheaper of two orders:
+    per occupied slot form h_k = f_k·G_k once (6C flops per k) and per
+    nonzero radial weight add rs·h_k (4C per k); or per nonzero radial
+    weight scale f_k by it (2 per k) and add the complex product (8C per
+    k).  Plus the filter contraction 2·N·R·M·O2."""
     n_mesh, N, M = g.shape
     R, _, O2 = wmat.shape
     K = (sten.shape[2] - R) // 2
     C = M // (2 * K)
-    rs = sten[:, :, :R]
-    nnz = int(torch.count_nonzero(rs).item())
-    occupied = int((rs != 0).any(dim=2).sum().item())
+    nnz, occupied = _stencil_counts(sten, R)
     stencil = min(occupied * K * 6 * C + nnz * K * 4 * C,
                   nnz * K * (8 * C + 2))
     flops = stencil + 2 * n_mesh * N * R * M * O2
     dense = (8 * R * sten.shape[3] * sten.shape[4] * C * K
              * sten.shape[1] * n_mesh + 2 * n_mesh * N * R * M * O2)
     nbytes = 4 * (sten.numel() + g.numel() + wmat.numel() + n_mesh * N * O2)
+    return _bound(nbytes, flops, dense_flops=dense,
+                  slot_fill=nnz / max(1, R * sten.numel() // sten.shape[2]),
+                  rings_per_slot=nnz / max(1, occupied))
+
+
+def k1_bwd_bound(g, sten, wmat):
+    """Least time for one backward call: bytes (dy, g, the stencil and W
+    read once, dg and dW written once) over HBM rate, and the f32
+    operations this data needs over the f32 rate: the forward's stencil
+    term to rematerialise contrib; dW = contribᵀ·dy and dcontrib = dy·Wᵀ
+    (2·N·R·M·O2 each); and the transposed stencil term for dG, the cheaper
+    of per nonzero radial weight u_k += rs·dcontrib_k (4C per k) plus per
+    occupied slot dG += f_k ⊛ u_k (8C per k), or per nonzero radial weight
+    scale f_k by it (2 per k) and apply it to dcontrib (8C per k)."""
+    n_mesh, N, M = g.shape
+    R, _, O2 = wmat.shape
+    K = (sten.shape[2] - R) // 2
+    C = M // (2 * K)
+    nnz, occupied = _stencil_counts(sten, R)
+    contrib = min(occupied * K * 6 * C + nnz * K * 4 * C,
+                  nnz * K * (8 * C + 2))
+    dgrad = min(occupied * K * 8 * C + nnz * K * 4 * C,
+                nnz * K * (8 * C + 2))
+    flops = contrib + dgrad + 2 * 2 * n_mesh * N * R * M * O2
+    nbytes = 4 * (sten.numel() + 2 * g.numel() + 2 * wmat.numel()
+                  + n_mesh * N * O2)
+    return _bound(nbytes, flops)
+
+
+def _bound(nbytes, flops, **extra):
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
     return dict(bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, flops=flops, dense_flops=dense,
-                slot_fill=nnz / max(1, R * sten.numel() // sten.shape[2]),
-                rings_per_slot=nnz / max(1, occupied))
+                bytes=nbytes, flops=flops, **extra)
 
 
 def k1_check(label, g, sten, wmat, tb, nh):
@@ -227,6 +294,125 @@ def k1_time(row, g, sten, wmat, tb, nh):
     row["plain_ms"] = time_cuda(
         lambda: band_fused_fwd_reference(g, sten, wmat, tb, nh), iters=3)
     row.update(k1_bound(g, sten, wmat))
+
+
+def k1_bwd_check(label, g, sten, wmat, dy, tb, nh):
+    """K1's backward against its plain version, then a second call that
+    must give bitwise-equal dg and dw."""
+    dg, dw = band_fused_bwd(dy, g, sten, wmat, tb, nh)
+    torch.cuda.synchronize()
+    ref_g, ref_w = band_fused_bwd_reference(dy, g, sten, wmat, tb, nh)
+    row = dict(shape=label, n_mesh=g.shape[0], N=g.shape[1], M=g.shape[2],
+               nh=nh, O2=wmat.shape[2])
+    for name, got, ref in (("dg", dg, ref_g), ("dw", dw, ref_w)):
+        check(torch.isfinite(got).all().item(),
+              f"K1 bwd {label}: non-finite {name}")
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        check(err <= K1_RTOL_SCALE * scale,
+              f"K1 bwd {label}: {name} max abs err {err} > "
+              f"{K1_RTOL_SCALE} x {scale}")
+        row[f"{name}_max_abs_err"] = err
+        row[f"{name}_max_rel_err"] = err / scale
+    dg2, dw2 = band_fused_bwd(dy, g, sten, wmat, tb, nh)
+    check(torch.equal(dg, dg2) and torch.equal(dw, dw2),
+          f"K1 bwd {label}: two calls differ")
+    row["max_abs_err"] = max(row["dg_max_abs_err"], row["dw_max_abs_err"])
+    print(f"K1 bwd {label}: dg max abs err {row['dg_max_abs_err']:.3e} "
+          f"(rel {row['dg_max_rel_err']:.3e}), dw {row['dw_max_abs_err']:.3e}"
+          f" (rel {row['dw_max_rel_err']:.3e}); tolerance {K1_RTOL_SCALE} "
+          "of each one's scale; a second call is bitwise equal")
+    return row
+
+
+def k1_bwd_time(row, g, sten, wmat, dy, tb, nh):
+    row["ms"] = time_cuda(lambda: band_fused_bwd(dy, g, sten, wmat, tb, nh),
+                          iters=10)
+    row["plain_ms"] = time_cuda(
+        lambda: band_fused_bwd_reference(dy, g, sten, wmat, tb, nh), iters=2)
+    row.update(k1_bwd_bound(g, sten, wmat))
+
+
+def print_times(kind, rows, card):
+    for r in rows:
+        print(f"{kind} {r['shape']}: kernel {r['ms']:.4f} ms/call, plain "
+              f"{r['plain_ms']:.4f} ms/call, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}; {r['bytes'] / 1e6:.1f} MB, "
+              f"{r['flops'] / 1e9:.2f} GFLOP needed) on {card}")
+
+
+def read_losses(path):
+    with open(path) as f:
+        return [json.loads(line)["loss"] for line in f]
+
+
+def train_phase(config, train, test, dev, seed, tmp):
+    """fit on the card (the main path, counted) and the first epoch of the
+    same fit on the CPU; returns the card run's net, optimizer and launch
+    counts."""
+    cfg = dataclasses.replace(config, epochs=TRAIN_EPOCHS, checkpoint_every=1,
+                              checkpoint_dir=os.path.join(tmp, "ckpt"))
+    n_test_batches = 1
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    net, opt, acc = fit(cfg, train, test, n_classes=N_CLASSES, batch_size=8,
+                        banded_tb=TB, log_path=os.path.join(tmp, "card.jsonl"),
+                        seed=seed, device=dev)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    steps = TRAIN_EPOCHS * len(train) // 8
+    check(int(opt.step.item()) == steps, f"fit ran {opt.step} steps, want "
+          f"{steps}")
+    want = {"band_fused_fwd": 5 * (steps + n_test_batches),
+            "band_fused_bwd": 5 * steps}
+    check(launches == want, f"fit launched {launches}, want {want}: 5 of "
+          "each per step, 5 forward per test batch")
+    losses = read_losses(os.path.join(tmp, "card.jsonl"))
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"card losses {losses}")
+    latest = CheckpointManager(cfg.checkpoint_dir).latest_step()
+    check(latest == steps, f"latest checkpoint {latest}, want {steps}")
+
+    cpu_cfg = dataclasses.replace(cfg, epochs=1, checkpoint_dir=None)
+    t0 = time.perf_counter()
+    _, _, cpu_acc = fit(cpu_cfg, train, test, n_classes=N_CLASSES,
+                        batch_size=8, banded_tb=TB,
+                        log_path=os.path.join(tmp, "cpu.jsonl"), seed=seed,
+                        device="cpu")
+    cpu_s = time.perf_counter() - t0
+    cpu_losses = read_losses(os.path.join(tmp, "cpu.jsonl"))
+    diffs = [abs(a - b) for a, b in zip(losses, cpu_losses)]
+    check(len(cpu_losses) == steps // TRAIN_EPOCHS, f"cpu {cpu_losses}")
+    check(diffs[0] <= LOSS_ATOL_STEP1
+          and all(d <= LOSS_ATOL_LATER for d in diffs[1:]),
+          f"card losses {losses} against CPU {cpu_losses}")
+    print(f"train: fit on the card, {steps} steps ({fit_s:.1f} s with table "
+          f"builds and the test pass), losses {losses}, launches {launches}, "
+          f"checkpoint at step {latest}; test accuracy {acc:.4f} (random "
+          f"labels, 4 steps)")
+    print(f"train: the first {len(cpu_losses)} losses match the CPU fit "
+          f"({cpu_losses}, {cpu_s:.1f} s): |diff| {diffs} (step 1 within "
+          f"{LOSS_ATOL_STEP1}, later within {LOSS_ATOL_LATER}); CPU test "
+          f"accuracy after 1 epoch {cpu_acc:.4f}")
+    return net, opt, launches
+
+
+def conv_fwd_bwd(banded, dev, gen, C=32, B=2, R=6, n_convs=5):
+    """fn() running forward and backward of n_convs C→C field convolutions
+    (ftype 1) over ``banded``, as bench.py times one."""
+    N = banded.n_pad
+    x = torch.randn(1, N, C, 2, device=dev, generator=gen).requires_grad_()
+    shapes = ((C, C, R), (C, C, R, B, 2), (C, C, B + 1))
+    filters = [[(0.2 * torch.randn(sh, device=dev, generator=gen))
+                .requires_grad_() for sh in shapes] for _ in range(n_convs)]
+    dy = torch.randn(1, N, C, 2, device=dev, generator=gen)
+
+    def run():
+        ys = [field_conv_banded(x, banded, *f, 1) for f in filters]
+        torch.autograd.backward(ys, [dy] * n_convs)
+
+    return run
 
 
 # --- main ------------------------------------------------------------------------------
@@ -260,6 +446,9 @@ def main(argv=None) -> int:
     config = PRESETS["classification"]
     small = shrec_records(rng, config.epsilon)
     large = large_record(rng, config.epsilon)
+    train_recs = shrec_records(rng, config.epsilon) + shrec_records(
+        rng, config.epsilon)
+    test_recs = shrec_records(rng, config.epsilon)
 
     net = build_model(config, N_CLASSES,
                       generator=torch.Generator().manual_seed(args.seed),
@@ -284,25 +473,34 @@ def main(argv=None) -> int:
               f"{int(b.table.mask.sum().item())} edges; tables built on the "
               f"host and placed in {build_s:.3f} s")
 
-    # 2. K1 against its plain version at the shapes serving gives it
+    # 2. K1 forward and backward against their plain versions at the
+    # shapes serving and training give them
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     C, R = config.nf, config.n_rings
-    rows, timed = [], []
+    rows, bwd_rows, timed, bwd_timed = [], [], [], []
     for label, key, O2 in (("n8192 (bench.py shape)", "n8192_b1", 2 * C),
                            ("shrec11 b8 (conv_out)", "shrec11_b8",
                             2 * N_CLASSES)):
         bt = batches[key][0].banded
         g, wmat = k1_inputs(bt.sten_band, R, C, O2, gen)
+        dy = torch.randn(g.shape[0], g.shape[1], O2, device=dev,
+                         generator=gen)
         rows.append(k1_check(label, g, bt.sten_band, wmat, TB, bt.nh))
         timed.append((rows[-1], g, bt.sten_band, wmat, TB, bt.nh))
+        bwd_rows.append(k1_bwd_check(label, g, bt.sten_band, wmat, dy, TB,
+                                     bt.nh))
+        bwd_timed.append((bwd_rows[-1], g, bt.sten_band, wmat, dy, TB,
+                          bt.nh))
     dense = torch.rand(8, 5, R + 4 * config.band_limit + 2, TB, 9 * TB,
                        device=dev, generator=gen)
     g, wmat = k1_inputs(dense, R, C, 2 * N_CLASSES, gen)
-    rows.append(k1_check("n640 b8 nh=4 dense random stencil", g, dense, wmat,
-                         TB, 4))
-    del dense, g, wmat
+    dy = torch.randn(8, 5 * TB, 2 * N_CLASSES, device=dev, generator=gen)
+    label = "n640 b8 nh=4 dense random stencil"
+    rows.append(k1_check(label, g, dense, wmat, TB, 4))
+    bwd_rows.append(k1_bwd_check(label, g, dense, wmat, dy, TB, 4))
+    del dense, g, wmat, dy
 
-    # 3. serving: the main path, counted
+    # 3. serving: the slice-1 path, counted
     for p, bs in zip(serve.values(), batches.values()):
         p.warmup(bs)
     kernels.reset_launches()
@@ -313,9 +511,9 @@ def main(argv=None) -> int:
         grew = kernels.launches["band_fused_fwd"] - before
         check(grew == 5, f"{k}: K1 launched {grew} times for one batch, "
                          "want 5")
-    main_launches = dict(kernels.launches)
-    check(main_launches.get("band_fused_fwd", 0) > 0,
-          "the main path launched no K1")
+    serve_launches = dict(kernels.launches)
+    check(serve_launches == {"band_fused_fwd": 10},
+          f"serving launched {serve_launches}, want 10 K1 forward")
 
     cpu_net = build_model(config, N_CLASSES, device="cpu")
     cpu_net.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
@@ -336,17 +534,31 @@ def main(argv=None) -> int:
               f"the CPU run; max logit diff {diff:.3e} (rtol {LOGIT_RTOL}, "
               f"atol {LOGIT_ATOL})")
 
-    # 4. timing
+    # 4. training: the slice-2 path, counted
+    with tempfile.TemporaryDirectory() as tmp:
+        tnet, topt, train_launches = train_phase(
+            config, train_recs, test_recs, dev, args.seed, tmp)
+
+    # 5. timing
     for args_ in timed:
         k1_time(*args_)
+    for args_ in bwd_timed:
+        k1_bwd_time(*args_)
+    print_times("K1", rows[:2], card)
     for r in rows[:2]:
-        print(f"K1 {r['shape']}: kernel {r['ms']:.4f} ms/call, plain "
-              f"{r['plain_ms']:.4f} ms/call, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}; {r['bytes'] / 1e6:.1f} MB, "
-              f"{r['flops'] / 1e9:.2f} GFLOP needed, "
-              f"{r['dense_flops'] / 1e9:.2f} GFLOP dense, slot fill "
-              f"{r['slot_fill']:.3f}, {r['rings_per_slot']:.2f} nonzero "
-              f"rings per occupied slot) on {card}")
+        print(f"K1 {r['shape']}: {r['dense_flops'] / 1e9:.2f} GFLOP dense, "
+              f"slot fill {r['slot_fill']:.3f}, {r['rings_per_slot']:.2f} "
+              "nonzero rings per occupied slot")
+    print_times("K1 bwd", bwd_rows[:2], card)
+    for r, g, sten, wmat, dy, tb, nh in bwd_timed:
+        def bwd_synced():
+            band_fused_bwd(dy, g, sten, wmat, tb, nh)
+            torch.cuda.synchronize()
+
+        _, busy, kern = request_breakdown(bwd_synced, top=8)
+        r["passes_ms"] = {kernel_name(name): t for t, name, _ in kern}
+        print(f"K1 bwd {r['shape']} by pass under the profiler: "
+              f"{r['passes_ms']} (device busy {busy:.3f} ms)")
     for k, p in serve.items():
         ms = time_host(lambda: p.predict(recs[k], batches=batches[k]))
         print(f"request {k}: {ms:.3f} ms per request (forward over placed "
@@ -358,19 +570,66 @@ def main(argv=None) -> int:
         for t, name, count in kern:
             print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
 
-    k1 = rows[0]
-    line = {"kernels": [{
-        "name": "band_fused_fwd",
-        "route": "cuda",
-        "source": "fieldconv_tpu_torch/csrc/band_fused_fwd.cu",
-        "replaces": "fieldconv_tpu/ops/pallas/band_conv.py:1609",
-        "launches": main_launches.get("band_fused_fwd", 0),
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": None,
-        "shapes": rows,
-    }]}
+    n_pad, d_slots = shared_bucket(train_recs + test_recs)
+    tbatch = make_batches(train_recs[:8], config, 8, TB, n_pad, d_slots,
+                          device=dev)[0]
+    step = make_train_step(tnet, config, N_CLASSES, topt)
+    aug_gen = torch.Generator().manual_seed(args.seed + 3)
+
+    def train_step():
+        step(tbatch, aug_gen)
+        torch.cuda.synchronize()
+
+    ms = time_host(train_step)
+    print(f"train step shrec11_b8: {ms:.3f} ms per step (host clock, ending "
+          f"in a sync; 5 K1 fwd + 5 K1 bwd launches) on {card}")
+    wall, busy, kern = request_breakdown(train_step)
+    print(f"train step under the profiler: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms ({100 * busy / wall:.1f}%); top kernels:")
+    for t, name, count in kern:
+        print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
+
+    big = batches["n8192_b1"][0]
+    edges = int(big.table.mask.sum().item())
+    convs = conv_fwd_bwd(big.banded, dev, gen)
+    ms = time_cuda(convs, iters=5)
+    print(f"five convs fwd+bwd at bench.py's shape (N=8192, D=128, C=O=32, "
+          f"tb=128): {ms:.3f} ms, {5 * edges / (ms / 1e3):.4g} edges/s on "
+          f"{card}")
+
+    def convs_synced():
+        convs()
+        torch.cuda.synchronize()
+
+    wall, busy, kern = request_breakdown(convs_synced)
+    print(f"five convs fwd+bwd under the profiler: wall {wall:.3f} ms, "
+          f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%), "
+          f"{5 * edges / (busy / 1e3):.4g} edges per device-busy second; "
+          "top kernels:")
+    for t, name, count in kern:
+        print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
+
+    def entry(name, source, replaces, rs):
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": (serve_launches.get(name, 0)
+                         + train_launches.get(name, 0)),
+            "launches_by_path": {"serve": serve_launches.get(name, 0),
+                                 "train": train_launches.get(name, 0)},
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "ms": rs[0]["ms"], "plain_ms": rs[0]["plain_ms"],
+            "bound_ms": rs[0]["bound_ms"], "bound_by": rs[0]["bound_by"],
+            "library_ms": None,
+            "shapes": rs,
+        }
+
+    line = {"kernels": [
+        entry("band_fused_fwd", "fieldconv_tpu_torch/csrc/band_fused_fwd.cu",
+              "fieldconv_tpu/ops/pallas/band_conv.py:1609", rows),
+        entry("band_fused_bwd", "fieldconv_tpu_torch/csrc/band_fused_bwd.cu",
+              "fieldconv_tpu/ops/pallas/band_conv.py:1642", bwd_rows),
+    ]}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

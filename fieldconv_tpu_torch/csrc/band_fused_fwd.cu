@@ -29,9 +29,10 @@
 // streams through shared memory in chunks of kChunk slots (the chunk's g
 // rows, zero-filled outside [0, N), and the tile's stencil planes),
 // double-buffered with cp.async so the next chunk loads while this one is
-// computed.  A chunk whose radial weights are all zero for the tile is
-// skipped, and so is a slot whose radial weights are all zero for the
-// thread's target (no edge there).  The filter contraction then reads the
+// computed (band_window.cuh, shared with the backward in
+// band_fused_bwd.cu).  A chunk whose radial weights are all zero for the
+// tile is skipped, and so is a slot whose radial weights are all zero for
+// the thread's target (no edge there).  The filter contraction then reads the
 // tile's contrib from shared memory (the staging buffers reused) against
 // W, which is read once per CTA from L2, split over thread groups and
 // reduced through shared memory.  f32 FMA only, f32 accumulation.
@@ -49,54 +50,15 @@
 // once per tile of targets; staging only occupied rows and moving the
 // contraction onto tensor cores are left to later work.
 
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
+#include "band_window.cuh"
 
 #include <algorithm>
 #include <cstddef>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 8;       // most targets per CTA
-constexpr int kChunk = 16;     // window slots staged per step
-
-// 4-byte or 16-byte async copy global -> shared; zero-fills when !valid.
-template <int kBytes>
-__device__ __forceinline__ void copy_async(float* dst, const float* src,
-                                           bool valid)
-{
-    __pipeline_memcpy_async(dst, src, kBytes, valid ? 0 : kBytes);
-}
-
-template <int kBytes>
-__device__ __forceinline__ void stage_chunk(
-    float* gs, float* ss, const float* gm, const float* sb,
-    long row0, int w0, int nw, int N, int M, int P, int TB, int Wp, int t0,
-    int nt, int T)
-{
-    constexpr int V = kBytes / 4;
-    const int tid = threadIdx.x;
-    const int mv = M / V;
-    for (int i = tid; i < kChunk * mv; i += kThreads) {
-        const int wi = i / mv;
-        const long s = row0 + w0 + wi;
-        const bool ok = wi < nw && s >= 0 && s < N;
-        copy_async<kBytes>(gs + i * V,
-                           ok ? gm + (size_t)s * M + (i - wi * mv) * V : gm,
-                           ok);
-    }
-    constexpr int cv = kChunk / V;
-    for (int i = tid; i < T * P * cv; i += kThreads) {
-        const int wv = i % cv;
-        const int tp = i / cv;
-        const int p = tp % P, t = tp / P;
-        const bool ok = t < nt && wv * V < nw;
-        copy_async<kBytes>(
-            ss + i * V,
-            ok ? sb + ((size_t)p * TB + t0 + t) * Wp + w0 + wv * V : sb, ok);
-    }
-}
+using band::kThreads;
+using band::kTile;
 
 template <int KMAX, int RMAX>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -120,15 +82,11 @@ band_fused_fwd_kernel(const float* __restrict__ g,
     const int tid = threadIdx.x;
 
     extern __shared__ __align__(16) float smem[];
-    const int stage_floats = kChunk * M + T * P * kChunk;
     float* contrib = smem;                 // [R·M][kTile], after the window
     float* red = smem + RM * kTile;        // [JG][T][O2]
 
     const float* gm = g + (size_t)m * N * M;
     const float* sb = sten + ((size_t)m * nb + blk) * (size_t)P * TB * Wp;
-    const long row0 = (long)(blk - nh) * TB;
-    // 16-byte copies when every row start is 16-byte aligned
-    const bool vec = (M % 4 == 0) && (Wp % 4 == 0);
 
     const int item = tid;                  // (t, c) = (item / C, item % C)
     const bool active = item < nt * C;
@@ -136,82 +94,8 @@ band_fused_fwd_kernel(const float* __restrict__ g,
     const int ic = active ? item % C : 0;
 
     float are[KMAX][RMAX], aim[KMAX][RMAX];
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k)
-#pragma unroll
-        for (int r = 0; r < RMAX; ++r) { are[k][r] = 0.f; aim[k][r] = 0.f; }
-
-    const int n_chunks = (Wp + kChunk - 1) / kChunk;
-    auto prefetch = [&](int ci) {
-        float* buf = smem + (ci & 1) * stage_floats;
-        const int w0 = ci * kChunk;
-        const int nw = min(kChunk, Wp - w0);
-        if (vec && nw == kChunk)
-            stage_chunk<16>(buf, buf + kChunk * M, gm, sb, row0, w0, nw, N,
-                            M, P, TB, Wp, t0, nt, T);
-        else
-            stage_chunk<4>(buf, buf + kChunk * M, gm, sb, row0, w0, nw, N, M,
-                           P, TB, Wp, t0, nt, T);
-        __pipeline_commit();
-    };
-
-    prefetch(0);
-    for (int ci = 0; ci < n_chunks; ++ci) {
-        if (ci + 1 < n_chunks) {
-            prefetch(ci + 1);
-            __pipeline_wait_prior(1);
-        } else {
-            __pipeline_wait_prior(0);
-        }
-        const float* gs = smem + (ci & 1) * stage_floats;
-        const float* ss = gs + kChunk * M;
-        const int nw = min(kChunk, Wp - ci * kChunk);
-
-        // the barrier that publishes the chunk also votes on whether any
-        // radial weight of the tile is nonzero in it; each thread reads
-        // back only the stencil elements its own copies wrote (complete
-        // after its wait), in stage_chunk's order
-        const int V = (vec && nw == kChunk) ? 4 : 1;
-        const int cv = kChunk / V;
-        int nz = 0;
-        for (int i = tid; i < T * P * cv; i += kThreads) {
-            if ((i / cv) % P < R)
-                for (int v = 0; v < V; ++v) nz |= ss[i * V + v] != 0.f;
-        }
-        if (__syncthreads_or(nz) && active) {
-            const float* st = ss + it * P * kChunk;
-            const float* gc = gs + ic;
-            for (int wi = 0; wi < nw; ++wi) {
-                float rs[RMAX];
-                bool edge = false;
-#pragma unroll
-                for (int r = 0; r < RMAX; ++r) {
-                    rs[r] = r < R ? st[r * kChunk + wi] : 0.f;
-                    edge |= rs[r] != 0.f;
-                }
-                // no edge in this slot for this target (uniform across a
-                // warp when C = 32: its lanes share the target)
-                if (!edge) continue;
-#pragma unroll
-                for (int k = 0; k < KMAX; ++k) {
-                    if (k < K) {
-                        const float xr = gc[wi * M + k * 2 * C];
-                        const float xi = gc[wi * M + k * 2 * C + C];
-                        const float fr = st[(R + 2 * k) * kChunk + wi];
-                        const float fi = st[(R + 2 * k + 1) * kChunk + wi];
-                        const float hr = fr * xr - fi * xi;
-                        const float hi = fr * xi + fi * xr;
-#pragma unroll
-                        for (int r = 0; r < RMAX; ++r) {
-                            are[k][r] = fmaf(rs[r], hr, are[k][r]);
-                            aim[k][r] = fmaf(rs[r], hi, aim[k][r]);
-                        }
-                    }
-                }
-            }
-        }
-        __syncthreads();                   // buffer free for chunk ci + 2
-    }
+    band::window_contrib<KMAX, RMAX>(are, aim, smem, gm, sb, N, C, K, R, TB,
+                                     nh, T, t0, nt, blk, active, it, ic);
 
     // contrib[j][t] with j = r·M + k·2C + (p·C + c), targets padded to kTile
     if (active) {
@@ -268,7 +152,7 @@ size_t smem_bytes(int C, int K, int R, int O2, int T)
     const size_t M = 2 * (size_t)K * C;
     const size_t P = R + 2 * (size_t)K;
     const size_t JG = std::max(1, kThreads / O2);
-    const size_t stages = 2 * (kChunk * M + (size_t)T * P * kChunk);
+    const size_t stages = band::window_stage_floats((int)M, (int)P, T);
     const size_t filter = (size_t)R * M * kTile + JG * (size_t)T * O2;
     return std::max(stages, filter) * sizeof(float);
 }
@@ -298,15 +182,10 @@ extern "C" int band_fused_fwd(const float* g, const float* sten,
                               int n_mesh, int N, int C, int K, int R, int TB,
                               int nh, int O2, void* stream)
 {
-    if (n_mesh < 1 || N < 1 || C < 1 || C > kThreads || K < 1 || K > 5
-        || R < 1 || R > (K <= 3 ? 8 : 6) || TB < 1 || N % TB != 0
-        || nh < 0 || O2 < 1 || n_mesh > 65535)
+    if (!band::shapes_supported(n_mesh, N, C, K, R, TB, nh, O2))
         return (int)cudaErrorInvalidValue;
-    int dev = 0, limit = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaDeviceGetAttribute(&limit,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    int limit = 0;
+    const cudaError_t err = band::smem_limit(&limit);
     if (err != cudaSuccess) return (int)err;
     int T = std::min(kTile, kThreads / C);
     while (T > 1 && smem_bytes(C, K, R, O2, T) > (size_t)limit) T /= 2;

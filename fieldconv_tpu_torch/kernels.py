@@ -1,6 +1,7 @@
 """Build, load and count the port's CUDA kernels.
 
-Each kernel is one source ``csrc/<name>.cu`` with a plain C entry point.
+Each kernel is one source ``csrc/<name>.cu`` with a plain C entry point
+(shared device code lives in headers ``csrc/*.cuh``).
 On its first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library under ``fieldconv_tpu_torch/_build/`` and loaded with ``ctypes``;
 a failed build raises.
@@ -56,35 +57,55 @@ def _lib_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or any shared
+    header (csrc/*.cuh)."""
     lib = _lib_path(name)
-    src = os.path.join(CSRC, f"{name}.cu")
-    return (not os.path.exists(lib)
-            or os.path.getmtime(lib) < os.path.getmtime(src))
+    if not os.path.exists(lib):
+        return True
+    deps = [f"{name}.cu"] + [f for f in os.listdir(CSRC) if f.endswith(".cuh")]
+    return os.path.getmtime(lib) < max(
+        os.path.getmtime(os.path.join(CSRC, f)) for f in deps)
 
 
-def _build(name: str) -> None:
+def _start_build(name: str):
+    """Start nvcc on csrc/<name>.cu; returns (process, temporary output)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = _lib_path(name) + f".tmp{os.getpid()}"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-    out = subprocess.run(cmd, stdout=subprocess.PIPE,
-                         stderr=subprocess.STDOUT, text=True)
-    if out.returncode != 0:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), tmp
+
+
+def _finish_build(name: str, proc, tmp: str) -> None:
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
-                           f"(exit {out.returncode}):\n{out.stdout}")
+                           f"(exit {proc.returncode}):\n{out}")
     os.replace(tmp, _lib_path(name))
-    build_logs[name] = out.stdout
+    build_logs[name] = out
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, building it first if needed."""
     if name not in _libs:
         if _stale(name):
-            _build(name)
+            _finish_build(name, *_start_build(name))
         _libs[name] = ctypes.CDLL(_lib_path(name))
     return _libs[name]
 
 
 def build_all() -> None:
-    """Build (where stale) and load every kernel source."""
-    for name in sources():
-        library(name)
+    """Build every stale kernel source, one nvcc per source all started
+    together, then load every library."""
+    names = sources()
+    started = {n: _start_build(n) for n in names if _stale(n)}
+    try:
+        for n, (proc, tmp) in started.items():
+            _finish_build(n, proc, tmp)
+    finally:
+        for proc, _ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for n in names:
+        library(n)

@@ -198,3 +198,18 @@ def window_blocks(a: torch.Tensor, tb: int, nh: int) -> torch.Tensor:
     Wp = (2 * nh + 1) * tb
     ap = F.pad(a, (0, 0, nh * tb, nh * tb))          # (..., N + 2nh·tb, F)
     return ap.unfold(-2, Wp, tb).transpose(-1, -2)
+
+
+def unwindow_blocks(win: torch.Tensor, tb: int, nh: int) -> torch.Tensor:
+    """Transpose of :func:`window_blocks`: sum each window row back onto
+    the vertex row it was read from.
+
+    win: (..., nb, W', F).  Returns (..., N, F), N = nb·tb; window rows that
+    lie outside [0, N) are dropped."""
+    *lead, nb, Wp, F_ = win.shape
+    N = nb * tb
+    out = win.new_zeros(*lead, N + 2 * nh * tb, F_)
+    for j in range(2 * nh + 1):
+        out[..., j * tb:j * tb + N, :] += \
+            win[..., j * tb:(j + 1) * tb, :].reshape(*lead, N, F_)
+    return out[..., nh * tb:nh * tb + N, :]

@@ -1,22 +1,28 @@
-"""Model construction and batch building.
+"""Model construction, batch building and the training loop.
 
-Counterpart of ``build_model`` and ``make_batches`` in
-``fieldconv_tpu/train/loop.py``, for the classification task on the dense
-banded layout (or the gather path when ``banded_tb`` is None).  The fit
-loop is the training slice of the port (ROADMAP Queue 1).
+Counterpart of ``build_model``, ``make_batches``, ``fit`` and
+``evaluate_task`` in ``fieldconv_tpu/train/loop.py``, for the
+classification task on the dense banded layout (or the gather path when
+``banded_tb`` is None).
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from ..data.base import MeshRecord, shared_bucket
 from ..models import ClassificationNet
 from ..utils.device import resolve_device
+from . import evaluate
+from .checkpoint import CheckpointManager
 from .config import ExperimentConfig
-from .trainer import stack_batch
+from .metrics import MetricsLogger
+from .trainer import (draw_rotate_scale, make_optimizer, make_train_step,
+                      stack_batch)
 
 
 def build_model(config: ExperimentConfig, n_classes: int,
@@ -75,3 +81,114 @@ def make_batches(records: List[MeshRecord], config: ExperimentConfig,
 
     return [build_group(records[lo:lo + batch_size])
             for lo in range(0, len(records), batch_size)]
+
+
+def fit(config: ExperimentConfig, train_records: List[MeshRecord],
+        test_records: Optional[List[MeshRecord]] = None, n_classes: int = 30,
+        batch_size: int = 1, banded_tb: Optional[int] = None,
+        log_path: Optional[str] = None, eval_every: Optional[int] = None,
+        seed: int = 0, device="cuda"):
+    """Train per the config on ``device``; returns (net, optimizer, final
+    test metric or None).  The optimizer (trainer.Adam) carries the step
+    count and state.
+
+    Parameters are drawn from a CPU generator seeded with ``seed``, the
+    batch order from ``np.random.default_rng(seed + 2)`` and the
+    augmentation from a CPU generator seeded with ``seed + 1``, so runs on
+    the card and on the CPU see the same weights, batches and draws.
+    Losses stay on the device and are read back every config.log_every
+    steps into the JSONL log.  With config.checkpoint_dir set, the latest
+    checkpoint there is restored first (the batch order and augmentation
+    streams are advanced past the steps it covers, so a resumed run
+    continues as an uninterrupted one would) and one is saved every
+    config.checkpoint_every epochs and at the end."""
+    device = resolve_device(device)
+    net = build_model(config, n_classes,
+                      generator=torch.Generator().manual_seed(seed),
+                      device=device)
+    all_records = train_records + (test_records or [])
+    n_pad, d_slots = shared_bucket(all_records)
+    train_batches = make_batches(train_records, config, batch_size,
+                                 banded_tb, n_pad, d_slots, device=device)
+    test_batches = (make_batches(test_records, config, batch_size, banded_tb,
+                                 n_pad, d_slots, device=device)
+                    if test_records else [])
+
+    steps_per_epoch = len(train_batches)
+    opt = make_optimizer(config, net.parameters(), steps_per_epoch)
+    start_step = 0
+    ckpt = None
+    if config.checkpoint_dir:
+        ckpt = CheckpointManager(config.checkpoint_dir)
+        restored = ckpt.restore(net, opt)
+        if restored is not None:
+            start_step = restored
+            print(f"resumed from step {start_step}")
+
+    step_fn = make_train_step(net, config, n_classes, opt)
+    logger = MetricsLogger(log_path)
+    aug_gen = torch.Generator().manual_seed(seed + 1)
+    order_rng = np.random.default_rng(seed + 2)
+    edges_per_batch = float(train_batches[0].table.mask.sum().item())
+    total_steps = config.epochs * steps_per_epoch
+    save_every = config.checkpoint_every * steps_per_epoch
+
+    # (step, issue timestamp, device loss) awaiting the chunked readback;
+    # the non-finite guard itself runs on the device (trainer.py)
+    pending: list = []
+
+    def flush():
+        if not pending:
+            return
+        vals = torch.stack([loss for _, _, loss in pending]).cpu().numpy()
+        for (s, t, _), v in zip(pending, vals):
+            v = float(v)
+            if not np.isfinite(v):
+                print(f"WARNING: non-finite loss at step {s}; the update "
+                      "was skipped on device", flush=True)
+            logger.log({"loss": v}, edges=edges_per_batch, t=t)
+        pending.clear()
+
+    try:
+        step = 0
+        while step < total_steps:
+            order = order_rng.permutation(steps_per_epoch)
+            for bi in order:
+                if step >= total_steps:
+                    break
+                batch = train_batches[bi]
+                aug = draw_rotate_scale(aug_gen, batch.pos.shape[0],
+                                        config.random_rotate_deg,
+                                        config.random_scale)
+                step += 1
+                if step <= start_step:          # covered by the checkpoint
+                    continue
+                loss = step_fn(batch, aug=aug)
+                pending.append((step - 1, time.perf_counter(), loss))
+                if len(pending) >= config.log_every:
+                    flush()
+                if ckpt and save_every and step % save_every == 0:
+                    ckpt.save(net, opt, step)
+            if eval_every and test_batches and step > start_step and \
+                    (step // steps_per_epoch) % eval_every == 0:
+                flush()
+                m = evaluate_task(net, config, test_batches, n_classes)
+                print(f"epoch {step // steps_per_epoch}: eval = {m:.4f}",
+                      flush=True)
+        flush()
+
+        if ckpt and step > start_step:
+            ckpt.save(net, opt, step)
+        final = (evaluate_task(net, config, test_batches, n_classes)
+                 if test_batches else None)
+    finally:
+        logger.close()
+    return net, opt, final
+
+
+def evaluate_task(net, config: ExperimentConfig, test_batches,
+                  n_classes: int):
+    if config.task == "classification":
+        return evaluate.classification_accuracy(net, test_batches)
+    raise NotImplementedError(
+        f"evaluation of {config.task!r} is not ported yet (ROADMAP Queue 1)")

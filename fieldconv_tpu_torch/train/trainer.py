@@ -1,17 +1,23 @@
-"""Mesh batches and the batched forward.
+"""Mesh batches, the batched forward, and the training step.
 
-Counterpart of the batching half of ``fieldconv_tpu/train/trainer.py``.
-Meshes sharing a shape bucket are stacked into a MeshBatch with a leading
-mesh axis; the model runs once over the whole batch (the JAX package's
-vmap, written out as that axis), so one K1 launch serves every mesh of a
-batch.  Training (losses, optimizer, steps) is the next slice of the port
-(ROADMAP Queue 1).
+Counterpart of ``fieldconv_tpu/train/trainer.py``.  Meshes sharing a shape
+bucket are stacked into a MeshBatch with a leading mesh axis; the model
+runs once over the whole batch (the JAX package's vmap, written out as
+that axis), so one K1 launch serves every mesh of a batch, forward and
+backward.
+
+The step follows the JAX one: random rotation and scale of the positions,
+the classification loss, gradients, then an Adam update with optax's
+semantics (:class:`Adam`) that is skipped on the device when the loss is
+not finite.  The segmentation and correspondence losses come with the ECHO
+slice (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,7 +29,9 @@ from ..precomp.banded import (
     build_banded_table,
     build_compressed_banded,
 )
+from ..nn.losses import cross_entropy
 from ..precomp.edge_table import EdgeTable
+from .config import ExperimentConfig
 
 
 @dataclasses.dataclass
@@ -134,3 +142,196 @@ def batched_apply(net, batch: MeshBatch):
     route (BandedTable convs, plus the compressed lift when ``comp`` is
     set) or, without tables, the padded-CSR gather route."""
     return net(batch.pos, batch.table, batch.banded, batch.comp)
+
+
+# --- augmentation ------------------------------------------------------------
+
+def draw_rotate_scale(generator: Optional[torch.Generator], n_mesh: int,
+                      max_deg: float = 45.0,
+                      scale_range: Optional[Tuple[float, float]] = (0.85,
+                                                                    1.15)):
+    """Per-mesh random angles about the three axes, uniform in ±max_deg
+    (returned in radians, (n_mesh, 3)), and uniform scales (n_mesh, 1, 1)
+    in scale_range (None when scale_range is None), drawn from
+    ``generator`` on its device (classification.ipynb cell 5's transform
+    chain)."""
+    dev = generator.device if generator is not None else "cpu"
+    u = torch.rand((n_mesh, 3), generator=generator, device=dev)
+    angles = (u * (2 * max_deg) - max_deg) * (math.pi / 180.0)
+    scales = None
+    if scale_range is not None:
+        lo, hi = scale_range
+        scales = torch.rand((n_mesh, 1, 1), generator=generator,
+                            device=dev) * (hi - lo) + lo
+    return angles, scales
+
+
+def rotate_scale(pos, angles, scales=None):
+    """Rotate each mesh's positions by rz @ ry @ rx of its angles, then
+    scale them.  pos: (n_mesh, N, 3); angles: (n_mesh, 3) radians; scales:
+    (n_mesh, 1, 1) or None.  As ``fieldconv_tpu/train/trainer.py::
+    random_rotate_scale`` applies its draws."""
+    angles = angles.to(device=pos.device, dtype=pos.dtype)
+    c, s = torch.cos(angles), torch.sin(angles)
+    one, zero = torch.ones_like(c[:, 0]), torch.zeros_like(c[:, 0])
+
+    def mats(rows):
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    cx, cy, cz = c.unbind(-1)
+    sx, sy, sz = s.unbind(-1)
+    rx = mats([[one, zero, zero], [zero, cx, -sx], [zero, sx, cx]])
+    ry = mats([[cy, zero, sy], [zero, one, zero], [-sy, zero, cy]])
+    rz = mats([[cz, -sz, zero], [sz, cz, zero], [zero, zero, one]])
+    out = torch.einsum("bij,bnj->bni", rz @ ry @ rx, pos)
+    if scales is not None:
+        out = out * scales.to(device=pos.device, dtype=pos.dtype)
+    return out
+
+
+# --- optimizer ----------------------------------------------------------------
+
+class Adam:
+    """``optax.adam(schedule)``, wrapped in ``optax.MultiSteps`` when
+    ``every_k > 1``, updating ``params`` in place.
+
+    Moments mu, nu: (1 − b)·g + b·moment; bias correction by the count of
+    applied updates; update lr·m̂ / (sqrt(v̂) + eps) subtracted (eps_root
+    0).  The learning rate is ``lr`` until ``decay_at`` applied updates
+    have been made and ``lr_decayed`` from then on (optax's
+    piecewise_constant_schedule).  With every_k > 1 the gradients of
+    consecutive calls are averaged (a running mean) and applied on every
+    k-th call; the calls in between leave the parameters as they are.
+
+    ``update(grads, ok)`` keeps every parameter and all of this state as it
+    was where the boolean tensor ``ok`` is false, without reading it on the
+    host.  State tensors live on the parameters' device; ``step`` counts
+    every call.
+    """
+
+    def __init__(self, params, lr: float, decay_at: Optional[int] = None,
+                 lr_decayed: Optional[float] = None, every_k: int = 1,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.params: List[torch.Tensor] = list(params)
+        dev = self.params[0].device
+        self.lr, self.decay_at, self.lr_decayed = lr, decay_at, lr_decayed
+        self.every_k, self.b1, self.b2, self.eps = every_k, b1, b2, eps
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.acc = ([torch.zeros_like(p) for p in self.params]
+                    if every_k > 1 else [])
+        self.count = torch.zeros((), dtype=torch.int32, device=dev)
+        self.mini_step = torch.zeros((), dtype=torch.int32, device=dev)
+        self.step = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def _lr(self):
+        """Learning rate at the current count of applied updates, in
+        float32 as optax forms it."""
+        f32 = dict(dtype=torch.float32, device=self.count.device)
+        lr = torch.tensor(self.lr, **f32)
+        if self.decay_at is None:
+            return lr
+        decayed = lr * torch.tensor(self.lr_decayed / self.lr, **f32)
+        return torch.where(self.count >= self.decay_at, decayed, lr)
+
+    @torch.no_grad()
+    def update(self, grads, ok) -> None:
+        if self.every_k > 1:
+            n = self.mini_step.to(torch.float32)
+            grads = [a + (g - a) / (n + 1) for a, g in zip(self.acc, grads)]
+            emit = self.mini_step == self.every_k - 1
+            apply = ok & emit
+        else:
+            apply = ok
+        count = self.count + 1
+        c = count.to(torch.float32)
+        bc1 = 1 - torch.pow(torch.tensor(self.b1, device=c.device), c)
+        bc2 = 1 - torch.pow(torch.tensor(self.b2, device=c.device), c)
+        neg_lr = -self._lr()
+        for p, m, v, g in zip(self.params, self.mu, self.nu, grads):
+            m_new = (1 - self.b1) * g + self.b1 * m
+            v_new = (1 - self.b2) * (g * g) + self.b2 * v
+            u = (m_new / bc1) / (torch.sqrt(v_new / bc2) + self.eps)
+            p.copy_(torch.where(apply, p + u * neg_lr, p))
+            m.copy_(torch.where(apply, m_new, m))
+            v.copy_(torch.where(apply, v_new, v))
+        if self.every_k > 1:
+            for a, g in zip(self.acc, grads):
+                a.copy_(torch.where(ok, torch.where(emit, 0.0, g), a))
+            self.mini_step.copy_(torch.where(
+                ok, (self.mini_step + 1) % self.every_k, self.mini_step))
+        self.count.copy_(torch.where(apply, count, self.count))
+        self.step += 1
+
+    def state_dict(self) -> dict:
+        return {"mu": self.mu, "nu": self.nu, "acc": self.acc,
+                "count": self.count, "mini_step": self.mini_step,
+                "step": self.step}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        for key in ("mu", "nu", "acc"):
+            for dst, src in zip(getattr(self, key), state[key], strict=True):
+                dst.copy_(src)
+        for key in ("count", "mini_step", "step"):
+            getattr(self, key).copy_(state[key])
+
+
+def make_optimizer(config: ExperimentConfig, params,
+                   steps_per_epoch: int = 1) -> Adam:
+    """The JAX package's optimizer for ``params``: Adam at config.lr,
+    decayed to config.lr_decayed after config.lr_decay_epoch epochs of
+    applied updates, averaging config.batch_step mini-batches per update."""
+    decay_at = (None if config.lr_decay_epoch is None
+                else config.lr_decay_epoch * steps_per_epoch)
+    return Adam(params, config.lr, decay_at, config.lr_decayed,
+                every_k=max(1, config.batch_step))
+
+
+# --- loss and step -------------------------------------------------------------
+
+def make_loss_fn(net, config: ExperimentConfig, n_classes: int):
+    """loss(batch, generator=None, aug=None): rotate and scale the batch's
+    positions (drawn from ``generator``, or ``aug = (angles, scales)`` as
+    :func:`draw_rotate_scale` returns them), run the model, and take the
+    masked cross entropy of the pooled logits."""
+    if config.task != "classification":
+        raise NotImplementedError(
+            f"the {config.task!r} loss is not ported yet: segmentation and "
+            "correspondence come with the ECHO slice, matching after it "
+            "(ROADMAP Queue 1)")
+
+    def loss_fn(batch: MeshBatch, generator=None, aug=None):
+        if aug is None:
+            aug = draw_rotate_scale(generator, batch.pos.shape[0],
+                                    config.random_rotate_deg,
+                                    config.random_scale)
+        pos = rotate_scale(batch.pos, *aug)
+        logits = batched_apply(net, dataclasses.replace(batch, pos=pos))
+        return cross_entropy(logits[:, 0, :], batch.labels)
+
+    return loss_fn
+
+
+def _guarded_update(opt: Adam, loss, grads) -> None:
+    """Apply the optimizer update, keeping the previous parameters and
+    optimizer state when the loss is not finite.  The guard stays on the
+    device, so the training loop never waits on a loss readback; the step
+    counter goes up either way."""
+    opt.update(grads, torch.isfinite(loss))
+
+
+def make_train_step(net, config: ExperimentConfig, n_classes: int,
+                    opt: Adam):
+    """step(batch, generator=None, aug=None) -> the batch's loss (a device
+    tensor): one forward and backward of ``net`` and a guarded update of
+    ``opt``, whose parameters are the net's."""
+    loss_fn = make_loss_fn(net, config, n_classes)
+
+    def step(batch: MeshBatch, generator=None, aug=None):
+        loss = loss_fn(batch, generator, aug)
+        grads = torch.autograd.grad(loss, opt.params, materialize_grads=True)
+        _guarded_update(opt, loss, grads)
+        return loss.detach()
+
+    return step

@@ -203,7 +203,7 @@ def test_port_imports_no_jax():
 
 def test_cuda_requests_raise_without_a_card(rng):
     """No silent CPU fallback: entry points asked for CUDA, and the K1
-    wrapper given CUDA tensors, raise on a machine without a card."""
+    wrappers given CUDA tensors, raise on a machine without a card."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks its absence")
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -217,12 +217,17 @@ def test_cuda_requests_raise_without_a_card(rng):
     net = tloop.build_model(config, 4, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Predictor(net, config, banded_tb=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tloop.fit(config, recs, n_classes=4, banded_tb=8)
 
-    before = kernels.launches["band_fused_fwd"]
+    before = dict(kernels.launches)
     with FakeTensorMode():
         g = torch.zeros(1, 16, 20, device="cuda")
         sten = torch.zeros(1, 2, 16, 8, 24, device="cuda")
         wmat = torch.zeros(6, 20, 4, device="cuda")
+        dy = torch.zeros(1, 16, 4, device="cuda")
         with pytest.raises(RuntimeError):
             tbc.band_fused_fwd(g, sten, wmat, 8, 1)
-    assert kernels.launches["band_fused_fwd"] == before
+        with pytest.raises(RuntimeError):
+            tbc.band_fused_bwd(dy, g, sten, wmat, 8, 1)
+    assert kernels.launches == before
