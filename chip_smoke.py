@@ -6,27 +6,42 @@ Phases, any failure exits non-zero:
   1. build every CUDA kernel from csrc/ (one nvcc per source, all at once)
      and print the card's name and power limit;
   2. hold K1's forward and backward kernels (fused banded field conv)
-     against their plain PyTorch versions on the card: at the two serving
-     shapes, on the real stencils of the records below, and on a dense
-     random stencil with nh=4 that reaches past both ends of g; the
-     backward must also give bitwise-equal results on a second call;
-  3. serve the SHREC11 classification network (the CLASSIFICATION preset:
+     against their plain PyTorch versions on the card: at the two
+     classification serving shapes, on the real stencils of the records
+     below, and on a dense random stencil with nh=4 that reaches past both
+     ends of g (the backward must also give bitwise-equal results on a
+     second call); the forward also at the widths the ECHO nets give it
+     (C=48/O2=96, and K=3, R=3 with C=16/32 and O2=24/32/64);
+  3. hold K2's forward (panel ECHO) against its plain version on the
+     records' own panel tables, with features of which ~20% of rows are
+     zero, at n_bins 3 (C=48) and 2 (C=12), and bitwise against a second
+     call;
+  4. serve the SHREC11 classification network (the CLASSIFICATION preset:
      nf=32, B=2, R=6, ftype=1, 30 classes, random weights from a seed)
      through Predictor(banded_tb=128, device="cuda"): one batch of 8
      SHREC11-sized records (~600 samples, ε=0.2, degree 60-80) and one
      record of 8192 samples with degree 128.  Each batch must launch K1
      five times; classes and logits must match the same Predictor on the
      CPU, which runs the plain versions;
-  4. train the same network with fit(banded_tb=128, batch_size=8,
-     device="cuda") on 16 SHREC11-sized records (2 batches) for 2 epochs,
-     testing on 8 more, checkpointing into a temporary directory.  Each
-     step must launch K1's forward and backward five times each, every
-     loss must be finite, and the first epoch's losses must match the same
-     fit on the CPU (plain versions);
-  5. time both kernels and their plain versions, each request shape, a
+  5. serve the SEGMENTATION preset (nf=48, n_des=48, n_bins=3, B=2, R=6,
+     8 classes) on a batch of 4 records of 2048 samples and the
+     CORRESPONDENCE preset (nf=32, n_des=12, n_bins=2, B=1, R=3, 4999
+     classes, centred) on one record of 5120 samples (ε=0.2 / 0.0425,
+     degree 100-128, sources within ±128) through Predictor(banded_tb=128,
+     device="cuda") on the mixed route.  A batch must launch K1 9 / 17
+     times and K2 once; logits must match the same Predictor on the CPU,
+     and labels / maps at every vertex whose top-two logit gap on the CPU
+     exceeds 1e-3;
+  6. train the classification network with fit(banded_tb=128,
+     batch_size=8, device="cuda") on 16 SHREC11-sized records (2 batches)
+     for 2 epochs, testing on 8 more, checkpointing into a temporary
+     directory.  Each step must launch K1's forward and backward five
+     times each, every loss must be finite, and the first epoch's losses
+     must match the same fit on the CPU (plain versions);
+  7. time the kernels and their plain versions, each request shape, a
      training step, and one forward and backward of five convs at
      bench.py's shape;
-  6. print the kernels line, the card line and the result line.
+  8. print the kernels line, the card line and the result line.
 
 Records are synthetic, built with numpy from --seed in the manner of
 bench.py::build_synthetic_tables: unique sources within ±bandwidth of each
@@ -58,10 +73,13 @@ from fieldconv_tpu_torch.ops.band_conv import (band_fused_bwd,
                                                band_fused_fwd,
                                                band_fused_fwd_reference,
                                                field_conv_banded)
+from fieldconv_tpu_torch.ops.echo_panel import (echo_panel_grid,
+                                                echo_panel_grid_reference)
 from fieldconv_tpu_torch.train.checkpoint import CheckpointManager
 from fieldconv_tpu_torch.train.config import PRESETS
 from fieldconv_tpu_torch.train.loop import build_model, fit, make_batches
 from fieldconv_tpu_torch.train.trainer import make_train_step
+from fieldconv_tpu_torch.utils.complexops import EPS
 
 # H100 SXM data-sheet peaks (dense, 700 W): HBM bytes/s and f32 FLOP/s
 # outside the tensor cores
@@ -74,8 +92,18 @@ TB = 128
 # The backward's dg and dw each to 1e-4 of their own scale: dw sums over
 # every target of every mesh (up to 8192 rows) in another order.
 K1_RTOL_SCALE = 1e-4
+# K2 against its plain version: f32 sums over a target's panels (and the
+# four corners of each vote) in another order, plus FMA contraction, which
+# moves p by an ulp; held to 1e-4 of the grid's scale.
+K2_RTOL_SCALE = 1e-4
 # served logits, card against CPU: every op sums in another order
 LOGIT_RTOL, LOGIT_ATOL = 1e-3, 1e-4
+# labels / maps are compared where the CPU's top-two logit gap exceeds this
+LABEL_GAP = 1e-3
+# float operations per (edge, channel whose feature is not at the origin)
+# in K2: |x|² and rsqrt 4, unit 2, p1 and p2 8, the four weights 8, the
+# vote 6, four complex splats 16
+K2_FLOPS_PER_PAIR = 44
 # training losses, card against CPU.  Step 1 sees the same weights, so it
 # differs only by summation order, as the logits do.  Step 2 follows one
 # Adam update, whose direction m̂/sqrt(v̂) is ±1 per parameter at step 1:
@@ -102,7 +130,8 @@ def card_line() -> str:
 
 def synthetic_record(rng, n, deg_lo, deg_hi, bandwidth, eps, name, label):
     """One record: each target gets a degree in [deg_lo, deg_hi] and unique
-    sources within ±bandwidth, radii in [0, ε], unit transports."""
+    sources within ±bandwidth, radii in [0, ε], unit transports.  label:
+    the mesh's class, or an (n,) array of per-vertex labels."""
     offs = np.arange(-bandwidth, bandwidth + 1)
     src = np.arange(n)[:, None] + offs[None, :]
     keys = rng.random(src.shape)
@@ -123,7 +152,7 @@ def synthetic_record(rng, n, deg_lo, deg_hi, bandwidth, eps, name, label):
         log_ang=rng.uniform(-np.pi, np.pi, E).astype(np.float32),
         xp=np.stack([np.cos(ang), np.sin(ang)], -1).astype(np.float32),
         weights=rng.uniform(0.1, 1.0, n).astype(np.float32),
-        labels=np.int64(label),
+        labels=np.asarray(label, np.int64),
         epsilon=eps,
     )
 
@@ -136,6 +165,15 @@ def shrec_records(rng, eps):
 
 def large_record(rng, eps):
     return synthetic_record(rng, 8192, 128, 128, 128, eps, "n8192", 0)
+
+
+def echo_records(rng, n, count, eps, n_classes, name):
+    """The ECHO presets' serving records (scripts/serve_probe.py's N=2048
+    and N=5120 with D=128): degree 100-128, sources within ±128, random
+    per-vertex labels."""
+    return [synthetic_record(rng, n, 100, 128, 128, eps, f"{name}{i}",
+                             rng.integers(0, n_classes, n))
+            for i in range(count)]
 
 
 # --- timing ----------------------------------------------------------------------
@@ -333,6 +371,123 @@ def k1_bwd_time(row, g, sten, wmat, dy, tb, nh):
     row.update(k1_bwd_bound(g, sten, wmat))
 
 
+# --- K2 against its plain version ----------------------------------------------------
+
+def k2_inputs(panel, C, gen):
+    """Random planar features (rows, C, 2) for a panel table, ~20% of the
+    rows zero (origin features, which cast no vote)."""
+    rows = panel.n_mesh * panel.n_pad
+    dev = panel.sten.device
+    x = torch.randn(rows, C, 2, device=dev, generator=gen)
+    zero = torch.rand(rows, device=dev, generator=gen) < 0.2
+    return torch.where(zero[:, None, None], torch.zeros_like(x), x)
+
+
+def k2_bound(x, sten, meta, n_bins):
+    """Least time for one K2 call: bytes (x, the stencil and meta read
+    once, the grid written once) over HBM rate, and the f32 operations this
+    data needs over the f32 rate: K2_FLOPS_PER_PAIR per (occupied slot,
+    channel whose source feature is not at the origin), plus 2 per
+    occupied slot for r·e^{iθ}."""
+    rows, C = x.shape[0], x.shape[1]
+    P, TB = sten.shape[0], sten.shape[-1]
+    occ = (sten[:, 3] != 0) | (sten[:, 4] != 0)          # (P, TBt, TBs)
+    nzc = (x.abs() >= EPS).any(-1).sum(-1)               # (rows,)
+    src_rows = (meta[1].long()[:, None] * TB
+                + torch.arange(TB, device=x.device))     # (P, TBs)
+    pairs = int((occ.sum(1) * nzc[src_rows]).sum().item())
+    edges = int(occ.sum().item())
+    w2 = (2 * n_bins + 1) ** 2
+    nbytes = 4 * (x.numel() + sten.numel() + meta.numel()
+                  + rows * 2 * w2 * C)
+    return _bound(nbytes, K2_FLOPS_PER_PAIR * pairs + 2 * edges,
+                  edges=edges, pairs=pairs,
+                  slot_fill=edges / max(1, occ.numel()))
+
+
+def k2_check(label, x, panel, n_bins):
+    """K2 against its plain version, then a second call that must be
+    bitwise equal."""
+    nb = x.shape[0] // panel.tb
+    args = (x, panel.sten, panel.meta, n_bins, nb)
+    grid = echo_panel_grid(*args)
+    torch.cuda.synchronize()
+    ref = echo_panel_grid_reference(*args)
+    err = (grid - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    check(torch.isfinite(grid).all().item(), f"K2 {label}: non-finite grid")
+    check(err <= K2_RTOL_SCALE * scale,
+          f"K2 {label}: max abs err {err} > {K2_RTOL_SCALE} x {scale}")
+    check(torch.equal(grid, echo_panel_grid(*args)),
+          f"K2 {label}: two calls differ")
+    print(f"K2 {label}: max abs err {err:.3e}, rel {err / scale:.3e} "
+          f"(tolerance {K2_RTOL_SCALE} of max |grid| = {scale:.3e}); a "
+          "second call is bitwise equal")
+    return dict(shape=label, rows=x.shape[0], C=x.shape[1], n_bins=n_bins,
+                panels=panel.n_panels, max_abs_err=err,
+                max_rel_err=err / scale)
+
+
+def k2_time(row, x, panel, n_bins):
+    args = (x, panel.sten, panel.meta, n_bins, x.shape[0] // panel.tb)
+    row["ms"] = time_cuda(lambda: echo_panel_grid(*args), iters=20)
+    row["plain_ms"] = time_cuda(lambda: echo_panel_grid_reference(*args),
+                                iters=2, reps=3)
+    row.update(k2_bound(*args[:4]))
+
+
+def top_two_gap(logits):
+    """Per-row gap between the largest and second-largest logit."""
+    part = np.partition(logits, -2, axis=-1)
+    return part[..., -1] - part[..., -2]
+
+
+def serve_echo_phase(serve, recs, batches, cpu_nets, configs):
+    """The ECHO serving path, counted: each batch launches K1 9 / 17 times
+    and K2 once, nothing else; outputs match the same Predictor on the
+    CPU.  Returns the path's launch counts."""
+    want_k1 = {"seg_n2048_b4": 9, "corr_n5120_b1": 17}
+    for k, p in serve.items():
+        p.warmup(batches[k])
+    kernels.reset_launches()
+    served = {}
+    for k, p in serve.items():
+        before = dict(kernels.launches)
+        served[k] = p.predict(recs[k], batches=batches[k])
+        grew = {n: kernels.launches[n] - before.get(n, 0)
+                for n in kernels.launches}
+        grew = {n: c for n, c in grew.items() if c}
+        want = {"band_fused_fwd": want_k1[k], "echo_panel_fwd": 1}
+        check(grew == want, f"{k}: one batch launched {grew}, want {want}")
+    launches = dict(kernels.launches)
+
+    for k, p in serve.items():
+        key = "labels" if p.config.task == "segmentation" else "map"
+        cpu = Predictor(cpu_nets[k], configs[k], batch_size=p.batch_size,
+                        banded_tb=TB, device="cpu").predict(recs[k])
+        n_close = n_all = 0
+        diff = 0.0
+        for a, b, r in zip(served[k], cpu, recs[k]):
+            check(a["logits"].shape == b["logits"].shape
+                  == (r.n_samples, b["logits"].shape[1])
+                  and np.isfinite(a["logits"]).all(),
+                  f"{k}: bad logits {a['logits'].shape}")
+            np.testing.assert_allclose(a["logits"], b["logits"],
+                                       rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+            clear = top_two_gap(b["logits"]) > LABEL_GAP
+            check((a[key][clear] == b[key][clear]).all(),
+                  f"{k}: {key} differ from the CPU run at a vertex whose "
+                  f"top-two gap exceeds {LABEL_GAP}")
+            n_close += int((~clear).sum())
+            n_all += len(clear)
+            diff = max(diff, float(np.abs(a["logits"] - b["logits"]).max()))
+        print(f"serve {k}: {key} match the CPU run at every vertex whose "
+              f"top-two logit gap exceeds {LABEL_GAP} ({n_close} of {n_all} "
+              f"vertices fall below it); max logit diff {diff:.3e} (rtol "
+              f"{LOGIT_RTOL}, atol {LOGIT_ATOL})")
+    return launches
+
+
 def print_times(kind, rows, card):
     for r in rows:
         print(f"{kind} {r['shape']}: kernel {r['ms']:.4f} ms/call, plain "
@@ -473,6 +628,42 @@ def main(argv=None) -> int:
               f"{int(b.table.mask.sum().item())} edges; tables built on the "
               f"host and placed in {build_s:.3f} s")
 
+    # the ECHO presets on the mixed route, random weights from the seed
+    echo_cfg = {"seg_n2048_b4": PRESETS["segmentation"],
+                "corr_n5120_b1": PRESETS["correspondence"]}
+    echo_classes = {"seg_n2048_b4": 8, "corr_n5120_b1": 4999}
+    echo_recs = {
+        "seg_n2048_b4": echo_records(rng, 2048, 4, echo_cfg[
+            "seg_n2048_b4"].epsilon, 8, "seg"),
+        "corr_n5120_b1": echo_records(rng, 5120, 1, echo_cfg[
+            "corr_n5120_b1"].epsilon, 4999, "corr"),
+    }
+    echo_nets, echo_cpu_nets, echo_serve, echo_batches = {}, {}, {}, {}
+    for i, (k, cfg) in enumerate(echo_cfg.items()):
+        echo_nets[k] = build_model(
+            cfg, echo_classes[k],
+            generator=torch.Generator().manual_seed(args.seed + 10 + i),
+            device=dev)
+        echo_cpu_nets[k] = build_model(cfg, echo_classes[k], device="cpu")
+        echo_cpu_nets[k].load_state_dict(
+            {n: v.cpu() for n, v in echo_nets[k].state_dict().items()})
+        echo_serve[k] = Predictor(echo_nets[k], cfg,
+                                  batch_size=len(echo_recs[k]), banded_tb=TB,
+                                  device=dev)
+        t0 = time.perf_counter()
+        echo_batches[k] = echo_serve[k].make_batches(echo_recs[k])
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(len(echo_batches[k]) == 1, f"{k}: expected one batch")
+        b = echo_batches[k][0]
+        check(b.panel is not None and b.comp is None,
+              f"{k}: not the mixed route")
+        print(f"request {k}: {b.pos.shape[0]} meshes, n_pad "
+              f"{b.pos.shape[1]}, D {b.table.d_slots}, nh {b.banded.nh}, "
+              f"{b.panel.n_panels} panels, "
+              f"{int(b.table.mask.sum().item())} edges; tables built on the "
+              f"host and placed in {build_s:.3f} s")
+
     # 2. K1 forward and backward against their plain versions at the
     # shapes serving and training give them
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -499,8 +690,27 @@ def main(argv=None) -> int:
     rows.append(k1_check(label, g, dense, wmat, TB, 4))
     bwd_rows.append(k1_bwd_check(label, g, dense, wmat, dy, TB, 4))
     del dense, g, wmat, dy
+    # K1 forward at the ECHO nets' widths, on their own stencils
+    for key, C_, O2 in (("seg_n2048_b4", 48, 96), ("corr_n5120_b1", 16, 64),
+                        ("corr_n5120_b1", 32, 32), ("corr_n5120_b1", 16, 24),
+                        ("corr_n5120_b1", 32, 64)):
+        bt = echo_batches[key][0].banded
+        g, wmat = k1_inputs(bt.sten_band, bt.n_rings, C_, O2, gen)
+        rows.append(k1_check(f"{key} C={C_} O2={O2}", g, bt.sten_band, wmat,
+                             TB, bt.nh))
+        del g, wmat
 
-    # 3. serving: the slice-1 path, counted
+    # 3. K2 against its plain version on the records' own panels
+    k2_rows, k2_timed = [], []
+    for key, C_ in (("seg_n2048_b4", 48), ("corr_n5120_b1", 12)):
+        panel = echo_batches[key][0].panel
+        n_bins = echo_cfg[key].n_bins
+        x = k2_inputs(panel, C_, gen)
+        k2_rows.append(k2_check(f"{key} C={C_} n_bins={n_bins}", x, panel,
+                                n_bins))
+        k2_timed.append((k2_rows[-1], x, panel, n_bins))
+
+    # 4. serving: the slice-1 path, counted
     for p, bs in zip(serve.values(), batches.values()):
         p.warmup(bs)
     kernels.reset_launches()
@@ -534,14 +744,25 @@ def main(argv=None) -> int:
               f"the CPU run; max logit diff {diff:.3e} (rtol {LOGIT_RTOL}, "
               f"atol {LOGIT_ATOL})")
 
-    # 4. training: the slice-2 path, counted
+    # 5. serving the ECHO presets: the slice-3 path, counted
+    echo_launches = serve_echo_phase(echo_serve, echo_recs, echo_batches,
+                                     echo_cpu_nets, echo_cfg)
+
+    # 6. training: the slice-2 path, counted
     with tempfile.TemporaryDirectory() as tmp:
         tnet, topt, train_launches = train_phase(
             config, train_recs, test_recs, dev, args.seed, tmp)
 
-    # 5. timing
+    # 7. timing
     for args_ in timed:
         k1_time(*args_)
+    for args_ in k2_timed:
+        k2_time(*args_)
+    print_times("K2", k2_rows, card)
+    for r in k2_rows:
+        print(f"K2 {r['shape']}: {r['panels']} panels, {r['edges']} edges "
+              f"(slot fill {r['slot_fill']:.3f}), {r['pairs']} (edge, "
+              "non-origin channel) pairs")
     for args_ in bwd_timed:
         k1_bwd_time(*args_)
     print_times("K1", rows[:2], card)
@@ -559,14 +780,20 @@ def main(argv=None) -> int:
         r["passes_ms"] = {kernel_name(name): t for t, name, _ in kern}
         print(f"K1 bwd {r['shape']} by pass under the profiler: "
               f"{r['passes_ms']} (device busy {busy:.3f} ms)")
-    for k, p in serve.items():
-        ms = time_host(lambda: p.predict(recs[k], batches=batches[k]))
+    requests = [(k, p, recs[k], batches[k], "5 K1 launches")
+                for k, p in serve.items()]
+    requests += [(k, p, echo_recs[k], echo_batches[k],
+                  f"{9 if k.startswith('seg') else 17} K1 + 1 K2 launches")
+                 for k, p in echo_serve.items()]
+    for k, p, rs_, bs_, what in requests:
+        ms = time_host(lambda: p.predict(rs_, batches=bs_))
         print(f"request {k}: {ms:.3f} ms per request (forward over placed "
-              f"tables, 5 K1 launches) on {card}")
+              f"tables, {what}) on {card}")
         wall, busy, kern = request_breakdown(
-            lambda: p.predict(recs[k], batches=batches[k]))
+            lambda: p.predict(rs_, batches=bs_))
         print(f"request {k} under the profiler: wall {wall:.3f} ms, device "
-              f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%); top kernels:")
+              f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%) on {card}; "
+              "top kernels:")
         for t, name, count in kern:
             print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
 
@@ -609,14 +836,16 @@ def main(argv=None) -> int:
     for t, name, count in kern:
         print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
 
+    paths = {"serve": serve_launches, "serve_echo": echo_launches,
+             "train": train_launches}
+
     def entry(name, source, replaces, rs):
+        by_path = {k: v.get(name, 0) for k, v in paths.items()}
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": (serve_launches.get(name, 0)
-                         + train_launches.get(name, 0)),
-            "launches_by_path": {"serve": serve_launches.get(name, 0),
-                                 "train": train_launches.get(name, 0)},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": rs[0]["ms"], "plain_ms": rs[0]["plain_ms"],
             "bound_ms": rs[0]["bound_ms"], "bound_by": rs[0]["bound_by"],
@@ -629,6 +858,8 @@ def main(argv=None) -> int:
               "fieldconv_tpu/ops/pallas/band_conv.py:1609", rows),
         entry("band_fused_bwd", "fieldconv_tpu_torch/csrc/band_fused_bwd.cu",
               "fieldconv_tpu/ops/pallas/band_conv.py:1642", bwd_rows),
+        entry("echo_panel_fwd", "fieldconv_tpu_torch/csrc/echo_panel_fwd.cu",
+              "fieldconv_tpu/ops/pallas/echo_panel.py:408", k2_rows),
     ]}
     print(json.dumps(line))
     print(card)

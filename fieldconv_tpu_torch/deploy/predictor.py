@@ -1,9 +1,10 @@
 """Fixed-shape inference over mesh artifacts.
 
-Counterpart of ``fieldconv_tpu/deploy/predictor.py`` for classification.
-The Predictor batches precomputed MeshRecords with the same bucket/layout
-machinery as training (train/loop.py::make_batches), runs the model over
-each batch's mesh axis, and maps logits to class ids.  PyTorch runs
+Counterpart of ``fieldconv_tpu/deploy/predictor.py`` for classification,
+segmentation and correspondence.  The Predictor batches precomputed
+MeshRecords with the same bucket/layout machinery as training
+(train/loop.py::make_batches), runs the model (in ``eval()``: dropout off)
+over each batch's mesh axis, and maps logits to task outputs.  PyTorch runs
 eagerly, so there is no ahead-of-time compile: ``warmup`` runs each new
 batch shape signature once (building the CUDA kernels on first use) and
 records it, and ``strict_shapes`` refuses signatures that were not warmed
@@ -39,7 +40,7 @@ def _shape_key(batch: MeshBatch):
 
 
 class Predictor:
-    """Batched classification forward for one model.
+    """Batched forward for one model.
 
     Parameters
     ----------
@@ -57,10 +58,10 @@ class Predictor:
     def __init__(self, net, config: ExperimentConfig, batch_size: int = 1,
                  banded_tb: Optional[int] = None,
                  strict_shapes: bool = False, device="cuda"):
-        if config.task != "classification":
+        if config.task == "matching":
             raise NotImplementedError(
-                f"serving task {config.task!r} is not ported yet (ROADMAP "
-                "Queue 1)")
+                "serving task 'matching' is not ported yet (ROADMAP Queue 1 "
+                "item 3)")
         self.device = resolve_device(device)
         self.net = net.to(self.device).eval()
         self.config = config
@@ -115,8 +116,8 @@ class Predictor:
             return batched_apply(self.net, batch)
 
     def logits(self, batch: MeshBatch):
-        """Raw model output for one batch, (B, 1, n_classes) on the
-        device."""
+        """Raw model output for one batch on the device: (B, 1, n_classes)
+        for classification, (B, N, n_classes) per vertex otherwise."""
         if self.strict_shapes and _shape_key(batch) not in self._warm:
             raise RuntimeError(
                 "batch signature was not warmed up and strict_shapes=True; "
@@ -126,9 +127,14 @@ class Predictor:
     def predict(self, records: Sequence, n_pad: Optional[int] = None,
                 d_slots: Optional[int] = None,
                 batches: Optional[List[MeshBatch]] = None) -> List[dict]:
-        """{"class": int, "logits": (n_classes,)} per input record, in
-        order.  batches: the output of make_batches(records), to skip
-        rebuilding the tables."""
+        """Task outputs, one dict per input record, in order:
+
+        classification: {"class": int, "logits": (n_classes,)}
+        segmentation:   {"labels": (n,) int32, "logits": (n, n_classes)}
+        correspondence: {"map": (n,) int32 target-vertex ids, "logits": ...}
+
+        with n the record's true sample count.  batches: the output of
+        make_batches(records), to skip rebuilding the tables."""
         records = list(records)
         if batches is None:
             batches = self.make_batches(records, n_pad, d_slots)
@@ -139,16 +145,21 @@ class Predictor:
             for bi in range(y.shape[0]):
                 if i >= len(records):
                     break   # trailing pad meshes in the last bucket
-                outs.append(self._to_output(y[bi]))
+                outs.append(self._to_output(y[bi],
+                                            records[i].n_samples))
                 i += 1
         if i != len(records):
             raise RuntimeError(
                 f"batching produced {i} outputs for {len(records)} records")
         return outs
 
-    @staticmethod
-    def _to_output(y: np.ndarray) -> dict:
-        """Classification output of one mesh (other tasks are refused in
-        __init__)."""
-        logits = y[0]
-        return {"class": int(np.argmax(logits)), "logits": logits}
+    def _to_output(self, y: np.ndarray, n: int) -> dict:
+        """Task output of one mesh from its rows of the batch's logits."""
+        task = self.config.task
+        if task == "classification":
+            logits = y[0]
+            return {"class": int(np.argmax(logits)), "logits": logits}
+        logits = y[:n]
+        key = "labels" if task == "segmentation" else "map"
+        return {key: np.argmax(logits, axis=-1).astype(np.int32),
+                "logits": logits}

@@ -1,3 +1,5 @@
 from .classification import ClassificationNet
+from .correspondence import CorrespondenceNet
+from .segmentation import SegmentationNet
 
-__all__ = ["ClassificationNet"]
+__all__ = ["ClassificationNet", "CorrespondenceNet", "SegmentationNet"]

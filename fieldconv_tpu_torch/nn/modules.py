@@ -17,12 +17,15 @@ import torch
 from torch import nn
 
 from ..ops import band_conv as band_ops
+from ..ops import echo as echo_ops
 from ..ops import field_conv as fc_ops
 from ..ops import tangent as tangent_ops
 from ..ops import trans_field as tf_ops
+from ..ops.echo_panel import echo_panel_fused
+from ..precomp.banded import PanelTable
 from ..precomp.edge_table import EdgeTable
 from ..utils import complexops as co
-from .init import xavier_uniform
+from .init import torch_linear_bias, torch_linear_weight, xavier_uniform
 
 
 class FieldConv(nn.Module):
@@ -63,8 +66,8 @@ class FieldConv(nn.Module):
 
 
 class TransField(nn.Module):
-    """Learned gradient lift.  A CompressedBandedTable ``comp`` runs the
-    aggregation gather-free over the banded layout."""
+    """Learned gradient lift.  A CompressedBandedTable or PanelTable
+    ``comp`` runs the aggregation gather-free over its layout."""
 
     def __init__(self, in_channels: int, out_channels: int, n_rings: int = 6,
                  ftype: int = 1, d_chunk: int = 128,
@@ -137,6 +140,97 @@ class LiftBlock(nn.Module):
     def forward(self, x, table: EdgeTable, lift_cols: Tuple[int, int],
                 comp=None):
         return self.nonlin(self.field(x, table, lift_cols, comp))
+
+
+class TangentPerceptron(nn.Module):
+    """TangentLin + modReLU."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.lin = TangentLin(in_channels, out_channels, generator=generator)
+        self.nonlin = TangentNonLin(out_channels)
+
+    def forward(self, x):
+        return self.nonlin(self.lin(x))
+
+
+class Linear(nn.Module):
+    """Dense layer with torch.nn.Linear's default init (weight (out, in),
+    bias (out,))."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch_linear_weight((out_features, in_features), generator))
+        self.bias = nn.Parameter(
+            torch_linear_bias((out_features,), in_features, generator))
+
+    def forward(self, x):
+        return x @ self.weight.T + self.bias
+
+
+class ECHO(nn.Module):
+    """ECHO descriptor op; parameter-free.
+
+    Routing, as in the JAX package: a compressed PanelTable ``comp`` runs
+    the panel route through K2 (ops/echo_panel.py).  A
+    CompressedBandedTable with impl "auto", or impl "banded", would take
+    the banded ECHO, which is not ported yet.  Otherwise the one-hot gather
+    route over the EdgeTable runs.
+    """
+
+    def __init__(self, n_bins: int = 2, d_chunk: int = 128,
+                 impl: str = "auto"):
+        super().__init__()
+        self.n_bins, self.d_chunk, self.impl = n_bins, d_chunk, impl
+
+    def forward(self, x, table: EdgeTable, comp=None):
+        if isinstance(comp, PanelTable):
+            return echo_panel_fused(x, comp, self.n_bins)
+        use_banded = (comp is not None) if self.impl == "auto" \
+            else self.impl == "banded"
+        if use_banded and comp is not None:
+            raise NotImplementedError(
+                "echo_banded (ECHO over a CompressedBandedTable, "
+                "fieldconv_tpu/ops/echo.py:309) is not ported yet: ROADMAP "
+                "Queue 1, ECHO item")
+        return echo_ops.echo(x, table, self.n_bins, d_chunk=self.d_chunk)
+
+
+class ECHOBlock(nn.Module):
+    """FieldConv → modReLU → ECHO → MLP + residual.
+
+    The reference sizes the modReLU bias by in_channels but applies it to
+    the n_des-channel conv output; ``param_width`` keeps that width so its
+    weights port."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 n_des: Optional[int] = None, n_bins: int = 3,
+                 band_limit: int = 1, n_rings: int = 6, ftype: int = 1,
+                 d_chunk: int = 128, echo_impl: str = "auto",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        n_des = in_channels if n_des is None else n_des
+        self.conv = FieldConv(in_channels, n_des, band_limit, n_rings, ftype,
+                              d_chunk, generator=generator)
+        self.nonlin = TangentNonLin(n_des, param_width=in_channels)
+        self.echo = ECHO(n_bins, d_chunk=d_chunk, impl=echo_impl)
+        mid = n_des * echo_ops.hist_dim(n_bins)
+        self.lin1 = Linear(mid, 128, generator=generator)
+        self.lin2 = Linear(128, 64, generator=generator)
+        self.lin3 = Linear(64, out_channels, generator=generator)
+        self.res = Linear(in_channels, out_channels, generator=generator)
+
+    def forward(self, x, table: EdgeTable, banded=None, comp=None):
+        h = self.nonlin(self.conv(x, table, banded))
+        h = self.echo(h, table, comp)                      # (..., N, n_des, dS)
+        h = h.reshape(*h.shape[:-2], -1)
+        h = torch.relu(self.lin1(h))
+        h = torch.relu(self.lin2(h))
+        h = self.lin3(h)
+        return h + self.res(co.soft_abs(x))
 
 
 class FCResNetBlock(nn.Module):

@@ -1,6 +1,7 @@
-"""Banded stencil tables — the gather-free layout of the field-conv kernel.
+"""Banded stencil tables — the gather-free layouts of the kernels.
 
-Counterpart of the dense-band subset of ``fieldconv_tpu/precomp/banded.py``.
+Counterpart of the dense-band and panel subset of
+``fieldconv_tpu/precomp/banded.py``.
 Vertices are re-indexed with reverse Cuthill-McKee so every edge satisfies
 |src − tgt| ≤ bandwidth; the factored stencil is then stored in dense
 per-target band slots, block-major:
@@ -9,8 +10,13 @@ per-target band slots, block-major:
   the edge from source s = (n_block − nh)·TB + w'.  Planes 0..R-1 are the
   radial weights, plane R+2k+p is fwxp_k's re (p=0) / im (p=1).
 
+The panel-CSR PanelTable stores only the nonempty (target-block,
+source-block) pairs of the same slot layout, as (planes, TB, TB) panels;
+the mixed route of the ECHO presets runs ECHO and the lift over it.
+
 The builders run in numpy and return CPU tensors; stacked batches carry a
-leading mesh axis on ``sten_band``.
+leading mesh axis on ``sten_band``, and one PanelTable covers a batch
+(:func:`concat_panel_tables`).
 """
 
 from __future__ import annotations
@@ -184,6 +190,238 @@ def build_compressed_banded(table: EdgeTable, tb: int = 128,
         tb=tb, nh=nh, n_pad=N,
         band_limit=table.band_limit, n_rings=table.n_rings,
     )
+
+
+@dataclasses.dataclass
+class PanelTable:
+    """Panel-CSR band: a flat list of (target-block, source-block) PANELS.
+
+    Each nonempty (tgt-block, src-block) pair is one (planes, TB, TB) panel;
+    panels are sorted by target block, so each target block owns one
+    contiguous run of them.
+
+      sten: (P, planes, TB, TB) float32 with planes = R+2K (dense: radial
+        weights then fwxp_k re/im) or 5 (compressed: r, e^{iθ} re/im,
+        wxp re/im, with R_SENTINEL in r and 0 in wxp at empty slots).
+      meta: (4, P) int32 rows (tgt, src, first_t, last_t), sorted by
+        (tgt, src).
+      meta_s: (4, P_s) int32 rows (pid, tgt, src, first_s + 2·last_s), the
+        same panels sorted by (src, tgt): the by-source order of the
+        backward.
+
+    A batch of meshes is one table (:func:`concat_panel_tables`): mesh m's
+    block ids are offset by m·nb, so block b of the table covers rows
+    b·TB .. (b+1)·TB of the meshes' features flattened to (n_mesh·n_pad,
+    ...).  Every block owns >= 1 panel as target and as source (a missing
+    block gets a zero self-panel).
+    """
+
+    sten: torch.Tensor
+    meta: torch.Tensor
+    meta_s: torch.Tensor
+    tb: int
+    n_pad: int
+    band_limit: int
+    n_rings: int
+    compressed: bool = False
+    chunk: int = 1
+    n_mesh: int = 1
+
+    @property
+    def n_panels(self) -> int:
+        return self.meta.shape[1]
+
+    @property
+    def k_width(self) -> int:
+        return 2 * self.band_limit + 1
+
+    def to(self, device) -> "PanelTable":
+        return dataclasses.replace(self, sten=self.sten.to(device),
+                                   meta=self.meta.to(device),
+                                   meta_s=self.meta_s.to(device))
+
+
+def _pad_groups(keys: np.ndarray, chunk: int):
+    """Positions for padding sorted group runs to multiples of `chunk`.
+
+    keys: (P,) sorted group labels.  Returns (new_P, new_pos (P,), pad_pos,
+    pad_key) — old item p moves to new_pos[p]; pad slots (with their group
+    label) fill the remainder of each group."""
+    uniq, counts = np.unique(keys, return_counts=True)
+    padded = -(-counts // chunk) * chunk
+    starts = np.concatenate([[0], np.cumsum(padded)[:-1]])
+    first_pos = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    off = np.arange(len(keys)) - np.repeat(first_pos, counts)
+    new_pos = np.repeat(starts, counts) + off
+    new_P = int(padded.sum())
+    mask = np.zeros(new_P, bool)
+    mask[new_pos] = True
+    pad_pos = np.nonzero(~mask)[0]
+    bounds = np.concatenate([starts, [new_P]])
+    pad_key = uniq[np.searchsorted(bounds[1:], pad_pos, side="right")]
+    return new_P, new_pos, pad_pos, pad_key
+
+
+def build_panel_table(table: EdgeTable, tb: int = 128,
+                      compressed: bool = False,
+                      chunk: int = 1) -> PanelTable:
+    """Build the panel-CSR band of one mesh from its padded-CSR EdgeTable
+    (numpy; returns CPU tensors).
+
+    chunk > 1 pads every target group (and the by-source groups) to a
+    multiple of `chunk` with zero panels."""
+    src = table.src.numpy()
+    mask = table.mask.numpy() > 0
+    N, D = src.shape
+    R, K = table.n_rings, table.k_width
+    if N % tb:
+        raise ValueError(f"n_pad={N} not a multiple of tb={tb}")
+    nb = N // tb
+
+    tgt_idx, slot_idx = np.nonzero(mask)
+    s = src[tgt_idx, slot_idx]
+    key = (tgt_idx // tb) * np.int64(nb) + s // tb
+    ukeys = np.unique(key)
+    # a panel per block as TARGET and as SOURCE (zero self-panel): a block
+    # absent as target would never write its output rows
+    miss_t = np.setdiff1d(np.arange(nb), np.unique(ukeys // nb))
+    miss_s = np.setdiff1d(np.arange(nb), np.unique(ukeys % nb))
+    missing = np.union1d(miss_t, miss_s)
+    if len(missing):
+        ukeys = np.unique(np.concatenate(
+            [ukeys, missing * np.int64(nb) + missing]))
+    P0 = len(ukeys)
+    tgt0 = (ukeys // nb).astype(np.int32)
+    src0 = (ukeys % nb).astype(np.int32)
+
+    if chunk > 1:
+        P, new_pos, pad_pos, pad_tgt = _pad_groups(tgt0, chunk)
+        pan_tgt = np.empty(P, np.int32)
+        pan_src = np.empty(P, np.int32)
+        pan_tgt[new_pos], pan_src[new_pos] = tgt0, src0
+        pan_tgt[pad_pos] = pad_tgt
+        pan_src[pad_pos] = pad_tgt          # self-block: valid source rows
+        real = np.zeros(P, bool)
+        real[new_pos] = True
+        # the by-source view needs >= 1 zero panel for its own pads: when
+        # no target group needed padding, append an all-zero chunk group
+        src_counts = np.unique(src0, return_counts=True)[1]
+        if not len(pad_pos) and (src_counts % chunk).any():
+            extra = pan_tgt[-1]
+            pan_tgt = np.concatenate(
+                [pan_tgt, np.full(chunk, extra, np.int32)])
+            pan_src = np.concatenate(
+                [pan_src, np.full(chunk, extra, np.int32)])
+            real = np.concatenate([real, np.zeros(chunk, bool)])
+            pad_pos = np.arange(P, P + chunk)
+            P += chunk
+    else:
+        P, pan_tgt, pan_src = P0, tgt0, src0
+        new_pos = np.arange(P0)
+        pad_pos = np.zeros(0, np.int64)
+        real = np.ones(P, bool)
+
+    first = np.ones(P, np.int32)
+    first[1:] = (pan_tgt[1:] != pan_tgt[:-1]).astype(np.int32)
+    last = np.ones(P, np.int32)
+    last[:-1] = (pan_tgt[:-1] != pan_tgt[1:]).astype(np.int32)
+    meta = np.stack([pan_tgt, pan_src, first, last], axis=0)
+
+    # by-source view over the real panels; chunked pads point at a zero
+    # panel of the target-side padding
+    real_idx = np.nonzero(real)[0].astype(np.int32)
+    r_tgt, r_src = pan_tgt[real_idx], pan_src[real_idx]
+    order = np.lexsort((r_tgt, r_src))
+    s_pid = real_idx[order]
+    s_tgt = r_tgt[order]
+    s_src = r_src[order]
+    if chunk > 1:
+        Ps, s_new_pos, s_pad_pos, s_pad_src = _pad_groups(s_src, chunk)
+        if len(s_pad_pos) and not len(pad_pos):
+            raise AssertionError("src pads need a zero panel to reference")
+        pid_a = np.empty(Ps, np.int32)
+        tgt_a = np.empty(Ps, np.int32)
+        src_a = np.empty(Ps, np.int32)
+        pid_a[s_new_pos], tgt_a[s_new_pos], src_a[s_new_pos] = \
+            s_pid, s_tgt, s_src
+        if len(s_pad_pos):
+            pid_a[s_pad_pos] = pad_pos[0]
+            tgt_a[s_pad_pos] = 0
+            src_a[s_pad_pos] = s_pad_src
+    else:
+        Ps, pid_a, tgt_a, src_a = P0, s_pid, s_tgt, s_src
+    first_s = np.ones(Ps, np.int32)
+    first_s[1:] = (src_a[1:] != src_a[:-1]).astype(np.int32)
+    last_s = np.ones(Ps, np.int32)
+    last_s[:-1] = (src_a[:-1] != src_a[1:]).astype(np.int32)
+    meta_s = np.stack([pid_a, tgt_a, src_a, first_s + 2 * last_s], axis=0)
+
+    pid = new_pos[np.searchsorted(ukeys, key)]
+    t_loc = tgt_idx % tb
+    s_loc = s % tb
+    flat = pid * np.int64(tb * tb) + t_loc * tb + s_loc
+    if len(np.unique(flat)) != len(flat):
+        raise ValueError(
+            "parallel edges cannot be represented in the band layout")
+
+    if compressed:
+        ln = table.ln.numpy().astype(np.float64)
+        wxp = table.wxp.numpy()
+        lv = ln[tgt_idx, slot_idx]                       # (E, 2)
+        rv = np.hypot(lv[:, 0], lv[:, 1])
+        with np.errstate(invalid="ignore"):
+            ph = lv / np.maximum(rv, 1e-30)[:, None]
+        ph[rv < 1e-30] = [1.0, 0.0]                      # θ=0 at r=0 edges
+        sten = np.zeros((P, 5, tb, tb), dtype=np.float32)
+        sten[:, 0] = R_SENTINEL
+        sten[pid, 0, t_loc, s_loc] = rv
+        sten[pid, 1, t_loc, s_loc] = ph[:, 0]
+        sten[pid, 2, t_loc, s_loc] = ph[:, 1]
+        sten[pid, 3, t_loc, s_loc] = wxp[tgt_idx, slot_idx, 0]
+        sten[pid, 4, t_loc, s_loc] = wxp[tgt_idx, slot_idx, 1]
+    else:
+        rsten = table.rsten.numpy()
+        fwxp = table.fwxp.numpy()
+        vals = np.concatenate(
+            [rsten[tgt_idx, slot_idx],
+             fwxp[tgt_idx, slot_idx].reshape(len(tgt_idx), 2 * K)], axis=1)
+        sten = np.zeros((P, R + 2 * K, tb, tb), dtype=np.float32)
+        sten[pid, :, t_loc, s_loc] = vals
+
+    return PanelTable(
+        sten=torch.from_numpy(sten), meta=torch.from_numpy(meta),
+        meta_s=torch.from_numpy(meta_s),
+        tb=tb, n_pad=N, band_limit=table.band_limit, n_rings=table.n_rings,
+        compressed=compressed, chunk=chunk,
+    )
+
+
+def concat_panel_tables(panels) -> PanelTable:
+    """One table for a batch of meshes' PanelTables (same tb, n_pad and
+    stencil layout): mesh m's block ids are offset by m·nb and its panel
+    ids (meta_s row 0) by the panels before it.  Both orders stay sorted,
+    so each target block keeps one contiguous run of panels."""
+    p0 = panels[0]
+    for p in panels[1:]:
+        if (p.tb, p.n_pad, p.compressed, p.chunk, p.n_mesh) != \
+                (p0.tb, p0.n_pad, p0.compressed, p0.chunk, 1):
+            raise ValueError("panel tables of one batch must share tb, "
+                             "n_pad, compressed and chunk")
+    nb = p0.n_pad // p0.tb
+    metas, metas_s, pid0 = [], [], 0
+    for m, p in enumerate(panels):
+        meta = p.meta.clone()
+        meta[:2] += m * nb
+        meta_s = p.meta_s.clone()
+        meta_s[0] += pid0
+        meta_s[1:3] += m * nb
+        metas.append(meta)
+        metas_s.append(meta_s)
+        pid0 += p.n_panels
+    return dataclasses.replace(
+        p0, sten=torch.cat([p.sten for p in panels]),
+        meta=torch.cat(metas, dim=1), meta_s=torch.cat(metas_s, dim=1),
+        n_mesh=len(panels))
 
 
 def window_blocks(a: torch.Tensor, tb: int, nh: int) -> torch.Tensor:

@@ -1,21 +1,25 @@
 """Model construction, batch building and the training loop.
 
 Counterpart of ``build_model``, ``make_batches``, ``fit`` and
-``evaluate_task`` in ``fieldconv_tpu/train/loop.py``, for the
-classification task on the dense banded layout (or the gather path when
-``banded_tb`` is None).
+``evaluate_task`` in ``fieldconv_tpu/train/loop.py``.  Models and batches
+cover classification, segmentation and correspondence: the dense banded
+layout, the mixed route (banded convs, panel ECHO and lift) of the ECHO
+presets, or the gather path when ``banded_tb`` is None.  ``fit`` and
+``evaluate_task`` train and evaluate classification.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
+import warnings
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ..data.base import MeshRecord, shared_bucket
-from ..models import ClassificationNet
+from ..models import ClassificationNet, CorrespondenceNet, SegmentationNet
 from ..utils.device import resolve_device
 from . import evaluate
 from .checkpoint import CheckpointManager
@@ -28,15 +32,24 @@ from .trainer import (draw_rotate_scale, make_optimizer, make_train_step,
 def build_model(config: ExperimentConfig, n_classes: int,
                 generator: Optional[torch.Generator] = None,
                 device="cuda"):
-    if config.task != "classification":
-        raise NotImplementedError(
-            f"task {config.task!r} is not ported yet: segmentation and "
-            "correspondence are ROADMAP Queue 1 (ECHO slice), matching its "
-            "next item")
-    return ClassificationNet(
-        n_classes=n_classes, nf=config.nf, band_limit=config.band_limit,
-        n_rings=config.n_rings, ftype=config.ftype, d_chunk=config.d_chunk,
-        lift_impl=config.lift_impl, generator=generator, device=device)
+    kw = dict(band_limit=config.band_limit, n_rings=config.n_rings,
+              ftype=config.ftype, d_chunk=config.d_chunk,
+              lift_impl=config.lift_impl, generator=generator, device=device)
+    if config.task == "classification":
+        return ClassificationNet(n_classes=n_classes, nf=config.nf, **kw)
+    if config.task == "segmentation":
+        return SegmentationNet(n_classes=n_classes, nf=config.nf,
+                               n_des=config.n_des or config.nf,
+                               n_bins=config.n_bins,
+                               echo_impl=config.echo_impl, **kw)
+    if config.task == "correspondence":
+        return CorrespondenceNet(n_classes=n_classes, nf=config.nf,
+                                 n_des=config.n_des or 12,
+                                 n_bins=config.n_bins,
+                                 echo_impl=config.echo_impl, **kw)
+    raise NotImplementedError(
+        f"task {config.task!r} is not ported yet: matching is ROADMAP "
+        "Queue 1 item 3")
 
 
 def resolve_layout(config: ExperimentConfig, n_pad: int) -> str:
@@ -53,21 +66,43 @@ def make_batches(records: List[MeshRecord], config: ExperimentConfig,
     """Group records into same-bucket MeshBatches on ``device``.
 
     banded_tb: build the dense banded tables (K1 convs) with that
-    target-block size, plus the compressed tables of the gather-free lift
-    when config.lift_impl == "banded"; None serves the gather path."""
+    target-block size; None serves the gather path.  With banded_tb, an
+    ECHO task with config.echo_impl == "panel" takes the mixed route (one
+    compressed PanelTable per batch for ECHO and the lift); otherwise the
+    compressed banded tables of the gather-free lift are built when
+    config.lift_impl == "banded".  Without banded_tb an ECHO task whose
+    echo_impl needs block tables warns and takes the one-hot ECHO."""
     device = resolve_device(device)
-    if config.task != "classification":
+    if config.task == "matching":
         raise NotImplementedError(
-            f"make_batches for task {config.task!r} is not ported yet "
-            "(ROADMAP Queue 1)")
+            "make_batches for task 'matching' is not ported yet (ROADMAP "
+            "Queue 1 item 3)")
+    echo_task = config.task in ("segmentation", "correspondence")
+    if echo_task and banded_tb is None \
+            and config.echo_impl in ("panel", "compact"):
+        warnings.warn(f"echo_impl={config.echo_impl!r} needs banded_tb; "
+                      "falling back to the one-hot ECHO for this run")
+        config = dataclasses.replace(config, echo_impl="onehot")
+    if echo_task and config.echo_impl == "banded":
+        raise NotImplementedError(
+            "echo_impl='banded' runs echo_banded over compressed banded "
+            "tables, which is not ported yet (ROADMAP Queue 1, ECHO item: "
+            "echo_banded)")
+    if echo_task and config.echo_impl == "compact":
+        raise NotImplementedError(
+            "echo_impl='compact' runs K7 over the CompactPanelTable, which "
+            "is not ported yet (ROADMAP Queue 1 item 6 and Queue 2, K7)")
     if n_pad is None or d_slots is None:
         n_pad, d_slots = shared_bucket(records)
     if banded_tb is not None and resolve_layout(config, n_pad) == "panel":
         raise NotImplementedError(
             f"n_pad={n_pad} resolves to the panel layout, which is not "
-            "ported yet (ROADMAP Queue 1: the 100k+-vertex layouts); set "
-            "config.layout='banded' to force the dense band")
-    need_comp = banded_tb is not None and config.lift_impl == "banded"
+            "ported yet (ROADMAP Queue 1 item 6: the 100k+-vertex layouts); "
+            "set config.layout='banded' to force the dense band")
+    echo_panel = (banded_tb is not None and echo_task
+                  and config.echo_impl == "panel")
+    need_comp = (banded_tb is not None and not echo_panel
+                 and config.lift_impl == "banded")
 
     def build_group(group):
         items = []
@@ -76,7 +111,8 @@ def make_batches(records: List[MeshRecord], config: ExperimentConfig,
                             n_pad=n_pad, d_slots=d_slots)
             items.append((r.padded_pos(n_pad, center=config.center), table,
                           r.padded_labels(n_pad)))
-        batch = stack_batch(items, banded_tb=banded_tb, echo_banded=need_comp)
+        batch = stack_batch(items, banded_tb=banded_tb, echo_banded=need_comp,
+                            echo_panel=echo_panel)
         return batch.to(device)
 
     return [build_group(records[lo:lo + batch_size])

@@ -9,8 +9,8 @@ backward.
 The step follows the JAX one: random rotation and scale of the positions,
 the classification loss, gradients, then an Adam update with optax's
 semantics (:class:`Adam`) that is skipped on the device when the loss is
-not finite.  The segmentation and correspondence losses come with the ECHO
-slice (ROADMAP Queue 1).
+not finite.  The segmentation and correspondence losses come with slice 4,
+ECHO training (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -26,8 +26,11 @@ from ..precomp.banded import (
     R_SENTINEL,
     BandedTable,
     CompressedBandedTable,
+    PanelTable,
     build_banded_table,
     build_compressed_banded,
+    build_panel_table,
+    concat_panel_tables,
 )
 from ..nn.losses import cross_entropy
 from ..precomp.edge_table import EdgeTable
@@ -43,6 +46,9 @@ class MeshBatch:
     labels: (B,) int32 for mesh-level tasks or (B, N) int32 (-1 = padding)
     banded: optional batched BandedTable for the K1 conv path
     comp: optional batched CompressedBandedTable for the gather-free lift
+    panel: optional compressed PanelTable of every mesh of the batch (one
+      table, precomp.banded.concat_panel_tables) for the mixed route's
+      ECHO and lift
     """
 
     pos: torch.Tensor
@@ -50,17 +56,21 @@ class MeshBatch:
     labels: torch.Tensor
     banded: Optional[BandedTable] = None
     comp: Optional[CompressedBandedTable] = None
+    panel: Optional[PanelTable] = None
 
     def to(self, device) -> "MeshBatch":
+        def move(t):
+            return None if t is None else t.to(device)
+
         return MeshBatch(
             pos=self.pos.to(device), table=self.table.to(device),
-            labels=self.labels.to(device),
-            banded=None if self.banded is None else self.banded.to(device),
-            comp=None if self.comp is None else self.comp.to(device))
+            labels=self.labels.to(device), banded=move(self.banded),
+            comp=move(self.comp), panel=move(self.panel))
 
 
 def stack_batch(items, banded_tb: Optional[int] = None,
-                echo_banded: bool = False) -> MeshBatch:
+                echo_banded: bool = False,
+                echo_panel: bool = False) -> MeshBatch:
     """Stack (pos, table, label) triples sharing bucket shapes (CPU).
 
     banded_tb: when set, also build + stack BandedTables (K1 conv path)
@@ -68,6 +78,9 @@ def stack_batch(items, banded_tb: Optional[int] = None,
     echo_banded: when set (requires banded_tb), also build the compressed
     banded tables that drive the gather-free lift
     (ops/trans_field.py::trans_field_banded_contrib).
+    echo_panel: when set (requires banded_tb), also build each mesh's
+    compressed PanelTable and join them into one (the mixed route: K1
+    convs, panel ECHO and lift).
 
     The stacked table keeps the first mesh's ``n_valid`` (ROADMAP Queue 3).
     """
@@ -102,6 +115,14 @@ def stack_batch(items, banded_tb: Optional[int] = None,
             tb=banded_tb, nh=nh, n_pad=cs[0].n_pad,
             band_limit=t0.band_limit, n_rings=t0.n_rings,
         )
+    panel = None
+    if echo_panel:
+        if banded_tb is None or echo_banded:
+            raise ValueError("echo_panel requires banded_tb and excludes "
+                             "echo_banded")
+        panel = concat_panel_tables(
+            [build_panel_table(t, tb=banded_tb, compressed=True)
+             for t in tables])
     return MeshBatch(
         pos=torch.stack([torch.as_tensor(np.asarray(p, np.float32))
                          for p in poss]),
@@ -110,6 +131,7 @@ def stack_batch(items, banded_tb: Optional[int] = None,
                             for lab in labels]),
         banded=banded,
         comp=comp,
+        panel=panel,
     )
 
 
@@ -137,11 +159,18 @@ def _pad_comp(c: CompressedBandedTable, nh: int) -> CompressedBandedTable:
     return dataclasses.replace(c, nh=nh, sten_band=out)
 
 
-def batched_apply(net, batch: MeshBatch):
+def batched_apply(net, batch: MeshBatch, **kw):
     """Run the model over the batch's mesh axis in one call: the banded
     route (BandedTable convs, plus the compressed lift when ``comp`` is
-    set) or, without tables, the padded-CSR gather route."""
-    return net(batch.pos, batch.table, batch.banded, batch.comp)
+    set), the mixed route (BandedTable convs, ECHO and lift over the
+    batch's one PanelTable) or, without tables, the padded-CSR gather
+    route.  ``kw`` goes to the model (e.g. ``dropout_mask``).
+
+    The JAX package unrolls a mixed batch mesh by mesh (its panel counts
+    differ); here the meshes' panels form one table, so one K2 launch and
+    one lift serve the batch, as one K1 launch does."""
+    comp = batch.panel if batch.panel is not None else batch.comp
+    return net(batch.pos, batch.table, batch.banded, comp, **kw)
 
 
 # --- augmentation ------------------------------------------------------------
@@ -298,8 +327,8 @@ def make_loss_fn(net, config: ExperimentConfig, n_classes: int):
     if config.task != "classification":
         raise NotImplementedError(
             f"the {config.task!r} loss is not ported yet: segmentation and "
-            "correspondence come with the ECHO slice, matching after it "
-            "(ROADMAP Queue 1)")
+            "correspondence come with slice 4 (ECHO training), matching "
+            "after it (ROADMAP Queue 1)")
 
     def loss_fn(batch: MeshBatch, generator=None, aug=None):
         if aug is None:

@@ -99,6 +99,16 @@ def soft_angle(z, eps=EPS):
     return torch.where(mask, torch.zeros_like(ang), ang)
 
 
+def soft_unit(z, eps=EPS):
+    """z/|z| at non-origin entries, (0, 0) at origin entries, with finite
+    gradients there."""
+    mask = is_origin(z, eps)
+    safe = torch.where(mask[..., None], torch.ones_like(z), z)
+    mag = torch.sqrt(safe[..., 0] ** 2 + safe[..., 1] ** 2)
+    unit = safe / mag[..., None]
+    return torch.where(mask[..., None], torch.zeros_like(unit), unit)
+
+
 def soft_absolute(x):
     """Elementwise |x| on a real tensor with subgradient +1 at exactly 0."""
     return torch.where(x < 0, -x, x)

@@ -7,26 +7,38 @@ conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from fieldconv_tpu_torch import kernels
+from fieldconv_tpu_torch.data.base import MeshRecord
 from fieldconv_tpu_torch.ops import band_conv as tbc
-from fieldconv_tpu_torch.precomp.banded import BandedTable
+from fieldconv_tpu_torch.ops import echo_panel as tep
+from fieldconv_tpu_torch.precomp.banded import (BandedTable,
+                                                build_panel_table,
+                                                concat_panel_tables)
+from fieldconv_tpu_torch.train.config import PRESETS
+from fieldconv_tpu_torch.train.loop import build_model, make_batches
+from fieldconv_tpu_torch.train.trainer import batched_apply
 
 # odd widths with O2 = 10; O2 = 60 as conv_out with 3 meshes; serving
-# widths with a window past both ends
+# widths with a window past both ends; the segmentation width (C = 48,
+# O2 = 96) and the correspondence one (K = 3, R = 3, O2 = 24)
 SHAPES = pytest.mark.parametrize("C,O,R,B,tb,nh,n_mesh", [
     (3, 5, 2, 1, 8, 1, 1),
     (4, 30, 6, 2, 8, 2, 3),
     (32, 32, 6, 2, 16, 3, 2),
+    (48, 48, 6, 2, 16, 1, 2),
+    (16, 12, 3, 1, 16, 2, 1),
 ])
 
 
 def _need_card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the K1 kernels have no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
 
 
 def _k1_inputs(C, O, R, B, tb, nh, n_mesh):
@@ -106,3 +118,78 @@ def test_field_conv_banded_backward_card_matches_cpu():
     for a, b in zip(grads["cuda"], grads["cpu"]):
         err = (a - b).abs().max().item()
         assert err <= 1e-4 * b.abs().max().item(), err
+
+
+def _record(rng, n, deg, bw, eps, labels=None):
+    """A mesh record whose targets have `deg` unique sources within ±bw,
+    radii in [0, ε] and unit transports (chip_smoke.py's generator)."""
+    src = np.arange(n)[:, None] + np.arange(-bw, bw + 1)[None, :]
+    keys = rng.random(src.shape)
+    keys[(src < 0) | (src >= n)] = np.inf
+    picked = np.take_along_axis(src, np.argsort(keys, 1)[:, :deg], 1)
+    edges = np.stack([picked.ravel(), np.repeat(np.arange(n), deg)], -1)
+    E = len(edges)
+    ang = rng.uniform(-np.pi, np.pi, E)
+    return MeshRecord(
+        name="r", pos=rng.normal(size=(n, 3)).astype(np.float32),
+        supp_edges=edges.astype(np.int64),
+        log_mag=rng.uniform(0, eps, E).astype(np.float32),
+        log_ang=rng.uniform(-np.pi, np.pi, E).astype(np.float32),
+        xp=np.stack([np.cos(ang), np.sin(ang)], -1).astype(np.float32),
+        weights=rng.uniform(0.1, 1.0, n).astype(np.float32),
+        labels=np.int64(0) if labels is None else labels, epsilon=eps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bins", [2, 3])
+@pytest.mark.parametrize("C", [3, 12, 48])
+@pytest.mark.parametrize("n_mesh", [1, 2])
+def test_k2_kernel_matches_plain_on_card(n_bins, C, n_mesh):
+    """K2 against its plain version on the card, over the panels of
+    records with degree 12-16 at tb=16 and features with origin rows:
+    tolerance 1e-4 of the grid's scale (f32 sums over a target's panels in
+    another order, and FMA).  A second call is bitwise equal (one writer
+    per output, no atomics)."""
+    _need_card()
+    rng = np.random.default_rng(C + n_bins)
+    tb = 16
+    tabs = [build_panel_table(_record(rng, 96, 14, 24, 0.2).table(
+        1, 3, n_multiple=tb), tb=tb, compressed=True) for _ in range(n_mesh)]
+    panel = concat_panel_tables(tabs).to("cuda")
+    rows = n_mesh * panel.n_pad
+    x = rng.normal(size=(rows, C, 2)).astype(np.float32)
+    x[rng.random(rows) < 0.2] = 0.0
+    x = torch.from_numpy(x).cuda()
+    nb = rows // tb
+    before = kernels.launches["echo_panel_fwd"]
+    got = tep.echo_panel_grid(x, panel.sten, panel.meta, n_bins, nb)
+    torch.cuda.synchronize()
+    assert kernels.launches["echo_panel_fwd"] == before + 1
+    want = tep.echo_panel_grid_reference(x, panel.sten, panel.meta, n_bins,
+                                         nb)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
+    again = tep.echo_panel_grid(x, panel.sten, panel.meta, n_bins, nb)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_segmentation_forward_card_matches_cpu():
+    """One SegmentationNet forward on the mixed route (K1 and K2 on the
+    card) against the same on the CPU: logits within rtol 1e-3 / atol
+    1e-4 (every op sums in another order)."""
+    _need_card()
+    rng = np.random.default_rng(0)
+    config = dataclasses.replace(PRESETS["segmentation"], nf=8, n_des=8)
+    recs = [_record(rng, 200 - 30 * i, 16, 40, 0.2,
+                    labels=rng.integers(0, 4, 200 - 30 * i))
+            for i in range(2)]
+    net = build_model(config, 4, torch.Generator().manual_seed(0),
+                      device="cpu").eval()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        batch = make_batches(recs, config, 2, 32, device=dev)[0]
+        assert batch.panel is not None
+        with torch.no_grad():
+            out[dev] = batched_apply(net.to(dev), batch).cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-3, atol=1e-4)
