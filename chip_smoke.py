@@ -11,11 +11,13 @@ Phases, any failure exits non-zero:
      below, and on a dense random stencil with nh=4 that reaches past both
      ends of g (the backward must also give bitwise-equal results on a
      second call); the forward also at the widths the ECHO nets give it
-     (C=48/O2=96, and K=3, R=3 with C=16/32 and O2=24/32/64);
-  3. hold K2's forward (panel ECHO) against its plain version on the
-     records' own panel tables, with features of which ~20% of rows are
-     zero, at n_bins 3 (C=48) and 2 (C=12), and bitwise against a second
-     call;
+     (C=48/O2=96, and K=3, R=3 with C=16/32 and O2=24/32/64), and the
+     backward at those five widths (bitwise repeatable too);
+  3. hold K2's forward and backward (panel ECHO) against their plain
+     versions on the records' own panel tables, with features of which
+     ~20% of rows are zero, at n_bins 3 (C=48) and 2 (C=12), and bitwise
+     against a second call; the backward for a contiguous cotangent and
+     for one in the layout autograd hands over (cells minor);
   4. serve the SHREC11 classification network (the CLASSIFICATION preset:
      nf=32, B=2, R=6, ftype=1, 30 classes, random weights from a seed)
      through Predictor(banded_tb=128, device="cuda"): one batch of 8
@@ -38,10 +40,16 @@ Phases, any failure exits non-zero:
      directory.  Each step must launch K1's forward and backward five
      times each, every loss must be finite, and the first epoch's losses
      must match the same fit on the CPU (plain versions);
-  7. time the kernels and their plain versions, each request shape, a
-     training step, and one forward and backward of five convs at
-     bench.py's shape;
-  8. print the kernels line, the card line and the result line.
+  7. train the SEGMENTATION preset the same way with batch_size=4 on 8
+     records of 2048 samples (2 batches), testing on 4 more, and the
+     CORRESPONDENCE preset with batch_size=1 on 2 records of 5120 samples,
+     testing on 1 more.  Each step must launch K1's forward and backward
+     9 / 17 times each and K2's forward and backward once each, each test
+     batch K1's forward 9 / 17 times and K2's once;
+  8. time the kernels and their plain versions, each request shape, a
+     training step at each training shape, and one forward and backward of
+     five convs at bench.py's shape;
+  9. print the kernels line, the card line and the result line.
 
 Records are synthetic, built with numpy from --seed in the manner of
 bench.py::build_synthetic_tables: unique sources within ±bandwidth of each
@@ -74,6 +82,8 @@ from fieldconv_tpu_torch.ops.band_conv import (band_fused_bwd,
                                                band_fused_fwd_reference,
                                                field_conv_banded)
 from fieldconv_tpu_torch.ops.echo_panel import (echo_panel_grid,
+                                                echo_panel_grid_bwd,
+                                                echo_panel_grid_bwd_reference,
                                                 echo_panel_grid_reference)
 from fieldconv_tpu_torch.train.checkpoint import CheckpointManager
 from fieldconv_tpu_torch.train.config import PRESETS
@@ -93,8 +103,10 @@ TB = 128
 # every target of every mesh (up to 8192 rows) in another order.
 K1_RTOL_SCALE = 1e-4
 # K2 against its plain version: f32 sums over a target's panels (and the
-# four corners of each vote) in another order, plus FMA contraction, which
-# moves p by an ulp; held to 1e-4 of the grid's scale.
+# four corners of each vote) in another order, plus FMA contraction after
+# p; held to 1e-4 of the grid's scale.  Its backward the same way: dx sums
+# over a source's targets and panels in another order, to 1e-4 of dx's
+# scale.
 K2_RTOL_SCALE = 1e-4
 # served logits, card against CPU: every op sums in another order
 LOGIT_RTOL, LOGIT_ATOL = 1e-3, 1e-4
@@ -104,13 +116,25 @@ LABEL_GAP = 1e-3
 # in K2: |x|² and rsqrt 4, unit 2, p1 and p2 8, the four weights 8, the
 # vote 6, four complex splats 16
 K2_FLOPS_PER_PAIR = 44
+# and in K2's backward: p1 and p2 8, the corner distances 4, the weights 4,
+# the vote 6, dv over four corners 16, the four dW 12, dp1 and dp2 16, the
+# unit vector's and the vote's accumulators 8 each
+K2_BWD_FLOPS_PER_PAIR = 82
 # training losses, card against CPU.  Step 1 sees the same weights, so it
 # differs only by summation order, as the logits do.  Step 2 follows one
 # Adam update, whose direction m̂/sqrt(v̂) is ±1 per parameter at step 1:
 # a gradient entry near zero whose sign differs between the two devices
-# moves its parameter by 2·lr, so that step is held more loosely.
+# moves its parameter by 2·lr, so that step is held more loosely.  Such a
+# parameter's gradient is near zero, so its move barely shows in the next
+# loss whatever the task: every preset is held to the same bounds.
 LOSS_ATOL_STEP1, LOSS_ATOL_LATER = 2e-4, 2e-3
-TRAIN_EPOCHS = 2          # on the card: 2 batches of 8 -> 4 steps
+TRAIN_EPOCHS = 2
+# the fits on the card, per shape: (train records, batch size, test
+# records), TRAIN_EPOCHS epochs each (4 steps)
+TRAIN_FIT = {"shrec11_b8": (16, 8, 8), "seg_n2048_b4": (8, 4, 4),
+             "corr_n5120_b1": (2, 1, 1)}
+# K1 launches per forward (and per backward) pass of each net
+K1_PER_PASS = {"shrec11_b8": 5, "seg_n2048_b4": 9, "corr_n5120_b1": 17}
 
 
 def check(cond, msg):
@@ -383,6 +407,20 @@ def k2_inputs(panel, C, gen):
     return torch.where(zero[:, None, None], torch.zeros_like(x), x)
 
 
+def k2_pairs(x, sten, pid, src):
+    """Occupied slots (wxp ≠ 0) of the panels ``pid`` whose sources lie in
+    the blocks ``src``, and (occupied slot, channel whose source feature is
+    not at the origin) pairs: the work K2 does, forward or backward."""
+    TB = sten.shape[-1]
+    occ = (sten[pid.long(), 3] != 0) | (sten[pid.long(), 4] != 0)
+    nzc = (x.abs() >= EPS).any(-1).sum(-1)               # (rows,)
+    src_rows = (src.long()[:, None] * TB
+                + torch.arange(TB, device=x.device))     # (P, TBs)
+    return (int(occ.sum().item()),
+            int((occ.sum(1) * nzc[src_rows]).sum().item()),
+            occ.numel())
+
+
 def k2_bound(x, sten, meta, n_bins):
     """Least time for one K2 call: bytes (x, the stencil and meta read
     once, the grid written once) over HBM rate, and the f32 operations this
@@ -390,19 +428,26 @@ def k2_bound(x, sten, meta, n_bins):
     channel whose source feature is not at the origin), plus 2 per
     occupied slot for r·e^{iθ}."""
     rows, C = x.shape[0], x.shape[1]
-    P, TB = sten.shape[0], sten.shape[-1]
-    occ = (sten[:, 3] != 0) | (sten[:, 4] != 0)          # (P, TBt, TBs)
-    nzc = (x.abs() >= EPS).any(-1).sum(-1)               # (rows,)
-    src_rows = (meta[1].long()[:, None] * TB
-                + torch.arange(TB, device=x.device))     # (P, TBs)
-    pairs = int((occ.sum(1) * nzc[src_rows]).sum().item())
-    edges = int(occ.sum().item())
+    edges, pairs, slots = k2_pairs(
+        x, sten, torch.arange(sten.shape[0], device=x.device), meta[1])
     w2 = (2 * n_bins + 1) ** 2
     nbytes = 4 * (x.numel() + sten.numel() + meta.numel()
                   + rows * 2 * w2 * C)
     return _bound(nbytes, K2_FLOPS_PER_PAIR * pairs + 2 * edges,
-                  edges=edges, pairs=pairs,
-                  slot_fill=edges / max(1, occ.numel()))
+                  edges=edges, pairs=pairs, slot_fill=edges / max(1, slots))
+
+
+def k2_bwd_bound(dg, x, sten, meta_s):
+    """Least time for one K2 backward call: bytes (dg, the stencil, meta_s
+    and x read once, dx written once) over HBM rate, and the f32
+    operations this data needs over the f32 rate: K2_BWD_FLOPS_PER_PAIR per
+    (occupied slot, non-origin channel) of the panels in meta_s, plus 2
+    per occupied slot for r·e^{iθ}."""
+    edges, pairs, _ = k2_pairs(x, sten, meta_s[0], meta_s[2])
+    nbytes = 4 * (dg.numel() + sten.numel() + meta_s.numel()
+                  + 2 * x.numel())
+    return _bound(nbytes, K2_BWD_FLOPS_PER_PAIR * pairs + 2 * edges,
+                  edges=edges, pairs=pairs)
 
 
 def k2_check(label, x, panel, n_bins):
@@ -434,6 +479,54 @@ def k2_time(row, x, panel, n_bins):
     row["plain_ms"] = time_cuda(lambda: echo_panel_grid_reference(*args),
                                 iters=2, reps=3)
     row.update(k2_bound(*args[:4]))
+
+
+def k2_bwd_inputs(x, n_bins, TB, gen):
+    """A random cotangent of K2's grid for features x, contiguous
+    (nb, 2w², C, TB), and the same values in the layout autograd hands the
+    backward (cells minor: the transpose of the fold's input)."""
+    nb, C = x.shape[0] // TB, x.shape[1]
+    dg = torch.randn(nb, 2 * (2 * n_bins + 1) ** 2, C, TB, device=x.device,
+                     generator=gen)
+    return dg, dg.permute(0, 3, 2, 1).contiguous().permute(0, 3, 2, 1)
+
+
+def k2_bwd_check(label, dg, dg_cells_minor, x, panel, n_bins):
+    """K2's backward against its plain version for both cotangent layouts,
+    each then against a second call that must be bitwise equal."""
+    args = (x, panel.sten, panel.meta_s, n_bins, x.shape[0] // panel.tb)
+    ref = echo_panel_grid_bwd_reference(dg, *args)
+    scale = ref.abs().max().item()
+    err = 0.0
+    for g in (dg, dg_cells_minor):
+        dx = echo_panel_grid_bwd(g, *args)
+        torch.cuda.synchronize()
+        check(torch.isfinite(dx).all().item(), f"K2 bwd {label}: non-finite")
+        err = max(err, (dx - ref).abs().max().item())
+        check(torch.equal(dx, echo_panel_grid_bwd(g, *args)),
+              f"K2 bwd {label}: two calls differ")
+    check(err <= K2_RTOL_SCALE * scale,
+          f"K2 bwd {label}: max abs err {err} > {K2_RTOL_SCALE} x {scale}")
+    print(f"K2 bwd {label}: max abs err {err:.3e}, rel {err / scale:.3e} "
+          f"(tolerance {K2_RTOL_SCALE} of max |dx| = {scale:.3e}), "
+          "contiguous and cells-minor cotangents; a second call is bitwise "
+          "equal")
+    return dict(shape=label, rows=x.shape[0], C=x.shape[1], n_bins=n_bins,
+                panels=panel.meta_s.shape[1], max_abs_err=err,
+                max_rel_err=err / scale)
+
+
+def k2_bwd_time(row, dg, dg_cells_minor, x, panel, n_bins):
+    """ms: the cells-minor cotangent (what a training step passes);
+    ms_contiguous beside it."""
+    args = (x, panel.sten, panel.meta_s, n_bins, x.shape[0] // panel.tb)
+    row["ms"] = time_cuda(lambda: echo_panel_grid_bwd(dg_cells_minor, *args),
+                          iters=20)
+    row["ms_contiguous"] = time_cuda(lambda: echo_panel_grid_bwd(dg, *args),
+                                     iters=20)
+    row["plain_ms"] = time_cuda(
+        lambda: echo_panel_grid_bwd_reference(dg, *args), iters=2, reps=3)
+    row.update(k2_bwd_bound(dg, x, panel.sten, panel.meta_s))
 
 
 def top_two_gap(logits):
@@ -501,56 +594,66 @@ def read_losses(path):
         return [json.loads(line)["loss"] for line in f]
 
 
-def train_phase(config, train, test, dev, seed, tmp):
-    """fit on the card (the main path, counted) and the first epoch of the
-    same fit on the CPU; returns the card run's net, optimizer and launch
-    counts."""
-    cfg = dataclasses.replace(config, epochs=TRAIN_EPOCHS, checkpoint_every=1,
-                              checkpoint_dir=os.path.join(tmp, "ckpt"))
-    n_test_batches = 1
-    kernels.reset_launches()
+def fit_phase(k, cfg, n_classes, recs, dev, seed, tmp):
+    """fit ``cfg`` on the card (the main path, counted) for TRAIN_EPOCHS
+    epochs and the first epoch of the same fit on the CPU, at training shape
+    ``k``: ``recs`` holds the train records then the test records
+    (TRAIN_FIT[k]).  Each step must launch K1's forward and backward
+    K1_PER_PASS[k] times each and, for the ECHO presets, K2's forward and
+    backward once each; each test batch the forward ones.  Returns the card
+    run's net and optimizer."""
+    n_train, bs, _ = TRAIN_FIT[k]
+    train, test = recs[:n_train], recs[n_train:]
+    ck = dataclasses.replace(cfg, epochs=TRAIN_EPOCHS, checkpoint_every=1,
+                             checkpoint_dir=os.path.join(tmp, f"ck_{k}"))
+    before = dict(kernels.launches)
     t0 = time.perf_counter()
-    net, opt, acc = fit(cfg, train, test, n_classes=N_CLASSES, batch_size=8,
-                        banded_tb=TB, log_path=os.path.join(tmp, "card.jsonl"),
-                        seed=seed, device=dev)
+    net, opt, metric = fit(ck, train, test, n_classes=n_classes,
+                           batch_size=bs, banded_tb=TB,
+                           log_path=os.path.join(tmp, f"{k}.jsonl"),
+                           seed=seed, device=dev)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
-    steps = TRAIN_EPOCHS * len(train) // 8
-    check(int(opt.step.item()) == steps, f"fit ran {opt.step} steps, want "
-          f"{steps}")
-    want = {"band_fused_fwd": 5 * (steps + n_test_batches),
-            "band_fused_bwd": 5 * steps}
-    check(launches == want, f"fit launched {launches}, want {want}: 5 of "
-          "each per step, 5 forward per test batch")
-    losses = read_losses(os.path.join(tmp, "card.jsonl"))
+    grew = {n: c - before.get(n, 0) for n, c in kernels.launches.items()
+            if c != before.get(n, 0)}
+    steps = TRAIN_EPOCHS * n_train // bs
+    passes = steps + -(-len(test) // bs)           # forward passes
+    k1 = K1_PER_PASS[k]
+    want = {"band_fused_fwd": k1 * passes, "band_fused_bwd": k1 * steps}
+    if cfg.task != "classification":
+        want.update(echo_panel_fwd=passes, echo_panel_bwd=steps)
+    check(int(opt.step.item()) == steps,
+          f"{k}: fit ran {opt.step} steps, want {steps}")
+    check(grew == want, f"{k}: fit launched {grew}, want {want}")
+    losses = read_losses(os.path.join(tmp, f"{k}.jsonl"))
     check(len(losses) == steps and all(np.isfinite(losses)),
-          f"card losses {losses}")
-    latest = CheckpointManager(cfg.checkpoint_dir).latest_step()
-    check(latest == steps, f"latest checkpoint {latest}, want {steps}")
+          f"{k}: card losses {losses}")
+    latest = CheckpointManager(ck.checkpoint_dir).latest_step()
+    check(latest == steps, f"{k}: latest checkpoint {latest}, want {steps}")
+    check(np.isfinite(metric), f"{k}: test metric {metric}")
 
-    cpu_cfg = dataclasses.replace(cfg, epochs=1, checkpoint_dir=None)
+    cpu_cfg = dataclasses.replace(ck, epochs=1, checkpoint_dir=None)
     t0 = time.perf_counter()
-    _, _, cpu_acc = fit(cpu_cfg, train, test, n_classes=N_CLASSES,
-                        batch_size=8, banded_tb=TB,
-                        log_path=os.path.join(tmp, "cpu.jsonl"), seed=seed,
-                        device="cpu")
+    fit(cpu_cfg, train, None, n_classes=n_classes, batch_size=bs,
+        banded_tb=TB, log_path=os.path.join(tmp, f"{k}_cpu.jsonl"),
+        seed=seed, device="cpu")
     cpu_s = time.perf_counter() - t0
-    cpu_losses = read_losses(os.path.join(tmp, "cpu.jsonl"))
-    diffs = [abs(a - b) for a, b in zip(losses, cpu_losses)]
-    check(len(cpu_losses) == steps // TRAIN_EPOCHS, f"cpu {cpu_losses}")
+    cpu = read_losses(os.path.join(tmp, f"{k}_cpu.jsonl"))
+    diffs = [abs(a - b) for a, b in zip(losses, cpu)]
+    check(len(cpu) == steps // TRAIN_EPOCHS, f"{k}: cpu losses {cpu}")
     check(diffs[0] <= LOSS_ATOL_STEP1
           and all(d <= LOSS_ATOL_LATER for d in diffs[1:]),
-          f"card losses {losses} against CPU {cpu_losses}")
-    print(f"train: fit on the card, {steps} steps ({fit_s:.1f} s with table "
-          f"builds and the test pass), losses {losses}, launches {launches}, "
-          f"checkpoint at step {latest}; test accuracy {acc:.4f} (random "
-          f"labels, 4 steps)")
-    print(f"train: the first {len(cpu_losses)} losses match the CPU fit "
-          f"({cpu_losses}, {cpu_s:.1f} s): |diff| {diffs} (step 1 within "
-          f"{LOSS_ATOL_STEP1}, later within {LOSS_ATOL_LATER}); CPU test "
-          f"accuracy after 1 epoch {cpu_acc:.4f}")
-    return net, opt, launches
+          f"{k}: card losses {losses} against CPU {cpu}")
+    what = ("test cross entropy" if cfg.task == "correspondence"
+            else "test accuracy")
+    print(f"train {k}: fit on the card, {steps} steps of batch {bs} "
+          f"({fit_s:.1f} s with table builds and the test pass), losses "
+          f"{losses}, launches {grew}, checkpoint at step {latest}; {what} "
+          f"{metric:.4f} (random labels)")
+    print(f"train {k}: the first {len(cpu)} losses match the CPU fit ({cpu}, "
+          f"{cpu_s:.1f} s): |diff| {diffs} (step 1 within {LOSS_ATOL_STEP1}, "
+          f"later within {LOSS_ATOL_LATER})")
+    return net, opt
 
 
 def conv_fwd_bwd(banded, dev, gen, C=32, B=2, R=6, n_convs=5):
@@ -638,6 +741,11 @@ def main(argv=None) -> int:
         "corr_n5120_b1": echo_records(rng, 5120, 1, echo_cfg[
             "corr_n5120_b1"].epsilon, 4999, "corr"),
     }
+    # their training records: train then test, per TRAIN_FIT
+    echo_train_recs = {
+        k: echo_records(rng, n, sum(TRAIN_FIT[k][::2]), echo_cfg[k].epsilon,
+                        echo_classes[k], f"{k}_train")
+        for k, n in (("seg_n2048_b4", 2048), ("corr_n5120_b1", 5120))}
     echo_nets, echo_cpu_nets, echo_serve, echo_batches = {}, {}, {}, {}
     for i, (k, cfg) in enumerate(echo_cfg.items()):
         echo_nets[k] = build_model(
@@ -690,15 +798,20 @@ def main(argv=None) -> int:
     rows.append(k1_check(label, g, dense, wmat, TB, 4))
     bwd_rows.append(k1_bwd_check(label, g, dense, wmat, dy, TB, 4))
     del dense, g, wmat, dy
-    # K1 forward at the ECHO nets' widths, on their own stencils
+    # K1 forward and backward at the ECHO nets' widths, on their own
+    # stencils
     for key, C_, O2 in (("seg_n2048_b4", 48, 96), ("corr_n5120_b1", 16, 64),
                         ("corr_n5120_b1", 32, 32), ("corr_n5120_b1", 16, 24),
                         ("corr_n5120_b1", 32, 64)):
         bt = echo_batches[key][0].banded
         g, wmat = k1_inputs(bt.sten_band, bt.n_rings, C_, O2, gen)
-        rows.append(k1_check(f"{key} C={C_} O2={O2}", g, bt.sten_band, wmat,
-                             TB, bt.nh))
-        del g, wmat
+        label = f"{key} C={C_} O2={O2}"
+        rows.append(k1_check(label, g, bt.sten_band, wmat, TB, bt.nh))
+        dy = torch.randn(g.shape[0], g.shape[1], O2, device=dev,
+                         generator=gen)
+        bwd_rows.append(k1_bwd_check(label, g, bt.sten_band, wmat, dy, TB,
+                                     bt.nh))
+        del g, wmat, dy
 
     # 3. K2 against its plain version on the records' own panels
     k2_rows, k2_timed = [], []
@@ -709,6 +822,12 @@ def main(argv=None) -> int:
         k2_rows.append(k2_check(f"{key} C={C_} n_bins={n_bins}", x, panel,
                                 n_bins))
         k2_timed.append((k2_rows[-1], x, panel, n_bins))
+    k2b_rows, k2b_timed = [], []
+    for row, x, panel, n_bins in k2_timed:
+        dg, dg_cm = k2_bwd_inputs(x, n_bins, TB, gen)
+        k2b_rows.append(k2_bwd_check(row["shape"], dg, dg_cm, x, panel,
+                                     n_bins))
+        k2b_timed.append((k2b_rows[-1], dg, dg_cm, x, panel, n_bins))
 
     # 4. serving: the slice-1 path, counted
     for p, bs in zip(serve.values(), batches.values()):
@@ -748,12 +867,21 @@ def main(argv=None) -> int:
     echo_launches = serve_echo_phase(echo_serve, echo_recs, echo_batches,
                                      echo_cpu_nets, echo_cfg)
 
-    # 6. training: the slice-2 path, counted
+    # 6. and 7. training: the slice-2 path (classification) and the slice-4
+    # path (the ECHO presets), each counted
+    fits = {"shrec11_b8": (config, N_CLASSES, train_recs + test_recs)}
+    fits.update((k, (echo_cfg[k], echo_classes[k], echo_train_recs[k]))
+                for k in echo_cfg)
+    trained, train_launches = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        tnet, topt, train_launches = train_phase(
-            config, train_recs, test_recs, dev, args.seed, tmp)
+        for path, keys in (("train", ["shrec11_b8"]),
+                           ("train_echo", list(echo_cfg))):
+            kernels.reset_launches()
+            for k in keys:
+                trained[k] = fit_phase(k, *fits[k], dev, args.seed, tmp)
+            train_launches[path] = dict(kernels.launches)
 
-    # 7. timing
+    # 8. timing
     for args_ in timed:
         k1_time(*args_)
     for args_ in k2_timed:
@@ -763,6 +891,13 @@ def main(argv=None) -> int:
         print(f"K2 {r['shape']}: {r['panels']} panels, {r['edges']} edges "
               f"(slot fill {r['slot_fill']:.3f}), {r['pairs']} (edge, "
               "non-origin channel) pairs")
+    for args_ in k2b_timed:
+        k2_bwd_time(*args_)
+    print_times("K2 bwd", k2b_rows, card)
+    for r in k2b_rows:
+        print(f"K2 bwd {r['shape']}: {r['ms_contiguous']:.4f} ms/call for a "
+              f"contiguous cotangent ({r['ms']:.4f} cells minor, as a "
+              f"training step passes it) on {card}")
     for args_ in bwd_timed:
         k1_bwd_time(*args_)
     print_times("K1", rows[:2], card)
@@ -797,24 +932,32 @@ def main(argv=None) -> int:
         for t, name, count in kern:
             print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
 
-    n_pad, d_slots = shared_bucket(train_recs + test_recs)
-    tbatch = make_batches(train_recs[:8], config, 8, TB, n_pad, d_slots,
-                          device=dev)[0]
-    step = make_train_step(tnet, config, N_CLASSES, topt)
-    aug_gen = torch.Generator().manual_seed(args.seed + 3)
+    for k, (tnet, topt) in trained.items():
+        cfg, n_classes, recs_ = fits[k]
+        bs = TRAIN_FIT[k][1]
+        n_pad, d_slots = shared_bucket(recs_)
+        tbatch = make_batches(recs_[:bs], cfg, bs, TB, n_pad, d_slots,
+                              device=dev)[0]
+        step = make_train_step(tnet, cfg, n_classes, topt)
+        # the augmentation, and the correspondence net's dropout masks
+        step_gen = torch.Generator().manual_seed(args.seed + 3)
 
-    def train_step():
-        step(tbatch, aug_gen)
-        torch.cuda.synchronize()
+        def train_step():
+            step(tbatch, step_gen)
+            torch.cuda.synchronize()
 
-    ms = time_host(train_step)
-    print(f"train step shrec11_b8: {ms:.3f} ms per step (host clock, ending "
-          f"in a sync; 5 K1 fwd + 5 K1 bwd launches) on {card}")
-    wall, busy, kern = request_breakdown(train_step)
-    print(f"train step under the profiler: wall {wall:.3f} ms, device busy "
-          f"{busy:.3f} ms ({100 * busy / wall:.1f}%); top kernels:")
-    for t, name, count in kern:
-        print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
+        k1 = K1_PER_PASS[k]
+        what = f"{k1} K1 fwd + {k1} K1 bwd" + (
+            "" if cfg.task == "classification" else " + 1 K2 fwd + 1 K2 bwd")
+        ms = time_host(train_step)
+        print(f"train step {k}: {ms:.3f} ms per step (host clock, ending in "
+              f"a sync; {what} launches) on {card}")
+        wall, busy, kern = request_breakdown(train_step)
+        print(f"train step {k} under the profiler: wall {wall:.3f} ms, "
+              f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%) on "
+              f"{card}; top kernels:")
+        for t, name, count in kern:
+            print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
 
     big = batches["n8192_b1"][0]
     edges = int(big.table.mask.sum().item())
@@ -837,7 +980,7 @@ def main(argv=None) -> int:
         print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
 
     paths = {"serve": serve_launches, "serve_echo": echo_launches,
-             "train": train_launches}
+             **train_launches}
 
     def entry(name, source, replaces, rs):
         by_path = {k: v.get(name, 0) for k, v in paths.items()}
@@ -860,6 +1003,8 @@ def main(argv=None) -> int:
               "fieldconv_tpu/ops/pallas/band_conv.py:1642", bwd_rows),
         entry("echo_panel_fwd", "fieldconv_tpu_torch/csrc/echo_panel_fwd.cu",
               "fieldconv_tpu/ops/pallas/echo_panel.py:408", k2_rows),
+        entry("echo_panel_bwd", "fieldconv_tpu_torch/csrc/echo_panel_bwd.cu",
+              "fieldconv_tpu/ops/pallas/echo_panel.py:443", k2b_rows),
     ]}
     print(json.dumps(line))
     print(card)

@@ -1,18 +1,18 @@
-"""Panel ECHO with the hand-written kernel (K2 forward).
+"""Panel ECHO with the hand-written kernels (K2 forward and backward).
 
 Counterpart of ``fieldconv_tpu/ops/pallas/echo_panel.py`` for the
 compressed PanelTable.  The rasterisation runs in ``csrc/echo_panel_fwd.cu``,
 which replaces the TPU kernel ``_fwd_impl`` (body ``_fwd_kernel`` with the
-helpers ``_panel_tensors``, ``_b_factors`` and ``_a_masks``).  The wrapper
-:func:`echo_panel_grid` launches it for CUDA tensors and runs the plain
-PyTorch version :func:`echo_panel_grid_reference` for CPU tensors; it never
-moves work between devices.  :func:`echo_panel_fused` does what
-``echo_panel_pallas`` does around the kernel: the (w², dS) disk-map fold and
-soft_abs.
-
-The backward (``_bwd_impl``) is not ported yet: on the card the op serves
-inference only and raises when a gradient is required.  On the CPU the
-plain version is differentiable through autograd.
+helpers ``_panel_tensors``, ``_b_factors`` and ``_a_masks``), and its
+gradient in ``csrc/echo_panel_bwd.cu``, which replaces ``_bwd_impl`` (body
+``_bwd_kernel``).  The wrappers :func:`echo_panel_grid` and
+:func:`echo_panel_grid_bwd` launch them for CUDA tensors and run the plain
+PyTorch versions :func:`echo_panel_grid_reference` and
+:func:`echo_panel_grid_bwd_reference` for CPU tensors; they never move work
+between devices.  :class:`_EchoPanelFn` ties the two together for autograd,
+as ``jax.custom_vjp`` does in the JAX package.  :func:`echo_panel_fused`
+does what ``echo_panel_pallas`` does around the kernel: the (w², dS)
+disk-map fold and soft_abs.
 """
 
 from __future__ import annotations
@@ -31,10 +31,12 @@ from .echo import fold_matrix
 def _panel_tensors(sten_c, xs, n_bins: int):
     """The per-(panel, target, source, channel) tensors of ``_fwd_kernel``,
     in its arithmetic.  sten_c (pc, 5, TBt, TBs); xs (pc, TBs, C, 2) the
-    panels' source rows.  Returns p1, p2, v_re, v_im (pc, C, TBt, TBs).
+    panels' source rows.  Returns a dict: ln_re, ln_im, wre, wim (pc, 1,
+    TBt, TBs); nzf, inv_r, uR, uI (pc, C, 1, TBs); p1, p2, v_re, v_im (pc,
+    C, TBt, TBs).
 
     1/|x| is 1/sqrt(|x|²) (correctly rounded, where the TPU kernel takes an
-    rsqrt), so that the CUDA kernel can form the same p bit for bit: a vote
+    rsqrt), so that the CUDA kernels can form the same p bit for bit: a vote
     whose p lands exactly on an integer gets weight 0, and an ulp apart
     would move the whole vote (csrc/echo_panel_fwd.cu, "Exact p")."""
     rv = sten_c[:, 0]
@@ -49,11 +51,30 @@ def _panel_tensors(sten_c, xs, n_bins: int):
     inv_r = 1.0 / torch.sqrt(torch.where(nz, r2, torch.ones_like(r2)))
     uR = xre * inv_r * nzf
     uI = xim * inv_r * nzf
-    p1 = n_bins * (ln_re * uR + ln_im * uI)
-    p2 = n_bins * (-ln_re * uI + ln_im * uR)
-    v_re = (xre * wre - xim * wim) * nzf
-    v_im = (xre * wim + xim * wre) * nzf
-    return p1, p2, v_re, v_im
+    return dict(ln_re=ln_re, ln_im=ln_im, wre=wre, wim=wim, nzf=nzf,
+                inv_r=inv_r, uR=uR, uI=uI,
+                p1=n_bins * (ln_re * uR + ln_im * uI),
+                p2=n_bins * (-ln_re * uI + ln_im * uR),
+                v_re=(xre * wre - xim * wim) * nzf,
+                v_im=(xre * wim + xim * wre) * nzf)
+
+
+def _corners(p1, p2, n_bins: int):
+    """The bilinear splat of p: the distances (e1C, e1F, e2C, e2F) of p to
+    its ceil and floor corners (clipped to ±n_bins), and per corner k its
+    weight w_k and flat cell index a·w + b, in the order of
+    ``_b_factors``: w0 at (F1, F2), w1 at (C1, C2), w2 at (C1, F2), w3 at
+    (F1, C2)."""
+    w = 2 * n_bins + 1
+    pC1 = torch.clamp(torch.ceil(p1), -n_bins, n_bins)
+    pF1 = torch.clamp(torch.floor(p1), -n_bins, n_bins)
+    pC2 = torch.clamp(torch.ceil(p2), -n_bins, n_bins)
+    pF2 = torch.clamp(torch.floor(p2), -n_bins, n_bins)
+    e1C, e1F, e2C, e2F = pC1 - p1, p1 - pF1, pC2 - p2, p2 - pF2
+    weights = (e1C * e2C, e1F * e2F, e1F * e2C, e1C * e2F)
+    aF, aC, bF, bC = ((c + n_bins).long() for c in (pF1, pC1, pF2, pC2))
+    cells = (aF * w + bF, aC * w + bC, aC * w + bF, aF * w + bC)
+    return (e1C, e1F, e2C, e2F), weights, cells
 
 
 def echo_panel_grid_reference(x, sten, meta, n_bins: int, nb_out: int):
@@ -85,25 +106,102 @@ def echo_panel_grid_reference(x, sten, meta, n_bins: int, nb_out: int):
     pc = 8                     # panels per step: bounds the (pc, C, TB, TB)
     for lo in range(0, sten.shape[0], pc):
         tgt, src = meta[0, lo:lo + pc], meta[1, lo:lo + pc]
-        p1, p2, v_re, v_im = _panel_tensors(sten[lo:lo + pc],
-                                            xb[src], n_bins)
-        pC1 = torch.clamp(torch.ceil(p1), -n_bins, n_bins)
-        pF1 = torch.clamp(torch.floor(p1), -n_bins, n_bins)
-        pC2 = torch.clamp(torch.ceil(p2), -n_bins, n_bins)
-        pF2 = torch.clamp(torch.floor(p2), -n_bins, n_bins)
-        w0 = (pC1 - p1) * (pC2 - p2)
-        w1 = (p1 - pF1) * (p2 - pF2)
-        w2 = (p1 - pF1) * (pC2 - p2)
-        w3 = (pC1 - p1) * (p2 - pF2)
-        aF, aC, bF, bC = ((c + n_bins).long() for c in (pF1, pC1, pF2, pC2))
-        v = torch.stack([v_re, v_im], 1)                 # (pc, 2, C, TBt, TBs)
+        t = _panel_tensors(sten[lo:lo + pc], xb[src], n_bins)
+        _, weights, cells = _corners(t["p1"], t["p2"], n_bins)
+        v = torch.stack([t["v_re"], t["v_im"]], 1)       # (pc, 2, C, TBt, TBs)
         part = x.new_zeros(*v.shape[:-1], w * w)         # (pc, 2, C, TBt, w²)
-        for a, b, wt in ((aF, bF, w0), (aC, bC, w1), (aC, bF, w2),
-                         (aF, bC, w3)):
-            cell = (a * w + b)[:, None].expand_as(v)
-            part = part.scatter_add(-1, cell, wt[:, None] * v)
+        for cell, wt in zip(cells, weights):
+            part = part.scatter_add(-1, cell[:, None].expand_as(v),
+                                    wt[:, None] * v)
         grid = grid.index_add(0, tgt, part.permute(0, 1, 4, 2, 3))
     return grid.reshape(nb_out, 2 * w * w, C, TB)
+
+
+def echo_panel_grid_bwd_reference(dg, x, sten, meta_s, n_bins: int,
+                                  nb_out: int):
+    """Plain PyTorch K2 backward, written out (not taken from autograd):
+    what ``_bwd_kernel`` computes.
+
+    dg: (nb_out, 2w², C, TB) cotangent of the grid (any strides); x, sten
+    as in :func:`echo_panel_grid_reference`; meta_s: (4, P_s) int32 rows
+    (pid, tgt, src, first_s + 2·last_s), the panels in by-source order.
+    For each slot (t, s) of each panel and channel c, with p, the corners,
+    the weights w_k and the vote v recomputed as the forward forms them and
+    G_k = dg[tgt, cell_k, c, t] (re and im):
+
+        dv   = Σ_k w_k·G_k                      (the vote's cotangent)
+        dW_k = v_re·G_k,re + v_im·G_k,im        (each weight's)
+        dp1  = −dW0·e2C + dW1·e2F + dW2·e2C − dW3·e2F
+        dp2  = −dW0·e1C + dW1·e1F − dW2·e1F + dW3·e1C
+        du   = n_bins·(dp1·ln + dp2·i·ln) summed over the targets t, taken
+               through u = x/|x| by (I − ûûᵀ)/|x|
+        dx  += conj(wxp)·dv summed over the targets, plus du's share
+
+    Cell masks and floor/ceil corners are piecewise constant (zero
+    gradient); a source at the origin (both components below EPS) gets
+    none.  Returns dx (rows, C, 2); the rows of a source block with no
+    panel in meta_s are zero."""
+    C, TB = x.shape[1], sten.shape[-1]
+    w2 = (2 * n_bins + 1) ** 2
+    xb = x.reshape(-1, TB, C, 2)
+    dgb = dg.reshape(nb_out, 2, w2, C, TB).permute(0, 1, 3, 4, 2)
+    meta_s = meta_s.long()
+    dx = x.new_zeros(xb.shape)
+    pc = 8
+    for lo in range(0, meta_s.shape[1], pc):
+        pid, tgt, src = (meta_s[i, lo:lo + pc] for i in range(3))
+        t = _panel_tensors(sten[pid], xb[src], n_bins)
+        (e1C, e1F, e2C, e2F), weights, cells = _corners(t["p1"], t["p2"],
+                                                        n_bins)
+        dgt = dgb[tgt]                                   # (pc, 2, C, TBt, w²)
+        dv = dp1 = dp2 = 0.0
+        for k, (cell, wk) in enumerate(zip(cells, weights)):
+            gk = torch.gather(dgt, -1, cell[:, None].expand(
+                -1, 2, -1, -1, -1))                      # (pc, 2, C, TBt, TBs)
+            dv = dv + wk[:, None] * gk
+            dW = t["v_re"] * gk[:, 0] + t["v_im"] * gk[:, 1]
+            dp1 = dp1 + dW * (-e2C, e2F, e2C, -e2F)[k]
+            dp2 = dp2 + dW * (-e1C, e1F, -e1F, e1C)[k]
+        lr, li = t["ln_re"], t["ln_im"]
+        du_re = (n_bins * (dp1 * lr + dp2 * li)).sum(2)  # (pc, C, TBs)
+        du_im = (n_bins * (dp1 * li - dp2 * lr)).sum(2)
+        uR, uI = t["uR"][:, :, 0], t["uI"][:, :, 0]
+        dot = uR * du_re + uI * du_im
+        scale = (t["inv_r"] * t["nzf"])[:, :, 0]
+        nzf = t["nzf"][:, :, 0]
+        wre, wim = t["wre"], t["wim"]
+        dx_re = ((du_re - uR * dot) * scale
+                 + (dv[:, 0] * wre + dv[:, 1] * wim).sum(2) * nzf)
+        dx_im = ((du_im - uI * dot) * scale
+                 + (dv[:, 1] * wre - dv[:, 0] * wim).sum(2) * nzf)
+        part = torch.stack([dx_re, dx_im], -1).transpose(1, 2)  # (pc,TBs,C,2)
+        dx = dx.index_add(0, src, part)
+    return dx.reshape(x.shape)
+
+
+def _check(x, sten, meta, n_bins: int, nb_out: int, name="echo_panel_fwd"):
+    """Raise unless the shapes agree and x, sten (float32) and meta (int32)
+    are contiguous on x's device."""
+    rows, C = x.shape[0], x.shape[1]
+    P, TB = sten.shape[0], sten.shape[-1]
+    if x.dim() != 3 or x.shape[2] != 2 or rows != nb_out * TB \
+            or tuple(sten.shape) != (P, 5, TB, TB) \
+            or meta.dim() != 2 or meta.shape[0] != 4 \
+            or n_bins not in (1, 2, 3, 4):
+        raise ValueError(
+            f"{name} shapes do not agree: x {tuple(x.shape)}, sten "
+            f"{tuple(sten.shape)}, meta {tuple(meta.shape)}, nb_out {nb_out}, "
+            f"n_bins {n_bins}")
+    for label, t, dtype in (("x", x, torch.float32),
+                            ("sten", sten, torch.float32),
+                            ("meta", meta, torch.int32)):
+        if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} needs contiguous {dtype} "
+                             f"{label} on {x.device}, got {t.dtype} on "
+                             f"{t.device} (contiguous={t.is_contiguous()})")
+    if x.storage_offset() % 2:
+        raise ValueError(f"{name} reads x as 8-byte (re, im) pairs: its "
+                         "storage must start on an 8-byte boundary")
 
 
 @functools.cache
@@ -114,38 +212,11 @@ def _k2_entry():
     return fn
 
 
-def _check(x, sten, meta, n_bins: int, nb_out: int):
-    """Raise unless the shapes agree and x, sten (float32) and meta (int32)
-    are contiguous on x's device."""
-    rows, C = x.shape[0], x.shape[1]
-    P, TB = sten.shape[0], sten.shape[-1]
-    if x.dim() != 3 or x.shape[2] != 2 or rows != nb_out * TB \
-            or tuple(sten.shape) != (P, 5, TB, TB) \
-            or tuple(meta.shape) != (4, P) or n_bins not in (1, 2, 3, 4):
-        raise ValueError(
-            f"echo_panel_fwd shapes do not agree: x {tuple(x.shape)}, sten "
-            f"{tuple(sten.shape)}, meta {tuple(meta.shape)}, nb_out {nb_out}, "
-            f"n_bins {n_bins}")
-    for label, t, dtype in (("x", x, torch.float32),
-                            ("sten", sten, torch.float32),
-                            ("meta", meta, torch.int32)):
-        if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"echo_panel_fwd needs contiguous {dtype} "
-                             f"{label} on {x.device}, got {t.dtype} on "
-                             f"{t.device} (contiguous={t.is_contiguous()})")
-    if x.storage_offset() % 2:
-        raise ValueError("echo_panel_fwd reads x as 8-byte (re, im) pairs: "
-                         "its storage must start on an 8-byte boundary")
-
-
 def _echo_panel_fwd_cuda(x, sten, meta, n_bins: int, nb_out: int):
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            "panel ECHO on the card serves inference only: K2's backward "
-            "(fieldconv_tpu/ops/pallas/echo_panel.py:443, _bwd_impl) is not "
-            "ported yet (ROADMAP slice 4, ECHO training); run under "
-            "torch.no_grad() or on the CPU")
     _check(x, sten, meta, n_bins, nb_out)
+    if meta.shape[1] != sten.shape[0]:
+        raise ValueError(f"echo_panel_fwd: meta {tuple(meta.shape)} for "
+                         f"{sten.shape[0]} panels")
     C, TB = x.shape[1], sten.shape[-1]
     w = 2 * n_bins + 1
     fn = _k2_entry()
@@ -173,6 +244,80 @@ def echo_panel_grid(x, sten, meta, n_bins: int, nb_out: int):
     raise ValueError(f"echo_panel_grid has no kernel for device {x.device}")
 
 
+@functools.cache
+def _k2_bwd_entry():
+    fn = kernels.library("echo_panel_bwd").echo_panel_bwd
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 4
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _echo_panel_bwd_cuda(dg, x, sten, meta_s, n_bins: int, nb_out: int):
+    name = "echo_panel_bwd"
+    _check(x, sten, meta_s, n_bins, nb_out, name)
+    C, TB = x.shape[1], sten.shape[-1]
+    want = (nb_out, 2 * (2 * n_bins + 1) ** 2, C, TB)
+    if tuple(dg.shape) != want or dg.dtype != torch.float32 \
+            or dg.device != x.device:
+        raise ValueError(f"{name} needs float32 dg of shape {want} on "
+                         f"{x.device}, got {tuple(dg.shape)} {dg.dtype} on "
+                         f"{dg.device}")
+    fn = _k2_bwd_entry()
+    dx = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    # dg is read through its strides: the gradient autograd hands over is
+    # the transpose of the fold's cell-minor layout, taken without a copy
+    err = fn(dg.data_ptr(), *dg.stride(), x.data_ptr(), sten.data_ptr(),
+             meta_s.data_ptr(), dx.data_ptr(), meta_s.shape[1], nb_out, C,
+             TB, n_bins, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    kernels.launches[name] += 1
+    return dx
+
+
+def echo_panel_grid_bwd(dg, x, sten, meta_s, n_bins: int, nb_out: int):
+    """K2 backward: dx (rows, C, 2) for the grid's cotangent dg (shapes as
+    in :func:`echo_panel_grid_bwd_reference`).
+
+    The JAX kernel's ``coverage`` argument (a mask for the source blocks a
+    graph-parallel shard does not cover) is not ported: it returns with
+    the graph-parallel paths (ROADMAP Queue 1 item 8).  Here every source
+    block without a panel gets zeros.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (building it on first use) or raise."""
+    if x.device.type == "cpu":
+        return echo_panel_grid_bwd_reference(dg, x, sten, meta_s, n_bins,
+                                             nb_out)
+    if x.device.type == "cuda":
+        return _echo_panel_bwd_cuda(dg, x, sten, meta_s, n_bins, nb_out)
+    raise ValueError(f"echo_panel_grid_bwd has no kernel for device "
+                     f"{x.device}")
+
+
+class _EchoPanelFn(torch.autograd.Function):
+    """K2 with its hand-written backward: the counterpart of the JAX
+    package's ``_echo_panel_grid`` custom VJP.  Keeps x, the stencil and
+    the by-source order for the backward, not the grid; the gradient goes
+    to x only (the stencil takes none, as in the JAX VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, sten, meta, meta_s, n_bins: int, nb_out: int):
+        ctx.save_for_backward(x, sten, meta_s)
+        ctx.n_bins, ctx.nb_out = n_bins, nb_out
+        return echo_panel_grid(x, sten, meta, n_bins, nb_out)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dg):
+        x, sten, meta_s = ctx.saved_tensors
+        dx = echo_panel_grid_bwd(dg, x, sten, meta_s, ctx.n_bins, ctx.nb_out)
+        return dx, None, None, None, None, None
+
+
 def _check_panel(x, panel):
     if not isinstance(panel, PanelTable) or not panel.compressed:
         raise ValueError("panel ECHO needs a compressed PanelTable "
@@ -188,15 +333,17 @@ def echo_panel_fused(x, panel: PanelTable, n_bins: int):
     """Panel ECHO through K2: (..., N, C, 2) -> (..., N, C, dS).
 
     panel: a compressed PanelTable covering the meshes of x's leading axes
-    (one table and one launch serve a whole batch).  The kernel's w×w grid
-    is folded onto the disk bins and soft_abs gives the magnitudes."""
+    (one table and one launch serve a whole batch, forward and backward).
+    The kernel's w×w grid is folded onto the disk bins and soft_abs gives
+    the magnitudes."""
     _check_panel(x, panel)
     lead, N, C = x.shape[:-3], x.shape[-3], x.shape[-2]
     TB = panel.tb
     w = 2 * n_bins + 1
     xf = x.reshape(-1, C, 2).contiguous()
     rows = xf.shape[0]
-    grid = echo_panel_grid(xf, panel.sten, panel.meta, n_bins, rows // TB)
+    grid = _EchoPanelFn.apply(xf, panel.sten, panel.meta, panel.meta_s,
+                              n_bins, rows // TB)
     # (nb, 2w², C, TB) -> (rows, C, 2, w²) -> fold -> (rows, C, dS, 2)
     grid4 = grid.permute(0, 3, 2, 1).reshape(rows, C, 2, w * w)
     hist = torch.einsum("ncpu,us->ncsp", grid4,

@@ -5,7 +5,8 @@ Counterpart of ``build_model``, ``make_batches``, ``fit`` and
 cover classification, segmentation and correspondence: the dense banded
 layout, the mixed route (banded convs, panel ECHO and lift) of the ECHO
 presets, or the gather path when ``banded_tb`` is None.  ``fit`` and
-``evaluate_task`` train and evaluate classification.
+``evaluate_task`` train and evaluate the three of them; matching is ROADMAP
+Queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -25,8 +26,8 @@ from . import evaluate
 from .checkpoint import CheckpointManager
 from .config import ExperimentConfig
 from .metrics import MetricsLogger
-from .trainer import (draw_rotate_scale, make_optimizer, make_train_step,
-                      stack_batch)
+from .trainer import (draw_dropout_mask, draw_rotate_scale, make_optimizer,
+                      make_train_step, stack_batch)
 
 
 def build_model(config: ExperimentConfig, n_classes: int,
@@ -129,9 +130,11 @@ def fit(config: ExperimentConfig, train_records: List[MeshRecord],
     count and state.
 
     Parameters are drawn from a CPU generator seeded with ``seed``, the
-    batch order from ``np.random.default_rng(seed + 2)`` and the
-    augmentation from a CPU generator seeded with ``seed + 1``, so runs on
-    the card and on the CPU see the same weights, batches and draws.
+    batch order from ``np.random.default_rng(seed + 2)``, the augmentation
+    from a CPU generator seeded with ``seed + 1`` and the correspondence
+    net's dropout masks from one seeded with ``seed + 3``, so runs on the
+    card and on the CPU see the same weights, batches and draws.  The net
+    steps in train() mode; evaluation runs it in eval().
     Losses stay on the device and are read back every config.log_every
     steps into the JSONL log.  With config.checkpoint_dir set, the latest
     checkpoint there is restored first (the batch order and augmentation
@@ -165,6 +168,8 @@ def fit(config: ExperimentConfig, train_records: List[MeshRecord],
     logger = MetricsLogger(log_path)
     aug_gen = torch.Generator().manual_seed(seed + 1)
     order_rng = np.random.default_rng(seed + 2)
+    mask_gen = (torch.Generator().manual_seed(seed + 3)
+                if config.task == "correspondence" else None)
     edges_per_batch = float(train_batches[0].table.mask.sum().item())
     total_steps = config.epochs * steps_per_epoch
     save_every = config.checkpoint_every * steps_per_epoch
@@ -185,6 +190,7 @@ def fit(config: ExperimentConfig, train_records: List[MeshRecord],
             logger.log({"loss": v}, edges=edges_per_batch, t=t)
         pending.clear()
 
+    net.train()          # evaluate_task switches to eval() and back
     try:
         step = 0
         while step < total_steps:
@@ -196,10 +202,12 @@ def fit(config: ExperimentConfig, train_records: List[MeshRecord],
                 aug = draw_rotate_scale(aug_gen, batch.pos.shape[0],
                                         config.random_rotate_deg,
                                         config.random_scale)
+                mask = (None if mask_gen is None
+                        else draw_dropout_mask(mask_gen, net, batch))
                 step += 1
                 if step <= start_step:          # covered by the checkpoint
                     continue
-                loss = step_fn(batch, aug=aug)
+                loss = step_fn(batch, aug=aug, dropout_mask=mask)
                 pending.append((step - 1, time.perf_counter(), loss))
                 if len(pending) >= config.log_every:
                     flush()
@@ -224,7 +232,14 @@ def fit(config: ExperimentConfig, train_records: List[MeshRecord],
 
 def evaluate_task(net, config: ExperimentConfig, test_batches,
                   n_classes: int):
+    """The task's test metric: accuracy (classification, per-vertex for
+    segmentation) or the mean test cross entropy (correspondence)."""
     if config.task == "classification":
         return evaluate.classification_accuracy(net, test_batches)
+    if config.task == "segmentation":
+        return evaluate.segmentation_accuracy(net, test_batches)
+    if config.task == "correspondence":
+        return evaluate.correspondence_loss(net, test_batches, n_classes)
     raise NotImplementedError(
-        f"evaluation of {config.task!r} is not ported yet (ROADMAP Queue 1)")
+        f"evaluation of {config.task!r} is not ported yet: matching is "
+        "ROADMAP Queue 1 item 3")

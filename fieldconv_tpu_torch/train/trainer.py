@@ -7,10 +7,10 @@ that axis), so one K1 launch serves every mesh of a batch, forward and
 backward.
 
 The step follows the JAX one: random rotation and scale of the positions,
-the classification loss, gradients, then an Adam update with optax's
-semantics (:class:`Adam`) that is skipped on the device when the loss is
-not finite.  The segmentation and correspondence losses come with slice 4,
-ECHO training (ROADMAP Queue 1).
+the task's loss (classification, segmentation or correspondence; the
+matching step is ROADMAP Queue 1 item 3), gradients, then an Adam update
+with optax's semantics (:class:`Adam`) that is skipped on the device when
+the loss is not finite.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from ..precomp.banded import (
     build_panel_table,
     concat_panel_tables,
 )
-from ..nn.losses import cross_entropy
+from ..nn.losses import cross_entropy, label_smoothing_loss
 from ..precomp.edge_table import EdgeTable
 from .config import ExperimentConfig
 
@@ -218,6 +218,17 @@ def rotate_scale(pos, angles, scales=None):
     return out
 
 
+def draw_dropout_mask(generator: torch.Generator, net, batch: MeshBatch):
+    """A float32 keep mask for the dropout of ``net`` (a CorrespondenceNet)
+    over ``batch``: shape (B, N, width of its lin1), each entry 1 with
+    probability 1 − net.p, drawn from ``generator`` on its device.  The
+    correspondence step feeds it to the net (``dropout_mask=``) instead of
+    letting nn.Dropout draw from the global RNG."""
+    shape = (*batch.pos.shape[:2], net.lin1.weight.shape[0])
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return (u < 1.0 - net.p).to(torch.float32)
+
+
 # --- optimizer ----------------------------------------------------------------
 
 class Adam:
@@ -320,24 +331,52 @@ def make_optimizer(config: ExperimentConfig, params,
 # --- loss and step -------------------------------------------------------------
 
 def make_loss_fn(net, config: ExperimentConfig, n_classes: int):
-    """loss(batch, generator=None, aug=None): rotate and scale the batch's
-    positions (drawn from ``generator``, or ``aug = (angles, scales)`` as
-    :func:`draw_rotate_scale` returns them), run the model, and take the
-    masked cross entropy of the pooled logits."""
-    if config.task != "classification":
-        raise NotImplementedError(
-            f"the {config.task!r} loss is not ported yet: segmentation and "
-            "correspondence come with slice 4 (ECHO training), matching "
-            "after it (ROADMAP Queue 1)")
+    """loss(batch, generator=None, aug=None, dropout_mask=None): rotate and
+    scale the batch's positions (drawn from ``generator``, or ``aug =
+    (angles, scales)`` as :func:`draw_rotate_scale` returns them), run the
+    model, and take the task's loss, as the JAX ``make_loss_fn`` does:
 
-    def loss_fn(batch: MeshBatch, generator=None, aug=None):
+    - classification: the masked cross entropy of the pooled logits;
+    - segmentation: the label-smoothed cross entropy over every vertex
+      (padding rows carry label −1 and are masked);
+    - correspondence: the masked cross entropy over every vertex, with
+      dropout active: the keep mask (B, N, 256) is ``dropout_mask`` or, when
+      none is given, drawn from ``generator`` (:func:`draw_dropout_mask`;
+      without either it raises: never torch's global RNG).
+      The JAX step draws it from flax's dropout RNG, which cannot be
+      reproduced, so tests inject one mask into both nets."""
+    task = config.task
+    if task not in ("classification", "segmentation", "correspondence"):
+        raise NotImplementedError(
+            f"the {task!r} loss is not ported yet: the twin loss of "
+            "matching is ROADMAP Queue 1 item 3")
+
+    def loss_fn(batch: MeshBatch, generator=None, aug=None,
+                dropout_mask=None):
         if aug is None:
             aug = draw_rotate_scale(generator, batch.pos.shape[0],
                                     config.random_rotate_deg,
                                     config.random_scale)
         pos = rotate_scale(batch.pos, *aug)
-        logits = batched_apply(net, dataclasses.replace(batch, pos=pos))
-        return cross_entropy(logits[:, 0, :], batch.labels)
+        moved = dataclasses.replace(batch, pos=pos)
+        if task == "classification":
+            return cross_entropy(batched_apply(net, moved)[:, 0, :],
+                                 batch.labels)
+        if task == "segmentation":
+            logits = batched_apply(net, moved)
+            return label_smoothing_loss(
+                logits.reshape(-1, n_classes), batch.labels.reshape(-1),
+                n_classes, config.smoothing)
+        if dropout_mask is None:
+            if generator is None:
+                raise ValueError(
+                    "the correspondence loss draws its dropout mask from "
+                    "`generator`: pass generator= or dropout_mask=")
+            dropout_mask = draw_dropout_mask(generator, net, batch)
+        logits = batched_apply(net, moved,
+                               dropout_mask=dropout_mask.to(pos.device))
+        return cross_entropy(logits.reshape(-1, n_classes),
+                             batch.labels.reshape(-1))
 
     return loss_fn
 
@@ -352,13 +391,14 @@ def _guarded_update(opt: Adam, loss, grads) -> None:
 
 def make_train_step(net, config: ExperimentConfig, n_classes: int,
                     opt: Adam):
-    """step(batch, generator=None, aug=None) -> the batch's loss (a device
-    tensor): one forward and backward of ``net`` and a guarded update of
-    ``opt``, whose parameters are the net's."""
+    """step(batch, generator=None, aug=None, dropout_mask=None) -> the
+    batch's loss (a device tensor): one forward and backward of ``net`` and
+    a guarded update of ``opt``, whose parameters are the net's (the
+    arguments as :func:`make_loss_fn`'s)."""
     loss_fn = make_loss_fn(net, config, n_classes)
 
-    def step(batch: MeshBatch, generator=None, aug=None):
-        loss = loss_fn(batch, generator, aug)
+    def step(batch: MeshBatch, generator=None, aug=None, dropout_mask=None):
+        loss = loss_fn(batch, generator, aug, dropout_mask)
         grads = torch.autograd.grad(loss, opt.params, materialize_grads=True)
         _guarded_update(opt, loss, grads)
         return loss.detach()

@@ -22,17 +22,21 @@ from fieldconv_tpu_torch.precomp.banded import (BandedTable,
                                                 concat_panel_tables)
 from fieldconv_tpu_torch.train.config import PRESETS
 from fieldconv_tpu_torch.train.loop import build_model, make_batches
-from fieldconv_tpu_torch.train.trainer import batched_apply
+from fieldconv_tpu_torch.train.trainer import (batched_apply,
+                                               draw_rotate_scale,
+                                               make_loss_fn)
 
 # odd widths with O2 = 10; O2 = 60 as conv_out with 3 meshes; serving
 # widths with a window past both ends; the segmentation width (C = 48,
-# O2 = 96) and the correspondence one (K = 3, R = 3, O2 = 24)
+# O2 = 96) and the correspondence ones (K = 3, R = 3, O2 = 24, 32, 64)
 SHAPES = pytest.mark.parametrize("C,O,R,B,tb,nh,n_mesh", [
     (3, 5, 2, 1, 8, 1, 1),
     (4, 30, 6, 2, 8, 2, 3),
     (32, 32, 6, 2, 16, 3, 2),
     (48, 48, 6, 2, 16, 1, 2),
     (16, 12, 3, 1, 16, 2, 1),
+    (32, 16, 3, 1, 16, 1, 1),
+    (32, 32, 3, 1, 16, 2, 1),
 ])
 
 
@@ -140,6 +144,18 @@ def _record(rng, n, deg, bw, eps, labels=None):
         labels=np.int64(0) if labels is None else labels, epsilon=eps)
 
 
+def _k2_panel(rng, C, n_mesh, tb=16):
+    """A joined panel table of records with degree 12-16 and features with
+    ~20% origin rows, on the card."""
+    tabs = [build_panel_table(_record(rng, 96, 14, 24, 0.2).table(
+        1, 3, n_multiple=tb), tb=tb, compressed=True) for _ in range(n_mesh)]
+    panel = concat_panel_tables(tabs).to("cuda")
+    rows = n_mesh * panel.n_pad
+    x = rng.normal(size=(rows, C, 2)).astype(np.float32)
+    x[rng.random(rows) < 0.2] = 0.0
+    return panel, torch.from_numpy(x).cuda()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_bins", [2, 3])
 @pytest.mark.parametrize("C", [3, 12, 48])
@@ -152,15 +168,8 @@ def test_k2_kernel_matches_plain_on_card(n_bins, C, n_mesh):
     per output, no atomics)."""
     _need_card()
     rng = np.random.default_rng(C + n_bins)
-    tb = 16
-    tabs = [build_panel_table(_record(rng, 96, 14, 24, 0.2).table(
-        1, 3, n_multiple=tb), tb=tb, compressed=True) for _ in range(n_mesh)]
-    panel = concat_panel_tables(tabs).to("cuda")
-    rows = n_mesh * panel.n_pad
-    x = rng.normal(size=(rows, C, 2)).astype(np.float32)
-    x[rng.random(rows) < 0.2] = 0.0
-    x = torch.from_numpy(x).cuda()
-    nb = rows // tb
+    panel, x = _k2_panel(rng, C, n_mesh)
+    nb = x.shape[0] // panel.tb
     before = kernels.launches["echo_panel_fwd"]
     got = tep.echo_panel_grid(x, panel.sten, panel.meta, n_bins, nb)
     torch.cuda.synchronize()
@@ -171,6 +180,74 @@ def test_k2_kernel_matches_plain_on_card(n_bins, C, n_mesh):
     assert err <= 1e-4 * want.abs().max().item(), err
     again = tep.echo_panel_grid(x, panel.sten, panel.meta, n_bins, nb)
     assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bins", [2, 3])
+@pytest.mark.parametrize("C", [3, 12, 48])
+@pytest.mark.parametrize("n_mesh", [1, 2])
+def test_k2_bwd_kernel_matches_plain_on_card(n_bins, C, n_mesh):
+    """K2's backward against its plain version on the card, for a
+    contiguous cotangent and for one in the layout autograd hands over
+    (cells minor): dx to 1e-4 of its scale (f32 sums over a source's
+    targets and panels in another order, and FMA after p).  A second call
+    is bitwise equal (one writer per output, no atomics)."""
+    _need_card()
+    rng = np.random.default_rng(10 * C + n_bins)
+    panel, x = _k2_panel(rng, C, n_mesh)
+    nb = x.shape[0] // panel.tb
+    w2 = (2 * n_bins + 1) ** 2
+    dg = torch.from_numpy(rng.normal(size=(nb, 2 * w2, C, panel.tb)).astype(
+        np.float32)).cuda()
+    cells_minor = dg.permute(0, 3, 2, 1).contiguous().permute(0, 3, 2, 1)
+    want = tep.echo_panel_grid_bwd_reference(dg, x, panel.sten, panel.meta_s,
+                                             n_bins, nb)
+    for g in (dg, cells_minor):
+        before = kernels.launches["echo_panel_bwd"]
+        got = tep.echo_panel_grid_bwd(g, x, panel.sten, panel.meta_s, n_bins,
+                                      nb)
+        torch.cuda.synchronize()
+        assert kernels.launches["echo_panel_bwd"] == before + 1
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), err
+        again = tep.echo_panel_grid_bwd(g, x, panel.sten, panel.meta_s,
+                                        n_bins, nb)
+        assert torch.equal(got, again)
+    assert not got[(x == 0).all(-1)].any()
+
+
+@pytest.mark.cuda
+def test_segmentation_loss_backward_card_matches_cpu():
+    """One segmentation loss backward on the mixed route (K1 and K2
+    forward and backward on the card) against the same on the CPU: every
+    parameter's gradient within 1e-4 of its scale (every op sums in
+    another order)."""
+    _need_card()
+    rng = np.random.default_rng(1)
+    config = dataclasses.replace(PRESETS["segmentation"], nf=8, n_des=8)
+    recs = [_record(rng, 200 - 30 * i, 16, 40, 0.2,
+                    labels=rng.integers(0, 4, 200 - 30 * i))
+            for i in range(2)]
+    net = build_model(config, 4, torch.Generator().manual_seed(0),
+                      device="cpu")
+    aug = draw_rotate_scale(torch.Generator().manual_seed(1), 2)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        batch = make_batches(recs, config, 2, 32, device=dev)[0]
+        net = net.to(dev)
+        before = dict(kernels.launches)
+        loss = make_loss_fn(net, config, 4)(batch, aug=aug)
+        grads[dev] = [g.cpu() for g in torch.autograd.grad(
+            loss, list(net.parameters()))]
+        grew = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+                if v != before.get(k, 0)}
+        assert grew == ({} if dev == "cpu" else {
+            "band_fused_fwd": 9, "band_fused_bwd": 9, "echo_panel_fwd": 1,
+            "echo_panel_bwd": 1}), grew
+    for (name, _), a, b in zip(net.named_parameters(), grads["cuda"],
+                               grads["cpu"]):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * b.abs().max().item(), (name, err)
 
 
 @pytest.mark.cuda

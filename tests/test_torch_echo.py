@@ -231,9 +231,10 @@ def test_k2_plain_matches_pallas(rng, n_bins):
 
 
 def test_k2_on_cuda_tensors_needs_the_kernel(rng, monkeypatch):
-    """No silent CPU fallback: on CUDA tensors the K2 wrapper raises for a
-    gradient request (its backward is not ported) and otherwise goes to the
-    kernel's entry point, whose build fails here for want of nvcc."""
+    """No silent CPU fallback: on CUDA tensors the K2 wrapper goes to the
+    kernel's entry point, whose build fails here for want of nvcc, and a
+    gradient request through the op's autograd Function reaches the backward
+    kernel's entry point (patched entries record the calls)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks its absence")
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -252,14 +253,26 @@ def test_k2_on_cuda_tensors_needs_the_kernel(rng, monkeypatch):
         x = torch.zeros(16, 3, 2, device="cuda")
         sten = torch.zeros(3, 5, 8, 8, device="cuda")
         meta = torch.zeros(4, 3, dtype=torch.int32, device="cuda")
-        with pytest.raises(NotImplementedError, match="K2's backward"):
-            tep.echo_panel_grid(x.requires_grad_(), sten, meta, 2, 2)
-        with pytest.raises(RuntimeError, match="nvcc"):
-            tep.echo_panel_grid(x.detach(), sten, meta, 2, 2)
+        dg = torch.zeros(2, 50, 3, 8, device="cuda")
+        for call in (lambda: tep.echo_panel_grid(x, sten, meta, 2, 2),
+                     lambda: tep.echo_panel_grid_bwd(dg, x, sten, meta, 2,
+                                                     2)):
+            with pytest.raises(RuntimeError, match="nvcc"):
+                call()
         monkeypatch.setattr(tep, "_k2_entry", entry)
         with pytest.raises(Entered):
-            tep.echo_panel_grid(x.detach(), sten, meta, 2, 2)
-    assert entered == [True]
+            tep.echo_panel_grid(x, sten, meta, 2, 2)
+        assert entered == [True]
+
+        # the autograd Function's backward, on a context holding what its
+        # forward saves (autograd cannot record a graph over fake CUDA
+        # tensors in a build without CUDA)
+        monkeypatch.setattr(tep, "_k2_bwd_entry", entry)
+        ctx = types.SimpleNamespace(saved_tensors=(x, sten, meta), n_bins=2,
+                                    nb_out=2)
+        with pytest.raises(Entered):
+            tep._EchoPanelFn.backward(ctx, dg)
+    assert entered == [True, True]
     assert kernels.launches == before
 
 

@@ -336,8 +336,10 @@ def test_fit_logs_checkpoints_and_resumes(tmp_path):
 
 
 def test_unported_tasks_raise():
-    cfg = ExperimentConfig(task="segmentation")
-    with pytest.raises(NotImplementedError, match="ECHO"):
+    """Matching (slice 5) has no loss or evaluation in the port yet; both
+    raise and name where it is queued."""
+    cfg = ExperimentConfig(task="matching")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         ttrainer.make_loss_fn(None, cfg, 4)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         tloop.evaluate_task(None, cfg, [], 4)
