@@ -15,9 +15,16 @@ Phases, any failure exits non-zero:
      backward at those five widths (bitwise repeatable too);
   3. hold K2's forward and backward (panel ECHO) against their plain
      versions on the records' own panel tables, with features of which
-     ~20% of rows are zero, at n_bins 3 (C=48) and 2 (C=12), and bitwise
-     against a second call; the backward for a contiguous cotangent and
-     for one in the layout autograd hands over (cells minor);
+     ~20% of rows are zero, at n_bins 3 (C=48) and 2 (C=12, and the
+     forward also on the 163,842-sample table below), and bitwise against
+     a second call; the backward for a contiguous cotangent and for one in
+     the layout autograd hands over (cells minor); then hold K5's forward
+     (panel conv) against its plain version and bitwise against a second
+     call: on the 163,842-sample table at the correspondence net's four
+     widths (C=16/32, O2=24/32/64, K=3, R=3) and at the segmentation
+     width (C=48, O2=96, K=5, R=6), on the segmentation records' table
+     forced onto the panel layout at that width, and on
+     the 5120-sample record's table with dense planes and with chunk=4;
   4. serve the SHREC11 classification network (the CLASSIFICATION preset:
      nf=32, B=2, R=6, ftype=1, 30 classes, random weights from a seed)
      through Predictor(banded_tb=128, device="cuda"): one batch of 8
@@ -34,6 +41,15 @@ Phases, any failure exits non-zero:
      times and K2 once; logits must match the same Predictor on the CPU,
      and labels / maps at every vertex whose top-two logit gap on the CPU
      exceeds 1e-3;
+  5b. serve the CORRESPONDENCE preset on the pure-panel layout (every op
+     over one compressed PanelTable, the convs through K5) with the
+     correspondence net's weights: the 5120-sample record forced there
+     (layout="panel"), held against the same Predictor on the CPU, and one
+     mesh of 163,842 samples (a Fibonacci sphere of area 1 in kd_order,
+     ε-ball graph with ε = sqrt(64/(πN)), the size of scripts/
+     train_100k.py) that layout="auto" sends there by itself: logits
+     finite, of shape (163842, 4999).  Each request must launch K5 17
+     times and K2 once, and K1 never;
   6. train the classification network with fit(banded_tb=128,
      batch_size=8, device="cuda") on 16 SHREC11-sized records (2 batches)
      for 2 epochs, testing on 8 more, checkpointing into a temporary
@@ -46,12 +62,14 @@ Phases, any failure exits non-zero:
      testing on 1 more.  Each step must launch K1's forward and backward
      9 / 17 times each and K2's forward and backward once each, each test
      batch K1's forward 9 / 17 times and K2's once;
-  8. time the kernels and their plain versions, each request shape, a
-     training step at each training shape, and one forward and backward of
-     five convs at bench.py's shape;
+  8. time the kernels and their plain versions, each request shape (at
+     163,842 samples also Predictor.logits alone and the peak device
+     memory), a training step at each training shape, and one forward and
+     backward of five convs at bench.py's shape;
   9. print the kernels line, the card line and the result line.
 
-Records are synthetic, built with numpy from --seed in the manner of
+Records are synthetic, built with numpy from --seed by
+fieldconv_tpu_torch/data/synthetic.py, in the manner of
 bench.py::build_synthetic_tables: unique sources within ±bandwidth of each
 target (the locality RCM ordering gives real meshes), log-map radius in
 [0, ε], random unit transports.  Nothing of JAX is imported.
@@ -74,20 +92,25 @@ import numpy as np
 import torch
 
 from fieldconv_tpu_torch import kernels
-from fieldconv_tpu_torch.data.base import MeshRecord, shared_bucket
+from fieldconv_tpu_torch.data.base import shared_bucket
+from fieldconv_tpu_torch.data.synthetic import sphere_record, synthetic_record
 from fieldconv_tpu_torch.deploy import Predictor
-from fieldconv_tpu_torch.ops.band_conv import (band_fused_bwd,
+from fieldconv_tpu_torch.ops.band_conv import (_panel_pairs, band_fused_bwd,
                                                band_fused_bwd_reference,
                                                band_fused_fwd,
                                                band_fused_fwd_reference,
+                                               band_panel_fwd,
+                                               band_panel_fwd_reference,
                                                field_conv_banded)
 from fieldconv_tpu_torch.ops.echo_panel import (echo_panel_grid,
                                                 echo_panel_grid_bwd,
                                                 echo_panel_grid_bwd_reference,
                                                 echo_panel_grid_reference)
+from fieldconv_tpu_torch.precomp.banded import build_panel_table
 from fieldconv_tpu_torch.train.checkpoint import CheckpointManager
 from fieldconv_tpu_torch.train.config import PRESETS
-from fieldconv_tpu_torch.train.loop import build_model, fit, make_batches
+from fieldconv_tpu_torch.train.loop import (build_model, fit, make_batches,
+                                            resolve_layout)
 from fieldconv_tpu_torch.train.trainer import make_train_step
 from fieldconv_tpu_torch.utils.complexops import EPS
 
@@ -108,6 +131,16 @@ K1_RTOL_SCALE = 1e-4
 # over a source's targets and panels in another order, to 1e-4 of dx's
 # scale.
 K2_RTOL_SCALE = 1e-4
+# K5 against its plain version: f32 sums over a target's panels and slots
+# in another order, and R·M = 576 (2880 at the segmentation width) filter
+# terms; held to 1e-4 of the output's scale, and bitwise against a second
+# call (one writer per output)
+K5_RTOL_SCALE = 1e-4
+# the pure-panel request at the repo's north-star size (BASELINE.json
+# configs[4]: a correspondence mesh of 163,842 vertices, scripts/
+# train_100k.py), under layout="auto"
+N_LARGE = 163842
+N_CORR_CLASSES = 4999
 # served logits, card against CPU: every op sums in another order
 LOGIT_RTOL, LOGIT_ATOL = 1e-3, 1e-4
 # labels / maps are compared where the CPU's top-two logit gap exceeds this
@@ -151,35 +184,6 @@ def card_line() -> str:
 
 
 # --- synthetic records ---------------------------------------------------------
-
-def synthetic_record(rng, n, deg_lo, deg_hi, bandwidth, eps, name, label):
-    """One record: each target gets a degree in [deg_lo, deg_hi] and unique
-    sources within ±bandwidth, radii in [0, ε], unit transports.  label:
-    the mesh's class, or an (n,) array of per-vertex labels."""
-    offs = np.arange(-bandwidth, bandwidth + 1)
-    src = np.arange(n)[:, None] + offs[None, :]
-    keys = rng.random(src.shape)
-    keys[(src < 0) | (src >= n)] = np.inf            # never pick outside
-    order = np.argsort(keys, axis=1)[:, :deg_hi]
-    picked = np.take_along_axis(src, order, axis=1)
-    deg = rng.integers(deg_lo, deg_hi + 1, n)
-    keep = np.arange(deg_hi)[None, :] < deg[:, None]
-    tgt = np.broadcast_to(np.arange(n)[:, None], picked.shape)
-    edges = np.stack([picked[keep], tgt[keep]], -1).astype(np.int64)
-    E = len(edges)
-    ang = rng.uniform(-np.pi, np.pi, E)
-    return MeshRecord(
-        name=name,
-        pos=(0.3 * rng.normal(size=(n, 3))).astype(np.float32),
-        supp_edges=edges,
-        log_mag=rng.uniform(0.0, eps, E).astype(np.float32),
-        log_ang=rng.uniform(-np.pi, np.pi, E).astype(np.float32),
-        xp=np.stack([np.cos(ang), np.sin(ang)], -1).astype(np.float32),
-        weights=rng.uniform(0.1, 1.0, n).astype(np.float32),
-        labels=np.asarray(label, np.int64),
-        epsilon=eps,
-    )
-
 
 def shrec_records(rng, eps):
     return [synthetic_record(rng, int(rng.integers(560, 621)), 60, 80, 200,
@@ -407,45 +411,61 @@ def k2_inputs(panel, C, gen):
     return torch.where(zero[:, None, None], torch.zeros_like(x), x)
 
 
+def _sectors(occ):
+    """32-byte sectors (8 source slots) of a (P, TB, TB) occupancy that
+    hold an occupied slot."""
+    return int(occ.reshape(*occ.shape[:2], -1, 8).any(-1).sum().item())
+
+
+def _stencil_bytes(slots, planes, whole, sectors):
+    """Bytes of a panel stencil that a kernel must read: the ``whole``
+    planes that say which slots are occupied (r, or a dense stencil's hat
+    planes) read whole, the other planes only in the 32-byte sectors that
+    hold an occupied slot."""
+    return 4 * whole * slots + 32 * (planes - whole) * sectors
+
+
 def k2_pairs(x, sten, pid, src):
     """Occupied slots (wxp ≠ 0) of the panels ``pid`` whose sources lie in
-    the blocks ``src``, and (occupied slot, channel whose source feature is
-    not at the origin) pairs: the work K2 does, forward or backward."""
+    the blocks ``src``, (occupied slot, channel whose source feature is not
+    at the origin) pairs: the work K2 does, forward or backward; and the
+    bytes of the stencil it must read for them."""
     TB = sten.shape[-1]
+    check(TB % 8 == 0, "the stencil bytes count 32-byte sectors of 8 slots")
     occ = (sten[pid.long(), 3] != 0) | (sten[pid.long(), 4] != 0)
     nzc = (x.abs() >= EPS).any(-1).sum(-1)               # (rows,)
     src_rows = (src.long()[:, None] * TB
                 + torch.arange(TB, device=x.device))     # (P, TBs)
     return (int(occ.sum().item()),
             int((occ.sum(1) * nzc[src_rows]).sum().item()),
-            occ.numel())
+            occ.numel(),
+            _stencil_bytes(occ.numel(), sten.shape[1], 1, _sectors(occ)))
 
 
 def k2_bound(x, sten, meta, n_bins):
-    """Least time for one K2 call: bytes (x, the stencil and meta read
-    once, the grid written once) over HBM rate, and the f32 operations this
-    data needs over the f32 rate: K2_FLOPS_PER_PAIR per (occupied slot,
-    channel whose source feature is not at the origin), plus 2 per
-    occupied slot for r·e^{iθ}."""
+    """Least time for one K2 call: bytes (x, the stencil's r plane whole
+    and its other planes where a slot is occupied, and meta read once, the
+    grid written once) over HBM rate, and the f32 operations this data
+    needs over the f32 rate: K2_FLOPS_PER_PAIR per (occupied slot, channel
+    whose source feature is not at the origin), plus 2 per occupied slot
+    for r·e^{iθ}."""
     rows, C = x.shape[0], x.shape[1]
-    edges, pairs, slots = k2_pairs(
+    edges, pairs, slots, sten_bytes = k2_pairs(
         x, sten, torch.arange(sten.shape[0], device=x.device), meta[1])
     w2 = (2 * n_bins + 1) ** 2
-    nbytes = 4 * (x.numel() + sten.numel() + meta.numel()
-                  + rows * 2 * w2 * C)
+    nbytes = sten_bytes + 4 * (x.numel() + meta.numel() + rows * 2 * w2 * C)
     return _bound(nbytes, K2_FLOPS_PER_PAIR * pairs + 2 * edges,
                   edges=edges, pairs=pairs, slot_fill=edges / max(1, slots))
 
 
 def k2_bwd_bound(dg, x, sten, meta_s):
-    """Least time for one K2 backward call: bytes (dg, the stencil, meta_s
-    and x read once, dx written once) over HBM rate, and the f32
-    operations this data needs over the f32 rate: K2_BWD_FLOPS_PER_PAIR per
-    (occupied slot, non-origin channel) of the panels in meta_s, plus 2
-    per occupied slot for r·e^{iθ}."""
-    edges, pairs, _ = k2_pairs(x, sten, meta_s[0], meta_s[2])
-    nbytes = 4 * (dg.numel() + sten.numel() + meta_s.numel()
-                  + 2 * x.numel())
+    """Least time for one K2 backward call: bytes (dg, the stencil counted
+    as in k2_bound, meta_s and x read once, dx written once) over HBM rate,
+    and the f32 operations this data needs over the f32 rate:
+    K2_BWD_FLOPS_PER_PAIR per (occupied slot, non-origin channel) of the
+    panels in meta_s, plus 2 per occupied slot for r·e^{iθ}."""
+    edges, pairs, _, sten_bytes = k2_pairs(x, sten, meta_s[0], meta_s[2])
+    nbytes = sten_bytes + 4 * (dg.numel() + meta_s.numel() + 2 * x.numel())
     return _bound(nbytes, K2_BWD_FLOPS_PER_PAIR * pairs + 2 * edges,
                   edges=edges, pairs=pairs)
 
@@ -529,17 +549,102 @@ def k2_bwd_time(row, dg, dg_cells_minor, x, panel, n_bins):
     row.update(k2_bwd_bound(dg, x, panel.sten, panel.meta_s))
 
 
+# --- K5 against its plain version ----------------------------------------------------
+
+def k5_inputs(panel, C, O2, gen):
+    """Random g (rows, K·2C) for a panel table and a W (R, K·2C, O2) of an
+    initialised filter bank's scale, so that y is O(1)."""
+    K, R = 2 * panel.band_limit + 1, panel.n_rings
+    M = K * 2 * C
+    dev = panel.sten.device
+    g = torch.randn(panel.n_mesh * panel.n_pad, M, device=dev, generator=gen)
+    wmat = torch.randn(R, M, O2, device=dev, generator=gen) / (R * M) ** 0.5
+    return g, wmat
+
+
+def _k5_args(g, wmat, panel):
+    return (g, wmat, panel.sten, panel.meta, panel.tb, panel.n_rings,
+            panel.band_limit, panel.compressed)
+
+
+def k5_bound(g, wmat, panel):
+    """Least time for one K5 call: bytes over HBM rate, and the f32
+    operations this data needs over the f32 rate.  Bytes: the planes that
+    say which slots are occupied read whole (r, or a dense stencil's R hat
+    planes), the other planes (e^{iθ} and wxp, or the f_k planes) only in
+    the 32-byte sectors that hold an occupied slot, meta, g and W read
+    once, y written once.  Operations: the stencil term in the cheaper of
+    k1_bound's two orders, from the table's nonzero hats and occupied slots,
+    plus the filter contraction 2·N·R·M·O2.  The table is walked 256 panels
+    at a time."""
+    N, M = g.shape
+    R, O2 = wmat.shape[0], wmat.shape[-1]
+    K = 2 * panel.band_limit + 1
+    C = M // (2 * K)
+    whole = 1 if panel.compressed else R
+    check(panel.tb % 8 == 0, "k5_bound counts 32-byte sectors of 8 slots")
+    hats = occupied = sectors = 0
+    for lo in range(0, panel.n_panels, 256):
+        h, _ = _panel_pairs(panel.sten[lo:lo + 256], R, K, panel.compressed)
+        nz = h != 0
+        occ = nz.any(0)                                  # (pc, TB, TB)
+        hats += int(nz.sum().item())
+        occupied += int(occ.sum().item())
+        sectors += _sectors(occ)
+    stencil = min(occupied * K * 6 * C + hats * K * 4 * C,
+                  hats * K * (8 * C + 2))
+    flops = stencil + 2 * N * R * M * O2
+    slots = panel.sten[:, 0].numel()
+    stencil_bytes = _stencil_bytes(slots, panel.sten.shape[1], whole,
+                                   sectors)
+    nbytes = stencil_bytes + 4 * (panel.meta.numel() + g.numel()
+                                  + wmat.numel() + N * O2)
+    return _bound(nbytes, flops, occupied=occupied, hats=hats,
+                  slot_fill=occupied / slots, stencil_bytes=stencil_bytes,
+                  stencil_bytes_whole=4 * panel.sten.numel())
+
+
+def k5_check(label, g, wmat, panel):
+    """K5 against its plain version, then a second call that must be
+    bitwise equal."""
+    args = _k5_args(g, wmat, panel)
+    y = band_panel_fwd(*args)
+    torch.cuda.synchronize()
+    ref = band_panel_fwd_reference(*args)
+    err = (y - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    check(torch.isfinite(y).all().item(), f"K5 {label}: non-finite output")
+    check(err <= K5_RTOL_SCALE * scale,
+          f"K5 {label}: max abs err {err} > {K5_RTOL_SCALE} x {scale}")
+    check(torch.equal(y, band_panel_fwd(*args)),
+          f"K5 {label}: two calls differ")
+    print(f"K5 {label}: max abs err {err:.3e}, rel {err / scale:.3e} "
+          f"(tolerance {K5_RTOL_SCALE} of max |y| = {scale:.3e}); a second "
+          "call is bitwise equal")
+    return dict(shape=label, N=g.shape[0], M=g.shape[1], O2=wmat.shape[-1],
+                panels=panel.n_panels, compressed=panel.compressed,
+                chunk=panel.chunk, max_abs_err=err, max_rel_err=err / scale)
+
+
+def k5_time(row, g, wmat, panel):
+    args = _k5_args(g, wmat, panel)
+    row["ms"] = time_cuda(lambda: band_panel_fwd(*args), iters=10)
+    row["plain_ms"] = time_cuda(lambda: band_panel_fwd_reference(*args),
+                                iters=1, reps=3)
+    row.update(k5_bound(g, wmat, panel))
+
+
 def top_two_gap(logits):
     """Per-row gap between the largest and second-largest logit."""
     part = np.partition(logits, -2, axis=-1)
     return part[..., -1] - part[..., -2]
 
 
-def serve_echo_phase(serve, recs, batches, cpu_nets, configs):
-    """The ECHO serving path, counted: each batch launches K1 9 / 17 times
-    and K2 once, nothing else; outputs match the same Predictor on the
-    CPU.  Returns the path's launch counts."""
-    want_k1 = {"seg_n2048_b4": 9, "corr_n5120_b1": 17}
+def serve_counted(serve, recs, batches, want):
+    """A per-vertex serving path, counted: every batch warmed up, the
+    counts set to 0, then each batch of ``serve[k]`` served once and held
+    to launch exactly ``want[k]`` (kernel name -> count).  Returns the
+    path's launch counts and the outputs by key."""
     for k, p in serve.items():
         p.warmup(batches[k])
     kernels.reset_launches()
@@ -550,35 +655,39 @@ def serve_echo_phase(serve, recs, batches, cpu_nets, configs):
         grew = {n: kernels.launches[n] - before.get(n, 0)
                 for n in kernels.launches}
         grew = {n: c for n, c in grew.items() if c}
-        want = {"band_fused_fwd": want_k1[k], "echo_panel_fwd": 1}
-        check(grew == want, f"{k}: one batch launched {grew}, want {want}")
-    launches = dict(kernels.launches)
+        check(grew == want[k], f"{k}: one batch launched {grew}, want "
+                               f"{want[k]}")
+    return dict(kernels.launches), served
 
-    for k, p in serve.items():
-        key = "labels" if p.config.task == "segmentation" else "map"
-        cpu = Predictor(cpu_nets[k], configs[k], batch_size=p.batch_size,
-                        banded_tb=TB, device="cpu").predict(recs[k])
-        n_close = n_all = 0
-        diff = 0.0
-        for a, b, r in zip(served[k], cpu, recs[k]):
-            check(a["logits"].shape == b["logits"].shape
-                  == (r.n_samples, b["logits"].shape[1])
-                  and np.isfinite(a["logits"]).all(),
-                  f"{k}: bad logits {a['logits'].shape}")
-            np.testing.assert_allclose(a["logits"], b["logits"],
-                                       rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
-            clear = top_two_gap(b["logits"]) > LABEL_GAP
-            check((a[key][clear] == b[key][clear]).all(),
-                  f"{k}: {key} differ from the CPU run at a vertex whose "
-                  f"top-two gap exceeds {LABEL_GAP}")
-            n_close += int((~clear).sum())
-            n_all += len(clear)
-            diff = max(diff, float(np.abs(a["logits"] - b["logits"]).max()))
-        print(f"serve {k}: {key} match the CPU run at every vertex whose "
-              f"top-two logit gap exceeds {LABEL_GAP} ({n_close} of {n_all} "
-              f"vertices fall below it); max logit diff {diff:.3e} (rtol "
-              f"{LOGIT_RTOL}, atol {LOGIT_ATOL})")
-    return launches
+
+def match_cpu(k, p, recs, served, cpu_net):
+    """The card's outputs ``served`` of Predictor ``p`` against the same
+    Predictor on the CPU (plain versions): logits within LOGIT_RTOL /
+    LOGIT_ATOL, labels / maps equal wherever the CPU's top-two logit gap
+    exceeds LABEL_GAP."""
+    key = "labels" if p.config.task == "segmentation" else "map"
+    cpu = Predictor(cpu_net, p.config, batch_size=p.batch_size,
+                    banded_tb=TB, device="cpu").predict(recs)
+    n_close = n_all = 0
+    diff = 0.0
+    for a, b, r in zip(served, cpu, recs):
+        check(a["logits"].shape == b["logits"].shape
+              == (r.n_samples, b["logits"].shape[1])
+              and np.isfinite(a["logits"]).all(),
+              f"{k}: bad logits {a['logits'].shape}")
+        np.testing.assert_allclose(a["logits"], b["logits"],
+                                   rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+        clear = top_two_gap(b["logits"]) > LABEL_GAP
+        check((a[key][clear] == b[key][clear]).all(),
+              f"{k}: {key} differ from the CPU run at a vertex whose "
+              f"top-two gap exceeds {LABEL_GAP}")
+        n_close += int((~clear).sum())
+        n_all += len(clear)
+        diff = max(diff, float(np.abs(a["logits"] - b["logits"]).max()))
+    print(f"serve {k}: {key} match the CPU run at every vertex whose "
+          f"top-two logit gap exceeds {LABEL_GAP} ({n_close} of {n_all} "
+          f"vertices fall below it); max logit diff {diff:.3e} (rtol "
+          f"{LOGIT_RTOL}, atol {LOGIT_ATOL})")
 
 
 def print_times(kind, rows, card):
@@ -772,6 +881,44 @@ def main(argv=None) -> int:
               f"{int(b.table.mask.sum().item())} edges; tables built on the "
               f"host and placed in {build_s:.3f} s")
 
+    # the pure-panel layout (correspondence weights of the mixed route):
+    # the 5120-sample record forced onto it, and one mesh of N_LARGE
+    # samples that the threshold of layout="auto" sends there
+    corr_cfg = echo_cfg["corr_n5120_b1"]
+    big = f"corr_n{N_LARGE}_b1"
+    panel_cfg = {"corr_n5120_b1_panel": dataclasses.replace(corr_cfg,
+                                                            layout="panel"),
+                 big: corr_cfg}
+    t0 = time.perf_counter()
+    panel_recs = {"corr_n5120_b1_panel": echo_recs["corr_n5120_b1"],
+                  big: [sphere_record(rng, N_LARGE, N_CORR_CLASSES,
+                                      f"corr_n{N_LARGE}")]}
+    print(f"record {big}: Fibonacci sphere, kd_order, ε-ball graph "
+          f"(ε={panel_recs[big][0].epsilon:.5f}) and random log maps built "
+          f"in {time.perf_counter() - t0:.1f} s")
+    panel_serve, panel_batches = {}, {}
+    for k, cfg in panel_cfg.items():
+        panel_serve[k] = Predictor(echo_nets["corr_n5120_b1"], cfg,
+                                   batch_size=1, banded_tb=TB, device=dev)
+        t0 = time.perf_counter()
+        panel_batches[k] = panel_serve[k].make_batches(panel_recs[k])
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(len(panel_batches[k]) == 1, f"{k}: expected one batch")
+        b = panel_batches[k][0]
+        check(b.banded is None and b.comp is None and b.panel is not None,
+              f"{k}: not the pure-panel layout")
+        nb = b.panel.n_pad // TB
+        print(f"request {k}: {b.pos.shape[0]} mesh, n_pad {b.panel.n_pad}, "
+              f"D {b.table.d_slots}, {b.panel.n_panels} panels "
+              f"({b.panel.n_panels / nb:.1f} per block), stencil "
+              f"{4 * b.panel.sten.numel() / 1e9:.3f} GB, "
+              f"{int(b.table.mask.sum().item())} edges; tables built on the "
+              f"host and placed in {build_s:.3f} s")
+    check(corr_cfg.layout == "auto" and resolve_layout(
+        corr_cfg, panel_batches[big][0].panel.n_pad) == "panel",
+        f"{big}: layout='auto' did not pick the panel layout")
+
     # 2. K1 forward and backward against their plain versions at the
     # shapes serving and training give them
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -828,6 +975,43 @@ def main(argv=None) -> int:
         k2b_rows.append(k2_bwd_check(row["shape"], dg, dg_cm, x, panel,
                                      n_bins))
         k2b_timed.append((k2b_rows[-1], dg, dg_cm, x, panel, n_bins))
+    del dg, dg_cm
+    # K2 at the 163k request's shape (C = n_des = 12, n_bins 2)
+    bigp = panel_batches[big][0].panel
+    x = k2_inputs(bigp, 12, gen)
+    k2_big = (k2_check(f"{big} C=12 n_bins=2", x, bigp, 2), x, bigp, 2)
+    k2_rows.append(k2_big[0])
+
+    # 3b. K5 against its plain version: on the 163k table at every width
+    # of the correspondence net's 17 convs and at the segmentation width
+    # (C=48, O2=96, K=5, R=6), on a segmentation table forced onto the
+    # panel layout at that width, and on the 5120-sample
+    # table with dense planes and with chunk=4
+    k5_rows, k5_timed = [], []
+    # the compressed planes do not depend on K or R: the 163k table at the
+    # segmentation width is the same stencil read with K=5, R=6
+    seg_cfg = echo_cfg["seg_n2048_b4"]
+    bigp_seg = dataclasses.replace(bigp, band_limit=seg_cfg.band_limit,
+                                   n_rings=seg_cfg.n_rings)
+    seg_panel = make_batches(
+        echo_recs["seg_n2048_b4"],
+        dataclasses.replace(seg_cfg, layout="panel"), 4,
+        TB, device=dev)[0].panel
+    for label, pt, C_, O2 in (
+            (big, bigp, 32, 64), (big, bigp, 16, 64), (big, bigp, 32, 32),
+            (big, bigp, 16, 24), (f"{big} seg width", bigp_seg, 48, 96),
+            ("seg_n2048_b4 panel", seg_panel, 48, 96)):
+        g, wmat = k5_inputs(pt, C_, O2, gen)
+        k5_rows.append(k5_check(f"{label} C={C_} O2={O2}", g, wmat, pt))
+        k5_timed.append((k5_rows[-1], g, wmat, pt))
+    corr_table = echo_recs["corr_n5120_b1"][0].table(1, 3)
+    for label, kw in (("dense planes", dict(compressed=False)),
+                      ("chunk=4", dict(compressed=True, chunk=4))):
+        pt = build_panel_table(corr_table, tb=TB, **kw).to(dev)
+        g, wmat = k5_inputs(pt, 32, 64, gen)
+        k5_rows.append(k5_check(f"corr_n5120_b1 {label} C=32 O2=64", g,
+                                wmat, pt))
+    del pt, g, wmat, corr_table
 
     # 4. serving: the slice-1 path, counted
     for p, bs in zip(serve.values(), batches.values()):
@@ -864,8 +1048,33 @@ def main(argv=None) -> int:
               f"atol {LOGIT_ATOL})")
 
     # 5. serving the ECHO presets: the slice-3 path, counted
-    echo_launches = serve_echo_phase(echo_serve, echo_recs, echo_batches,
-                                     echo_cpu_nets, echo_cfg)
+    echo_launches, served = serve_counted(
+        echo_serve, echo_recs, echo_batches,
+        {k: {"band_fused_fwd": K1_PER_PASS[k], "echo_panel_fwd": 1}
+         for k in echo_serve})
+    for k, p in echo_serve.items():
+        match_cpu(k, p, echo_recs[k], served[k], echo_cpu_nets[k])
+
+    # 5b. pure-panel serving: the slice-5 path, counted.  Each request
+    # launches K5 17 times and K2 once, K1 never.  The forced-panel request
+    # matches the CPU; the 163k one is checked for shape and finiteness
+    # (its plain run on the CPU would take minutes).
+    panel_launches, served = serve_counted(
+        panel_serve, panel_recs, panel_batches,
+        {k: {"band_panel_fwd": K1_PER_PASS["corr_n5120_b1"],
+             "echo_panel_fwd": 1} for k in panel_serve})
+    small_k = "corr_n5120_b1_panel"
+    match_cpu(small_k, panel_serve[small_k], panel_recs[small_k],
+              served[small_k], echo_cpu_nets["corr_n5120_b1"])
+    out = served[big][0]
+    check(out["logits"].shape == (N_LARGE, N_CORR_CLASSES)
+          and out["map"].shape == (N_LARGE,)
+          and np.isfinite(out["logits"]).all(),
+          f"{big}: bad output {out['logits'].shape}")
+    print(f"serve {big}: logits {out['logits'].shape} finite, map in "
+          f"[{out['map'].min()}, {out['map'].max()}]; launches "
+          f"{panel_launches} for both pure-panel requests")
+    del out, served
 
     # 6. and 7. training: the slice-2 path (classification) and the slice-4
     # path (the ECHO presets), each counted
@@ -886,11 +1095,29 @@ def main(argv=None) -> int:
         k1_time(*args_)
     for args_ in k2_timed:
         k2_time(*args_)
-    print_times("K2", k2_rows, card)
+    print_times("K2", k2_rows[:len(k2_timed)], card)
+    row, x, bigp, n_bins = k2_big
+    args_ = (x, bigp.sten, bigp.meta, n_bins, x.shape[0] // TB)
+    row["ms"] = time_cuda(lambda: echo_panel_grid(*args_), iters=10)
+    row.update(k2_bound(*args_[:4]))
+    print(f"K2 {row['shape']}: kernel {row['ms']:.4f} ms/call, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
+          f"{row['bytes'] / 1e6:.1f} MB, {row['flops'] / 1e9:.2f} GFLOP "
+          f"needed; plain version not timed at this size) on {card}")
     for r in k2_rows:
         print(f"K2 {r['shape']}: {r['panels']} panels, {r['edges']} edges "
               f"(slot fill {r['slot_fill']:.3f}), {r['pairs']} (edge, "
               "non-origin channel) pairs")
+    for args_ in k5_timed:
+        k5_time(*args_)
+    print_times("K5", k5_rows[:len(k5_timed)], card)
+    for r in k5_rows[:len(k5_timed)]:
+        print(f"K5 {r['shape']}: {r['panels']} panels, {r['occupied']} "
+              f"occupied slots (fill {r['slot_fill']:.4f}), "
+              f"{r['hats'] / r['occupied']:.2f} nonzero hats per slot; "
+              f"{r['stencil_bytes'] / 1e9:.3f} GB of the "
+              f"{r['stencil_bytes_whole'] / 1e9:.3f} GB stencil needed, "
+              f"{r['bytes'] / 1e9:.3f} GB in all")
     for args_ in k2b_timed:
         k2_bwd_time(*args_)
     print_times("K2 bwd", k2b_rows, card)
@@ -920,12 +1147,27 @@ def main(argv=None) -> int:
     requests += [(k, p, echo_recs[k], echo_batches[k],
                   f"{9 if k.startswith('seg') else 17} K1 + 1 K2 launches")
                  for k, p in echo_serve.items()]
+    requests += [(k, p, panel_recs[k], panel_batches[k],
+                  "17 K5 + 1 K2 launches") for k, p in panel_serve.items()]
     for k, p, rs_, bs_, what in requests:
-        ms = time_host(lambda: p.predict(rs_, batches=bs_))
+        reps = 3 if k == big else 5
+        if k == big:
+            def logits_synced():
+                p.logits(bs_[0])
+                torch.cuda.synchronize()
+
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_host(logits_synced, reps=reps)
+            print(f"request {k}: Predictor.logits {ms:.3f} ms on the placed "
+                  f"batch (ending in a sync, the logits left on the card), "
+                  f"peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, on "
+                  f"{card}")
+        ms = time_host(lambda: p.predict(rs_, batches=bs_), reps=reps)
         print(f"request {k}: {ms:.3f} ms per request (forward over placed "
               f"tables, {what}) on {card}")
         wall, busy, kern = request_breakdown(
-            lambda: p.predict(rs_, batches=bs_))
+            lambda: p.predict(rs_, batches=bs_), top=8 if k == big else 6)
         print(f"request {k} under the profiler: wall {wall:.3f} ms, device "
               f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%) on {card}; "
               "top kernels:")
@@ -980,7 +1222,7 @@ def main(argv=None) -> int:
         print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
 
     paths = {"serve": serve_launches, "serve_echo": echo_launches,
-             **train_launches}
+             "serve_panel": panel_launches, **train_launches}
 
     def entry(name, source, replaces, rs):
         by_path = {k: v.get(name, 0) for k, v in paths.items()}
@@ -1005,6 +1247,8 @@ def main(argv=None) -> int:
               "fieldconv_tpu/ops/pallas/echo_panel.py:408", k2_rows),
         entry("echo_panel_bwd", "fieldconv_tpu_torch/csrc/echo_panel_bwd.cu",
               "fieldconv_tpu/ops/pallas/echo_panel.py:443", k2b_rows),
+        entry("band_panel_fwd", "fieldconv_tpu_torch/csrc/band_panel_fwd.cu",
+              "fieldconv_tpu/ops/pallas/band_conv.py:2187", k5_rows),
     ]}
     print(json.dumps(line))
     print(card)

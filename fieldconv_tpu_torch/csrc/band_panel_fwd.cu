@@ -1,0 +1,401 @@
+// Panel field-conv forward (K5) for Hopper, sm_90a.
+//
+// Replaces the TPU kernel fieldconv_tpu/ops/pallas/band_conv.py::
+// _band_panel_fwd_impl (pallas_call at :2187, body _fwd_panel_kernel, and at
+// :2162 for chunked tables, body _fwd_panel_chunk_kernel; helpers
+// _panel_pairs, _panel_accum, _apply_w).  Python wrapper and plain PyTorch
+// version: fieldconv_tpu_torch/ops/band_conv.py.
+//
+// What it computes (all float32, complex values planar).  Inputs: the
+// k-major rotated-source tensor g (N, M = K·2C), columns k·2C + [re C | im C];
+// W = filters_to_wmat (R, M, O2), 1/K inside; the panel stencil sten
+// (P, planes, TB, TB), rows the target slot t, columns the source slot s;
+// meta (4, P) int32 rows (tgt, src, first, last), sorted by target.  The
+// planes are compressed (5: r, e^{iθ} re/im, wxp re/im, r = R_SENTINEL at
+// empty slots) or dense (R+2K: the R radial hats, then fwxp_k re/im).  For
+// every panel p of target block b, slot (t, s), ring r, k and channel c:
+//
+//   hats_r(t, s)  from r (the hat on the ring knots, _hats_from_r) or read
+//   f_k(t, s)     = wxp·e^{i(k−B)θ} by repeated multiplication with the unit
+//                   phasor (_phasor_pairs), or read
+//   h = f_k ⊗ g[src·TB + s, k, c]                     (complex product)
+//   contrib[b, r, t, k, c] += hats_r · h              over the block's panels
+//
+// and at the end of the block's run y[b·TB + t, o] = Σ_r Σ_j contrib[b, r, t,
+// j]·W[r, j, o].  Chunked tables (chunk > 1) only add all-zero panels to a
+// target's run, so the one kernel serves both pallas_calls.  A target block
+// with no panel gets zeros (build_panel_table gives every block one).
+//
+// Design.  The TPU kernel keeps a block's contrib (R·TB × M, 295 KB at the
+// correspondence widths) in VMEM across its panels and applies W at the
+// last one.  That does not fit a CTA's shared memory, so here a CTA owns a
+// tile of T = min(8, 256 / C) targets of one block, one thread per (target,
+// channel) with its K·R complex sums in registers (K1's forward design,
+// band_fused_fwd.cu), and walks the block's contiguous run of panels, whose
+// bounds it finds by binary search in meta's tgt row.  The pure-panel table
+// of a large mesh is ~4% occupied (10.7M edges in 16,941·128² slots at
+// 163,842 vertices), so per panel one warp per target row compacts the
+// row's occupied slots (any radial hat nonzero: skipping the others is
+// exact) into shared memory, once for all channels: the R hats, the K
+// complex f_k and the source slot.  Only the r plane (or the hat planes) is
+// read for every slot; the other planes only where a slot is occupied.  Each
+// thread then walks its target's list, reads its channel of the source row
+// of g (coalesced across the channels of a warp, through L2) and accumulates
+// 2K·(3 + 2R) flops per slot.  The filter contraction then reads the tile's
+// contrib from shared memory against W, as K1's does.  Each output has one
+// writer and every sum a fixed order, so two calls agree bitwise (no
+// atomics).  The hats and the phasor powers are formed with uncontracted,
+// correctly rounded operations in the plain version's order.
+//
+// What bounds it.  The function needs the r plane (or the hat planes) whole
+// and the other planes only in the 32-byte sectors that hold an occupied
+// slot, plus g, W and y once; its operations are the occupied-slot work
+// and the filter contraction.  chip_smoke.py::k5_bound counts both from
+// the run's table: bytes bound it at the correspondence widths, operations
+// at the segmentation width.  The kernel reads what the function needs;
+// its own cost beyond that is the dependent gather of g per slot (one L2
+// round trip per slot and thread), the per-panel compaction behind two
+// barriers, and W, read from L2 once per tile of targets.  It makes no use
+// of tensor cores.
+
+#include <cuda_runtime.h>
+
+#include <algorithm>
+#include <cmath>
+#include <cstddef>
+
+namespace {
+
+constexpr int kMaxThreads = 256;
+constexpr int kTile = 8;          // most targets per CTA
+constexpr int kMaxRings = 6;
+
+// ring r's hat of a compressed slot: clamp(min((rv − lo)·up, (hi − rv)·dn),
+// 0, 1), knots as ops/band_conv.py::_hats_from_r forms them
+struct Knots {
+    float lo[kMaxRings], hi[kMaxRings], up[kMaxRings], dn[kMaxRings];
+};
+
+__device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n,
+                                           int v)
+{
+    int lo = 0, hi = n;
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (__ldg(a + mid) < v) lo = mid + 1;
+        else hi = mid;
+    }
+    return lo;
+}
+
+// Compacts slot s = s0 + lane of one target row of panel sp into the row's
+// list (coefficients ct[j][NC], source slots st[j]) if any radial hat is
+// nonzero there; every lane of the warp calls it with its own s.  The list
+// keeps source order.  Returns the list's new length.
+template <int RMAX>
+__device__ __forceinline__ int compact_chunk(
+    float* ct, int* st, int base, const float* __restrict__ sp, size_t row,
+    int s, size_t plane, int TB, int R, int K, int compressed,
+    const Knots& kn)
+{
+    const int B = K / 2;
+    const int NC = R + 2 * K;
+    const int lane = threadIdx.x & 31;
+    float h[RMAX];
+    bool occ = false;
+    const float rv = (compressed && s < TB) ? __ldg(sp + row + s) : 0.f;
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) {
+        float v = 0.f;
+        if (r < R && s < TB) {
+            if (compressed) {
+                const float a = __fmul_rn(__fsub_rn(rv, kn.lo[r]), kn.up[r]);
+                const float b = __fmul_rn(__fsub_rn(kn.hi[r], rv), kn.dn[r]);
+                v = fminf(fmaxf(fminf(a, b), 0.f), 1.f);
+            } else {
+                v = __ldg(sp + r * plane + row + s);
+            }
+        }
+        h[r] = v;
+        occ |= v != 0.f;
+    }
+    const unsigned m = __ballot_sync(0xffffffffu, occ);
+    if (occ) {
+        const int j = base + __popc(m & ((1u << lane) - 1u));
+        float* cf = ct + (size_t)j * NC;
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r)
+            if (r < R) cf[r] = h[r];
+        if (compressed) {
+            // f_k, k = −B..B, in _phasor_pairs' order and rounding (no
+            // contraction)
+            const float pr = __ldg(sp + plane + row + s);
+            const float pi = __ldg(sp + 2 * plane + row + s);
+            float cpr = __ldg(sp + 3 * plane + row + s);
+            float cpi = __ldg(sp + 4 * plane + row + s);
+            float cmr = cpr, cmi = cpi;
+            cf[R + 2 * B] = cpr;
+            cf[R + 2 * B + 1] = cpi;
+            for (int kk = 1; kk <= B; ++kk) {
+                const float npr = __fsub_rn(__fmul_rn(cpr, pr),
+                                            __fmul_rn(cpi, pi));
+                const float npi = __fadd_rn(__fmul_rn(cpr, pi),
+                                            __fmul_rn(cpi, pr));
+                const float nmr = __fadd_rn(__fmul_rn(cmr, pr),
+                                            __fmul_rn(cmi, pi));
+                const float nmi = __fsub_rn(__fmul_rn(cmi, pr),
+                                            __fmul_rn(cmr, pi));
+                cpr = npr; cpi = npi; cmr = nmr; cmi = nmi;
+                cf[R + 2 * (B + kk)] = cpr;
+                cf[R + 2 * (B + kk) + 1] = cpi;
+                cf[R + 2 * (B - kk)] = cmr;
+                cf[R + 2 * (B - kk) + 1] = cmi;
+            }
+        } else {
+            for (int q = 0; q < 2 * K; ++q)
+                cf[R + q] = __ldg(sp + (R + q) * plane + row + s);
+        }
+        st[j] = s;
+    }
+    return base + __popc(m);
+}
+
+// One occupied slot of a thread's target: its channel of the source row gr
+// of g (k-major, re then im), times f_k, added with each ring's hat.
+template <int KMAX, int RMAX>
+__device__ __forceinline__ void accumulate_slot(
+    float (&are)[KMAX][RMAX], float (&aim)[KMAX][RMAX],
+    const float* __restrict__ gr, const float* cf, int C, int K, int R)
+{
+    float hs[RMAX];
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) hs[r] = r < R ? cf[r] : 0.f;
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+        if (k < K) {
+            const float xr = __ldg(gr + k * 2 * C);
+            const float xi = __ldg(gr + k * 2 * C + C);
+            const float fr = cf[R + 2 * k];
+            const float fi = cf[R + 2 * k + 1];
+            const float hr = fr * xr - fi * xi;
+            const float hi = fr * xi + fi * xr;
+#pragma unroll
+            for (int r = 0; r < RMAX; ++r) {
+                are[k][r] = fmaf(hs[r], hr, are[k][r]);
+                aim[k][r] = fmaf(hs[r], hi, aim[k][r]);
+            }
+        }
+    }
+}
+
+// MINB: CTAs per SM the register budget is cut for.  Two instantiations
+// serve the presets: K = 3, R = 3 (correspondence) and K = 5, R = 6
+// (segmentation, classification).  The kernel is bound by the latency of
+// its loads, so at the correspondence widths (18 complex sums a thread) it
+// takes 5 CTAs of 48 registers; an unrolled slot or compaction loop, with
+// fewer CTAs or spills, measured slower at 163,842 samples.
+template <int KMAX, int RMAX, int MINB>
+__global__ void __launch_bounds__(kMaxThreads, MINB)
+band_panel_fwd_kernel(const float* __restrict__ g,
+                      const float* __restrict__ wmat,
+                      const float* __restrict__ sten,
+                      const int* __restrict__ meta,
+                      float* __restrict__ y,
+                      int P, int C, int K, int R, int TB, int O2,
+                      int compressed, int nb_g, int T, Knots kn)
+{
+    const int M = 2 * K * C;
+    const int RM = R * M;
+    const int NC = R + 2 * K;                // coefficients per occupied slot
+    const int planes = compressed ? 5 : NC;
+    const int tiles = (TB + T - 1) / T;
+    const int blk = blockIdx.x / tiles;
+    const int t0 = (blockIdx.x % tiles) * T;
+    const int nt = min(T, TB - t0);
+    const int tid = threadIdx.x;
+    const int nthr = blockDim.x;             // a multiple of 32
+    const bool active = tid < nt * C;
+    const int it = active ? tid / C : 0;     // (target, channel) of a thread
+    const int ic = active ? tid % C : 0;
+
+    extern __shared__ __align__(16) float smem[];
+    float* coef = smem;                                      // [T][TB][NC]
+    int* sidx = reinterpret_cast<int*>(coef + (size_t)T * TB * NC);  // [T][TB]
+    int* cnt = sidx + T * TB;                                // [T]
+
+    float are[KMAX][RMAX], aim[KMAX][RMAX];
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k)
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r) { are[k][r] = 0.f; aim[k][r] = 0.f; }
+
+    const int p_lo = lower_bound(meta, P, blk);
+    const int p_hi = lower_bound(meta, P, blk + 1);
+    const size_t plane = (size_t)TB * TB;
+    const int warp = tid >> 5, lane = tid & 31, nwarps = nthr >> 5;
+
+    for (int p = p_lo; p < p_hi; ++p) {
+        const int sblk = __ldg(meta + P + p);
+        const float* sp = sten + (size_t)p * planes * plane;
+        __syncthreads();                     // the last panel's lists are read
+        // compact each target row's occupied slots, one warp per target
+        for (int t = warp; t < nt; t += nwarps) {
+            const size_t row = (size_t)(t0 + t) * TB;
+            float* ct = coef + (size_t)t * TB * NC;
+            int* st = sidx + t * TB;
+            int base = 0;
+            for (int s0 = 0; s0 < TB; s0 += 32)
+                base = compact_chunk<RMAX>(ct, st, base, sp, row, s0 + lane,
+                                           plane, TB, R, K, compressed, kn);
+            if (lane == 0) cnt[t] = base;
+        }
+        __syncthreads();
+        if (!active || sblk < 0 || sblk >= nb_g) continue;
+        const int n = cnt[it];
+        const float* cf = coef + (size_t)it * TB * NC;
+        const int* si = sidx + it * TB;
+        const float* gb = g + (size_t)sblk * TB * M + ic;
+        for (int j = 0; j < n; ++j)
+            accumulate_slot<KMAX, RMAX>(are, aim, gb + (size_t)si[j] * M,
+                                        cf + j * NC, C, K, R);
+    }
+    __syncthreads();                         // the lists are free again
+
+    // contrib[j][t] with j = r·M + k·2C + (p·C + c), targets padded to kTile
+    float* contrib = smem;                   // [R·M][kTile]
+    float* red = smem + (size_t)RM * kTile;  // [JG][T][O2]
+    if (active) {
+#pragma unroll
+        for (int k = 0; k < KMAX; ++k)
+#pragma unroll
+            for (int r = 0; r < RMAX; ++r)
+                if (k < K && r < R) {
+                    const int j = r * M + k * 2 * C + ic;
+                    contrib[j * kTile + it] = are[k][r];
+                    contrib[(j + C) * kTile + it] = aim[k][r];
+                }
+    }
+    __syncthreads();
+
+    // y[t, o] = Σ_j contrib[j][t] · W[j, o]: thread (o, jg) sums j ≡ jg
+    // (mod JG) for every target of the tile, so W is read once per CTA;
+    // the JG partials are reduced through `red` in a fixed order.
+    const int JG = max(1, nthr / O2);
+    for (int u = tid; u < O2 * JG; u += nthr) {
+        const int o = u % O2, jg = u / O2;
+        float acc[kTile];
+#pragma unroll
+        for (int t = 0; t < kTile; ++t) acc[t] = 0.f;
+#pragma unroll 4
+        for (int j = jg; j < RM; j += JG) {
+            const float wv = __ldg(wmat + (size_t)j * O2 + o);
+            const float4 a = *reinterpret_cast<const float4*>(contrib + j * kTile);
+            const float4 b = *reinterpret_cast<const float4*>(contrib + j * kTile + 4);
+            acc[0] = fmaf(a.x, wv, acc[0]);
+            acc[1] = fmaf(a.y, wv, acc[1]);
+            acc[2] = fmaf(a.z, wv, acc[2]);
+            acc[3] = fmaf(a.w, wv, acc[3]);
+            acc[4] = fmaf(b.x, wv, acc[4]);
+            acc[5] = fmaf(b.y, wv, acc[5]);
+            acc[6] = fmaf(b.z, wv, acc[6]);
+            acc[7] = fmaf(b.w, wv, acc[7]);
+        }
+#pragma unroll
+        for (int t = 0; t < kTile; ++t)
+            if (t < nt) red[(jg * T + t) * O2 + o] = acc[t];
+    }
+    __syncthreads();
+    for (int u = tid; u < nt * O2; u += nthr) {
+        const int o = u % O2, t = u / O2;
+        float acc = 0.f;
+        for (int jg = 0; jg < JG; ++jg) acc += red[(jg * T + t) * O2 + o];
+        y[((size_t)blk * TB + t0 + t) * O2 + o] = acc;
+    }
+}
+
+int threads_for(int T, int C)
+{
+    return (T * C + 31) / 32 * 32;
+}
+
+size_t smem_bytes(int C, int K, int R, int TB, int O2, int T, int nthr)
+{
+    const size_t NC = R + 2 * (size_t)K;
+    const size_t M = 2 * (size_t)K * C;
+    const size_t JG = std::max(1, nthr / O2);
+    const size_t lists = (size_t)T * TB * (NC + 1) + T;
+    const size_t filter = (size_t)R * M * kTile + JG * (size_t)T * O2;
+    return std::max(lists, filter) * sizeof(float);
+}
+
+Knots ring_knots(int R)
+{
+    // the hats of ops/band_conv.py::_hats_from_r: knots sqrt(r / (R − 1))
+    // with virtual knots −1 and 2 at the ends, the slopes' reciprocals
+    // taken in double and rounded once
+    Knots kn{};
+    for (int r = 0; r < R; ++r) {
+        const double sc = std::sqrt((double)r / (R - 1));
+        const double sl = r > 0 ? std::sqrt((double)(r - 1) / (R - 1)) : -1.0;
+        const double sr = r < R - 1 ? std::sqrt((double)(r + 1) / (R - 1))
+                                    : 2.0;
+        kn.lo[r] = (float)sl;
+        kn.hi[r] = (float)sr;
+        kn.up[r] = (float)(1.0 / (sc - sl));
+        kn.dn[r] = (float)(1.0 / (sr - sc));
+    }
+    return kn;
+}
+
+template <int KMAX, int RMAX, int MINB>
+int launch(const float* g, const float* wmat, const float* sten,
+           const int* meta, float* y, int P, int nb_out, int C, int K, int R,
+           int TB, int O2, int compressed, int nb_g, int T, int nthr,
+           size_t smem, const Knots& kn, cudaStream_t stream)
+{
+    auto kernel = band_panel_fwd_kernel<KMAX, RMAX, MINB>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const long grid = (long)nb_out * ((TB + T - 1) / T);
+    kernel<<<(unsigned)grid, nthr, smem, stream>>>(
+        g, wmat, sten, meta, y, P, C, K, R, TB, O2, compressed, nb_g, T, kn);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Launches on `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for shapes the kernel does not take (K even or
+// > 5, i.e. band limit > 2; R > 3 with K ≤ 3, or R > 6 with K = 5: the
+// presets' shapes are K = 3, R = 3 and K = 5, R = 6; R < 2 with compressed
+// planes; C > 256; lists or the filter stage above the shared memory a CTA
+// can have).  y: (nb_out·TB, O2); g: (nb_g·TB, M).
+extern "C" int band_panel_fwd(const float* g, const float* wmat,
+                              const float* sten, const int* meta, float* y,
+                              int P, int nb_out, int C, int K, int R, int TB,
+                              int O2, int compressed, int nb_g, void* stream)
+{
+    if (P < 1 || nb_out < 1 || nb_g < 1 || C < 1 || C > kMaxThreads
+        || K < 1 || K % 2 == 0 || K > 5 || R < (compressed ? 2 : 1)
+        || R > (K <= 3 ? 3 : 6) || TB < 1 || O2 < 1)
+        return (int)cudaErrorInvalidValue;
+    int dev = 0, limit = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(
+        &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+    const int T = std::min(kTile, std::max(1, kMaxThreads / C));
+    const int nthr = threads_for(T, C);
+    const size_t smem = smem_bytes(C, K, R, TB, O2, T, nthr);
+    if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+    const Knots kn = compressed ? ring_knots(R) : Knots{};
+    cudaStream_t s = (cudaStream_t)stream;
+    if (K <= 3)
+        return launch<3, 3, 5>(g, wmat, sten, meta, y, P, nb_out, C, K, R,
+                               TB, O2, compressed, nb_g, T, nthr, smem, kn,
+                               s);
+    return launch<5, 6, 2>(g, wmat, sten, meta, y, P, nb_out, C, K, R, TB,
+                           O2, compressed, nb_g, T, nthr, smem, kn, s);
+}

@@ -58,7 +58,8 @@
 // float operations and 8 scattered dg reads; dg is read once (154 MB at the
 // segmentation shape), the stencil once (60 MB), x and dx once:
 // chip_smoke.py::k2_bwd_bound counts both from the run's own panels and
-// features (bound by bytes at both ECHO shapes).  The kernel's own cost is
+// features, the stencil as k2_bound does (bound by bytes at both ECHO
+// shapes).  The kernel's own cost is
 // the scattered dg reads (a sector per 4 useful bytes at worst) and the
 // per-panel compaction; it makes no use of tensor cores.
 

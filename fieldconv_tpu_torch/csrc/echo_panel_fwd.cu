@@ -61,7 +61,9 @@
 // C = 48) ~1.8 GFLOP against ~62 MB, bound by operations (~0.027 ms at
 // 67 TFLOP/s); at the correspondence shape (5120 samples, C = 12) bound by
 // the stencil's bytes (~0.012 ms).  chip_smoke.py::k2_bound counts both from
-// the run's own panels.  The kernel's own cost is the 8 shared-memory
+// the run's own panels, the planes beyond r only in the 32-byte sectors
+// that hold an occupied slot (most of a panel at these shapes, a few
+// percent on a large mesh).  The kernel's own cost is the 8 shared-memory
 // read-modify-writes per (edge, channel) and the per-panel compaction; it
 // makes no use of tensor cores.
 

@@ -47,8 +47,10 @@ class Predictor:
     net : the model (train/loop.py::build_model), holding its weights.
     config : the ExperimentConfig it was built from.
     batch_size : meshes per batch (bucketed like training).
-    banded_tb : target-block size of the banded layout (None = gather
-        path).
+    banded_tb : target-block size of the block layouts (None = gather
+        path): the dense band and the mixed route below the config's
+        panel threshold, the pure-panel layout above it (one PanelTable
+        per batch, every op over it; forward only).
     strict_shapes : when True, a batch whose shape signature was not warmed
         up raises instead of running.
     device : where batches and the model live; "cuda" by default, raising
@@ -117,7 +119,8 @@ class Predictor:
 
     def logits(self, batch: MeshBatch):
         """Raw model output for one batch on the device: (B, 1, n_classes)
-        for classification, (B, N, n_classes) per vertex otherwise."""
+        for classification, (B, N, n_classes) per vertex otherwise (3.3 GB
+        for one correspondence mesh of 163,842 samples)."""
         if self.strict_shapes and _shape_key(batch) not in self._warm:
             raise RuntimeError(
                 "batch signature was not warmed up and strict_shapes=True; "

@@ -29,8 +29,9 @@ from .init import torch_linear_bias, torch_linear_weight, xavier_uniform
 
 
 class FieldConv(nn.Module):
-    """Field convolution layer.  A BandedTable routes the contraction to
-    the fused K1 kernel (ops/band_conv.py); otherwise the padded-CSR gather
+    """Field convolution layer.  A BandedTable ``banded`` routes the
+    contraction to the fused K1 kernel, a PanelTable to the panel conv K5
+    (ops/band_conv.py::field_conv_banded); otherwise the padded-CSR gather
     path runs."""
 
     def __init__(self, in_channels: int, out_channels: int,

@@ -1,16 +1,22 @@
-"""Banded field convolution with the fused kernels (K1 forward and backward).
+"""Field convolution over the block layouts with the hand-written kernels:
+the dense BandedTable (K1 forward and backward) and the PanelTable (K5
+forward).
 
-Counterpart of ``fieldconv_tpu/ops/pallas/band_conv.py`` for the dense
-BandedTable.  The contraction runs in hand-written CUDA kernels:
+Counterpart of ``fieldconv_tpu/ops/pallas/band_conv.py`` for those two
+tables.  The contraction runs in hand-written CUDA kernels:
 ``csrc/band_fused_fwd.cu`` replaces the TPU kernel ``_band_megaw_fwd_impl``
 (and its twins ``_band_fused_mega_fwd_impl``, ``_band_fused_fwd_impl``),
 ``csrc/band_fused_bwd.cu`` replaces ``_band_megaw_bwd_impl`` (and
-``_band_fused_mega_bwd_impl``, ``_band_fused_bwd``).  The wrappers
-:func:`band_fused_fwd` and :func:`band_fused_bwd` launch them for CUDA
-tensors and run the plain PyTorch versions :func:`band_fused_fwd_reference`
-and :func:`band_fused_bwd_reference` for CPU tensors; they never move work
-between devices.  :class:`_BandFusedFn` ties the two together for autograd,
-as ``jax.custom_vjp`` does in the JAX package.
+``_band_fused_mega_bwd_impl``, ``_band_fused_bwd``), and
+``csrc/band_panel_fwd.cu`` replaces ``_band_panel_fwd_impl`` (both of its
+``pallas_call``s, bodies ``_fwd_panel_kernel`` and
+``_fwd_panel_chunk_kernel``).  The wrappers :func:`band_fused_fwd`,
+:func:`band_fused_bwd` and :func:`band_panel_fwd` launch them for CUDA
+tensors and run the plain PyTorch versions :func:`band_fused_fwd_reference`,
+:func:`band_fused_bwd_reference` and :func:`band_panel_fwd_reference` for
+CPU tensors; they never move work between devices.  :class:`_BandFusedFn`
+ties K1's two together for autograd, as ``jax.custom_vjp`` does in the JAX
+package.  K5 is forward-only here: its backward is ROADMAP Queue 2, K5 bwd.
 """
 
 from __future__ import annotations
@@ -22,8 +28,8 @@ import math
 import torch
 
 from .. import kernels
-from ..precomp.banded import (BandedTable, CompressedBandedTable,
-                              unwindow_blocks, window_blocks)
+from ..precomp.banded import (BandedTable, PanelTable, unwindow_blocks,
+                              window_blocks)
 from .field_conv import filter_coefficients, rotated_source_tensor
 
 
@@ -272,41 +278,214 @@ class _BandFusedFn(torch.autograd.Function):
         return dg, dw, None, None, None
 
 
+# --- K5 forward: plain version, wrapper, kernel launch -----------------------
+
+def _phasor_pairs(fr, fi, pr, pi, B: int):
+    """(column k + B, f_re, f_im) for f_k = wxp·e^{ikθ}, k = -B..B, built by
+    repeated multiplication with the unit phasor (pr, pi), in the JAX
+    package's order (``_phasor_pairs``)."""
+    out = [(B, fr, fi)]
+    cp = cm = (fr, fi)
+    for kk in range(1, B + 1):
+        cp = (cp[0] * pr - cp[1] * pi, cp[0] * pi + cp[1] * pr)
+        cm = (cm[0] * pr + cm[1] * pi, cm[1] * pr - cm[0] * pi)
+        out += [(B + kk, *cp), (B - kk, *cm)]
+    return out
+
+
+def _panel_pairs(sten_c, R: int, K: int, compressed: bool):
+    """Radial hats (R, pc, TB, TB) and the angular factors [(k, f_re,
+    f_im)] of a chunk of panels (pc, planes, TB, TB): rebuilt from the r
+    and phasor planes of a compressed stencil, read from the planes of a
+    dense one."""
+    if compressed:
+        hats = _hats_from_r(sten_c[:, 0], R)
+        pairs = _phasor_pairs(sten_c[:, 3], sten_c[:, 4], sten_c[:, 1],
+                              sten_c[:, 2], K // 2)
+    else:
+        hats = sten_c[:, :R].movedim(1, 0)
+        pairs = [(k, sten_c[:, R + 2 * k], sten_c[:, R + 2 * k + 1])
+                 for k in range(K)]
+    return hats, pairs
+
+
+def band_panel_fwd_reference(g, wmat, sten, meta, tb: int, n_rings: int,
+                             band_limit: int, compressed: bool,
+                             n_out=None):
+    """Plain PyTorch K5 forward: what ``_fwd_panel_kernel`` (and its chunked
+    twin) computes, 256 panels at a time so that the temporaries stay small
+    (~0.3 GB at C = 32, TB = 128).
+
+    g: (N, M = K·2C) k-major rotated-source tensor; wmat: (R, M, O2)
+    (filters_to_wmat, 1/K inside); sten: (P, planes, TB, TB) panels, rows
+    the target slot t, columns the source slot s, planes 5 (compressed: r,
+    e^{iθ} re/im, wxp re/im) or R+2K (dense: hats, then fwxp_k re/im);
+    meta: (4, P) int32 rows (tgt, src, first, last), sorted by target.
+    For each panel, with S_k = hats_r ⊙ f_k (planar complex):
+
+        contrib[tgt, r, t, k-pair] += Σ_s S_k[r, t, s] ⊗ g[src·TB + s, k]
+
+    then y[tgt·TB + t] = Σ_r contrib[tgt, r, t] · W_r.  Returns y (n_out,
+    O2), n_out = N by default; a target block without panels gets zeros."""
+    N, M = g.shape
+    R, K = n_rings, 2 * band_limit + 1
+    C = M // (2 * K)
+    n_out = N if n_out is None else n_out
+    gb = g.reshape(-1, tb, M)
+    meta = meta.long()
+    contrib = g.new_zeros(n_out // tb, R, tb, M)
+    pc = 256                   # panels per step
+    for lo in range(0, sten.shape[0], pc):
+        tgt, src = meta[0, lo:lo + pc], meta[1, lo:lo + pc]
+        hats, pairs = _panel_pairs(sten[lo:lo + pc], R, K, compressed)
+        gs = gb[src]                                       # (pc, TBs, M)
+        parts = [None] * (2 * K)
+        for k, fre, fim in pairs:
+            gk = gs[..., k * 2 * C:(k + 1) * 2 * C]
+            pa = torch.einsum("rpts,psc->prtc", hats * fre[None], gk)
+            pb = torch.einsum("rpts,psc->prtc", hats * fim[None], gk)
+            parts[2 * k] = pa[..., :C] - pb[..., C:]
+            parts[2 * k + 1] = pa[..., C:] + pb[..., :C]
+        contrib.index_add_(0, tgt, torch.cat(parts, dim=-1))
+    y = torch.einsum("brtj,rjo->bto", contrib, wmat)
+    return y.reshape(n_out, wmat.shape[-1])
+
+
+@functools.cache
+def _k5_entry():
+    fn = kernels.library("band_panel_fwd").band_panel_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _k5_check(g, wmat, sten, meta, tb, n_rings, band_limit, compressed,
+              n_out):
+    """Raise unless the shapes agree and g, wmat, sten (float32) and meta
+    (int32) are contiguous on g's device."""
+    N, M = g.shape
+    R, K = n_rings, 2 * band_limit + 1
+    planes = 5 if compressed else R + 2 * K
+    P = sten.shape[0]
+    if M % (2 * K) or tuple(wmat.shape[:2]) != (R, M) \
+            or tuple(sten.shape) != (P, planes, tb, tb) \
+            or tuple(meta.shape) != (4, P) or n_out % tb or N % tb:
+        raise ValueError(
+            f"band_panel_fwd shapes do not agree: g {tuple(g.shape)}, wmat "
+            f"{tuple(wmat.shape)}, sten {tuple(sten.shape)} (want "
+            f"({P}, {planes}, {tb}, {tb})), meta {tuple(meta.shape)}, "
+            f"n_out {n_out}")
+    for label, t, dtype in (("g", g, torch.float32),
+                            ("wmat", wmat, torch.float32),
+                            ("sten", sten, torch.float32),
+                            ("meta", meta, torch.int32)):
+        if t.device != g.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"band_panel_fwd needs contiguous {dtype} "
+                             f"{label} on {g.device}, got {t.dtype} on "
+                             f"{t.device} (contiguous={t.is_contiguous()})")
+    if R > (3 if K <= 3 else 6) or K > 5:
+        raise NotImplementedError(
+            f"band_panel_fwd's kernel takes K ≤ 3 with R ≤ 3 and K = 5 with "
+            f"R ≤ 6 (the presets' shapes), got K={K}, R={R}")
+
+
+def _band_panel_fwd_cuda(g, wmat, sten, meta, tb, n_rings, band_limit,
+                         compressed, n_out):
+    _k5_check(g, wmat, sten, meta, tb, n_rings, band_limit, compressed,
+              n_out)
+    O2 = wmat.shape[-1]
+    K = 2 * band_limit + 1
+    fn = _k5_entry()
+    y = torch.empty((n_out, O2), dtype=torch.float32, device=g.device)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = fn(g.data_ptr(), wmat.data_ptr(), sten.data_ptr(), meta.data_ptr(),
+             y.data_ptr(), sten.shape[0], n_out // tb, g.shape[1] // (2 * K),
+             K, n_rings, tb, O2, int(compressed), g.shape[0] // tb, stream)
+    if err != 0:
+        raise RuntimeError(f"band_panel_fwd launch failed: cudaError {err}")
+    kernels.launches["band_panel_fwd"] += 1
+    return y
+
+
+def band_panel_fwd(g, wmat, sten, meta, tb: int, n_rings: int,
+                   band_limit: int, compressed: bool, n_out=None):
+    """K5 forward y (n_out, O2) over a PanelTable's panels (shapes as in
+    :func:`band_panel_fwd_reference`).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (building it on first use) or raise.  The op is forward-only: on CUDA
+    tensors a gradient request raises, since K5's backward is not ported
+    yet (ROADMAP Queue 2, K5 bwd).  A stencil stored in bf16
+    (``cast_panel_sten`` in the JAX package) is refused on both devices."""
+    n_out = g.shape[0] if n_out is None else n_out
+    if sten.dtype != torch.float32:
+        raise NotImplementedError(
+            f"a {sten.dtype} panel stencil: the bf16 options of K1 and K5 "
+            "are ROADMAP Queue 2 (K1 (bf16), K5)")
+    if g.device.type == "cpu":
+        return band_panel_fwd_reference(g, wmat, sten, meta, tb, n_rings,
+                                        band_limit, compressed, n_out)
+    if g.device.type == "cuda":
+        if torch.is_grad_enabled() and (g.requires_grad
+                                        or wmat.requires_grad):
+            raise NotImplementedError(
+                "a gradient through the panel conv on the card needs K5's "
+                "backward (_band_panel_bwd_impl), which is not ported yet: "
+                "ROADMAP Queue 2, K5 bwd (pure-panel training, slice 6)")
+        return _band_panel_fwd_cuda(g, wmat, sten, meta, tb, n_rings,
+                                    band_limit, compressed, n_out)
+    raise ValueError(f"band_panel_fwd has no kernel for device {g.device}")
+
+
 def field_conv_banded(x, banded, zonal, spherical, phase, ftype,
                       precision: str = "f32", fuse_filters: bool = True):
-    """Full field convolution over the dense banded layout:
-    (..., N, C, 2) -> (..., N, O, 2).
+    """Full field convolution over a block layout: (..., N, C, 2) ->
+    (..., N, O, 2).
 
-    banded: BandedTable whose sten_band carries the same leading mesh axes
-    as x.  One K1 launch serves the whole mesh batch, forward and
-    backward (gradients flow to x and the filters, not the stencil)."""
-    if isinstance(banded, CompressedBandedTable) \
-            or not isinstance(banded, BandedTable):
+    banded: a BandedTable whose sten_band carries the same leading mesh
+    axes as x (one K1 launch serves the whole mesh batch, forward and
+    backward; gradients flow to x and the filters, not the stencil), or a
+    PanelTable covering the meshes of x's leading axes (one K5 launch
+    serves the batch, forward only on the card).  As in the JAX package,
+    fuse_filters only selects among the BandedTable kernels."""
+    if not isinstance(banded, (BandedTable, PanelTable)):
         raise NotImplementedError(
             f"field_conv_banded over {type(banded).__name__} is not ported "
-            "yet: the compressed, panel, compact and block-sparse conv "
-            "kernels are ROADMAP Queue 2 items K4, K5, K6 and K8")
+            "yet: the compressed banded, compact and block-sparse conv "
+            "kernels are ROADMAP Queue 2 items K4, K6 and K8")
     if precision != "f32":
         raise NotImplementedError(
-            f"precision={precision!r}: the bf16 operand path of K1 is "
-            "ROADMAP Queue 2, K1 (bf16)")
-    if not fuse_filters:
+            f"precision={precision!r}: the bf16 operand paths of K1 and K5 "
+            "are ROADMAP Queue 2, K1 (bf16)")
+    panel = isinstance(banded, PanelTable)
+    if not fuse_filters and not panel:
         raise NotImplementedError(
             "fuse_filters=False runs the unfused contrib kernel, ROADMAP "
             "Queue 2, K3")
     lead = x.shape[:-3]
     N = x.shape[-3]
     g = rotated_source_tensor_kmajor(x, banded.band_limit)
-    g = g.reshape(-1, N, g.shape[-1]).contiguous()
-    sten = banded.sten_band
-    sten = sten.reshape(-1, *sten.shape[-4:]).contiguous()
-    if sten.shape[0] != g.shape[0]:
-        raise ValueError(f"x carries {g.shape[0]} meshes but the banded "
-                         f"table {sten.shape[0]}")
     coeff = filter_coefficients(zonal, spherical, phase, ftype,
                                 banded.band_limit)
     wmat = filters_to_wmat(coeff).contiguous()
-    y2 = _BandFusedFn.apply(g, wmat, sten, banded.tb, banded.nh)
+    if panel:
+        g = g.reshape(-1, g.shape[-1]).contiguous()
+        if g.shape[0] != banded.n_mesh * banded.n_pad:
+            raise ValueError(
+                f"x carries {g.shape[0]} rows but the panel table covers "
+                f"{banded.n_mesh} mesh(es) of {banded.n_pad}")
+        y2 = band_panel_fwd(g, wmat, banded.sten, banded.meta, banded.tb,
+                            banded.n_rings, banded.band_limit,
+                            banded.compressed)
+    else:
+        g = g.reshape(-1, N, g.shape[-1]).contiguous()
+        sten = banded.sten_band
+        sten = sten.reshape(-1, *sten.shape[-4:]).contiguous()
+        if sten.shape[0] != g.shape[0]:
+            raise ValueError(f"x carries {g.shape[0]} meshes but the banded "
+                             f"table {sten.shape[0]}")
+        y2 = _BandFusedFn.apply(g, wmat, sten, banded.tb, banded.nh)
     O = wmat.shape[-1] // 2
     y = torch.stack([y2[..., :O], y2[..., O:]], dim=-1)
     return y.reshape(*lead, N, O, 2)

@@ -12,7 +12,9 @@ per-target band slots, block-major:
 
 The panel-CSR PanelTable stores only the nonempty (target-block,
 source-block) pairs of the same slot layout, as (planes, TB, TB) panels;
-the mixed route of the ECHO presets runs ECHO and the lift over it.
+the mixed route of the ECHO presets runs ECHO and the lift over it, and
+the pure-panel layout of large meshes (vertices in :func:`kd_order`) runs
+every op over it.
 
 The builders run in numpy and return CPU tensors; stacked batches carry a
 leading mesh axis on ``sten_band``, and one PanelTable covers a batch
@@ -29,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from .edge_table import EdgeTable
+from .tiled import spatial_tiles
 
 R_SENTINEL = 9.0  # kills every radial hat (support ends at the virtual knot 2)
 
@@ -96,6 +99,16 @@ def rcm_order(supp_edges: np.ndarray, n_vertices: int) -> np.ndarray:
     )
     perm = sp.csgraph.reverse_cuthill_mckee(a + a.T, symmetric_mode=True)
     return np.asarray(perm, dtype=np.int64)
+
+
+def kd_order(points: np.ndarray, tb: int = 128) -> np.ndarray:
+    """Vertex ordering by k-d tree leaves of <= tb points (median splits,
+    depth-first).  For the panel layout this beats RCM: a TB-row block is a
+    compact surface patch, so its ε-ball sources span few other patches.
+
+    Returns perm (old indices in new order); apply with
+    `reorder_precompute`."""
+    return np.concatenate(spatial_tiles(np.asarray(points, float), tb))
 
 
 def reorder_precompute(perm: np.ndarray, supp_edges: np.ndarray,
@@ -400,8 +413,12 @@ def concat_panel_tables(panels) -> PanelTable:
     """One table for a batch of meshes' PanelTables (same tb, n_pad and
     stencil layout): mesh m's block ids are offset by m·nb and its panel
     ids (meta_s row 0) by the panels before it.  Both orders stay sorted,
-    so each target block keeps one contiguous run of panels."""
+    so each target block keeps one contiguous run of panels.  A single
+    table comes back as it is (no copy of its stencil, 5.5 GB at 163k
+    vertices)."""
     p0 = panels[0]
+    if len(panels) == 1 and p0.n_mesh == 1:
+        return p0
     for p in panels[1:]:
         if (p.tb, p.n_pad, p.compressed, p.chunk, p.n_mesh) != \
                 (p0.tb, p0.n_pad, p0.compressed, p0.chunk, 1):

@@ -4,9 +4,11 @@ Counterpart of ``build_model``, ``make_batches``, ``fit`` and
 ``evaluate_task`` in ``fieldconv_tpu/train/loop.py``.  Models and batches
 cover classification, segmentation and correspondence: the dense banded
 layout, the mixed route (banded convs, panel ECHO and lift) of the ECHO
-presets, or the gather path when ``banded_tb`` is None.  ``fit`` and
-``evaluate_task`` train and evaluate the three of them; matching is ROADMAP
-Queue 1 item 3.
+presets, the pure-panel layout of large meshes (every op over one
+PanelTable), or the gather path when ``banded_tb`` is None.  ``fit`` and
+``evaluate_task`` train and evaluate the three of them below the panel
+layout (its training needs K5's backward, ROADMAP Queue 2); matching is
+ROADMAP Queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from .checkpoint import CheckpointManager
 from .config import ExperimentConfig
 from .metrics import MetricsLogger
 from .trainer import (draw_dropout_mask, draw_rotate_scale, make_optimizer,
-                      make_train_step, stack_batch)
+                      make_train_step, stack_batch,
+                      stack_panel_batch)
 
 
 def build_model(config: ExperimentConfig, n_classes: int,
@@ -66,11 +69,16 @@ def make_batches(records: List[MeshRecord], config: ExperimentConfig,
                  n_pad=None, d_slots=None, device="cuda"):
     """Group records into same-bucket MeshBatches on ``device``.
 
-    banded_tb: build the dense banded tables (K1 convs) with that
-    target-block size; None serves the gather path.  With banded_tb, an
-    ECHO task with config.echo_impl == "panel" takes the mixed route (one
-    compressed PanelTable per batch for ECHO and the lift); otherwise the
-    compressed banded tables of the gather-free lift are built when
+    banded_tb: the target-block size of the block layouts; None serves the
+    gather path.  With banded_tb, a bucket whose layout resolves to
+    "panel" (:func:`resolve_layout`: config.layout, or n_pad above
+    config.panel_threshold) takes the pure-panel layout, banded_tb serving
+    as the panel target-block size: one compressed PanelTable per batch
+    for every op (K5 convs, panel ECHO and lift), no banded or compressed
+    banded tables.  Below it the dense banded tables (K1 convs) are built;
+    an ECHO task with config.echo_impl == "panel" takes the mixed route
+    (one compressed PanelTable per batch for ECHO and the lift), otherwise
+    the compressed banded tables of the gather-free lift are built when
     config.lift_impl == "banded".  Without banded_tb an ECHO task whose
     echo_impl needs block tables warns and takes the one-hot ECHO."""
     device = resolve_device(device)
@@ -93,16 +101,17 @@ def make_batches(records: List[MeshRecord], config: ExperimentConfig,
         raise NotImplementedError(
             "echo_impl='compact' runs K7 over the CompactPanelTable, which "
             "is not ported yet (ROADMAP Queue 1 item 6 and Queue 2, K7)")
+    if config.conv_impl == "compact":
+        raise NotImplementedError(
+            "conv_impl='compact' runs K6 over the CompactPanelTable, which "
+            "is not ported yet (ROADMAP Queue 1 item 6 and Queue 2, K6)")
     if n_pad is None or d_slots is None:
         n_pad, d_slots = shared_bucket(records)
-    if banded_tb is not None and resolve_layout(config, n_pad) == "panel":
-        raise NotImplementedError(
-            f"n_pad={n_pad} resolves to the panel layout, which is not "
-            "ported yet (ROADMAP Queue 1 item 6: the 100k+-vertex layouts); "
-            "set config.layout='banded' to force the dense band")
-    echo_panel = (banded_tb is not None and echo_task
+    panel = (banded_tb is not None
+             and resolve_layout(config, n_pad) == "panel")
+    echo_panel = (banded_tb is not None and not panel and echo_task
                   and config.echo_impl == "panel")
-    need_comp = (banded_tb is not None and not echo_panel
+    need_comp = (banded_tb is not None and not panel and not echo_panel
                  and config.lift_impl == "banded")
 
     def build_group(group):
@@ -112,8 +121,11 @@ def make_batches(records: List[MeshRecord], config: ExperimentConfig,
                             n_pad=n_pad, d_slots=d_slots)
             items.append((r.padded_pos(n_pad, center=config.center), table,
                           r.padded_labels(n_pad)))
-        batch = stack_batch(items, banded_tb=banded_tb, echo_banded=need_comp,
-                            echo_panel=echo_panel)
+        if panel:
+            batch = stack_panel_batch(items, banded_tb)
+        else:
+            batch = stack_batch(items, banded_tb=banded_tb,
+                                echo_banded=need_comp, echo_panel=echo_panel)
         return batch.to(device)
 
     return [build_group(records[lo:lo + batch_size])
@@ -140,13 +152,18 @@ def fit(config: ExperimentConfig, train_records: List[MeshRecord],
     checkpoint there is restored first (the batch order and augmentation
     streams are advanced past the steps it covers, so a resumed run
     continues as an uninterrupted one would) and one is saved every
-    config.checkpoint_every epochs and at the end."""
+    config.checkpoint_every epochs and at the end.
+
+    A bucket on the pure-panel layout raises on either device: training
+    there needs K5's backward (ROADMAP Queue 2, K5 bwd)."""
     device = resolve_device(device)
     net = build_model(config, n_classes,
                       generator=torch.Generator().manual_seed(seed),
                       device=device)
     all_records = train_records + (test_records or [])
     n_pad, d_slots = shared_bucket(all_records)
+    if banded_tb is not None and resolve_layout(config, n_pad) == "panel":
+        _panel_training_unported(f"n_pad={n_pad}")
     train_batches = make_batches(train_records, config, batch_size,
                                  banded_tb, n_pad, d_slots, device=device)
     test_batches = (make_batches(test_records, config, batch_size, banded_tb,
@@ -230,10 +247,21 @@ def fit(config: ExperimentConfig, train_records: List[MeshRecord],
     return net, opt, final
 
 
+def _panel_training_unported(what: str):
+    raise NotImplementedError(
+        f"{what} resolves to the pure-panel layout, whose training and "
+        "evaluation need K5's backward (_band_panel_bwd_impl), not ported "
+        "yet: ROADMAP Queue 2, K5 bwd (slice 6); serve it with Predictor, "
+        "or set config.layout='banded' to train on the dense band")
+
+
 def evaluate_task(net, config: ExperimentConfig, test_batches,
                   n_classes: int):
     """The task's test metric: accuracy (classification, per-vertex for
-    segmentation) or the mean test cross entropy (correspondence)."""
+    segmentation) or the mean test cross entropy (correspondence).  Batches
+    on the pure-panel layout raise, as :func:`fit` does."""
+    if any(b.panel is not None and b.banded is None for b in test_batches):
+        _panel_training_unported("a test batch")
     if config.task == "classification":
         return evaluate.classification_accuracy(net, test_batches)
     if config.task == "segmentation":

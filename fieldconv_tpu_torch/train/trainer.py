@@ -47,8 +47,9 @@ class MeshBatch:
     banded: optional batched BandedTable for the K1 conv path
     comp: optional batched CompressedBandedTable for the gather-free lift
     panel: optional compressed PanelTable of every mesh of the batch (one
-      table, precomp.banded.concat_panel_tables) for the mixed route's
-      ECHO and lift
+      table, precomp.banded.concat_panel_tables): ECHO and the lift of the
+      mixed route (with ``banded``), or every op of the pure-panel layout
+      (``banded`` None)
     """
 
     pos: torch.Tensor
@@ -68,6 +69,38 @@ class MeshBatch:
             comp=move(self.comp), panel=move(self.panel))
 
 
+def _stack_items(items):
+    """Stack (pos, table, label) triples sharing bucket shapes: the
+    positions, the EdgeTables (with the first mesh's ``n_valid``, ROADMAP
+    Queue 3) and the labels, and the meshes' own tables."""
+    poss, tables, labels = zip(*items)
+    t0 = tables[0]
+    stacked = EdgeTable(
+        **{f: torch.stack([getattr(t, f) for t in tables])
+           for f in ("src", "mask", "rsten", "fwxp", "ln", "wxp", "vmask")},
+        n_valid=t0.n_valid,
+        band_limit=t0.band_limit,
+        n_rings=t0.n_rings,
+    )
+    pos = torch.stack([torch.as_tensor(np.asarray(p, np.float32))
+                       for p in poss])
+    lab = torch.stack([torch.as_tensor(np.asarray(v)) for v in labels])
+    return pos, stacked, lab, tables
+
+
+def stack_panel_batch(items, tb: int) -> MeshBatch:
+    """Stack (pos, table, label) triples for the pure-panel layout (CPU):
+    each mesh's compressed PanelTable with target-block size ``tb``, joined
+    into one that serves every op (K5 convs, panel ECHO and lift).  The
+    counterpart of the JAX package's ``_stack_batch_panel`` without its
+    compact options (echo_compact, conv_compact: ROADMAP Queue 2, K6 and
+    K7); the batch has ``banded`` and ``comp`` None."""
+    pos, stacked, lab, tables = _stack_items(items)
+    panel = concat_panel_tables(
+        [build_panel_table(t, tb=tb, compressed=True) for t in tables])
+    return MeshBatch(pos=pos, table=stacked, labels=lab, panel=panel)
+
+
 def stack_batch(items, banded_tb: Optional[int] = None,
                 echo_banded: bool = False,
                 echo_panel: bool = False) -> MeshBatch:
@@ -84,15 +117,8 @@ def stack_batch(items, banded_tb: Optional[int] = None,
 
     The stacked table keeps the first mesh's ``n_valid`` (ROADMAP Queue 3).
     """
-    poss, tables, labels = zip(*items)
+    pos, stacked, lab, tables = _stack_items(items)
     t0 = tables[0]
-    stacked = EdgeTable(
-        **{f: torch.stack([getattr(t, f) for t in tables])
-           for f in ("src", "mask", "rsten", "fwxp", "ln", "wxp", "vmask")},
-        n_valid=t0.n_valid,
-        band_limit=t0.band_limit,
-        n_rings=t0.n_rings,
-    )
     banded = None
     if banded_tb is not None:
         bs = [build_banded_table(t, tb=banded_tb) for t in tables]
@@ -123,16 +149,8 @@ def stack_batch(items, banded_tb: Optional[int] = None,
         panel = concat_panel_tables(
             [build_panel_table(t, tb=banded_tb, compressed=True)
              for t in tables])
-    return MeshBatch(
-        pos=torch.stack([torch.as_tensor(np.asarray(p, np.float32))
-                         for p in poss]),
-        table=stacked,
-        labels=torch.stack([torch.as_tensor(np.asarray(lab))
-                            for lab in labels]),
-        banded=banded,
-        comp=comp,
-        panel=panel,
-    )
+    return MeshBatch(pos=pos, table=stacked, labels=lab, banded=banded,
+                     comp=comp, panel=panel)
 
 
 def _pad_banded(b: BandedTable, nh: int) -> BandedTable:
@@ -163,14 +181,17 @@ def batched_apply(net, batch: MeshBatch, **kw):
     """Run the model over the batch's mesh axis in one call: the banded
     route (BandedTable convs, plus the compressed lift when ``comp`` is
     set), the mixed route (BandedTable convs, ECHO and lift over the
-    batch's one PanelTable) or, without tables, the padded-CSR gather
-    route.  ``kw`` goes to the model (e.g. ``dropout_mask``).
+    batch's one PanelTable), the pure-panel route (the PanelTable passed
+    as both ``banded`` and ``comp``: K5 convs, ECHO and lift) or, without
+    tables, the padded-CSR gather route.  ``kw`` goes to the model (e.g.
+    ``dropout_mask``).
 
-    The JAX package unrolls a mixed batch mesh by mesh (its panel counts
-    differ); here the meshes' panels form one table, so one K2 launch and
-    one lift serve the batch, as one K1 launch does."""
+    The JAX package unrolls a batch that carries panels mesh by mesh (its
+    panel counts differ); here the meshes' panels form one table, so one
+    K5 or K2 launch and one lift serve the batch, as one K1 launch does."""
     comp = batch.panel if batch.panel is not None else batch.comp
-    return net(batch.pos, batch.table, batch.banded, comp, **kw)
+    banded = batch.banded if batch.banded is not None else batch.panel
+    return net(batch.pos, batch.table, banded, comp, **kw)
 
 
 # --- augmentation ------------------------------------------------------------

@@ -15,6 +15,7 @@ import torch
 
 from fieldconv_tpu_torch import kernels
 from fieldconv_tpu_torch.data.base import MeshRecord
+from fieldconv_tpu_torch.data.synthetic import sphere_record
 from fieldconv_tpu_torch.ops import band_conv as tbc
 from fieldconv_tpu_torch.ops import echo_panel as tep
 from fieldconv_tpu_torch.precomp.banded import (BandedTable,
@@ -269,4 +270,89 @@ def test_segmentation_forward_card_matches_cpu():
         assert batch.panel is not None
         with torch.no_grad():
             out[dev] = batched_apply(net.to(dev), batch).cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-3, atol=1e-4)
+
+
+# the widths of the correspondence net's convs (K = 3, R = 3) and of the
+# segmentation net's (K = 5, R = 6)
+K5_SHAPES = pytest.mark.parametrize("C,O2,B,R", [
+    (16, 64, 1, 3), (16, 24, 1, 3), (32, 32, 1, 3), (48, 96, 2, 6)])
+
+
+@pytest.mark.cuda
+@K5_SHAPES
+@pytest.mark.parametrize("compressed,chunk", [(True, 1), (False, 1),
+                                              (True, 4), (False, 4)])
+def test_k5_kernel_matches_plain_on_card(C, O2, B, R, compressed, chunk):
+    """K5 against its plain version on the card, over the panel table of a
+    kd-ordered sphere of 1500 samples (ε-ball graph, ~13 panels per block
+    at tb=32), compressed and dense planes, unchunked and chunked:
+    tolerance 1e-4 of the output's scale (f32 sums over a target's panels
+    and slots in another order).  A second call is bitwise equal (one
+    writer per output, no atomics)."""
+    _need_card()
+    rng = np.random.default_rng(C + R)
+    tb = 32
+    table = sphere_record(rng, 1500, 4).table(B, R, n_multiple=tb)
+    panel = build_panel_table(table, tb=tb, compressed=compressed,
+                              chunk=chunk).to("cuda")
+    M = (2 * B + 1) * 2 * C
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    g = torch.randn(panel.n_pad, M, device="cuda", generator=gen)
+    wmat = torch.randn(R, M, O2, device="cuda", generator=gen) / (R * M) ** .5
+    args = (g, wmat, panel.sten, panel.meta, tb, R, B, compressed)
+    before = kernels.launches["band_panel_fwd"]
+    got = tbc.band_panel_fwd(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["band_panel_fwd"] == before + 1
+    want = tbc.band_panel_fwd_reference(*args)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
+    assert torch.equal(got, tbc.band_panel_fwd(*args))
+
+
+@pytest.mark.cuda
+def test_k5_gradient_on_card_raises():
+    """The panel conv is forward-only on the card: a gradient request
+    names K5's backward instead of returning a graph that stops at it."""
+    _need_card()
+    rng = np.random.default_rng(0)
+    table = sphere_record(rng, 600, 4).table(1, 3, n_multiple=32)
+    panel = build_panel_table(table, tb=32, compressed=True).to("cuda")
+    x = torch.randn(1, panel.n_pad, 4, 2, device="cuda", requires_grad=True)
+    filt = [torch.randn(s, device="cuda") for s in ((3, 4, 3),
+                                                     (3, 4, 3, 1, 2),
+                                                     (3, 4, 2))]
+    with pytest.raises(NotImplementedError, match="K5 bwd"):
+        tbc.field_conv_banded(x, panel, *filt, 1)
+    with torch.no_grad():
+        y = tbc.field_conv_banded(x, panel, *filt, 1)
+    assert y.shape == (1, panel.n_pad, 3, 2) and torch.isfinite(y).all()
+
+
+@pytest.mark.cuda
+def test_segmentation_pure_panel_forward_card_matches_cpu():
+    """One SegmentationNet forward on the pure-panel layout (K5 and K2 on
+    the card, 9 and 1 launches, no K1) against the same on the CPU: logits
+    within rtol 1e-3 / atol 1e-4 (every op sums in another order)."""
+    _need_card()
+    rng = np.random.default_rng(0)
+    config = dataclasses.replace(PRESETS["segmentation"], nf=8, n_des=8,
+                                 layout="panel")
+    recs = [_record(rng, 200 - 30 * i, 16, 40, 0.2,
+                    labels=rng.integers(0, 4, 200 - 30 * i))
+            for i in range(2)]
+    net = build_model(config, 4, torch.Generator().manual_seed(0),
+                      device="cpu").eval()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        batch = make_batches(recs, config, 2, 32, device=dev)[0]
+        assert batch.banded is None and batch.panel.n_mesh == 2
+        before = dict(kernels.launches)
+        with torch.no_grad():
+            out[dev] = batched_apply(net.to(dev), batch).cpu()
+        grew = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+                if v != before.get(k, 0)}
+        assert grew == ({} if dev == "cpu" else {
+            "band_panel_fwd": 9, "echo_panel_fwd": 1}), grew
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-3, atol=1e-4)
