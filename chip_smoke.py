@@ -25,6 +25,11 @@ Phases, any failure exits non-zero:
      width (C=48, O2=96, K=5, R=6), on the segmentation records' table
      forced onto the panel layout at that width, and on
      the 5120-sample record's table with dense planes and with chunk=4;
+  3c. hold K5's backward (dg and dw) against its plain version and bitwise
+     against a second call: on the 163,842-sample table at the four
+     correspondence widths, on the forced segmentation table at C=48,
+     O2=96, K=5, R=6, and on the 5120-sample tables with dense planes and
+     with chunk=4;
   4. serve the SHREC11 classification network (the CLASSIFICATION preset:
      nf=32, B=2, R=6, ftype=1, 30 classes, random weights from a seed)
      through Predictor(banded_tb=128, device="cuda"): one batch of 8
@@ -62,10 +67,20 @@ Phases, any failure exits non-zero:
      testing on 1 more.  Each step must launch K1's forward and backward
      9 / 17 times each and K2's forward and backward once each, each test
      batch K1's forward 9 / 17 times and K2's once;
+  7b. train the CORRESPONDENCE preset on the pure-panel layout: the 5120
+     training records forced there (layout="panel"), held against the CPU
+     fit as in 6, then fit(banded_tb=128, batch_size=1, device="cuda") on
+     the 163,842-sample record of 5b for 3 steps (the preset's 60 epochs
+     cut to 3), testing on the same record.  Each step must launch K5's
+     forward and backward 17 times each, K2's forward and backward once
+     each and K1 never; each test batch K5's forward 17 times and K2's
+     once; losses finite;
   8. time the kernels and their plain versions, each request shape (at
      163,842 samples also Predictor.logits alone and the peak device
-     memory), a training step at each training shape, and one forward and
-     backward of five convs at bench.py's shape;
+     memory), a training step at each training shape (at 163,842 samples
+     also the peak device memory, and one step of a net built with
+     remat_blocks), and one forward and backward of five convs at
+     bench.py's shape;
   9. print the kernels line, the card line and the result line.
 
 Records are synthetic, built with numpy from --seed by
@@ -99,6 +114,8 @@ from fieldconv_tpu_torch.ops.band_conv import (_panel_pairs, band_fused_bwd,
                                                band_fused_bwd_reference,
                                                band_fused_fwd,
                                                band_fused_fwd_reference,
+                                               band_panel_bwd,
+                                               band_panel_bwd_reference,
                                                band_panel_fwd,
                                                band_panel_fwd_reference,
                                                field_conv_banded)
@@ -111,7 +128,7 @@ from fieldconv_tpu_torch.train.checkpoint import CheckpointManager
 from fieldconv_tpu_torch.train.config import PRESETS
 from fieldconv_tpu_torch.train.loop import (build_model, fit, make_batches,
                                             resolve_layout)
-from fieldconv_tpu_torch.train.trainer import make_train_step
+from fieldconv_tpu_torch.train.trainer import make_optimizer, make_train_step
 from fieldconv_tpu_torch.utils.complexops import EPS
 
 # H100 SXM data-sheet peaks (dense, 700 W): HBM bytes/s and f32 FLOP/s
@@ -136,6 +153,9 @@ K2_RTOL_SCALE = 1e-4
 # terms; held to 1e-4 of the output's scale, and bitwise against a second
 # call (one writer per output)
 K5_RTOL_SCALE = 1e-4
+# K5's backward the same way: dg sums over a source's panels and slots, dw
+# over every target row, in another order; each held to 1e-4 of its own
+# scale, and bitwise against a second call
 # the pure-panel request at the repo's north-star size (BASELINE.json
 # configs[4]: a correspondence mesh of 163,842 vertices, scripts/
 # train_100k.py), under layout="auto"
@@ -163,11 +183,17 @@ K2_BWD_FLOPS_PER_PAIR = 82
 LOSS_ATOL_STEP1, LOSS_ATOL_LATER = 2e-4, 2e-3
 TRAIN_EPOCHS = 2
 # the fits on the card, per shape: (train records, batch size, test
-# records), TRAIN_EPOCHS epochs each (4 steps)
+# records), TRAIN_EPOCHS epochs each (4 steps; 2 for the correspondence
+# shapes)
 TRAIN_FIT = {"shrec11_b8": (16, 8, 8), "seg_n2048_b4": (8, 4, 4),
-             "corr_n5120_b1": (2, 1, 1)}
-# K1 launches per forward (and per backward) pass of each net
-K1_PER_PASS = {"shrec11_b8": 5, "seg_n2048_b4": 9, "corr_n5120_b1": 17}
+             "corr_n5120_b1": (2, 1, 1), "corr_n5120_b1_panel": (2, 1, 1)}
+# conv launches (K1, or K5 on the pure-panel layout) per forward (and per
+# backward) pass of each net
+CONVS_PER_PASS = {"shrec11_b8": 5, "seg_n2048_b4": 9, "corr_n5120_b1": 17,
+                  "corr_n5120_b1_panel": 17, f"corr_n{N_LARGE}_b1": 17}
+# the fit at N_LARGE: the CORRESPONDENCE preset's 60 epochs cut to 3 (one
+# record, so 3 steps); nothing else is cut
+LARGE_EPOCHS = 3
 
 
 def check(cond, msg):
@@ -567,22 +593,14 @@ def _k5_args(g, wmat, panel):
             panel.band_limit, panel.compressed)
 
 
-def k5_bound(g, wmat, panel):
-    """Least time for one K5 call: bytes over HBM rate, and the f32
-    operations this data needs over the f32 rate.  Bytes: the planes that
-    say which slots are occupied read whole (r, or a dense stencil's R hat
-    planes), the other planes (e^{iθ} and wxp, or the f_k planes) only in
-    the 32-byte sectors that hold an occupied slot, meta, g and W read
-    once, y written once.  Operations: the stencil term in the cheaper of
-    k1_bound's two orders, from the table's nonzero hats and occupied slots,
-    plus the filter contraction 2·N·R·M·O2.  The table is walked 256 panels
-    at a time."""
-    N, M = g.shape
-    R, O2 = wmat.shape[0], wmat.shape[-1]
-    K = 2 * panel.band_limit + 1
-    C = M // (2 * K)
-    whole = 1 if panel.compressed else R
-    check(panel.tb % 8 == 0, "k5_bound counts 32-byte sectors of 8 slots")
+def _k5_table(panel, R, K):
+    """What a K5 call must read and do over a panel table, walked 256 panels
+    at a time: the nonzero hats, the occupied slots (any nonzero hat), and
+    the bytes of the stencil it needs (the planes that say which slots are
+    occupied, r or a dense stencil's R hat planes, read whole; the other
+    planes, e^{iθ} and wxp or the f_k planes, only in the 32-byte sectors
+    that hold an occupied slot)."""
+    check(panel.tb % 8 == 0, "K5's bounds count 32-byte sectors of 8 slots")
     hats = occupied = sectors = 0
     for lo in range(0, panel.n_panels, 256):
         h, _ = _panel_pairs(panel.sten[lo:lo + 256], R, K, panel.compressed)
@@ -591,17 +609,54 @@ def k5_bound(g, wmat, panel):
         hats += int(nz.sum().item())
         occupied += int(occ.sum().item())
         sectors += _sectors(occ)
+    slots = panel.sten[:, 0].numel()
+    stencil_bytes = _stencil_bytes(slots, panel.sten.shape[1],
+                                   1 if panel.compressed else R, sectors)
+    return hats, occupied, slots, stencil_bytes
+
+
+def k5_bound(g, wmat, panel):
+    """Least time for one K5 call: bytes over HBM rate, and the f32
+    operations this data needs over the f32 rate.  Bytes: the stencil as
+    _k5_table counts it, meta, g and W read once, y written once.
+    Operations: the stencil term in the cheaper of k1_bound's two orders,
+    from the table's nonzero hats and occupied slots, plus the filter
+    contraction 2·N·R·M·O2."""
+    N, M = g.shape
+    R, O2 = wmat.shape[0], wmat.shape[-1]
+    K = 2 * panel.band_limit + 1
+    C = M // (2 * K)
+    hats, occupied, slots, stencil_bytes = _k5_table(panel, R, K)
     stencil = min(occupied * K * 6 * C + hats * K * 4 * C,
                   hats * K * (8 * C + 2))
     flops = stencil + 2 * N * R * M * O2
-    slots = panel.sten[:, 0].numel()
-    stencil_bytes = _stencil_bytes(slots, panel.sten.shape[1], whole,
-                                   sectors)
     nbytes = stencil_bytes + 4 * (panel.meta.numel() + g.numel()
                                   + wmat.numel() + N * O2)
     return _bound(nbytes, flops, occupied=occupied, hats=hats,
                   slot_fill=occupied / slots, stencil_bytes=stencil_bytes,
                   stencil_bytes_whole=4 * panel.sten.numel())
+
+
+def k5_bwd_bound(g, wmat, dy, panel):
+    """Least time for one K5 backward call: bytes (the stencil as _k5_table
+    counts it, g, dy, W and meta_s read once, dg and dW written once) over
+    HBM rate, and the f32 operations this data needs over the f32 rate: the
+    forward's stencil term to rematerialise contrib, the transposed stencil
+    term for dG in the cheaper of k1_bwd_bound's two orders, and
+    2·N·R·M·O2 each for dc = dy·Wᵀ and dW = contribᵀ·dy."""
+    N, M = g.shape
+    R, O2 = wmat.shape[0], wmat.shape[-1]
+    K = 2 * panel.band_limit + 1
+    C = M // (2 * K)
+    hats, occupied, _, stencil_bytes = _k5_table(panel, R, K)
+    contrib = min(occupied * K * 6 * C + hats * K * 4 * C,
+                  hats * K * (8 * C + 2))
+    dgrad = min(occupied * K * 8 * C + hats * K * 4 * C,
+                hats * K * (8 * C + 2))
+    flops = contrib + dgrad + 2 * 2 * dy.shape[0] * R * M * O2
+    nbytes = stencil_bytes + 4 * (panel.meta_s.numel() + 2 * g.numel()
+                                  + dy.numel() + 2 * wmat.numel())
+    return _bound(nbytes, flops, occupied=occupied, hats=hats)
 
 
 def k5_check(label, g, wmat, panel):
@@ -632,6 +687,54 @@ def k5_time(row, g, wmat, panel):
     row["plain_ms"] = time_cuda(lambda: band_panel_fwd_reference(*args),
                                 iters=1, reps=3)
     row.update(k5_bound(g, wmat, panel))
+
+
+def _k5_bwd_args(g, wmat, dy, panel):
+    return (dy, g, wmat, panel.sten, panel.meta, panel.meta_s, panel.tb,
+            panel.n_rings, panel.band_limit, panel.compressed)
+
+
+def k5_bwd_check(label, g, wmat, dy, panel):
+    """K5's backward against its plain version (dg and dw each to
+    K5_RTOL_SCALE of its own scale), then a second call that must give
+    bitwise-equal dg and dw."""
+    args = _k5_bwd_args(g, wmat, dy, panel)
+    dg, dw = band_panel_bwd(*args)
+    torch.cuda.synchronize()
+    ref = band_panel_bwd_reference(dy, g, wmat, panel.sten, panel.meta_s,
+                                   *args[6:])
+    row = dict(shape=label, N=g.shape[0], M=g.shape[1], O2=wmat.shape[-1],
+               panels=panel.meta_s.shape[1], compressed=panel.compressed,
+               chunk=panel.chunk)
+    for name, got, want in (("dg", dg, ref[0]), ("dw", dw, ref[1])):
+        check(torch.isfinite(got).all().item(),
+              f"K5 bwd {label}: non-finite {name}")
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        check(err <= K5_RTOL_SCALE * scale,
+              f"K5 bwd {label}: {name} max abs err {err} > "
+              f"{K5_RTOL_SCALE} x {scale}")
+        row[f"{name}_max_abs_err"] = err
+        row[f"{name}_max_rel_err"] = err / scale
+    dg2, dw2 = band_panel_bwd(*args)
+    check(torch.equal(dg, dg2) and torch.equal(dw, dw2),
+          f"K5 bwd {label}: two calls differ")
+    row["max_abs_err"] = max(row["dg_max_abs_err"], row["dw_max_abs_err"])
+    print(f"K5 bwd {label}: dg max abs err {row['dg_max_abs_err']:.3e} "
+          f"(rel {row['dg_max_rel_err']:.3e}), dw {row['dw_max_abs_err']:.3e}"
+          f" (rel {row['dw_max_rel_err']:.3e}); tolerance {K5_RTOL_SCALE} "
+          "of each one's scale; a second call is bitwise equal")
+    return row
+
+
+def k5_bwd_time(row, g, wmat, dy, panel):
+    args = _k5_bwd_args(g, wmat, dy, panel)
+    row["ms"] = time_cuda(lambda: band_panel_bwd(*args), iters=5)
+    row["plain_ms"] = time_cuda(
+        lambda: band_panel_bwd_reference(dy, g, wmat, panel.sten,
+                                         panel.meta_s, *args[6:]),
+        iters=1, reps=3)
+    row.update(k5_bwd_bound(g, wmat, dy, panel))
 
 
 def top_two_gap(logits):
@@ -703,21 +806,17 @@ def read_losses(path):
         return [json.loads(line)["loss"] for line in f]
 
 
-def fit_phase(k, cfg, n_classes, recs, dev, seed, tmp):
-    """fit ``cfg`` on the card (the main path, counted) for TRAIN_EPOCHS
-    epochs and the first epoch of the same fit on the CPU, at training shape
-    ``k``: ``recs`` holds the train records then the test records
-    (TRAIN_FIT[k]).  Each step must launch K1's forward and backward
-    K1_PER_PASS[k] times each and, for the ECHO presets, K2's forward and
-    backward once each; each test batch the forward ones.  Returns the card
-    run's net and optimizer."""
-    n_train, bs, _ = TRAIN_FIT[k]
-    train, test = recs[:n_train], recs[n_train:]
-    ck = dataclasses.replace(cfg, epochs=TRAIN_EPOCHS, checkpoint_every=1,
-                             checkpoint_dir=os.path.join(tmp, f"ck_{k}"))
+def fit_counted(k, cfg, n_classes, train, test, bs, dev, seed, tmp):
+    """fit ``cfg`` on the card (the main path, counted) at training shape
+    ``k``.  Each step must launch the conv kernel of the bucket's layout (K1,
+    or K5 on the pure-panel layout) forward and backward CONVS_PER_PASS[k]
+    times each and, for the ECHO presets, K2's forward and backward once
+    each; each test batch the forward ones.  Every loss must be finite, and
+    the test metric.  Returns the net, the optimizer, the metric, the
+    losses, the launches and the fit's seconds."""
     before = dict(kernels.launches)
     t0 = time.perf_counter()
-    net, opt, metric = fit(ck, train, test, n_classes=n_classes,
+    net, opt, metric = fit(cfg, train, test, n_classes=n_classes,
                            batch_size=bs, banded_tb=TB,
                            log_path=os.path.join(tmp, f"{k}.jsonl"),
                            seed=seed, device=dev)
@@ -725,10 +824,13 @@ def fit_phase(k, cfg, n_classes, recs, dev, seed, tmp):
     fit_s = time.perf_counter() - t0
     grew = {n: c - before.get(n, 0) for n, c in kernels.launches.items()
             if c != before.get(n, 0)}
-    steps = TRAIN_EPOCHS * n_train // bs
+    steps = cfg.epochs * len(train) // bs
     passes = steps + -(-len(test) // bs)           # forward passes
-    k1 = K1_PER_PASS[k]
-    want = {"band_fused_fwd": k1 * passes, "band_fused_bwd": k1 * steps}
+    n_pad = shared_bucket(train + test)[0]
+    conv = ("band_panel" if resolve_layout(cfg, n_pad) == "panel"
+            else "band_fused")
+    n = CONVS_PER_PASS[k]
+    want = {f"{conv}_fwd": n * passes, f"{conv}_bwd": n * steps}
     if cfg.task != "classification":
         want.update(echo_panel_fwd=passes, echo_panel_bwd=steps)
     check(int(opt.step.item()) == steps,
@@ -737,9 +839,25 @@ def fit_phase(k, cfg, n_classes, recs, dev, seed, tmp):
     losses = read_losses(os.path.join(tmp, f"{k}.jsonl"))
     check(len(losses) == steps and all(np.isfinite(losses)),
           f"{k}: card losses {losses}")
+    check(np.isfinite(metric), f"{k}: test metric {metric}")
+    return net, opt, metric, losses, grew, fit_s
+
+
+def fit_phase(k, cfg, n_classes, recs, dev, seed, tmp):
+    """fit_counted for TRAIN_EPOCHS epochs, checkpointing every epoch, and
+    the first epoch of the same fit on the CPU, at training shape ``k``:
+    ``recs`` holds the train records then the test records (TRAIN_FIT[k]).
+    The first epoch's losses must match the CPU's.  Returns the card run's
+    net and optimizer."""
+    n_train, bs, _ = TRAIN_FIT[k]
+    train, test = recs[:n_train], recs[n_train:]
+    ck = dataclasses.replace(cfg, epochs=TRAIN_EPOCHS, checkpoint_every=1,
+                             checkpoint_dir=os.path.join(tmp, f"ck_{k}"))
+    net, opt, metric, losses, grew, fit_s = fit_counted(
+        k, ck, n_classes, train, test, bs, dev, seed, tmp)
+    steps = len(losses)
     latest = CheckpointManager(ck.checkpoint_dir).latest_step()
     check(latest == steps, f"{k}: latest checkpoint {latest}, want {steps}")
-    check(np.isfinite(metric), f"{k}: test metric {metric}")
 
     cpu_cfg = dataclasses.replace(ck, epochs=1, checkpoint_dir=None)
     t0 = time.perf_counter()
@@ -763,6 +881,54 @@ def fit_phase(k, cfg, n_classes, recs, dev, seed, tmp):
           f"{cpu_s:.1f} s): |diff| {diffs} (step 1 within {LOSS_ATOL_STEP1}, "
           f"later within {LOSS_ATOL_LATER})")
     return net, opt
+
+
+def fit_large(k, cfg, n_classes, recs, dev, seed, tmp):
+    """fit_counted at N_LARGE: the one record of ``recs`` trains for
+    LARGE_EPOCHS epochs (the preset's count is the one cut) and is the test
+    record, so evaluate_task runs once.  No CPU run at this size.  Returns
+    the net and optimizer."""
+    ck = dataclasses.replace(cfg, epochs=LARGE_EPOCHS)
+    net, opt, metric, losses, grew, fit_s = fit_counted(
+        k, ck, n_classes, recs, recs, 1, dev, seed, tmp)
+    print(f"train {k}: fit on the card, {len(losses)} steps of batch 1 "
+          f"(epochs cut from the preset's {cfg.epochs} to {LARGE_EPOCHS}, "
+          f"nothing else cut; {fit_s:.1f} s with the train and test table "
+          f"builds and the test pass), losses {losses}, launches {grew}; "
+          f"evaluate_task ran once: test cross entropy {metric:.4f} (random "
+          "labels)")
+    return net, opt
+
+
+def remat_step(k, tnet, cfg, n_classes, batch, dev, seed, card):
+    """One training step of ``tnet``'s weights in a net built with
+    remat_blocks (each FCResNetBlock recomputed in the backward: its 16
+    convs launch K5's forward once more), through make_train_step: the
+    launches, a finite loss and the peak device memory."""
+    rnet = build_model(cfg, n_classes, device=dev)
+    rnet.remat_blocks = True
+    rnet.load_state_dict(tnet.state_dict())
+    step = make_train_step(rnet, cfg, n_classes,
+                           make_optimizer(cfg, rnet.parameters()))
+    gen = torch.Generator().manual_seed(seed + 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    before = dict(kernels.launches)
+    loss = step(batch, gen)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    grew = {n: c - before.get(n, 0) for n, c in kernels.launches.items()
+            if c != before.get(n, 0)}
+    n = CONVS_PER_PASS[k]
+    want = {"band_panel_fwd": 2 * n - 1, "band_panel_bwd": n,
+            "echo_panel_fwd": 1, "echo_panel_bwd": 1}
+    check(grew == want, f"{k} remat_blocks: a step launched {grew}, want "
+                        f"{want}")
+    check(torch.isfinite(loss).item(), f"{k} remat_blocks: loss {loss}")
+    print(f"train step {k} with remat_blocks: loss {loss.item():.4f}, "
+          f"launches {grew}, peak device memory {peak_gb:.2f} GB "
+          f"({base_gb:.2f} GB allocated before the step) on {card}")
 
 
 def conv_fwd_bwd(banded, dev, gen, C=32, B=2, R=6, n_convs=5):
@@ -1004,14 +1170,30 @@ def main(argv=None) -> int:
         g, wmat = k5_inputs(pt, C_, O2, gen)
         k5_rows.append(k5_check(f"{label} C={C_} O2={O2}", g, wmat, pt))
         k5_timed.append((k5_rows[-1], g, wmat, pt))
+    # 3c. K5's backward against its plain version: on the 163k table at
+    # the correspondence net's four widths, on the segmentation table
+    # forced onto the panel layout at the segmentation width, and (below,
+    # with the forward) on the 5120-sample table with dense planes and
+    # with chunk=4
+    k5b_rows, k5b_timed = [], []
+    for label, pt, C_, O2 in (
+            (big, bigp, 32, 64), (big, bigp, 16, 64), (big, bigp, 32, 32),
+            (big, bigp, 16, 24), ("seg_n2048_b4 panel", seg_panel, 48, 96)):
+        g, wmat = k5_inputs(pt, C_, O2, gen)
+        dy = torch.randn(g.shape[0], O2, device=dev, generator=gen)
+        k5b_rows.append(k5_bwd_check(f"{label} C={C_} O2={O2}", g, wmat, dy,
+                                     pt))
+        k5b_timed.append((k5b_rows[-1], g, wmat, dy, pt))
     corr_table = echo_recs["corr_n5120_b1"][0].table(1, 3)
     for label, kw in (("dense planes", dict(compressed=False)),
                       ("chunk=4", dict(compressed=True, chunk=4))):
         pt = build_panel_table(corr_table, tb=TB, **kw).to(dev)
         g, wmat = k5_inputs(pt, 32, 64, gen)
-        k5_rows.append(k5_check(f"corr_n5120_b1 {label} C=32 O2=64", g,
-                                wmat, pt))
-    del pt, g, wmat, corr_table
+        label = f"corr_n5120_b1 {label} C=32 O2=64"
+        k5_rows.append(k5_check(label, g, wmat, pt))
+        dy = torch.randn(g.shape[0], 64, device=dev, generator=gen)
+        k5b_rows.append(k5_bwd_check(label, g, wmat, dy, pt))
+    del pt, g, wmat, dy, corr_table
 
     # 4. serving: the slice-1 path, counted
     for p, bs in zip(serve.values(), batches.values()):
@@ -1050,7 +1232,7 @@ def main(argv=None) -> int:
     # 5. serving the ECHO presets: the slice-3 path, counted
     echo_launches, served = serve_counted(
         echo_serve, echo_recs, echo_batches,
-        {k: {"band_fused_fwd": K1_PER_PASS[k], "echo_panel_fwd": 1}
+        {k: {"band_fused_fwd": CONVS_PER_PASS[k], "echo_panel_fwd": 1}
          for k in echo_serve})
     for k, p in echo_serve.items():
         match_cpu(k, p, echo_recs[k], served[k], echo_cpu_nets[k])
@@ -1061,7 +1243,7 @@ def main(argv=None) -> int:
     # (its plain run on the CPU would take minutes).
     panel_launches, served = serve_counted(
         panel_serve, panel_recs, panel_batches,
-        {k: {"band_panel_fwd": K1_PER_PASS["corr_n5120_b1"],
+        {k: {"band_panel_fwd": CONVS_PER_PASS["corr_n5120_b1"],
              "echo_panel_fwd": 1} for k in panel_serve})
     small_k = "corr_n5120_b1_panel"
     match_cpu(small_k, panel_serve[small_k], panel_recs[small_k],
@@ -1076,18 +1258,29 @@ def main(argv=None) -> int:
           f"{panel_launches} for both pure-panel requests")
     del out, served
 
-    # 6. and 7. training: the slice-2 path (classification) and the slice-4
-    # path (the ECHO presets), each counted
+    # 6., 7. and 7b. training: the slice-2 path (classification), the
+    # slice-4 path (the ECHO presets on the mixed route) and the slice-6
+    # path (the correspondence preset on the pure-panel layout: the 5120
+    # training records forced there and held against the CPU, then the
+    # N_LARGE record of the serving phase that layout="auto" sends there),
+    # each counted
     fits = {"shrec11_b8": (config, N_CLASSES, train_recs + test_recs)}
     fits.update((k, (echo_cfg[k], echo_classes[k], echo_train_recs[k]))
                 for k in echo_cfg)
+    fits["corr_n5120_b1_panel"] = (panel_cfg["corr_n5120_b1_panel"],
+                                   N_CORR_CLASSES,
+                                   echo_train_recs["corr_n5120_b1"])
+    fits[big] = (corr_cfg, N_CORR_CLASSES, panel_recs[big])
     trained, train_launches = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for path, keys in (("train", ["shrec11_b8"]),
-                           ("train_echo", list(echo_cfg))):
+                           ("train_echo", list(echo_cfg)),
+                           ("train_panel", ["corr_n5120_b1_panel", big])):
             kernels.reset_launches()
             for k in keys:
-                trained[k] = fit_phase(k, *fits[k], dev, args.seed, tmp)
+                trained[k] = (fit_large(k, *fits[k], dev, args.seed, tmp)
+                              if k == big else
+                              fit_phase(k, *fits[k], dev, args.seed, tmp))
             train_launches[path] = dict(kernels.launches)
 
     # 8. timing
@@ -1118,6 +1311,9 @@ def main(argv=None) -> int:
               f"{r['stencil_bytes'] / 1e9:.3f} GB of the "
               f"{r['stencil_bytes_whole'] / 1e9:.3f} GB stencil needed, "
               f"{r['bytes'] / 1e9:.3f} GB in all")
+    for args_ in k5b_timed:
+        k5_bwd_time(*args_)
+    print_times("K5 bwd", k5b_rows[:len(k5b_timed)], card)
     for args_ in k2b_timed:
         k2_bwd_time(*args_)
     print_times("K2 bwd", k2b_rows, card)
@@ -1176,10 +1372,15 @@ def main(argv=None) -> int:
 
     for k, (tnet, topt) in trained.items():
         cfg, n_classes, recs_ = fits[k]
-        bs = TRAIN_FIT[k][1]
-        n_pad, d_slots = shared_bucket(recs_)
-        tbatch = make_batches(recs_[:bs], cfg, bs, TB, n_pad, d_slots,
-                              device=dev)[0]
+        if k == big:
+            # the serving phase's batch: the same record, config and batch
+            # size as the fit's
+            tbatch = panel_batches[big][0]
+        else:
+            bs = TRAIN_FIT[k][1]
+            n_pad, d_slots = shared_bucket(recs_)
+            tbatch = make_batches(recs_[:bs], cfg, bs, TB, n_pad, d_slots,
+                                  device=dev)[0]
         step = make_train_step(tnet, cfg, n_classes, topt)
         # the augmentation, and the correspondence net's dropout masks
         step_gen = torch.Generator().manual_seed(args.seed + 3)
@@ -1188,18 +1389,30 @@ def main(argv=None) -> int:
             step(tbatch, step_gen)
             torch.cuda.synchronize()
 
-        k1 = K1_PER_PASS[k]
-        what = f"{k1} K1 fwd + {k1} K1 bwd" + (
+        n = CONVS_PER_PASS[k]
+        conv = "K1" if tbatch.banded is not None else "K5"
+        what = f"{n} {conv} fwd + {n} {conv} bwd" + (
             "" if cfg.task == "classification" else " + 1 K2 fwd + 1 K2 bwd")
-        ms = time_host(train_step)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        ms = time_host(train_step, reps=3 if k == big else 5)
         print(f"train step {k}: {ms:.3f} ms per step (host clock, ending in "
               f"a sync; {what} launches) on {card}")
-        wall, busy, kern = request_breakdown(train_step)
+        if k == big:
+            print(f"train step {k}: peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+                  f"({base_gb:.2f} GB allocated before the steps: tables, "
+                  f"nets and the kernel checks' inputs) on {card}")
+        wall, busy, kern = request_breakdown(train_step,
+                                             top=10 if k == big else 6)
         print(f"train step {k} under the profiler: wall {wall:.3f} ms, "
               f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%) on "
               f"{card}; top kernels:")
         for t, name, count in kern:
             print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
+        if k == big:
+            remat_step(k, tnet, cfg, n_classes, tbatch, dev, args.seed, card)
 
     big = batches["n8192_b1"][0]
     edges = int(big.table.mask.sum().item())
@@ -1249,6 +1462,8 @@ def main(argv=None) -> int:
               "fieldconv_tpu/ops/pallas/echo_panel.py:443", k2b_rows),
         entry("band_panel_fwd", "fieldconv_tpu_torch/csrc/band_panel_fwd.cu",
               "fieldconv_tpu/ops/pallas/band_conv.py:2187", k5_rows),
+        entry("band_panel_bwd", "fieldconv_tpu_torch/csrc/band_panel_bwd.cu",
+              "fieldconv_tpu/ops/pallas/band_conv.py:2293", k5b_rows),
     ]}
     print(json.dumps(line))
     print(card)

@@ -45,7 +45,9 @@
 // contrib from shared memory against W, as K1's does.  Each output has one
 // writer and every sum a fixed order, so two calls agree bitwise (no
 // atomics).  The hats and the phasor powers are formed with uncontracted,
-// correctly rounded operations in the plain version's order.
+// correctly rounded operations in the plain version's order.  The panel
+// walk lives in panel_walk.cuh: K5's backward (band_panel_bwd.cu)
+// rematerialises contrib with it.
 //
 // What bounds it.  The function needs the r plane (or the hat planes) whole
 // and the other planes only in the 32-byte sectors that hold an occupied
@@ -58,135 +60,16 @@
 // barriers, and W, read from L2 once per tile of targets.  It makes no use
 // of tensor cores.
 
-#include <cuda_runtime.h>
+#include "panel_walk.cuh"
 
 #include <algorithm>
-#include <cmath>
 #include <cstddef>
 
 namespace {
 
-constexpr int kMaxThreads = 256;
-constexpr int kTile = 8;          // most targets per CTA
-constexpr int kMaxRings = 6;
-
-// ring r's hat of a compressed slot: clamp(min((rv − lo)·up, (hi − rv)·dn),
-// 0, 1), knots as ops/band_conv.py::_hats_from_r forms them
-struct Knots {
-    float lo[kMaxRings], hi[kMaxRings], up[kMaxRings], dn[kMaxRings];
-};
-
-__device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n,
-                                           int v)
-{
-    int lo = 0, hi = n;
-    while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (__ldg(a + mid) < v) lo = mid + 1;
-        else hi = mid;
-    }
-    return lo;
-}
-
-// Compacts slot s = s0 + lane of one target row of panel sp into the row's
-// list (coefficients ct[j][NC], source slots st[j]) if any radial hat is
-// nonzero there; every lane of the warp calls it with its own s.  The list
-// keeps source order.  Returns the list's new length.
-template <int RMAX>
-__device__ __forceinline__ int compact_chunk(
-    float* ct, int* st, int base, const float* __restrict__ sp, size_t row,
-    int s, size_t plane, int TB, int R, int K, int compressed,
-    const Knots& kn)
-{
-    const int B = K / 2;
-    const int NC = R + 2 * K;
-    const int lane = threadIdx.x & 31;
-    float h[RMAX];
-    bool occ = false;
-    const float rv = (compressed && s < TB) ? __ldg(sp + row + s) : 0.f;
-#pragma unroll
-    for (int r = 0; r < RMAX; ++r) {
-        float v = 0.f;
-        if (r < R && s < TB) {
-            if (compressed) {
-                const float a = __fmul_rn(__fsub_rn(rv, kn.lo[r]), kn.up[r]);
-                const float b = __fmul_rn(__fsub_rn(kn.hi[r], rv), kn.dn[r]);
-                v = fminf(fmaxf(fminf(a, b), 0.f), 1.f);
-            } else {
-                v = __ldg(sp + r * plane + row + s);
-            }
-        }
-        h[r] = v;
-        occ |= v != 0.f;
-    }
-    const unsigned m = __ballot_sync(0xffffffffu, occ);
-    if (occ) {
-        const int j = base + __popc(m & ((1u << lane) - 1u));
-        float* cf = ct + (size_t)j * NC;
-#pragma unroll
-        for (int r = 0; r < RMAX; ++r)
-            if (r < R) cf[r] = h[r];
-        if (compressed) {
-            // f_k, k = −B..B, in _phasor_pairs' order and rounding (no
-            // contraction)
-            const float pr = __ldg(sp + plane + row + s);
-            const float pi = __ldg(sp + 2 * plane + row + s);
-            float cpr = __ldg(sp + 3 * plane + row + s);
-            float cpi = __ldg(sp + 4 * plane + row + s);
-            float cmr = cpr, cmi = cpi;
-            cf[R + 2 * B] = cpr;
-            cf[R + 2 * B + 1] = cpi;
-            for (int kk = 1; kk <= B; ++kk) {
-                const float npr = __fsub_rn(__fmul_rn(cpr, pr),
-                                            __fmul_rn(cpi, pi));
-                const float npi = __fadd_rn(__fmul_rn(cpr, pi),
-                                            __fmul_rn(cpi, pr));
-                const float nmr = __fadd_rn(__fmul_rn(cmr, pr),
-                                            __fmul_rn(cmi, pi));
-                const float nmi = __fsub_rn(__fmul_rn(cmi, pr),
-                                            __fmul_rn(cmr, pi));
-                cpr = npr; cpi = npi; cmr = nmr; cmi = nmi;
-                cf[R + 2 * (B + kk)] = cpr;
-                cf[R + 2 * (B + kk) + 1] = cpi;
-                cf[R + 2 * (B - kk)] = cmr;
-                cf[R + 2 * (B - kk) + 1] = cmi;
-            }
-        } else {
-            for (int q = 0; q < 2 * K; ++q)
-                cf[R + q] = __ldg(sp + (R + q) * plane + row + s);
-        }
-        st[j] = s;
-    }
-    return base + __popc(m);
-}
-
-// One occupied slot of a thread's target: its channel of the source row gr
-// of g (k-major, re then im), times f_k, added with each ring's hat.
-template <int KMAX, int RMAX>
-__device__ __forceinline__ void accumulate_slot(
-    float (&are)[KMAX][RMAX], float (&aim)[KMAX][RMAX],
-    const float* __restrict__ gr, const float* cf, int C, int K, int R)
-{
-    float hs[RMAX];
-#pragma unroll
-    for (int r = 0; r < RMAX; ++r) hs[r] = r < R ? cf[r] : 0.f;
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-        if (k < K) {
-            const float xr = __ldg(gr + k * 2 * C);
-            const float xi = __ldg(gr + k * 2 * C + C);
-            const float fr = cf[R + 2 * k];
-            const float fi = cf[R + 2 * k + 1];
-            const float hr = fr * xr - fi * xi;
-            const float hi = fr * xi + fi * xr;
-#pragma unroll
-            for (int r = 0; r < RMAX; ++r) {
-                are[k][r] = fmaf(hs[r], hr, are[k][r]);
-                aim[k][r] = fmaf(hs[r], hi, aim[k][r]);
-            }
-        }
-    }
-}
+using panel::kMaxThreads;
+using panel::kTile;
+using panel::Knots;
 
 // MINB: CTAs per SM the register budget is cut for.  Two instantiations
 // serve the presets: K = 3, R = 3 (correspondence) and K = 5, R = 6
@@ -206,8 +89,6 @@ band_panel_fwd_kernel(const float* __restrict__ g,
 {
     const int M = 2 * K * C;
     const int RM = R * M;
-    const int NC = R + 2 * K;                // coefficients per occupied slot
-    const int planes = compressed ? 5 : NC;
     const int tiles = (TB + T - 1) / T;
     const int blk = blockIdx.x / tiles;
     const int t0 = (blockIdx.x % tiles) * T;
@@ -219,47 +100,10 @@ band_panel_fwd_kernel(const float* __restrict__ g,
     const int ic = active ? tid % C : 0;
 
     extern __shared__ __align__(16) float smem[];
-    float* coef = smem;                                      // [T][TB][NC]
-    int* sidx = reinterpret_cast<int*>(coef + (size_t)T * TB * NC);  // [T][TB]
-    int* cnt = sidx + T * TB;                                // [T]
-
     float are[KMAX][RMAX], aim[KMAX][RMAX];
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k)
-#pragma unroll
-        for (int r = 0; r < RMAX; ++r) { are[k][r] = 0.f; aim[k][r] = 0.f; }
-
-    const int p_lo = lower_bound(meta, P, blk);
-    const int p_hi = lower_bound(meta, P, blk + 1);
-    const size_t plane = (size_t)TB * TB;
-    const int warp = tid >> 5, lane = tid & 31, nwarps = nthr >> 5;
-
-    for (int p = p_lo; p < p_hi; ++p) {
-        const int sblk = __ldg(meta + P + p);
-        const float* sp = sten + (size_t)p * planes * plane;
-        __syncthreads();                     // the last panel's lists are read
-        // compact each target row's occupied slots, one warp per target
-        for (int t = warp; t < nt; t += nwarps) {
-            const size_t row = (size_t)(t0 + t) * TB;
-            float* ct = coef + (size_t)t * TB * NC;
-            int* st = sidx + t * TB;
-            int base = 0;
-            for (int s0 = 0; s0 < TB; s0 += 32)
-                base = compact_chunk<RMAX>(ct, st, base, sp, row, s0 + lane,
-                                           plane, TB, R, K, compressed, kn);
-            if (lane == 0) cnt[t] = base;
-        }
-        __syncthreads();
-        if (!active || sblk < 0 || sblk >= nb_g) continue;
-        const int n = cnt[it];
-        const float* cf = coef + (size_t)it * TB * NC;
-        const int* si = sidx + it * TB;
-        const float* gb = g + (size_t)sblk * TB * M + ic;
-        for (int j = 0; j < n; ++j)
-            accumulate_slot<KMAX, RMAX>(are, aim, gb + (size_t)si[j] * M,
-                                        cf + j * NC, C, K, R);
-    }
-    __syncthreads();                         // the lists are free again
+    panel::panel_contrib<KMAX, RMAX>(are, aim, smem, g, sten, meta, P, C, K,
+                                     R, TB, compressed, nb_g, T, blk, t0, nt,
+                                     active, it, ic, kn);
 
     // contrib[j][t] with j = r·M + k·2C + (p·C + c), targets padded to kTile
     float* contrib = smem;                   // [R·M][kTile]
@@ -313,38 +157,13 @@ band_panel_fwd_kernel(const float* __restrict__ g,
     }
 }
 
-int threads_for(int T, int C)
-{
-    return (T * C + 31) / 32 * 32;
-}
-
 size_t smem_bytes(int C, int K, int R, int TB, int O2, int T, int nthr)
 {
-    const size_t NC = R + 2 * (size_t)K;
     const size_t M = 2 * (size_t)K * C;
     const size_t JG = std::max(1, nthr / O2);
-    const size_t lists = (size_t)T * TB * (NC + 1) + T;
+    const size_t lists = panel::list_floats(K, R, TB, T);
     const size_t filter = (size_t)R * M * kTile + JG * (size_t)T * O2;
     return std::max(lists, filter) * sizeof(float);
-}
-
-Knots ring_knots(int R)
-{
-    // the hats of ops/band_conv.py::_hats_from_r: knots sqrt(r / (R − 1))
-    // with virtual knots −1 and 2 at the ends, the slopes' reciprocals
-    // taken in double and rounded once
-    Knots kn{};
-    for (int r = 0; r < R; ++r) {
-        const double sc = std::sqrt((double)r / (R - 1));
-        const double sl = r > 0 ? std::sqrt((double)(r - 1) / (R - 1)) : -1.0;
-        const double sr = r < R - 1 ? std::sqrt((double)(r + 1) / (R - 1))
-                                    : 2.0;
-        kn.lo[r] = (float)sl;
-        kn.hi[r] = (float)sr;
-        kn.up[r] = (float)(1.0 / (sc - sl));
-        kn.dn[r] = (float)(1.0 / (sr - sc));
-    }
-    return kn;
 }
 
 template <int KMAX, int RMAX, int MINB>
@@ -387,10 +206,10 @@ extern "C" int band_panel_fwd(const float* g, const float* wmat,
         &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return (int)err;
     const int T = std::min(kTile, std::max(1, kMaxThreads / C));
-    const int nthr = threads_for(T, C);
+    const int nthr = panel::threads_for(T, C);
     const size_t smem = smem_bytes(C, K, R, TB, O2, T, nthr);
     if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
-    const Knots kn = compressed ? ring_knots(R) : Knots{};
+    const Knots kn = compressed ? panel::ring_knots(R) : Knots{};
     cudaStream_t s = (cudaStream_t)stream;
     if (K <= 3)
         return launch<3, 3, 5>(g, wmat, sten, meta, y, P, nb_out, C, K, R,

@@ -1,6 +1,6 @@
 """Field convolution over the block layouts with the hand-written kernels:
 the dense BandedTable (K1 forward and backward) and the PanelTable (K5
-forward).
+forward and backward).
 
 Counterpart of ``fieldconv_tpu/ops/pallas/band_conv.py`` for those two
 tables.  The contraction runs in hand-written CUDA kernels:
@@ -10,13 +10,15 @@ tables.  The contraction runs in hand-written CUDA kernels:
 ``_band_fused_mega_bwd_impl``, ``_band_fused_bwd``), and
 ``csrc/band_panel_fwd.cu`` replaces ``_band_panel_fwd_impl`` (both of its
 ``pallas_call``s, bodies ``_fwd_panel_kernel`` and
-``_fwd_panel_chunk_kernel``).  The wrappers :func:`band_fused_fwd`,
-:func:`band_fused_bwd` and :func:`band_panel_fwd` launch them for CUDA
-tensors and run the plain PyTorch versions :func:`band_fused_fwd_reference`,
-:func:`band_fused_bwd_reference` and :func:`band_panel_fwd_reference` for
-CPU tensors; they never move work between devices.  :class:`_BandFusedFn`
-ties K1's two together for autograd, as ``jax.custom_vjp`` does in the JAX
-package.  K5 is forward-only here: its backward is ROADMAP Queue 2, K5 bwd.
+``_fwd_panel_chunk_kernel``) and ``csrc/band_panel_bwd.cu`` replaces
+``_band_panel_bwd_impl`` (bodies ``_bwd_panel_kernel`` and
+``_bwd_panel_chunk_kernel``).  The wrappers :func:`band_fused_fwd`,
+:func:`band_fused_bwd`, :func:`band_panel_fwd` and :func:`band_panel_bwd`
+launch them for CUDA tensors and run the plain PyTorch versions
+(``*_reference``) for CPU tensors; they never move work between devices.
+:class:`_BandFusedFn` and :class:`_BandPanelFn` tie each kernel's two
+directions together for autograd, as ``jax.custom_vjp`` does in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -360,10 +362,11 @@ def _k5_entry():
     return fn
 
 
-def _k5_check(g, wmat, sten, meta, tb, n_rings, band_limit, compressed,
-              n_out):
-    """Raise unless the shapes agree and g, wmat, sten (float32) and meta
-    (int32) are contiguous on g's device."""
+def _k5_check(name, g, wmat, sten, meta, tb, n_rings, band_limit,
+              compressed, n_out, *more):
+    """Raise unless the shapes agree and g, wmat, sten (float32), meta
+    (int32) and the named extra tensors are contiguous on g's device, and
+    unless one of the kernel's two instantiations takes (K, R)."""
     N, M = g.shape
     R, K = n_rings, 2 * band_limit + 1
     planes = 5 if compressed else R + 2 * K
@@ -372,28 +375,28 @@ def _k5_check(g, wmat, sten, meta, tb, n_rings, band_limit, compressed,
             or tuple(sten.shape) != (P, planes, tb, tb) \
             or tuple(meta.shape) != (4, P) or n_out % tb or N % tb:
         raise ValueError(
-            f"band_panel_fwd shapes do not agree: g {tuple(g.shape)}, wmat "
+            f"{name} shapes do not agree: g {tuple(g.shape)}, wmat "
             f"{tuple(wmat.shape)}, sten {tuple(sten.shape)} (want "
             f"({P}, {planes}, {tb}, {tb})), meta {tuple(meta.shape)}, "
             f"n_out {n_out}")
     for label, t, dtype in (("g", g, torch.float32),
                             ("wmat", wmat, torch.float32),
                             ("sten", sten, torch.float32),
-                            ("meta", meta, torch.int32)):
+                            ("meta", meta, torch.int32), *more):
         if t.device != g.device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"band_panel_fwd needs contiguous {dtype} "
-                             f"{label} on {g.device}, got {t.dtype} on "
-                             f"{t.device} (contiguous={t.is_contiguous()})")
+            raise ValueError(f"{name} needs contiguous {dtype} {label} on "
+                             f"{g.device}, got {t.dtype} on {t.device} "
+                             f"(contiguous={t.is_contiguous()})")
     if R > (3 if K <= 3 else 6) or K > 5:
         raise NotImplementedError(
-            f"band_panel_fwd's kernel takes K ≤ 3 with R ≤ 3 and K = 5 with "
-            f"R ≤ 6 (the presets' shapes), got K={K}, R={R}")
+            f"{name}'s kernel takes K ≤ 3 with R ≤ 3 and K = 5 with R ≤ 6 "
+            f"(the presets' shapes), got K={K}, R={R}")
 
 
 def _band_panel_fwd_cuda(g, wmat, sten, meta, tb, n_rings, band_limit,
                          compressed, n_out):
-    _k5_check(g, wmat, sten, meta, tb, n_rings, band_limit, compressed,
-              n_out)
+    _k5_check("band_panel_fwd", g, wmat, sten, meta, tb, n_rings,
+              band_limit, compressed, n_out)
     O2 = wmat.shape[-1]
     K = 2 * band_limit + 1
     fn = _k5_entry()
@@ -414,28 +417,161 @@ def band_panel_fwd(g, wmat, sten, meta, tb: int, n_rings: int,
     :func:`band_panel_fwd_reference`).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
-    (building it on first use) or raise.  The op is forward-only: on CUDA
-    tensors a gradient request raises, since K5's backward is not ported
-    yet (ROADMAP Queue 2, K5 bwd).  A stencil stored in bf16
-    (``cast_panel_sten`` in the JAX package) is refused on both devices."""
+    (building it on first use) or raise.  Gradients go through
+    :class:`_BandPanelFn`.  A stencil stored in bf16 (``cast_panel_sten`` in
+    the JAX package) is refused on both devices."""
     n_out = g.shape[0] if n_out is None else n_out
-    if sten.dtype != torch.float32:
-        raise NotImplementedError(
-            f"a {sten.dtype} panel stencil: the bf16 options of K1 and K5 "
-            "are ROADMAP Queue 2 (K1 (bf16), K5)")
+    _k5_float32(sten)
     if g.device.type == "cpu":
         return band_panel_fwd_reference(g, wmat, sten, meta, tb, n_rings,
                                         band_limit, compressed, n_out)
     if g.device.type == "cuda":
-        if torch.is_grad_enabled() and (g.requires_grad
-                                        or wmat.requires_grad):
-            raise NotImplementedError(
-                "a gradient through the panel conv on the card needs K5's "
-                "backward (_band_panel_bwd_impl), which is not ported yet: "
-                "ROADMAP Queue 2, K5 bwd (pure-panel training, slice 6)")
         return _band_panel_fwd_cuda(g, wmat, sten, meta, tb, n_rings,
                                     band_limit, compressed, n_out)
     raise ValueError(f"band_panel_fwd has no kernel for device {g.device}")
+
+
+def _k5_float32(sten):
+    if sten.dtype != torch.float32:
+        raise NotImplementedError(
+            f"a {sten.dtype} panel stencil: the bf16 options of K1 and K5 "
+            "are ROADMAP Queue 2 (K1 (bf16), K5)")
+
+
+# --- K5 backward: plain version, wrapper, kernel launch ----------------------
+
+def band_panel_bwd_reference(dy, g, wmat, sten, meta_s, tb: int,
+                             n_rings: int, band_limit: int,
+                             compressed: bool):
+    """Plain PyTorch K5 backward, written out (not taken from autograd):
+    what ``_bwd_panel_kernel`` (and its chunked twin) computes, walking the
+    by-source panel order ``meta_s`` (4, P_s) rows (pid, tgt, src, first_s
+    + 2·last_s) 256 panels at a time.  For each panel, with S_k = hats_r ⊙
+    f_k of stencil panel pid, target block tgt and source block src:
+
+        dc         = dy[tgt] · W_rᵀ                 (per ring)
+        dW        += pcᵀ · dy[tgt],  pc the panel's partial contrib
+        dG[src]   += Σ_r Σ_k S_kᵀ · [d_re | d_im ; d_im | −d_re]
+
+    dy: (n_out, O2); other shapes as in :func:`band_panel_fwd_reference`.
+    Returns (dg (N, M), dw (R, M, O2)); a source block without panels gets
+    zeros in dg (the Pallas kernel leaves it unwritten)."""
+    N, M = g.shape
+    R, K = n_rings, 2 * band_limit + 1
+    C = M // (2 * K)
+    O2 = wmat.shape[-1]
+    gb = g.reshape(-1, tb, M)
+    dyb = dy.reshape(-1, tb, O2)
+    meta_s = meta_s.long()
+    dgb = g.new_zeros(N // tb, tb, M)
+    dw = g.new_zeros(wmat.shape)
+    pc = 256                   # panels per step
+    for lo in range(0, meta_s.shape[1], pc):
+        pid, tgt, src = meta_s[:3, lo:lo + pc]
+        hats, pairs = _panel_pairs(sten[pid], R, K, compressed)
+        gs, dys = gb[src], dyb[tgt]               # (pc, TB, M), (pc, TB, O2)
+        dcon = torch.einsum("pto,rjo->prtj", dys, wmat)    # (pc, R, TB, M)
+        parts, dparts = [None] * (2 * K), [None] * (2 * K)
+        for k, fre, fim in pairs:
+            s_re, s_im = hats * fre[None], hats * fim[None]  # (R, pc, T, S)
+            gk = gs[..., k * 2 * C:(k + 1) * 2 * C]
+            pa = torch.einsum("rpts,psc->prtc", s_re, gk)
+            pb = torch.einsum("rpts,psc->prtc", s_im, gk)
+            parts[2 * k] = pa[..., :C] - pb[..., C:]
+            parts[2 * k + 1] = pa[..., C:] + pb[..., :C]
+            d = dcon[..., k * 2 * C:(k + 1) * 2 * C]      # (pc, R, T, 2C)
+            p1 = torch.einsum("rpts,prtc->psc", s_re, d)
+            p2 = torch.einsum("rpts,prtc->psc", s_im, d)
+            dparts[2 * k] = p1[..., :C] + p2[..., C:]
+            dparts[2 * k + 1] = p1[..., C:] - p2[..., :C]
+        dw += torch.einsum("prtj,pto->rjo", torch.cat(parts, dim=-1), dys)
+        dgb.index_add_(0, src, torch.cat(dparts, dim=-1))
+    return dgb.reshape(N, M), dw
+
+
+@functools.cache
+def _k5_bwd_entry():
+    """(kernel entry, floats of scratch it needs for given sizes)."""
+    lib = kernels.library("band_panel_bwd")
+    fn = lib.band_panel_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    size = lib.band_panel_bwd_scratch_floats
+    size.argtypes = [ctypes.c_int] * 8
+    size.restype = ctypes.c_longlong
+    return fn, size
+
+
+def _band_panel_bwd_cuda(dy, g, wmat, sten, meta, meta_s, tb, n_rings,
+                         band_limit, compressed):
+    n_out, O2 = dy.shape
+    _k5_check("band_panel_bwd", g, wmat, sten, meta, tb, n_rings,
+              band_limit, compressed, n_out, ("dy", dy, torch.float32),
+              ("meta_s", meta_s, torch.int32))
+    if meta_s.dim() != 2 or meta_s.shape[0] != 4 or O2 != wmat.shape[-1]:
+        raise ValueError(f"band_panel_bwd: meta_s {tuple(meta_s.shape)}, "
+                         f"dy {tuple(dy.shape)}, wmat {tuple(wmat.shape)}")
+    N, M = g.shape
+    K = 2 * band_limit + 1
+    fn, scratch_floats = _k5_bwd_entry()
+    sizes = (n_out // tb, N // tb, M // (2 * K), K, n_rings, tb, O2,
+             int(compressed))
+    f32 = dict(dtype=torch.float32, device=g.device)
+    dg = torch.empty((N, M), **f32)
+    dw = torch.empty(tuple(wmat.shape), **f32)
+    # contrib, then dcontrib, of every target row, and the dW partial sums
+    scratch = torch.empty((max(1, scratch_floats(*sizes)),), **f32)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = fn(dy.data_ptr(), g.data_ptr(), wmat.data_ptr(), sten.data_ptr(),
+             meta.data_ptr(), meta_s.data_ptr(), dg.data_ptr(), dw.data_ptr(),
+             scratch.data_ptr(), sten.shape[0], meta_s.shape[1], *sizes,
+             stream)
+    if err != 0:
+        raise RuntimeError(f"band_panel_bwd launch failed: cudaError {err}")
+    kernels.launches["band_panel_bwd"] += 1
+    return dg, dw
+
+
+def band_panel_bwd(dy, g, wmat, sten, meta, meta_s, tb: int, n_rings: int,
+                   band_limit: int, compressed: bool):
+    """K5 backward (dg (N, M), dw (R, M, O2)) for the output cotangent dy
+    (n_out, O2) (shapes as in :func:`band_panel_bwd_reference`).
+
+    CPU tensors run the plain version, which walks meta_s alone; CUDA
+    tensors launch the kernel (building it on first use) or raise.  The
+    kernel also takes the table's target order ``meta``, over which it
+    rematerialises contrib as the forward forms it."""
+    _k5_float32(sten)
+    if g.device.type == "cpu":
+        return band_panel_bwd_reference(dy, g, wmat, sten, meta_s, tb,
+                                        n_rings, band_limit, compressed)
+    if g.device.type == "cuda":
+        return _band_panel_bwd_cuda(dy, g, wmat, sten, meta, meta_s, tb,
+                                    n_rings, band_limit, compressed)
+    raise ValueError(f"band_panel_bwd has no kernel for device {g.device}")
+
+
+class _BandPanelFn(torch.autograd.Function):
+    """K5 with its hand-written backward: the counterpart of the JAX
+    package's ``_band_panel`` custom VJP.  Keeps g, wmat, the stencil and
+    both panel orders for the backward, which rematerialises contrib; the
+    stencil and the orders take no gradient."""
+
+    @staticmethod
+    def forward(ctx, g, wmat, sten, meta, meta_s, tb: int, n_rings: int,
+                band_limit: int, compressed: bool):
+        ctx.save_for_backward(g, wmat, sten, meta, meta_s)
+        ctx.args = (tb, n_rings, band_limit, compressed)
+        return band_panel_fwd(g, wmat, sten, meta, *ctx.args)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        g, wmat, sten, meta, meta_s = ctx.saved_tensors
+        dg, dw = band_panel_bwd(dy.contiguous(), g, wmat, sten, meta, meta_s,
+                                *ctx.args)
+        return dg, dw, None, None, None, None, None, None, None
 
 
 def field_conv_banded(x, banded, zonal, spherical, phase, ftype,
@@ -447,7 +583,8 @@ def field_conv_banded(x, banded, zonal, spherical, phase, ftype,
     axes as x (one K1 launch serves the whole mesh batch, forward and
     backward; gradients flow to x and the filters, not the stencil), or a
     PanelTable covering the meshes of x's leading axes (one K5 launch
-    serves the batch, forward only on the card).  As in the JAX package,
+    serves the batch, forward and backward, through :class:`_BandPanelFn`
+    on either device).  As in the JAX package,
     fuse_filters only selects among the BandedTable kernels."""
     if not isinstance(banded, (BandedTable, PanelTable)):
         raise NotImplementedError(
@@ -475,9 +612,9 @@ def field_conv_banded(x, banded, zonal, spherical, phase, ftype,
             raise ValueError(
                 f"x carries {g.shape[0]} rows but the panel table covers "
                 f"{banded.n_mesh} mesh(es) of {banded.n_pad}")
-        y2 = band_panel_fwd(g, wmat, banded.sten, banded.meta, banded.tb,
-                            banded.n_rings, banded.band_limit,
-                            banded.compressed)
+        y2 = _BandPanelFn.apply(g, wmat, banded.sten, banded.meta,
+                                banded.meta_s, banded.tb, banded.n_rings,
+                                banded.band_limit, banded.compressed)
     else:
         g = g.reshape(-1, N, g.shape[-1]).contiguous()
         sten = banded.sten_band

@@ -6,9 +6,8 @@ cover classification, segmentation and correspondence: the dense banded
 layout, the mixed route (banded convs, panel ECHO and lift) of the ECHO
 presets, the pure-panel layout of large meshes (every op over one
 PanelTable), or the gather path when ``banded_tb`` is None.  ``fit`` and
-``evaluate_task`` train and evaluate the three of them below the panel
-layout (its training needs K5's backward, ROADMAP Queue 2); matching is
-ROADMAP Queue 1 item 3.
+``evaluate_task`` train and evaluate the three of them on every layout;
+matching is ROADMAP Queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -154,16 +153,15 @@ def fit(config: ExperimentConfig, train_records: List[MeshRecord],
     continues as an uninterrupted one would) and one is saved every
     config.checkpoint_every epochs and at the end.
 
-    A bucket on the pure-panel layout raises on either device: training
-    there needs K5's backward (ROADMAP Queue 2, K5 bwd)."""
+    A bucket on the pure-panel layout trains as the others do: every conv
+    runs K5 forward and backward, ECHO K2, over the batch's one
+    PanelTable."""
     device = resolve_device(device)
     net = build_model(config, n_classes,
                       generator=torch.Generator().manual_seed(seed),
                       device=device)
     all_records = train_records + (test_records or [])
     n_pad, d_slots = shared_bucket(all_records)
-    if banded_tb is not None and resolve_layout(config, n_pad) == "panel":
-        _panel_training_unported(f"n_pad={n_pad}")
     train_batches = make_batches(train_records, config, batch_size,
                                  banded_tb, n_pad, d_slots, device=device)
     test_batches = (make_batches(test_records, config, batch_size, banded_tb,
@@ -247,21 +245,10 @@ def fit(config: ExperimentConfig, train_records: List[MeshRecord],
     return net, opt, final
 
 
-def _panel_training_unported(what: str):
-    raise NotImplementedError(
-        f"{what} resolves to the pure-panel layout, whose training and "
-        "evaluation need K5's backward (_band_panel_bwd_impl), not ported "
-        "yet: ROADMAP Queue 2, K5 bwd (slice 6); serve it with Predictor, "
-        "or set config.layout='banded' to train on the dense band")
-
-
 def evaluate_task(net, config: ExperimentConfig, test_batches,
                   n_classes: int):
     """The task's test metric: accuracy (classification, per-vertex for
-    segmentation) or the mean test cross entropy (correspondence).  Batches
-    on the pure-panel layout raise, as :func:`fit` does."""
-    if any(b.panel is not None and b.banded is None for b in test_batches):
-        _panel_training_unported("a test batch")
+    segmentation) or the mean test cross entropy (correspondence)."""
     if config.task == "classification":
         return evaluate.classification_accuracy(net, test_batches)
     if config.task == "segmentation":

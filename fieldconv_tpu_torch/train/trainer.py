@@ -3,8 +3,8 @@
 Counterpart of ``fieldconv_tpu/train/trainer.py``.  Meshes sharing a shape
 bucket are stacked into a MeshBatch with a leading mesh axis; the model
 runs once over the whole batch (the JAX package's vmap, written out as
-that axis), so one K1 launch serves every mesh of a batch, forward and
-backward.
+that axis), so one K1 launch (K5 on the pure-panel layout) serves every
+mesh of a batch, forward and backward.
 
 The step follows the JAX one: random rotation and scale of the positions,
 the task's loss (classification, segmentation or correspondence; the

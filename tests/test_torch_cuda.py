@@ -312,22 +312,108 @@ def test_k5_kernel_matches_plain_on_card(C, O2, B, R, compressed, chunk):
 
 
 @pytest.mark.cuda
-def test_k5_gradient_on_card_raises():
-    """The panel conv is forward-only on the card: a gradient request
-    names K5's backward instead of returning a graph that stops at it."""
+@K5_SHAPES
+@pytest.mark.parametrize("compressed,chunk", [(True, 1), (False, 1),
+                                              (True, 4), (False, 4)])
+def test_k5_bwd_kernel_matches_plain_on_card(C, O2, B, R, compressed, chunk):
+    """K5's backward against its plain version on the card, on the tables
+    of test_k5_kernel_matches_plain_on_card: dg and dw each within 1e-4 of
+    their scale (f32 sums over a source's panels and slots, and dw's over
+    every target row, in another order).  A second call is bitwise equal
+    (one writer per output, no atomics)."""
+    _need_card()
+    rng = np.random.default_rng(C + R)
+    tb = 32
+    table = sphere_record(rng, 1500, 4).table(B, R, n_multiple=tb)
+    panel = build_panel_table(table, tb=tb, compressed=compressed,
+                              chunk=chunk).to("cuda")
+    M = (2 * B + 1) * 2 * C
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    g = torch.randn(panel.n_pad, M, device="cuda", generator=gen)
+    wmat = torch.randn(R, M, O2, device="cuda", generator=gen) / (R * M) ** .5
+    dy = torch.randn(panel.n_pad, O2, device="cuda", generator=gen)
+    args = (dy, g, wmat, panel.sten, panel.meta, panel.meta_s, tb, R, B,
+            compressed)
+    before = kernels.launches["band_panel_bwd"]
+    dg, dw = tbc.band_panel_bwd(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["band_panel_bwd"] == before + 1
+    want = tbc.band_panel_bwd_reference(dy, g, wmat, panel.sten,
+                                        panel.meta_s, tb, R, B, compressed)
+    for got, ref in zip((dg, dw), want):
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-4 * ref.abs().max().item(), err
+    dg2, dw2 = tbc.band_panel_bwd(*args)
+    assert torch.equal(dg, dg2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+def test_k5_gradient_on_card_matches_cpu():
+    """A field_conv_banded backward over a PanelTable on the card goes
+    through _BandPanelFn (one K5 forward and one K5 backward launch) and
+    equals the same on the CPU (plain versions): grads of x and of the
+    three filter tensors to 1e-4 of their scale."""
     _need_card()
     rng = np.random.default_rng(0)
     table = sphere_record(rng, 600, 4).table(1, 3, n_multiple=32)
-    panel = build_panel_table(table, tb=32, compressed=True).to("cuda")
-    x = torch.randn(1, panel.n_pad, 4, 2, device="cuda", requires_grad=True)
-    filt = [torch.randn(s, device="cuda") for s in ((3, 4, 3),
-                                                     (3, 4, 3, 1, 2),
-                                                     (3, 4, 2))]
-    with pytest.raises(NotImplementedError, match="K5 bwd"):
-        tbc.field_conv_banded(x, panel, *filt, 1)
-    with torch.no_grad():
-        y = tbc.field_conv_banded(x, panel, *filt, 1)
-    assert y.shape == (1, panel.n_pad, 3, 2) and torch.isfinite(y).all()
+    panel = build_panel_table(table, tb=32, compressed=True)
+    x = rng.normal(size=(1, panel.n_pad, 4, 2))
+    filt = [rng.normal(size=s) for s in ((3, 4, 3), (3, 4, 3, 1, 2),
+                                         (3, 4, 2))]
+    dy = rng.normal(size=(1, panel.n_pad, 3, 2))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        t = [torch.tensor(a, dtype=torch.float32, device=dev,
+                          requires_grad=True) for a in (x, *filt)]
+        before = dict(kernels.launches)
+        y = tbc.field_conv_banded(t[0], panel.to(dev), *t[1:], 1)
+        y.backward(torch.tensor(dy, dtype=torch.float32, device=dev))
+        grew = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+                if v != before.get(k, 0)}
+        assert grew == ({} if dev == "cpu" else {
+            "band_panel_fwd": 1, "band_panel_bwd": 1}), grew
+        grads[dev] = [a.grad.cpu() for a in t]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * b.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_correspondence_pure_panel_loss_backward_card_matches_cpu():
+    """One correspondence loss backward on the pure-panel layout (K5 forward
+    and backward 17 times each, K2 forward and backward once, no K1) with
+    an injected dropout mask, against the same on the CPU: every
+    parameter's gradient within 1e-4 of its scale (every op sums in
+    another order)."""
+    _need_card()
+    rng = np.random.default_rng(2)
+    config = dataclasses.replace(PRESETS["correspondence"], nf=8, n_des=4,
+                                 layout="panel")
+    recs = [_record(rng, 200, 16, 40, 0.05, labels=rng.integers(0, 6, 200))]
+    net = build_model(config, 6, torch.Generator().manual_seed(0),
+                      device="cpu")
+    aug = draw_rotate_scale(torch.Generator().manual_seed(1), 1, 45.0, None)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        batch = make_batches(recs, config, 1, 32, device=dev)[0]
+        assert batch.banded is None and batch.panel is not None
+        mask = torch.from_numpy((np.random.default_rng(3).random(
+            (1, batch.pos.shape[1], 256)) < 0.5).astype(np.float32))
+        net = net.to(dev)
+        before = dict(kernels.launches)
+        loss = make_loss_fn(net, config, 6)(batch, aug=aug,
+                                            dropout_mask=mask.to(dev))
+        grads[dev] = [g.cpu() for g in torch.autograd.grad(
+            loss, list(net.parameters()))]
+        grew = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+                if v != before.get(k, 0)}
+        assert grew == ({} if dev == "cpu" else {
+            "band_panel_fwd": 17, "band_panel_bwd": 17, "echo_panel_fwd": 1,
+            "echo_panel_bwd": 1}), grew
+    for (name, _), a, b in zip(net.named_parameters(), grads["cuda"],
+                               grads["cpu"]):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * b.abs().max().item(), (name, err)
 
 
 @pytest.mark.cuda

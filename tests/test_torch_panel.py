@@ -53,7 +53,6 @@ from fieldconv_tpu_torch.precomp import tiled as ttiled
 from fieldconv_tpu_torch.train import loop as tloop
 from fieldconv_tpu_torch.train.config import ExperimentConfig
 from fieldconv_tpu_torch.train.trainer import batched_apply
-from fieldconv_tpu_torch.utils.port_weights import params_from_jax
 
 K5_TOL = dict(rtol=1e-5, atol=1e-6)
 CONV_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -153,11 +152,13 @@ def test_field_conv_panel_matches_jax(rng, compressed):
 
 
 def test_k5_on_cuda_tensors_needs_the_kernel(monkeypatch):
-    """No silent CPU fallback: on CUDA tensors the K5 wrapper goes to the
-    kernel's entry point, whose build fails here for want of nvcc (patched,
-    the entry records the call); a gradient request raises before it,
-    naming K5's backward, and so does a (K, R) no kernel instantiation
-    takes (K=3 with R=6); a bf16 stencil is refused on either device."""
+    """No silent CPU fallback: on CUDA tensors the K5 wrappers go to the
+    kernels' entry points, whose build fails here for want of nvcc
+    (patched, the entries record the calls); a gradient request goes
+    through _BandPanelFn, whose forward reaches K5's entry and whose
+    backward reaches the entry of K5's backward; a (K, R) that no kernel
+    instantiation takes (K=3 with R=6) raises before either entry; a bf16
+    stencil is refused on either device."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks its absence")
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -182,20 +183,33 @@ def test_k5_on_cuda_tensors_needs_the_kernel(monkeypatch):
         w = torch.zeros(3, 24, 6, device="cuda")
         sten = torch.zeros(2, 5, 8, 8, device="cuda")
         meta = torch.zeros(4, 2, dtype=torch.int32, device="cuda")
+        dy = torch.zeros(16, 6, device="cuda")
         args = (sten, meta, 8, 3, 1, True)
         with pytest.raises(RuntimeError, match="nvcc"):
             tbc.band_panel_fwd(g, w, *args)
-        with pytest.raises(NotImplementedError, match="K5 bwd"):
-            tbc.band_panel_fwd(g, w.clone().requires_grad_(), *args)
+        with pytest.raises(RuntimeError, match="nvcc"):
+            tbc.band_panel_bwd(dy, g, w, sten, meta, meta, 8, 3, 1, True)
         monkeypatch.setattr(tbc, "_k5_entry", entry)
         with pytest.raises(Entered):
             tbc.band_panel_fwd(g, w, *args)
-        with torch.no_grad(), pytest.raises(Entered):
-            tbc.band_panel_fwd(g, w.clone().requires_grad_(), *args)
+        # the autograd Function, on a context standing in for autograd's
+        # (autograd cannot record a graph over fake CUDA tensors in a build
+        # without CUDA)
+        ctx = types.SimpleNamespace(save_for_backward=lambda *t: None)
+        with pytest.raises(Entered):
+            tbc._BandPanelFn.forward(ctx, g, w, sten, meta, meta, 8, 3, 1,
+                                     True)
+        monkeypatch.setattr(tbc, "_k5_bwd_entry", entry)
+        ctx = types.SimpleNamespace(saved_tensors=(g, w, sten, meta, meta),
+                                    args=(8, 3, 1, True))
+        with pytest.raises(Entered):
+            tbc._BandPanelFn.backward(ctx, dy)
+        w6 = torch.zeros(6, 24, 6, device="cuda")
         with pytest.raises(NotImplementedError, match="presets' shapes"):
-            tbc.band_panel_fwd(g, torch.zeros(6, 24, 6, device="cuda"),
-                               sten, meta, 8, 6, 1, True)
-    assert entered == [True, True]
+            tbc.band_panel_fwd(g, w6, sten, meta, 8, 6, 1, True)
+        with pytest.raises(NotImplementedError, match="presets' shapes"):
+            tbc.band_panel_bwd(dy, g, w6, sten, meta, meta, 8, 6, 1, True)
+    assert entered == [True, True, True]
     assert kernels.launches == before
 
 
@@ -207,8 +221,8 @@ def test_make_batches_routes_the_panel_layout(rng):
     layout above the threshold.  The port's batch joins the meshes'
     compressed tables (equal to the JAX batch's per-mesh ones, block ids
     offset) and builds no banded tables; below the threshold the mixed
-    route stays.  The compact layouts raise, and so do fit and evaluation
-    on a panel bucket (K5's backward is not ported)."""
+    route stays.  The compact layouts raise; fit trains a panel bucket and
+    evaluate_task evaluates it."""
     jrecs = _records(rng, "segmentation", n_meshes=2, N=20)
     kw = dict(task="segmentation", band_limit=1, n_rings=2, nf=4, n_des=4,
               n_bins=2, echo_impl="panel", panel_threshold=8)
@@ -238,11 +252,11 @@ def test_make_batches_routes_the_panel_layout(rng):
         with pytest.raises(NotImplementedError, match="K[67]"):
             tloop.make_batches(recs, dataclasses.replace(cfg, **bad), 2, TB,
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="K5 bwd"):
-        tloop.fit(cfg, recs, n_classes=3, banded_tb=TB, device="cpu")
-    net = tloop.build_model(cfg, 3, device="cpu")
-    with pytest.raises(NotImplementedError, match="K5 bwd"):
-        tloop.evaluate_task(net, cfg, [b], 3)
+    net, opt, acc = tloop.fit(dataclasses.replace(cfg, epochs=1), recs, recs,
+                              n_classes=3, batch_size=2, banded_tb=TB,
+                              device="cpu")
+    assert int(opt.step) == 1 and 0.0 <= acc <= 1.0
+    assert tloop.evaluate_task(net, cfg, [b], 3) == acc
 
 
 # --- whole nets on the pure-panel route -----------------------------------------------
