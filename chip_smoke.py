@@ -30,6 +30,13 @@ Phases, any failure exits non-zero:
      correspondence widths, on the forced segmentation table at C=48,
      O2=96, K=5, R=6, and on the 5120-sample tables with dense planes and
      with chunk=4;
+  3d. hold K6's forward (compact conv) and K7's forward (compact ECHO)
+     against their plain versions and bitwise against a second call, and
+     time them: K6 on the 163,842-sample CompactPanelTable (TBt 32, TS 128)
+     at the correspondence net's four widths and on the segmentation
+     records' compact table (TBt 128) at C=48, O2=96, K=5, R=6; K7 on the
+     163,842-sample table at C=12, n_bins 2 and on the segmentation table
+     at C=48, n_bins 3;
   4. serve the SHREC11 classification network (the CLASSIFICATION preset:
      nf=32, B=2, R=6, ftype=1, 30 classes, random weights from a seed)
      through Predictor(banded_tb=128, device="cuda"): one batch of 8
@@ -55,6 +62,14 @@ Phases, any failure exits non-zero:
      train_100k.py) that layout="auto" sends there by itself: logits
      finite, of shape (163842, 4999).  Each request must launch K5 17
      times and K2 once, and K1 never;
+  5c. serve the compact route: the 5120-sample record forced onto the
+     pure-panel layout with echo_impl="compact" (17 K5 + 1 K7) and with
+     conv_impl="compact" too (17 K6 + 1 K7), the segmentation batch on the
+     mixed route with echo_impl="compact" (9 K1 + 1 K7), each held against
+     the CPU, and the 163,842-sample record both ways (its compact table
+     built from the serving batch's EdgeTable at TBt 32): logits finite, of
+     shape (163842, 4999), exact launches and no K2; the 163k compact
+     table then waits on the host until phase 8;
   6. train the classification network with fit(banded_tb=128,
      batch_size=8, device="cuda") on 16 SHREC11-sized records (2 batches)
      for 2 epochs, testing on 8 more, checkpointing into a temporary
@@ -80,7 +95,8 @@ Phases, any failure exits non-zero:
      memory), a training step at each training shape (at 163,842 samples
      also the peak device memory, and one step of a net built with
      remat_blocks), and one forward and backward of five convs at
-     bench.py's shape;
+     bench.py's shape; then the all-compact 163,842-sample request once
+     the block-panel table is freed;
   9. print the kernels line, the card line and the result line.
 
 Records are synthetic, built with numpy from --seed by
@@ -94,6 +110,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -110,7 +127,10 @@ from fieldconv_tpu_torch import kernels
 from fieldconv_tpu_torch.data.base import shared_bucket
 from fieldconv_tpu_torch.data.synthetic import sphere_record, synthetic_record
 from fieldconv_tpu_torch.deploy import Predictor
-from fieldconv_tpu_torch.ops.band_conv import (_panel_pairs, band_fused_bwd,
+from fieldconv_tpu_torch.ops.band_conv import (_panel_pairs,
+                                               band_compact_fwd,
+                                               band_compact_fwd_reference,
+                                               band_fused_bwd,
                                                band_fused_bwd_reference,
                                                band_fused_fwd,
                                                band_fused_fwd_reference,
@@ -119,11 +139,14 @@ from fieldconv_tpu_torch.ops.band_conv import (_panel_pairs, band_fused_bwd,
                                                band_panel_fwd,
                                                band_panel_fwd_reference,
                                                field_conv_banded)
-from fieldconv_tpu_torch.ops.echo_panel import (echo_panel_grid,
+from fieldconv_tpu_torch.ops.echo_panel import (echo_compact_grid,
+                                                echo_compact_grid_reference,
+                                                echo_panel_grid,
                                                 echo_panel_grid_bwd,
                                                 echo_panel_grid_bwd_reference,
                                                 echo_panel_grid_reference)
-from fieldconv_tpu_torch.precomp.banded import build_panel_table
+from fieldconv_tpu_torch.precomp.banded import (build_compact_panel_table,
+                                                build_panel_table)
 from fieldconv_tpu_torch.train.checkpoint import CheckpointManager
 from fieldconv_tpu_torch.train.config import PRESETS
 from fieldconv_tpu_torch.train.loop import (build_model, fit, make_batches,
@@ -155,7 +178,9 @@ K2_RTOL_SCALE = 1e-4
 K5_RTOL_SCALE = 1e-4
 # K5's backward the same way: dg sums over a source's panels and slots, dw
 # over every target row, in another order; each held to 1e-4 of its own
-# scale, and bitwise against a second call
+# scale, and bitwise against a second call.  K6 (the compact conv) and K7
+# (the compact ECHO) as K5 and K2: 1e-4 of the output's scale, and bitwise
+# against a second call
 # the pure-panel request at the repo's north-star size (BASELINE.json
 # configs[4]: a correspondence mesh of 163,842 vertices, scripts/
 # train_100k.py), under layout="auto"
@@ -363,6 +388,25 @@ def _bound(nbytes, flops, **extra):
                 bytes=nbytes, flops=flops, **extra)
 
 
+def check_fwd(kind, label, run, plain, tol, what="y"):
+    """A forward kernel's ``run()`` against its plain version ``plain()``
+    within ``tol`` of the reference's scale, then a second call that must
+    be bitwise equal; returns (max abs err, scale)."""
+    out = run()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = (out - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    check(torch.isfinite(out).all().item(), f"{kind} {label}: non-finite")
+    check(err <= tol * scale,
+          f"{kind} {label}: max abs err {err} > {tol} x {scale}")
+    check(torch.equal(out, run()), f"{kind} {label}: two calls differ")
+    print(f"{kind} {label}: max abs err {err:.3e}, rel {err / scale:.3e} "
+          f"(tolerance {tol} of max |{what}| = {scale:.3e}); a second call "
+          "is bitwise equal")
+    return err, scale
+
+
 def k1_check(label, g, sten, wmat, tb, nh):
     y = band_fused_fwd(g, sten, wmat, tb, nh)
     torch.cuda.synchronize()
@@ -499,21 +543,10 @@ def k2_bwd_bound(dg, x, sten, meta_s):
 def k2_check(label, x, panel, n_bins):
     """K2 against its plain version, then a second call that must be
     bitwise equal."""
-    nb = x.shape[0] // panel.tb
-    args = (x, panel.sten, panel.meta, n_bins, nb)
-    grid = echo_panel_grid(*args)
-    torch.cuda.synchronize()
-    ref = echo_panel_grid_reference(*args)
-    err = (grid - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    check(torch.isfinite(grid).all().item(), f"K2 {label}: non-finite grid")
-    check(err <= K2_RTOL_SCALE * scale,
-          f"K2 {label}: max abs err {err} > {K2_RTOL_SCALE} x {scale}")
-    check(torch.equal(grid, echo_panel_grid(*args)),
-          f"K2 {label}: two calls differ")
-    print(f"K2 {label}: max abs err {err:.3e}, rel {err / scale:.3e} "
-          f"(tolerance {K2_RTOL_SCALE} of max |grid| = {scale:.3e}); a "
-          "second call is bitwise equal")
+    args = (x, panel.sten, panel.meta, n_bins, x.shape[0] // panel.tb)
+    err, scale = check_fwd("K2", label, lambda: echo_panel_grid(*args),
+                           lambda: echo_panel_grid_reference(*args),
+                           K2_RTOL_SCALE, "grid")
     return dict(shape=label, rows=x.shape[0], C=x.shape[1], n_bins=n_bins,
                 panels=panel.n_panels, max_abs_err=err,
                 max_rel_err=err / scale)
@@ -593,22 +626,26 @@ def _k5_args(g, wmat, panel):
             panel.band_limit, panel.compressed)
 
 
-def _k5_table(panel, R, K):
-    """What a K5 call must read and do over a panel table, walked 256 panels
-    at a time: the nonzero hats, the occupied slots (any nonzero hat), and
-    the bytes of the stencil it needs (the planes that say which slots are
-    occupied, r or a dense stencil's R hat planes, read whole; the other
-    planes, e^{iθ} and wxp or the f_k planes, only in the 32-byte sectors
-    that hold an occupied slot)."""
-    check(panel.tb % 8 == 0, "K5's bounds count 32-byte sectors of 8 slots")
+def _k5_table(panel, R, K, live=None):
+    """What a K5 (or K6) call must read and do over a panel table, walked
+    256 panels at a time: the nonzero hats, the occupied slots (any nonzero
+    hat), and the bytes of the stencil it needs (the planes that say which
+    slots are occupied, r or a dense stencil's R hat planes, read whole; the
+    other planes, e^{iθ} and wxp or the f_k planes, only in the 32-byte
+    sectors that hold an occupied slot).  live: a (P, TS) bool tensor that
+    is set where a column holds an occupied slot."""
+    check(panel.sten.shape[-1] % 8 == 0,
+          "the bounds count 32-byte sectors of 8 slots")
     hats = occupied = sectors = 0
     for lo in range(0, panel.n_panels, 256):
         h, _ = _panel_pairs(panel.sten[lo:lo + 256], R, K, panel.compressed)
         nz = h != 0
-        occ = nz.any(0)                                  # (pc, TB, TB)
+        occ = nz.any(0)                                  # (pc, TBt, TS)
         hats += int(nz.sum().item())
         occupied += int(occ.sum().item())
         sectors += _sectors(occ)
+        if live is not None:
+            live[lo:lo + 256] = occ.any(1)
     slots = panel.sten[:, 0].numel()
     stencil_bytes = _stencil_bytes(slots, panel.sten.shape[1],
                                    1 if panel.compressed else R, sectors)
@@ -663,19 +700,9 @@ def k5_check(label, g, wmat, panel):
     """K5 against its plain version, then a second call that must be
     bitwise equal."""
     args = _k5_args(g, wmat, panel)
-    y = band_panel_fwd(*args)
-    torch.cuda.synchronize()
-    ref = band_panel_fwd_reference(*args)
-    err = (y - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    check(torch.isfinite(y).all().item(), f"K5 {label}: non-finite output")
-    check(err <= K5_RTOL_SCALE * scale,
-          f"K5 {label}: max abs err {err} > {K5_RTOL_SCALE} x {scale}")
-    check(torch.equal(y, band_panel_fwd(*args)),
-          f"K5 {label}: two calls differ")
-    print(f"K5 {label}: max abs err {err:.3e}, rel {err / scale:.3e} "
-          f"(tolerance {K5_RTOL_SCALE} of max |y| = {scale:.3e}); a second "
-          "call is bitwise equal")
+    err, scale = check_fwd("K5", label, lambda: band_panel_fwd(*args),
+                           lambda: band_panel_fwd_reference(*args),
+                           K5_RTOL_SCALE)
     return dict(shape=label, N=g.shape[0], M=g.shape[1], O2=wmat.shape[-1],
                 panels=panel.n_panels, compressed=panel.compressed,
                 chunk=panel.chunk, max_abs_err=err, max_rel_err=err / scale)
@@ -735,6 +762,132 @@ def k5_bwd_time(row, g, wmat, dy, panel):
                                          panel.meta_s, *args[6:]),
         iters=1, reps=3)
     row.update(k5_bwd_bound(g, wmat, dy, panel))
+
+
+# --- K6 and K7 against their plain versions -------------------------------------------
+
+def _k6_args(g, wmat, comp):
+    return (g, wmat, comp.sten, comp.meta, comp.src_idx, comp.tb,
+            comp.n_rings, comp.band_limit)
+
+
+def _live_rows(comp, live):
+    """Distinct source rows named by the live columns of a compact table:
+    the rows of g (or x) a call must read, each once."""
+    return int(torch.unique(comp.src_idx[live]).numel())
+
+
+def k6_bound(g, wmat, comp):
+    """Least time for one K6 call: bytes over HBM rate, and the f32
+    operations this data needs over the f32 rate.  Bytes: the stencil as
+    _k5_table counts it, meta and src_idx, the rows of g that live columns
+    name (each once), W read once, y written once.  Operations: the stencil
+    term in the cheaper of k1_bound's two orders, from the table's nonzero
+    hats and occupied slots, plus the filter contraction 2·N·R·M·O2."""
+    N, M = g.shape
+    R, O2 = wmat.shape[0], wmat.shape[-1]
+    K = 2 * comp.band_limit + 1
+    C = M // (2 * K)
+    live = torch.zeros(comp.src_idx.shape, dtype=torch.bool,
+                       device=g.device)
+    hats, occupied, slots, stencil_bytes = _k5_table(comp, R, K, live)
+    rows = _live_rows(comp, live)
+    stencil = min(occupied * K * 6 * C + hats * K * 4 * C,
+                  hats * K * (8 * C + 2))
+    flops = stencil + 2 * N * R * M * O2
+    nbytes = stencil_bytes + 4 * (comp.meta.numel() + comp.src_idx.numel()
+                                  + rows * M + wmat.numel() + N * O2)
+    return _bound(nbytes, flops, occupied=occupied, hats=hats,
+                  slot_fill=occupied / slots, stencil_bytes=stencil_bytes,
+                  stencil_bytes_whole=4 * comp.sten.numel(), live_rows=rows)
+
+
+def k6_check(label, g, wmat, comp):
+    """K6 against its plain version, then a second call that must be
+    bitwise equal."""
+    args = _k6_args(g, wmat, comp)
+    err, scale = check_fwd("K6", label, lambda: band_compact_fwd(*args),
+                           lambda: band_compact_fwd_reference(*args),
+                           K5_RTOL_SCALE)
+    return dict(shape=label, N=g.shape[0], M=g.shape[1], O2=wmat.shape[-1],
+                panels=comp.n_panels, tbt=comp.tb, ts=comp.ts,
+                max_abs_err=err, max_rel_err=err / scale)
+
+
+def k6_time(row, g, wmat, comp):
+    args = _k6_args(g, wmat, comp)
+    row["ms"] = time_cuda(lambda: band_compact_fwd(*args), iters=10)
+    row["plain_ms"] = time_cuda(lambda: band_compact_fwd_reference(*args),
+                                iters=1, reps=3)
+    row.update(k6_bound(g, wmat, comp))
+
+
+def k7_pairs(x, comp):
+    """Occupied slots (wxp ≠ 0) of a compact table, (occupied slot, channel
+    whose source feature is not at the origin) pairs, slots, the stencil
+    bytes K7 must read (r whole, the other planes where a slot is occupied)
+    and the distinct source rows its live columns name."""
+    check(comp.ts % 8 == 0, "the stencil bytes count 32-byte sectors of 8 "
+                            "slots")
+    occ = (comp.sten[:, 3] != 0) | (comp.sten[:, 4] != 0)  # (P, TBt, TS)
+    nzc = (x.abs() >= EPS).any(-1).sum(-1)                 # (rows,)
+    per_col = occ.sum(1)                                   # (P, TS)
+    return (int(occ.sum().item()),
+            int((per_col * nzc[comp.src_idx.long()]).sum().item()),
+            occ.numel(),
+            _stencil_bytes(occ.numel(), 5, 1, _sectors(occ)),
+            _live_rows(comp, per_col > 0))
+
+
+def k7_bound(x, comp, n_bins):
+    """Least time for one K7 call: bytes (the stencil as k7_pairs counts it,
+    meta and src_idx, the rows of x that live columns name, each once, read
+    once; the grid written once) over HBM rate, and the f32 operations this
+    data needs over the f32 rate: K2_FLOPS_PER_PAIR per (occupied slot,
+    non-origin channel) plus 2 per occupied slot for r·e^{iθ}."""
+    C = x.shape[1]
+    edges, pairs, slots, sten_bytes, rows = k7_pairs(x, comp)
+    w2 = (2 * n_bins + 1) ** 2
+    nbytes = sten_bytes + 4 * (comp.meta.numel() + comp.src_idx.numel()
+                               + rows * 2 * C + x.shape[0] * 2 * w2 * C)
+    return _bound(nbytes, K2_FLOPS_PER_PAIR * pairs + 2 * edges,
+                  edges=edges, pairs=pairs, slot_fill=edges / max(1, slots),
+                  live_rows=rows)
+
+
+def _k7_args(x, comp, n_bins):
+    return (x, comp.sten, comp.meta, comp.src_idx, n_bins,
+            x.shape[0] // comp.tb)
+
+
+def k7_check(label, x, comp, n_bins):
+    """K7 against its plain version, then a second call that must be
+    bitwise equal."""
+    args = _k7_args(x, comp, n_bins)
+    err, scale = check_fwd("K7", label, lambda: echo_compact_grid(*args),
+                           lambda: echo_compact_grid_reference(*args),
+                           K2_RTOL_SCALE, "grid")
+    return dict(shape=label, rows=x.shape[0], C=x.shape[1], n_bins=n_bins,
+                panels=comp.n_panels, tbt=comp.tb, ts=comp.ts,
+                max_abs_err=err, max_rel_err=err / scale)
+
+
+def k7_time(row, x, comp, n_bins):
+    args = _k7_args(x, comp, n_bins)
+    row["ms"] = time_cuda(lambda: echo_compact_grid(*args), iters=10)
+    row["plain_ms"] = time_cuda(lambda: echo_compact_grid_reference(*args),
+                                iters=1, reps=3)
+    row.update(k7_bound(x, comp, n_bins))
+
+
+def compact_stats(kind, rows, card):
+    """The kernel rows' times, then what each table holds."""
+    print_times(kind, rows, card)
+    for r in rows:
+        print(f"{kind} {r['shape']}: {r['panels']} panels of {r['tbt']} x "
+              f"{r['ts']} slots, {r.get('occupied', r.get('edges'))} occupied"
+              f" slots (fill {r['slot_fill']:.4f}), {r['live_rows']} source "
+              f"rows read, {r['bytes'] / 1e9:.3f} GB needed in all")
 
 
 def top_two_gap(logits):
@@ -799,6 +952,39 @@ def print_times(kind, rows, card):
               f"{r['plain_ms']:.4f} ms/call, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}; {r['bytes'] / 1e6:.1f} MB, "
               f"{r['flops'] / 1e9:.2f} GFLOP needed) on {card}")
+
+
+def time_request(k, p, rs_, bs_, what, card, large=False):
+    """One request shape of Predictor ``p`` timed: the host clock around
+    predict (the forward over placed tables and the output copy), then one
+    predict under the profiler (wall, device busy share, top kernels).  A
+    large request (N_LARGE) also times Predictor.logits alone and reads the
+    peak device memory of one request beside what was allocated before it."""
+    reps = 3 if large else 5
+    if large:
+        def logits_synced():
+            p.logits(bs_[0])
+            torch.cuda.synchronize()
+
+        torch.cuda.synchronize()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_host(logits_synced, reps=reps)
+        print(f"request {k}: Predictor.logits {ms:.3f} ms on the placed "
+              f"batch (ending in a sync, the logits left on the card), "
+              f"peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+              f"({base_gb:.2f} GB allocated before it), on {card}")
+    ms = time_host(lambda: p.predict(rs_, batches=bs_), reps=reps)
+    print(f"request {k}: {ms:.3f} ms per request (forward over placed "
+          f"tables, {what}) on {card}")
+    wall, busy, kern = request_breakdown(
+        lambda: p.predict(rs_, batches=bs_), top=8 if large else 6)
+    print(f"request {k} under the profiler: wall {wall:.3f} ms, device "
+          f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%) on {card}; "
+          "top kernels:")
+    for t, name, count in kern:
+        print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
 
 
 def read_losses(path):
@@ -1085,6 +1271,80 @@ def main(argv=None) -> int:
         corr_cfg, panel_batches[big][0].panel.n_pad) == "panel",
         f"{big}: layout='auto' did not pick the panel layout")
 
+    # the compact route: the 5120-sample record forced onto the pure-panel
+    # layout with the compact ECHO (K5 convs) and all-compact (K6 convs),
+    # with the correspondence weights; the segmentation batch on the mixed
+    # route with the compact ECHO, with the segmentation weights; and the
+    # N_LARGE request of both kinds, whose compact table is built from the
+    # serving batch's own EdgeTable, as stack_panel_batch builds it
+    seg_cfg = echo_cfg["seg_n2048_b4"]
+    big_c, big_a = f"{big}_compact", f"{big}_allcompact"
+    ec = dict(echo_impl="compact")
+    compact_cfg = {
+        "corr_n5120_b1_panel_compact": dataclasses.replace(
+            corr_cfg, layout="panel", **ec),
+        "corr_n5120_b1_panel_allcompact": dataclasses.replace(
+            corr_cfg, layout="panel", conv_impl="compact", **ec),
+        "seg_n2048_b4_compact": dataclasses.replace(seg_cfg, **ec),
+        big_c: dataclasses.replace(corr_cfg, **ec),
+        big_a: dataclasses.replace(corr_cfg, conv_impl="compact", **ec)}
+    compact_recs = {k: echo_recs["seg_n2048_b4" if k.startswith("seg")
+                                 else "corr_n5120_b1"]
+                    for k in compact_cfg}
+    compact_recs[big_c] = compact_recs[big_a] = panel_recs[big]
+    # the conv kernel and its launches per request of each compact config
+    compact_convs = {k: ("band_compact_fwd", 17) if cfg.conv_impl == "compact"
+                     else ("band_fused_fwd", 9) if cfg.task == "segmentation"
+                     else ("band_panel_fwd", 17)
+                     for k, cfg in compact_cfg.items()}
+
+    def compact_what(k):
+        conv, n = compact_convs[k]
+        short = {"band_compact_fwd": "K6", "band_fused_fwd": "K1",
+                 "band_panel_fwd": "K5"}[conv]
+        return f"{n} {short} + 1 K7 launches"
+
+    compact_serve, compact_batches = {}, {}
+    how = {big_c: "the compact table built from the serving batch's "
+                  "EdgeTable", big_a: f"the table of {big_c} reused"}
+    for k, cfg in compact_cfg.items():
+        net_k = "seg_n2048_b4" if k.startswith("seg") else "corr_n5120_b1"
+        compact_serve[k] = Predictor(echo_nets[net_k], cfg,
+                                     batch_size=len(compact_recs[k]),
+                                     banded_tb=TB, device=dev)
+        t0 = time.perf_counter()
+        if k == big_c:
+            b0 = panel_batches[big][0]
+            host = dataclasses.replace(b0.table, **{
+                f: getattr(b0.table, f)[0].cpu()
+                for f in ("src", "mask", "ln", "wxp")})
+            comp_big = build_compact_panel_table(host, tb=min(TB, 32)).to(dev)
+            del host
+            compact_batches[big_c] = [dataclasses.replace(b0,
+                                                          compact=comp_big)]
+        elif k == big_a:
+            compact_batches[big_a] = [dataclasses.replace(
+                panel_batches[big][0], panel=comp_big, compact=comp_big)]
+        else:
+            compact_batches[k] = compact_serve[k].make_batches(
+                compact_recs[k])
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(len(compact_batches[k]) == 1, f"{k}: expected one batch")
+        b = compact_batches[k][0]
+        c = b.compact
+        check(c is not None and (b.panel is c) == (cfg.conv_impl == "compact")
+              and c.tb == (TB if b.banded is not None else min(TB, 32)),
+              f"{k}: not the compact route")
+        nb = c.n_mesh * c.n_pad // c.tb
+        print(f"request {k}: {b.pos.shape[0]} mesh(es), n_pad {c.n_pad}, "
+              f"compact table at TBt {c.tb}, TS {c.ts}: {c.n_panels} panels "
+              f"({c.n_panels / nb:.2f} per block), stencil "
+              f"{4 * c.sten.numel() / 1e9:.3f} GB, slot fill "
+              f"{(c.sten[:, 3:5] != 0).any(1).float().mean().item():.4f}; "
+              f"{how.get(k, 'tables built on the host and placed')} in "
+              f"{build_s:.3f} s")
+
     # 2. K1 forward and backward against their plain versions at the
     # shapes serving and training give them
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -1156,7 +1416,6 @@ def main(argv=None) -> int:
     k5_rows, k5_timed = [], []
     # the compressed planes do not depend on K or R: the 163k table at the
     # segmentation width is the same stencil read with K=5, R=6
-    seg_cfg = echo_cfg["seg_n2048_b4"]
     bigp_seg = dataclasses.replace(bigp, band_limit=seg_cfg.band_limit,
                                    n_rings=seg_cfg.n_rings)
     seg_panel = make_batches(
@@ -1194,6 +1453,29 @@ def main(argv=None) -> int:
         dy = torch.randn(g.shape[0], 64, device=dev, generator=gen)
         k5b_rows.append(k5_bwd_check(label, g, wmat, dy, pt))
     del pt, g, wmat, dy, corr_table
+
+    # 3d. K6 and K7 (the compact route's conv and ECHO) against their plain
+    # versions: K6 on the 163k compact table (TBt 32) at the correspondence
+    # net's four widths and on the segmentation batch's compact table
+    # (TBt 128) at C=48, O2=96, K=5, R=6; K7 on the 163k table at C=12,
+    # n_bins 2 and on the segmentation table at C=48, n_bins 3.  Each is
+    # timed here, so that the 163k table can go before the training phases.
+    seg_comp = compact_batches["seg_n2048_b4_compact"][0].compact
+    k6_rows, k7_rows = [], []
+    for label, ct, C_, O2 in (
+            (big_c, comp_big, 32, 64), (big_c, comp_big, 16, 64),
+            (big_c, comp_big, 32, 32), (big_c, comp_big, 16, 24),
+            ("seg_n2048_b4_compact", seg_comp, 48, 96)):
+        g, wmat = k5_inputs(ct, C_, O2, gen)
+        k6_rows.append(k6_check(f"{label} C={C_} O2={O2}", g, wmat, ct))
+        k6_time(k6_rows[-1], g, wmat, ct)
+    for label, ct, C_, n_bins in ((big_c, comp_big, 12, 2),
+                                  ("seg_n2048_b4_compact", seg_comp, 48, 3)):
+        x = k2_inputs(ct, C_, gen)
+        k7_rows.append(k7_check(f"{label} C={C_} n_bins={n_bins}", x, ct,
+                                n_bins))
+        k7_time(k7_rows[-1], x, ct, n_bins)
+    del g, wmat, x
 
     # 4. serving: the slice-1 path, counted
     for p, bs in zip(serve.values(), batches.values()):
@@ -1258,6 +1540,35 @@ def main(argv=None) -> int:
           f"{panel_launches} for both pure-panel requests")
     del out, served
 
+    # 5c. compact serving: the slice-7 path, counted.  The forced-panel 5120
+    # requests and the segmentation one match the CPU; the 163k ones are
+    # checked for shape and finiteness
+    want = {k: {conv: n, "echo_compact_fwd": 1}
+            for k, (conv, n) in compact_convs.items()}
+    compact_launches, served = serve_counted(
+        compact_serve, compact_recs, compact_batches, want)
+    for k, p in compact_serve.items():
+        if k in (big_c, big_a):
+            out = served[k][0]
+            check(out["logits"].shape == (N_LARGE, N_CORR_CLASSES)
+                  and out["map"].shape == (N_LARGE,)
+                  and np.isfinite(out["logits"]).all(),
+                  f"{k}: bad output {out['logits'].shape}")
+            print(f"serve {k}: logits {out['logits'].shape} finite, map in "
+                  f"[{out['map'].min()}, {out['map'].max()}]")
+        else:
+            match_cpu(k, p, compact_recs[k], served[k], echo_cpu_nets[
+                "seg_n2048_b4" if k.startswith("seg") else "corr_n5120_b1"])
+    print(f"serve compact: launches {compact_launches} for the "
+          f"{len(compact_serve)} compact requests")
+    del out, served
+    # the 163k compact table waits on the host while the training phases
+    # run; phase 8 (where the profiler runs, after training) times its
+    # requests
+    comp_host = comp_big.to("cpu")
+    del comp_big, b0, compact_batches[big_c], compact_batches[big_a]
+    torch.cuda.empty_cache()
+
     # 6., 7. and 7b. training: the slice-2 path (classification), the
     # slice-4 path (the ECHO presets on the mixed route) and the slice-6
     # path (the correspondence preset on the pure-panel layout: the 5120
@@ -1311,6 +1622,8 @@ def main(argv=None) -> int:
               f"{r['stencil_bytes'] / 1e9:.3f} GB of the "
               f"{r['stencil_bytes_whole'] / 1e9:.3f} GB stencil needed, "
               f"{r['bytes'] / 1e9:.3f} GB in all")
+    compact_stats("K6", k6_rows, card)
+    compact_stats("K7", k7_rows, card)
     for args_ in k5b_timed:
         k5_bwd_time(*args_)
     print_times("K5 bwd", k5b_rows[:len(k5b_timed)], card)
@@ -1345,30 +1658,13 @@ def main(argv=None) -> int:
                  for k, p in echo_serve.items()]
     requests += [(k, p, panel_recs[k], panel_batches[k],
                   "17 K5 + 1 K2 launches") for k, p in panel_serve.items()]
+    comp_big = comp_host.to(dev)
+    compact_batches[big_c] = [dataclasses.replace(panel_batches[big][0],
+                                                  compact=comp_big)]
+    requests += [(k, p, compact_recs[k], compact_batches[k], compact_what(k))
+                 for k, p in compact_serve.items() if k != big_a]
     for k, p, rs_, bs_, what in requests:
-        reps = 3 if k == big else 5
-        if k == big:
-            def logits_synced():
-                p.logits(bs_[0])
-                torch.cuda.synchronize()
-
-            torch.cuda.reset_peak_memory_stats()
-            ms = time_host(logits_synced, reps=reps)
-            print(f"request {k}: Predictor.logits {ms:.3f} ms on the placed "
-                  f"batch (ending in a sync, the logits left on the card), "
-                  f"peak device memory "
-                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, on "
-                  f"{card}")
-        ms = time_host(lambda: p.predict(rs_, batches=bs_), reps=reps)
-        print(f"request {k}: {ms:.3f} ms per request (forward over placed "
-              f"tables, {what}) on {card}")
-        wall, busy, kern = request_breakdown(
-            lambda: p.predict(rs_, batches=bs_), top=8 if k == big else 6)
-        print(f"request {k} under the profiler: wall {wall:.3f} ms, device "
-              f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%) on {card}; "
-              "top kernels:")
-        for t, name, count in kern:
-            print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
+        time_request(k, p, rs_, bs_, what, card, large=k in (big, big_c))
 
     for k, (tnet, topt) in trained.items():
         cfg, n_classes, recs_ = fits[k]
@@ -1414,9 +1710,9 @@ def main(argv=None) -> int:
         if k == big:
             remat_step(k, tnet, cfg, n_classes, tbatch, dev, args.seed, card)
 
-    big = batches["n8192_b1"][0]
-    edges = int(big.table.mask.sum().item())
-    convs = conv_fwd_bwd(big.banded, dev, gen)
+    b8192 = batches["n8192_b1"][0]
+    edges = int(b8192.table.mask.sum().item())
+    convs = conv_fwd_bwd(b8192.banded, dev, gen)
     ms = time_cuda(convs, iters=5)
     print(f"five convs fwd+bwd at bench.py's shape (N=8192, D=128, C=O=32, "
           f"tb=128): {ms:.3f} ms, {5 * edges / (ms / 1e3):.4g} edges/s on "
@@ -1434,8 +1730,21 @@ def main(argv=None) -> int:
     for t, name, count in kern:
         print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
 
+    # the all-compact 163k request last, once the block-panel table and
+    # everything that holds it are freed: its device memory is its own
+    compact_batches[big_a] = [dataclasses.replace(
+        panel_batches[big][0], panel=comp_big, compact=comp_big)]
+    del (panel_batches, requests, bs_, tbatch, k5_timed, k5b_timed, k2_big,
+         bigp, bigp_seg, compact_batches[big_c], args_)
+    gc.collect()
+    torch.cuda.empty_cache()
+    time_request(big_a, compact_serve[big_a], compact_recs[big_a],
+                 compact_batches[big_a], compact_what(big_a), card,
+                 large=True)
+
     paths = {"serve": serve_launches, "serve_echo": echo_launches,
-             "serve_panel": panel_launches, **train_launches}
+             "serve_panel": panel_launches, "serve_compact": compact_launches,
+             **train_launches}
 
     def entry(name, source, replaces, rs):
         by_path = {k: v.get(name, 0) for k, v in paths.items()}
@@ -1464,6 +1773,12 @@ def main(argv=None) -> int:
               "fieldconv_tpu/ops/pallas/band_conv.py:2187", k5_rows),
         entry("band_panel_bwd", "fieldconv_tpu_torch/csrc/band_panel_bwd.cu",
               "fieldconv_tpu/ops/pallas/band_conv.py:2293", k5b_rows),
+        entry("band_compact_fwd",
+              "fieldconv_tpu_torch/csrc/band_compact_fwd.cu",
+              "fieldconv_tpu/ops/pallas/band_conv.py:2042", k6_rows),
+        entry("echo_compact_fwd",
+              "fieldconv_tpu_torch/csrc/echo_compact_fwd.cu",
+              "fieldconv_tpu/ops/pallas/echo_panel.py:310", k7_rows),
     ]}
     print(json.dumps(line))
     print(card)

@@ -46,8 +46,9 @@
 // writer and every sum a fixed order, so two calls agree bitwise (no
 // atomics).  The hats and the phasor powers are formed with uncontracted,
 // correctly rounded operations in the plain version's order.  The panel
-// walk lives in panel_walk.cuh: K5's backward (band_panel_bwd.cu)
-// rematerialises contrib with it.
+// walk and the filter stage live in panel_walk.cuh: K5's backward
+// (band_panel_bwd.cu) rematerialises contrib with the walk, and K6's
+// forward (band_compact_fwd.cu) runs both over gathered columns.
 //
 // What bounds it.  The function needs the r plane (or the hat planes) whole
 // and the other planes only in the 32-byte sectors that hold an occupied
@@ -87,14 +88,11 @@ band_panel_fwd_kernel(const float* __restrict__ g,
                       int P, int C, int K, int R, int TB, int O2,
                       int compressed, int nb_g, int T, Knots kn)
 {
-    const int M = 2 * K * C;
-    const int RM = R * M;
     const int tiles = (TB + T - 1) / T;
     const int blk = blockIdx.x / tiles;
     const int t0 = (blockIdx.x % tiles) * T;
     const int nt = min(T, TB - t0);
     const int tid = threadIdx.x;
-    const int nthr = blockDim.x;             // a multiple of 32
     const bool active = tid < nt * C;
     const int it = active ? tid / C : 0;     // (target, channel) of a thread
     const int ic = active ? tid % C : 0;
@@ -105,65 +103,8 @@ band_panel_fwd_kernel(const float* __restrict__ g,
                                      R, TB, compressed, nb_g, T, blk, t0, nt,
                                      active, it, ic, kn);
 
-    // contrib[j][t] with j = r·M + k·2C + (p·C + c), targets padded to kTile
-    float* contrib = smem;                   // [R·M][kTile]
-    float* red = smem + (size_t)RM * kTile;  // [JG][T][O2]
-    if (active) {
-#pragma unroll
-        for (int k = 0; k < KMAX; ++k)
-#pragma unroll
-            for (int r = 0; r < RMAX; ++r)
-                if (k < K && r < R) {
-                    const int j = r * M + k * 2 * C + ic;
-                    contrib[j * kTile + it] = are[k][r];
-                    contrib[(j + C) * kTile + it] = aim[k][r];
-                }
-    }
-    __syncthreads();
-
-    // y[t, o] = Σ_j contrib[j][t] · W[j, o]: thread (o, jg) sums j ≡ jg
-    // (mod JG) for every target of the tile, so W is read once per CTA;
-    // the JG partials are reduced through `red` in a fixed order.
-    const int JG = max(1, nthr / O2);
-    for (int u = tid; u < O2 * JG; u += nthr) {
-        const int o = u % O2, jg = u / O2;
-        float acc[kTile];
-#pragma unroll
-        for (int t = 0; t < kTile; ++t) acc[t] = 0.f;
-#pragma unroll 4
-        for (int j = jg; j < RM; j += JG) {
-            const float wv = __ldg(wmat + (size_t)j * O2 + o);
-            const float4 a = *reinterpret_cast<const float4*>(contrib + j * kTile);
-            const float4 b = *reinterpret_cast<const float4*>(contrib + j * kTile + 4);
-            acc[0] = fmaf(a.x, wv, acc[0]);
-            acc[1] = fmaf(a.y, wv, acc[1]);
-            acc[2] = fmaf(a.z, wv, acc[2]);
-            acc[3] = fmaf(a.w, wv, acc[3]);
-            acc[4] = fmaf(b.x, wv, acc[4]);
-            acc[5] = fmaf(b.y, wv, acc[5]);
-            acc[6] = fmaf(b.z, wv, acc[6]);
-            acc[7] = fmaf(b.w, wv, acc[7]);
-        }
-#pragma unroll
-        for (int t = 0; t < kTile; ++t)
-            if (t < nt) red[(jg * T + t) * O2 + o] = acc[t];
-    }
-    __syncthreads();
-    for (int u = tid; u < nt * O2; u += nthr) {
-        const int o = u % O2, t = u / O2;
-        float acc = 0.f;
-        for (int jg = 0; jg < JG; ++jg) acc += red[(jg * T + t) * O2 + o];
-        y[((size_t)blk * TB + t0 + t) * O2 + o] = acc;
-    }
-}
-
-size_t smem_bytes(int C, int K, int R, int TB, int O2, int T, int nthr)
-{
-    const size_t M = 2 * (size_t)K * C;
-    const size_t JG = std::max(1, nthr / O2);
-    const size_t lists = panel::list_floats(K, R, TB, T);
-    const size_t filter = (size_t)R * M * kTile + JG * (size_t)T * O2;
-    return std::max(lists, filter) * sizeof(float);
+    panel::filter_tile<KMAX, RMAX>(are, aim, smem, wmat, y, blk, TB, t0, C,
+                                   K, R, O2, T, nt, active, it, ic);
 }
 
 template <int KMAX, int RMAX, int MINB>
@@ -207,7 +148,7 @@ extern "C" int band_panel_fwd(const float* g, const float* wmat,
     if (err != cudaSuccess) return (int)err;
     const int T = std::min(kTile, std::max(1, kMaxThreads / C));
     const int nthr = panel::threads_for(T, C);
-    const size_t smem = smem_bytes(C, K, R, TB, O2, T, nthr);
+    const size_t smem = panel::fwd_smem_bytes(C, K, R, TB, O2, T, nthr);
     if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
     const Knots kn = compressed ? panel::ring_knots(R) : Knots{};
     cudaStream_t s = (cudaStream_t)stream;

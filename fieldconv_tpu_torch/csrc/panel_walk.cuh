@@ -1,10 +1,14 @@
 // The panel walk shared by K5's forward (band_panel_fwd.cu) and backward
-// (band_panel_bwd.cu): the per-slot coefficients of a panel stencil, their
-// compaction into lists of occupied slots, and the forward's contrib
-// accumulation over a target block's run of panels.
+// (band_panel_bwd.cu) and K6's forward (band_compact_fwd.cu): the per-slot
+// coefficients of a panel stencil, their compaction into lists of occupied
+// slots, the forward's contrib accumulation over a target block's run of
+// panels, and the forward's filter stage.
 //
-// A panel stencil (P, planes, TB, TB) holds rows the target slot t and
-// columns the source slot s.  Its planes are compressed (5: r, e^{iθ}
+// A panel stencil (P, planes, TB, TS) holds rows the target slot t and
+// columns the source slot s.  K5's panels are square (TS = TB) and column s
+// of a panel whose source block is b reads g's row b·TB + s; K6's compact
+// panels (GATHER) are TB × TS and column s of panel p reads g's row
+// src_idx[p·TS + s].  Its planes are compressed (5: r, e^{iθ}
 // re/im, wxp re/im, r = R_SENTINEL at empty slots) or dense (R+2K: the R
 // radial hats, then fwxp_k re/im).  A slot's NC = R + 2K coefficients are
 // its R radial hats (from r: the hat on the ring knots, ops/band_conv.py::
@@ -128,16 +132,23 @@ __device__ __forceinline__ void slot_coefs(
 // Appends the slot held by this lane (hats h, offset `at` in the planes,
 // index `idx` in its list) to a warp's list (coefficients ct[j][NC],
 // indices st[j]) if it is occupied; every lane of the warp calls it.  The
-// list keeps lane order.  Returns the list's new length.
-template <int RMAX>
+// list keeps lane order.  Returns the list's new length.  GATHER: the index
+// kept is the column's source row srow[idx], and a slot whose source row
+// lies outside [0, n_rows) counts as empty.
+template <int RMAX, bool GATHER = false>
 __device__ __forceinline__ int append_slot(
     float* ct, int* st, int base, const float (&h)[RMAX],
     const float* __restrict__ sp, size_t at, int idx, size_t plane, int R,
-    int K, int compressed)
+    int K, int compressed, const int* __restrict__ srow = nullptr,
+    int n_rows = 0)
 {
     bool occ = false;
 #pragma unroll
     for (int r = 0; r < RMAX; ++r) occ |= h[r] != 0.f;
+    if (GATHER && occ) {
+        idx = __ldg(srow + idx);
+        occ = (unsigned)idx < (unsigned)n_rows;
+    }
     const int lane = threadIdx.x & 31;
     const unsigned m = __ballot_sync(0xffffffffu, occ);
     if (occ) {
@@ -149,25 +160,26 @@ __device__ __forceinline__ int append_slot(
     return base + __popc(m);
 }
 
-// Compacts slot s = s0 + lane of one target row of panel sp into the row's
-// list; every lane of the warp calls it with its own s.
-template <int RMAX>
+// Compacts slot s = s0 + lane of one target row of panel sp (TS columns)
+// into the row's list; every lane of the warp calls it with its own s.
+// GATHER: the list keeps each slot's source row srow[s] (append_slot).
+template <int RMAX, bool GATHER = false>
 __device__ __forceinline__ int compact_chunk(
     float* ct, int* st, int base, const float* __restrict__ sp, size_t row,
-    int s, size_t plane, int TB, int R, int K, int compressed,
-    const Knots& kn)
+    int s, size_t plane, int TS, int R, int K, int compressed,
+    const Knots& kn, const int* __restrict__ srow = nullptr, int n_rows = 0)
 {
     float h[RMAX];
-    const float rv = (compressed && s < TB) ? __ldg(sp + row + s) : 0.f;
+    const float rv = (compressed && s < TS) ? __ldg(sp + row + s) : 0.f;
 #pragma unroll
     for (int r = 0; r < RMAX; ++r) {
         float v = 0.f;
-        if (r < R && s < TB)
+        if (r < R && s < TS)
             v = compressed ? hat(rv, r, kn) : __ldg(sp + r * plane + row + s);
         h[r] = v;
     }
-    return append_slot<RMAX>(ct, st, base, h, sp, row + s, s, plane, R, K,
-                             compressed);
+    return append_slot<RMAX, GATHER>(ct, st, base, h, sp, row + s, s, plane,
+                                     R, K, compressed, srow, n_rows);
 }
 
 // One occupied slot of a thread's target: its channel of the source row gr
@@ -205,25 +217,30 @@ __device__ __forceinline__ void accumulate_slot(
 //
 // for target t = t0 + it of a tile of nt ≤ T and channel c = ic.  Every
 // thread of the CTA must call it (it synchronises); inactive threads keep
-// zero sums.  smem: list_floats(K, R, TB, T) floats, free again on return.
+// zero sums.  smem: list_floats(K, R, TS, T) floats, free again on return.
 // Per panel one warp per target row compacts the row's occupied slots into
 // shared memory, once for all channels; only the r plane (or the hat
 // planes) is read for every slot, the other planes only where a slot is
 // occupied.  Panels whose source block lies outside [0, nb_g) add nothing.
-template <int KMAX, int RMAX>
+// GATHER (K6: meta's second row is the panel id, panels TB × TS): column s
+// of panel p reads g's row src_idx[p·TS + s] in place of src·TB + s, and a
+// slot whose row lies outside [0, nb_g·TB) adds nothing.
+template <int KMAX, int RMAX, bool GATHER = false>
 __device__ __forceinline__ void panel_contrib(
     float (&are)[KMAX][RMAX], float (&aim)[KMAX][RMAX], float* smem,
     const float* __restrict__ g, const float* __restrict__ sten,
     const int* __restrict__ meta, int P, int C, int K, int R, int TB,
     int compressed, int nb_g, int T, int blk, int t0, int nt, bool active,
-    int it, int ic, const Knots& kn)
+    int it, int ic, const Knots& kn,
+    const int* __restrict__ src_idx = nullptr, int TS_ = 0)
 {
+    const int TS = GATHER ? TS_ : TB;        // columns of a panel
     const int M = 2 * K * C;
     const int NC = R + 2 * K;                // coefficients per occupied slot
     const int planes = compressed ? 5 : NC;
-    float* coef = smem;                                      // [T][TB][NC]
-    int* sidx = reinterpret_cast<int*>(coef + (size_t)T * TB * NC);  // [T][TB]
-    int* cnt = sidx + T * TB;                                // [T]
+    float* coef = smem;                                      // [T][TS][NC]
+    int* sidx = reinterpret_cast<int*>(coef + (size_t)T * TS * NC);  // [T][TS]
+    int* cnt = sidx + T * TS;                                // [T]
 
 #pragma unroll
     for (int k = 0; k < KMAX; ++k)
@@ -232,35 +249,121 @@ __device__ __forceinline__ void panel_contrib(
 
     const int p_lo = lower_bound(meta, P, blk);
     const int p_hi = lower_bound(meta, P, blk + 1);
-    const size_t plane = (size_t)TB * TB;
+    const size_t plane = (size_t)TB * TS;
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31, nwarps = blockDim.x >> 5;
 
     for (int p = p_lo; p < p_hi; ++p) {
-        const int sblk = __ldg(meta + P + p);
+        const int sblk = GATHER ? 0 : __ldg(meta + P + p);
+        const int* srow = GATHER ? src_idx + (size_t)p * TS : nullptr;
         const float* sp = sten + (size_t)p * planes * plane;
         __syncthreads();                     // the last panel's lists are read
         for (int t = warp; t < nt; t += nwarps) {
-            const size_t row = (size_t)(t0 + t) * TB;
-            float* ct = coef + (size_t)t * TB * NC;
-            int* st = sidx + t * TB;
+            const size_t row = (size_t)(t0 + t) * TS;
+            float* ct = coef + (size_t)t * TS * NC;
+            int* st = sidx + t * TS;
             int base = 0;
-            for (int s0 = 0; s0 < TB; s0 += 32)
-                base = compact_chunk<RMAX>(ct, st, base, sp, row, s0 + lane,
-                                           plane, TB, R, K, compressed, kn);
+            for (int s0 = 0; s0 < TS; s0 += 32)
+                base = compact_chunk<RMAX, GATHER>(
+                    ct, st, base, sp, row, s0 + lane, plane, TS, R, K,
+                    compressed, kn, srow, nb_g * TB);
             if (lane == 0) cnt[t] = base;
         }
         __syncthreads();
-        if (!active || sblk < 0 || sblk >= nb_g) continue;
+        if (!active || (!GATHER && (sblk < 0 || sblk >= nb_g))) continue;
         const int n = cnt[it];
-        const float* cf = coef + (size_t)it * TB * NC;
-        const int* si = sidx + it * TB;
+        const float* cf = coef + (size_t)it * TS * NC;
+        const int* si = sidx + it * TS;
         const float* gb = g + (size_t)sblk * TB * M + ic;
         for (int j = 0; j < n; ++j)
             accumulate_slot<KMAX, RMAX>(are, aim, gb + (size_t)si[j] * M,
                                         cf + j * NC, C, K, R);
     }
     __syncthreads();                         // the lists are free again
+}
+
+// Bytes of shared memory of the forward (K5's and K6's): the panel walk's
+// lists over TS columns, then the filter stage's staged contrib and
+// partial sums.
+inline size_t fwd_smem_bytes(int C, int K, int R, int TS, int O2, int T,
+                             int nthr)
+{
+    const size_t M = 2 * (size_t)K * C;
+    const size_t JG = nthr / O2 > 1 ? nthr / O2 : 1;
+    const size_t lists = list_floats(K, R, TS, T);
+    const size_t filter = (size_t)R * M * kTile + JG * (size_t)T * O2;
+    return (lists > filter ? lists : filter) * sizeof(float);
+}
+
+// The forward's filter stage over a tile of nt ≤ T targets t0.. of target
+// block blk (TB rows): each active (target it, channel ic) thread's contrib
+// (are, aim) is staged in shared memory, then y[blk·TB + t0 + t, o] =
+// Σ_j contrib[t, j]·W[j, o].  Every thread of the CTA must call it (it
+// synchronises) after panel_contrib; smem as fwd_smem_bytes counts it.
+// The output row is formed from blk, TB and t0 at the store: a pointer to
+// the tile's rows passed in instead made K5's forward 3.4% slower at
+// K = 5, R = 6 on an H100 (same registers, same results).
+template <int KMAX, int RMAX>
+__device__ __forceinline__ void filter_tile(
+    const float (&are)[KMAX][RMAX], const float (&aim)[KMAX][RMAX],
+    float* smem, const float* __restrict__ wmat, float* __restrict__ y,
+    int blk, int TB, int t0, int C, int K, int R, int O2, int T, int nt,
+    bool active, int it, int ic)
+{
+    const int M = 2 * K * C;
+    const int RM = R * M;
+    const int tid = threadIdx.x;
+    const int nthr = blockDim.x;             // a multiple of 32
+    // contrib[j][t] with j = r·M + k·2C + (p·C + c), targets padded to kTile
+    float* contrib = smem;                   // [R·M][kTile]
+    float* red = smem + (size_t)RM * kTile;  // [JG][T][O2]
+    if (active) {
+#pragma unroll
+        for (int k = 0; k < KMAX; ++k)
+#pragma unroll
+            for (int r = 0; r < RMAX; ++r)
+                if (k < K && r < R) {
+                    const int j = r * M + k * 2 * C + ic;
+                    contrib[j * kTile + it] = are[k][r];
+                    contrib[(j + C) * kTile + it] = aim[k][r];
+                }
+    }
+    __syncthreads();
+
+    // y[t, o] = Σ_j contrib[j][t] · W[j, o]: thread (o, jg) sums j ≡ jg
+    // (mod JG) for every target of the tile, so W is read once per CTA;
+    // the JG partials are reduced through `red` in a fixed order.
+    const int JG = max(1, nthr / O2);
+    for (int u = tid; u < O2 * JG; u += nthr) {
+        const int o = u % O2, jg = u / O2;
+        float acc[kTile];
+#pragma unroll
+        for (int t = 0; t < kTile; ++t) acc[t] = 0.f;
+#pragma unroll 4
+        for (int j = jg; j < RM; j += JG) {
+            const float wv = __ldg(wmat + (size_t)j * O2 + o);
+            const float4 a = *reinterpret_cast<const float4*>(contrib + j * kTile);
+            const float4 b = *reinterpret_cast<const float4*>(contrib + j * kTile + 4);
+            acc[0] = fmaf(a.x, wv, acc[0]);
+            acc[1] = fmaf(a.y, wv, acc[1]);
+            acc[2] = fmaf(a.z, wv, acc[2]);
+            acc[3] = fmaf(a.w, wv, acc[3]);
+            acc[4] = fmaf(b.x, wv, acc[4]);
+            acc[5] = fmaf(b.y, wv, acc[5]);
+            acc[6] = fmaf(b.z, wv, acc[6]);
+            acc[7] = fmaf(b.w, wv, acc[7]);
+        }
+#pragma unroll
+        for (int t = 0; t < kTile; ++t)
+            if (t < nt) red[(jg * T + t) * O2 + o] = acc[t];
+    }
+    __syncthreads();
+    for (int u = tid; u < nt * O2; u += nthr) {
+        const int o = u % O2, t = u / O2;
+        float acc = 0.f;
+        for (int jg = 0; jg < JG; ++jg) acc += red[(jg * T + t) * O2 + o];
+        y[((size_t)blk * TB + t0 + t) * O2 + o] = acc;
+    }
 }
 
 }  // namespace panel

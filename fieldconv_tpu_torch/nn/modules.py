@@ -22,7 +22,7 @@ from ..ops import field_conv as fc_ops
 from ..ops import tangent as tangent_ops
 from ..ops import trans_field as tf_ops
 from ..ops.echo_panel import echo_panel_fused
-from ..precomp.banded import PanelTable
+from ..precomp.banded import CompactPanelTable, PanelTable
 from ..precomp.edge_table import EdgeTable
 from ..utils import complexops as co
 from .init import torch_linear_bias, torch_linear_weight, xavier_uniform
@@ -30,7 +30,8 @@ from .init import torch_linear_bias, torch_linear_weight, xavier_uniform
 
 class FieldConv(nn.Module):
     """Field convolution layer.  A BandedTable ``banded`` routes the
-    contraction to the fused K1 kernel, a PanelTable to the panel conv K5
+    contraction to the fused K1 kernel, a PanelTable to the panel conv K5,
+    a CompactPanelTable to the compact conv K6
     (ops/band_conv.py::field_conv_banded); otherwise the padded-CSR gather
     path runs."""
 
@@ -67,8 +68,8 @@ class FieldConv(nn.Module):
 
 
 class TransField(nn.Module):
-    """Learned gradient lift.  A CompressedBandedTable or PanelTable
-    ``comp`` runs the aggregation gather-free over its layout."""
+    """Learned gradient lift.  A CompressedBandedTable, PanelTable or
+    CompactPanelTable ``comp`` runs the aggregation over its layout."""
 
     def __init__(self, in_channels: int, out_channels: int, n_rings: int = 6,
                  ftype: int = 1, d_chunk: int = 128,
@@ -176,10 +177,10 @@ class ECHO(nn.Module):
     """ECHO descriptor op; parameter-free.
 
     Routing, as in the JAX package: a compressed PanelTable ``comp`` runs
-    the panel route through K2 (ops/echo_panel.py).  A
-    CompressedBandedTable with impl "auto", or impl "banded", would take
-    the banded ECHO, which is not ported yet.  Otherwise the one-hot gather
-    route over the EdgeTable runs.
+    the panel route through K2, a CompactPanelTable the compact route
+    through K7 (ops/echo_panel.py).  A CompressedBandedTable with impl
+    "auto", or impl "banded", would take the banded ECHO, which is not
+    ported yet.  Otherwise the one-hot gather route over the EdgeTable runs.
     """
 
     def __init__(self, n_bins: int = 2, d_chunk: int = 128,
@@ -188,7 +189,7 @@ class ECHO(nn.Module):
         self.n_bins, self.d_chunk, self.impl = n_bins, d_chunk, impl
 
     def forward(self, x, table: EdgeTable, comp=None):
-        if isinstance(comp, PanelTable):
+        if isinstance(comp, (PanelTable, CompactPanelTable)):
             return echo_panel_fused(x, comp, self.n_bins)
         use_banded = (comp is not None) if self.impl == "auto" \
             else self.impl == "banded"

@@ -1,24 +1,25 @@
 """Field convolution over the block layouts with the hand-written kernels:
-the dense BandedTable (K1 forward and backward) and the PanelTable (K5
-forward and backward).
+the dense BandedTable (K1 forward and backward), the PanelTable (K5
+forward and backward) and the CompactPanelTable (K6 forward).
 
-Counterpart of ``fieldconv_tpu/ops/pallas/band_conv.py`` for those two
+Counterpart of ``fieldconv_tpu/ops/pallas/band_conv.py`` for those three
 tables.  The contraction runs in hand-written CUDA kernels:
 ``csrc/band_fused_fwd.cu`` replaces the TPU kernel ``_band_megaw_fwd_impl``
 (and its twins ``_band_fused_mega_fwd_impl``, ``_band_fused_fwd_impl``),
 ``csrc/band_fused_bwd.cu`` replaces ``_band_megaw_bwd_impl`` (and
-``_band_fused_mega_bwd_impl``, ``_band_fused_bwd``), and
+``_band_fused_mega_bwd_impl``, ``_band_fused_bwd``),
 ``csrc/band_panel_fwd.cu`` replaces ``_band_panel_fwd_impl`` (both of its
 ``pallas_call``s, bodies ``_fwd_panel_kernel`` and
-``_fwd_panel_chunk_kernel``) and ``csrc/band_panel_bwd.cu`` replaces
+``_fwd_panel_chunk_kernel``), ``csrc/band_panel_bwd.cu`` replaces
 ``_band_panel_bwd_impl`` (bodies ``_bwd_panel_kernel`` and
-``_bwd_panel_chunk_kernel``).  The wrappers :func:`band_fused_fwd`,
-:func:`band_fused_bwd`, :func:`band_panel_fwd` and :func:`band_panel_bwd`
-launch them for CUDA tensors and run the plain PyTorch versions
-(``*_reference``) for CPU tensors; they never move work between devices.
-:class:`_BandFusedFn` and :class:`_BandPanelFn` tie each kernel's two
-directions together for autograd, as ``jax.custom_vjp`` does in the JAX
-package.
+``_bwd_panel_chunk_kernel``) and ``csrc/band_compact_fwd.cu`` replaces
+``_band_compact_fwd_impl`` (body ``_fwd_compact_kernel``).  The wrappers
+:func:`band_fused_fwd`, :func:`band_fused_bwd`, :func:`band_panel_fwd`,
+:func:`band_panel_bwd` and :func:`band_compact_fwd` launch them for CUDA
+tensors and run the plain PyTorch versions (``*_reference``) for CPU
+tensors; they never move work between devices.  :class:`_BandFusedFn` and
+:class:`_BandPanelFn` tie each kernel's two directions together for
+autograd, as ``jax.custom_vjp`` does in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,8 +31,8 @@ import math
 import torch
 
 from .. import kernels
-from ..precomp.banded import (BandedTable, PanelTable, unwindow_blocks,
-                              window_blocks)
+from ..precomp.banded import (BandedTable, CompactPanelTable, PanelTable,
+                              unwindow_blocks, window_blocks)
 from .field_conv import filter_coefficients, rotated_source_tensor
 
 
@@ -311,6 +312,32 @@ def _panel_pairs(sten_c, R: int, K: int, compressed: bool):
     return hats, pairs
 
 
+def _panel_contrib_reference(rows, sten, tgt, nb_out: int, M: int, R: int,
+                             K: int, compressed: bool):
+    """contrib (nb_out, R, TBt, M) of every target over a run of panels
+    (P, planes, TBt, TS), 256 panels at a time: panel p of target block
+    tgt[p] against its source rows ``rows(lo, hi)`` ((hi − lo, TS, M), one
+    per column), S_k = hats_r ⊙ f_k (planar complex):
+
+        contrib[tgt, r, t, k-pair] += Σ_s S_k[r, t, s] ⊗ rows[s, k]
+    """
+    C = M // (2 * K)
+    contrib = sten.new_zeros(nb_out, R, sten.shape[2], M)
+    pc = 256                   # panels per step
+    for lo in range(0, sten.shape[0], pc):
+        hats, pairs = _panel_pairs(sten[lo:lo + pc], R, K, compressed)
+        gs = rows(lo, lo + pc)                             # (pc, TS, M)
+        parts = [None] * (2 * K)
+        for k, fre, fim in pairs:
+            gk = gs[..., k * 2 * C:(k + 1) * 2 * C]
+            pa = torch.einsum("rpts,psc->prtc", hats * fre[None], gk)
+            pb = torch.einsum("rpts,psc->prtc", hats * fim[None], gk)
+            parts[2 * k] = pa[..., :C] - pb[..., C:]
+            parts[2 * k + 1] = pa[..., C:] + pb[..., :C]
+        contrib.index_add_(0, tgt[lo:lo + pc], torch.cat(parts, dim=-1))
+    return contrib
+
+
 def band_panel_fwd_reference(g, wmat, sten, meta, tb: int, n_rings: int,
                              band_limit: int, compressed: bool,
                              n_out=None):
@@ -330,25 +357,12 @@ def band_panel_fwd_reference(g, wmat, sten, meta, tb: int, n_rings: int,
     then y[tgt·TB + t] = Σ_r contrib[tgt, r, t] · W_r.  Returns y (n_out,
     O2), n_out = N by default; a target block without panels gets zeros."""
     N, M = g.shape
-    R, K = n_rings, 2 * band_limit + 1
-    C = M // (2 * K)
     n_out = N if n_out is None else n_out
     gb = g.reshape(-1, tb, M)
     meta = meta.long()
-    contrib = g.new_zeros(n_out // tb, R, tb, M)
-    pc = 256                   # panels per step
-    for lo in range(0, sten.shape[0], pc):
-        tgt, src = meta[0, lo:lo + pc], meta[1, lo:lo + pc]
-        hats, pairs = _panel_pairs(sten[lo:lo + pc], R, K, compressed)
-        gs = gb[src]                                       # (pc, TBs, M)
-        parts = [None] * (2 * K)
-        for k, fre, fim in pairs:
-            gk = gs[..., k * 2 * C:(k + 1) * 2 * C]
-            pa = torch.einsum("rpts,psc->prtc", hats * fre[None], gk)
-            pb = torch.einsum("rpts,psc->prtc", hats * fim[None], gk)
-            parts[2 * k] = pa[..., :C] - pb[..., C:]
-            parts[2 * k + 1] = pa[..., C:] + pb[..., :C]
-        contrib.index_add_(0, tgt, torch.cat(parts, dim=-1))
+    contrib = _panel_contrib_reference(
+        lambda lo, hi: gb[meta[1, lo:hi]], sten, meta[0], n_out // tb, M,
+        n_rings, 2 * band_limit + 1, compressed)
     y = torch.einsum("brtj,rjo->bto", contrib, wmat)
     return y.reshape(n_out, wmat.shape[-1])
 
@@ -363,21 +377,23 @@ def _k5_entry():
 
 
 def _k5_check(name, g, wmat, sten, meta, tb, n_rings, band_limit,
-              compressed, n_out, *more):
+              compressed, n_out, *more, ts=None):
     """Raise unless the shapes agree and g, wmat, sten (float32), meta
     (int32) and the named extra tensors are contiguous on g's device, and
-    unless one of the kernel's two instantiations takes (K, R)."""
+    unless one of the kernel's two instantiations takes (K, R).  Panels
+    are (tb, ts) slots, ts = tb by default (K6's are rectangular)."""
     N, M = g.shape
     R, K = n_rings, 2 * band_limit + 1
     planes = 5 if compressed else R + 2 * K
     P = sten.shape[0]
+    ts = tb if ts is None else ts
     if M % (2 * K) or tuple(wmat.shape[:2]) != (R, M) \
-            or tuple(sten.shape) != (P, planes, tb, tb) \
+            or tuple(sten.shape) != (P, planes, tb, ts) \
             or tuple(meta.shape) != (4, P) or n_out % tb or N % tb:
         raise ValueError(
             f"{name} shapes do not agree: g {tuple(g.shape)}, wmat "
             f"{tuple(wmat.shape)}, sten {tuple(sten.shape)} (want "
-            f"({P}, {planes}, {tb}, {tb})), meta {tuple(meta.shape)}, "
+            f"({P}, {planes}, {tb}, {ts})), meta {tuple(meta.shape)}, "
             f"n_out {n_out}")
     for label, t, dtype in (("g", g, torch.float32),
                             ("wmat", wmat, torch.float32),
@@ -574,6 +590,107 @@ class _BandPanelFn(torch.autograd.Function):
         return dg, dw, None, None, None, None, None, None, None
 
 
+# --- K6 forward: plain version, wrapper, kernel launch -----------------------
+
+def band_compact_fwd_reference(g, wmat, sten, meta, src_idx, tbt: int,
+                               n_rings: int, band_limit: int, n_out=None):
+    """Plain PyTorch K6 forward: what ``_band_compact`` computes, the row
+    gather ``g[src_idx]`` written out (256 panels at a time) and then
+    ``_fwd_compact_kernel``'s contraction (``_panel_accum_rect``).
+
+    g: (N, M = K·2C) k-major rotated-source tensor; wmat: (R, M, O2);
+    sten: (P, 5, TBt, TS) compressed panels of a CompactPanelTable, rows
+    the target slot t, columns the compact column s; meta: (4, P) int32
+    rows (tgt, panel id, first, last), sorted by target; src_idx: (P, TS)
+    int32 source row of each column.  For each panel, with S_k = hats_r ⊙
+    f_k (planar complex):
+
+        contrib[tgt, r, t, k-pair] += Σ_s S_k[r, t, s] ⊗ g[src_idx[p, s], k]
+
+    then y[tgt·TBt + t] = Σ_r contrib[tgt, r, t] · W_r.  Returns y (n_out,
+    O2), n_out = N by default."""
+    N, M = g.shape
+    n_out = N if n_out is None else n_out
+    idx = src_idx.long()
+    contrib = _panel_contrib_reference(
+        lambda lo, hi: g[idx[lo:hi]], sten, meta[0].long(), n_out // tbt, M,
+        n_rings, 2 * band_limit + 1, True)
+    y = torch.einsum("brtj,rjo->bto", contrib, wmat)
+    return y.reshape(n_out, wmat.shape[-1])
+
+
+@functools.cache
+def _k6_entry():
+    fn = kernels.library("band_compact_fwd").band_compact_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _band_compact_fwd_cuda(g, wmat, sten, meta, src_idx, tbt, n_rings,
+                           band_limit, n_out):
+    N, M = g.shape
+    P, TS = sten.shape[0], sten.shape[-1]
+    _k5_check("band_compact_fwd", g, wmat, sten, meta, tbt, n_rings,
+              band_limit, True, n_out, ("src_idx", src_idx, torch.int32),
+              ts=TS)
+    if tuple(src_idx.shape) != (P, TS):
+        raise ValueError(f"band_compact_fwd: src_idx {tuple(src_idx.shape)}"
+                         f" for {P} panels of {TS} columns")
+    O2 = wmat.shape[-1]
+    K = 2 * band_limit + 1
+    fn = _k6_entry()
+    y = torch.empty((n_out, O2), dtype=torch.float32, device=g.device)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = fn(g.data_ptr(), wmat.data_ptr(), sten.data_ptr(), meta.data_ptr(),
+             src_idx.data_ptr(), y.data_ptr(), P, n_out // tbt, M // (2 * K),
+             K, n_rings, tbt, TS, O2, N, stream)
+    if err != 0:
+        raise RuntimeError(f"band_compact_fwd launch failed: cudaError {err}")
+    kernels.launches["band_compact_fwd"] += 1
+    return y
+
+
+def band_compact_fwd(g, wmat, sten, meta, src_idx, tbt: int, n_rings: int,
+                     band_limit: int, n_out=None):
+    """K6 forward y (n_out, O2) over a CompactPanelTable's panels (shapes as
+    in :func:`band_compact_fwd_reference`).
+
+    CPU tensors run the plain version (differentiable by autograd); CUDA
+    tensors launch the kernel (building it on first use) or raise.  On the
+    card the op is forward-only: a gradient request raises, since K6's
+    backward is not ported yet (ROADMAP Queue 2, K6 bwd: slice 8).  A bf16
+    stencil is refused on both devices."""
+    n_out = g.shape[0] if n_out is None else n_out
+    _k5_float32(sten)
+    if g.device.type == "cpu":
+        return band_compact_fwd_reference(g, wmat, sten, meta, src_idx, tbt,
+                                          n_rings, band_limit, n_out)
+    if g.device.type == "cuda":
+        if torch.is_grad_enabled() and (g.requires_grad
+                                        or wmat.requires_grad):
+            raise NotImplementedError(
+                "a gradient through the compact conv on the card needs K6's "
+                "backward (_band_compact_bwd_impl), which is not ported yet: "
+                "ROADMAP Queue 2, K6 bwd (compact training, slice 8)")
+        return _band_compact_fwd_cuda(g, wmat, sten, meta, src_idx, tbt,
+                                      n_rings, band_limit, n_out)
+    raise ValueError(f"band_compact_fwd has no kernel for device {g.device}")
+
+
+def field_conv_compact(x, comp: CompactPanelTable, zonal, spherical, phase,
+                       ftype, precision: str = "f32"):
+    """Full field convolution over a CompactPanelTable: (..., N, C, 2) ->
+    (..., N, O, 2), one K6 launch for the meshes of x's leading axes (the
+    table joins them, precomp.banded.concat_compact_panel_tables)."""
+    if not isinstance(comp, CompactPanelTable):
+        raise TypeError(f"field_conv_compact needs a CompactPanelTable, got "
+                        f"{type(comp).__name__}")
+    return field_conv_banded(x, comp, zonal, spherical, phase, ftype,
+                             precision)
+
+
 def field_conv_banded(x, banded, zonal, spherical, phase, ftype,
                       precision: str = "f32", fuse_filters: bool = True):
     """Full field convolution over a block layout: (..., N, C, 2) ->
@@ -584,18 +701,20 @@ def field_conv_banded(x, banded, zonal, spherical, phase, ftype,
     backward; gradients flow to x and the filters, not the stencil), or a
     PanelTable covering the meshes of x's leading axes (one K5 launch
     serves the batch, forward and backward, through :class:`_BandPanelFn`
-    on either device).  As in the JAX package,
+    on either device), or a CompactPanelTable covering them the same way
+    (one K6 launch; forward only on the card).  As in the JAX package,
     fuse_filters only selects among the BandedTable kernels."""
-    if not isinstance(banded, (BandedTable, PanelTable)):
+    compact = isinstance(banded, CompactPanelTable)
+    if not compact and not isinstance(banded, (BandedTable, PanelTable)):
         raise NotImplementedError(
             f"field_conv_banded over {type(banded).__name__} is not ported "
-            "yet: the compressed banded, compact and block-sparse conv "
-            "kernels are ROADMAP Queue 2 items K4, K6 and K8")
+            "yet: the compressed banded and block-sparse conv kernels are "
+            "ROADMAP Queue 2 items K4 and K8")
     if precision != "f32":
         raise NotImplementedError(
             f"precision={precision!r}: the bf16 operand paths of K1 and K5 "
             "are ROADMAP Queue 2, K1 (bf16)")
-    panel = isinstance(banded, PanelTable)
+    panel = compact or isinstance(banded, PanelTable)
     if not fuse_filters and not panel:
         raise NotImplementedError(
             "fuse_filters=False runs the unfused contrib kernel, ROADMAP "
@@ -612,9 +731,15 @@ def field_conv_banded(x, banded, zonal, spherical, phase, ftype,
             raise ValueError(
                 f"x carries {g.shape[0]} rows but the panel table covers "
                 f"{banded.n_mesh} mesh(es) of {banded.n_pad}")
-        y2 = _BandPanelFn.apply(g, wmat, banded.sten, banded.meta,
-                                banded.meta_s, banded.tb, banded.n_rings,
-                                banded.band_limit, banded.compressed)
+        if compact:
+            y2 = band_compact_fwd(g, wmat, banded.sten, banded.meta,
+                                  banded.src_idx, banded.tb, banded.n_rings,
+                                  banded.band_limit)
+        else:
+            y2 = _BandPanelFn.apply(g, wmat, banded.sten, banded.meta,
+                                    banded.meta_s, banded.tb,
+                                    banded.n_rings, banded.band_limit,
+                                    banded.compressed)
     else:
         g = g.reshape(-1, N, g.shape[-1]).contiguous()
         sten = banded.sten_band

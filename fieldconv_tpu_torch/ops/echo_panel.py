@@ -1,18 +1,20 @@
-"""Panel ECHO with the hand-written kernels (K2 forward and backward).
+"""Panel ECHO with the hand-written kernels: K2 (forward and backward) over
+the compressed PanelTable, K7 (forward) over the CompactPanelTable.
 
-Counterpart of ``fieldconv_tpu/ops/pallas/echo_panel.py`` for the
-compressed PanelTable.  The rasterisation runs in ``csrc/echo_panel_fwd.cu``,
-which replaces the TPU kernel ``_fwd_impl`` (body ``_fwd_kernel`` with the
-helpers ``_panel_tensors``, ``_b_factors`` and ``_a_masks``), and its
-gradient in ``csrc/echo_panel_bwd.cu``, which replaces ``_bwd_impl`` (body
-``_bwd_kernel``).  The wrappers :func:`echo_panel_grid` and
-:func:`echo_panel_grid_bwd` launch them for CUDA tensors and run the plain
-PyTorch versions :func:`echo_panel_grid_reference` and
-:func:`echo_panel_grid_bwd_reference` for CPU tensors; they never move work
-between devices.  :class:`_EchoPanelFn` ties the two together for autograd,
-as ``jax.custom_vjp`` does in the JAX package.  :func:`echo_panel_fused`
-does what ``echo_panel_pallas`` does around the kernel: the (w², dS)
-disk-map fold and soft_abs.
+Counterpart of ``fieldconv_tpu/ops/pallas/echo_panel.py``.  The
+rasterisation runs in ``csrc/echo_panel_fwd.cu``, which replaces the TPU
+kernel ``_fwd_impl`` (body ``_fwd_kernel`` with the helpers
+``_panel_tensors``, ``_b_factors`` and ``_a_masks``), its gradient in
+``csrc/echo_panel_bwd.cu``, which replaces ``_bwd_impl`` (body
+``_bwd_kernel``), and over compact panels in ``csrc/echo_compact_fwd.cu``,
+which replaces ``_fwd_impl_compact`` (the same body on gathered columns).
+The wrappers :func:`echo_panel_grid`, :func:`echo_panel_grid_bwd` and
+:func:`echo_compact_grid` launch them for CUDA tensors and run the plain
+PyTorch versions (``*_reference``) for CPU tensors; they never move work
+between devices.  :class:`_EchoPanelFn` ties K2's two directions together
+for autograd, as ``jax.custom_vjp`` does in the JAX package.
+:func:`echo_panel_fused` does what ``echo_panel_pallas`` does around the
+kernels: the (w², dS) disk-map fold and soft_abs.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import functools
 import torch
 
 from .. import kernels
-from ..precomp.banded import PanelTable
+from ..precomp.banded import CompactPanelTable, PanelTable
 from ..utils.complexops import EPS, soft_abs
 from .echo import fold_matrix
 
@@ -98,23 +100,32 @@ def echo_panel_grid_reference(x, sten, meta, n_bins: int, nb_out: int):
     a vote by AF_a·QF_b + AC_a·QC_b, QF_b = w0·BF_b + w3·BC_b, QC_b =
     w2·BF_b + w1·BC_b); the masks select exactly the four corner cells, so
     here each corner's weighted votes are added into its cell directly."""
-    C, TB = x.shape[1], sten.shape[-1]
-    w = 2 * n_bins + 1
-    xb = x.reshape(nb_out, TB, C, 2)
+    TB = sten.shape[-1]
+    xb = x.reshape(nb_out, TB, *x.shape[1:])
     meta = meta.long()
-    grid = x.new_zeros(nb_out, 2, w * w, C, TB)
-    pc = 8                     # panels per step: bounds the (pc, C, TB, TB)
+    return _grid_reference(lambda lo, hi: xb[meta[1, lo:hi]], x, sten,
+                           meta[0], n_bins, nb_out)
+
+
+def _grid_reference(rows, x, sten, tgt, n_bins: int, nb_out: int):
+    """The grid (nb_out, 2w², C, TBt) of K2's (and K7's) plain versions
+    over panels sten (P, 5, TBt, TS) of target blocks tgt (P,), each panel
+    against its source rows ``rows(lo, hi)`` ((hi − lo, TS, C, 2), one per
+    column), 8 panels at a time."""
+    C, TBt = x.shape[1], sten.shape[2]
+    w = 2 * n_bins + 1
+    grid = x.new_zeros(nb_out, 2, w * w, C, TBt)
+    pc = 8                     # panels per step: bounds the (pc, C, TBt, TS)
     for lo in range(0, sten.shape[0], pc):
-        tgt, src = meta[0, lo:lo + pc], meta[1, lo:lo + pc]
-        t = _panel_tensors(sten[lo:lo + pc], xb[src], n_bins)
+        t = _panel_tensors(sten[lo:lo + pc], rows(lo, lo + pc), n_bins)
         _, weights, cells = _corners(t["p1"], t["p2"], n_bins)
-        v = torch.stack([t["v_re"], t["v_im"]], 1)       # (pc, 2, C, TBt, TBs)
+        v = torch.stack([t["v_re"], t["v_im"]], 1)       # (pc, 2, C, TBt, TS)
         part = x.new_zeros(*v.shape[:-1], w * w)         # (pc, 2, C, TBt, w²)
         for cell, wt in zip(cells, weights):
             part = part.scatter_add(-1, cell[:, None].expand_as(v),
                                     wt[:, None] * v)
-        grid = grid.index_add(0, tgt, part.permute(0, 1, 4, 2, 3))
-    return grid.reshape(nb_out, 2 * w * w, C, TB)
+        grid = grid.index_add(0, tgt[lo:lo + pc], part.permute(0, 1, 4, 2, 3))
+    return grid.reshape(nb_out, 2 * w * w, C, TBt)
 
 
 def echo_panel_grid_bwd_reference(dg, x, sten, meta_s, n_bins: int,
@@ -179,13 +190,16 @@ def echo_panel_grid_bwd_reference(dg, x, sten, meta_s, n_bins: int,
     return dx.reshape(x.shape)
 
 
-def _check(x, sten, meta, n_bins: int, nb_out: int, name="echo_panel_fwd"):
-    """Raise unless the shapes agree and x, sten (float32) and meta (int32)
-    are contiguous on x's device."""
+def _check(x, sten, meta, n_bins: int, nb_out: int, name="echo_panel_fwd",
+           *more, ts=None):
+    """Raise unless the shapes agree and x, sten (float32), meta and the
+    named extra tensors (int32) are contiguous on x's device.  Panels are
+    (TB, ts) slots, ts = TB by default (K7's are rectangular)."""
     rows, C = x.shape[0], x.shape[1]
-    P, TB = sten.shape[0], sten.shape[-1]
+    P, TB = sten.shape[0], sten.shape[2]
+    ts = TB if ts is None else ts
     if x.dim() != 3 or x.shape[2] != 2 or rows != nb_out * TB \
-            or tuple(sten.shape) != (P, 5, TB, TB) \
+            or tuple(sten.shape) != (P, 5, TB, ts) \
             or meta.dim() != 2 or meta.shape[0] != 4 \
             or n_bins not in (1, 2, 3, 4):
         raise ValueError(
@@ -194,7 +208,8 @@ def _check(x, sten, meta, n_bins: int, nb_out: int, name="echo_panel_fwd"):
             f"n_bins {n_bins}")
     for label, t, dtype in (("x", x, torch.float32),
                             ("sten", sten, torch.float32),
-                            ("meta", meta, torch.int32)):
+                            ("meta", meta, torch.int32),
+                            *((lb, t, torch.int32) for lb, t in more)):
         if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{name} needs contiguous {dtype} "
                              f"{label} on {x.device}, got {t.dtype} on "
@@ -318,10 +333,86 @@ class _EchoPanelFn(torch.autograd.Function):
         return dx, None, None, None, None, None
 
 
+# --- K7 forward: plain version, wrapper, kernel launch -----------------------
+
+def echo_compact_grid_reference(x, sten, meta, src_idx, n_bins: int,
+                                nb_out: int):
+    """Plain PyTorch K7 forward: what ``_echo_compact_grid`` computes, the
+    row gather ``x[src_idx]`` written out (8 panels at a time) and then
+    ``_fwd_kernel`` over rectangular TBt × TS panels.
+
+    x: (rows, C, 2) planar source features, rows = nb_out·TBt; sten (P, 5,
+    TBt, TS) compressed panels of a CompactPanelTable; meta (4, P) int32
+    (tgt, panel id, first, last), sorted by target; src_idx (P, TS) int32,
+    the source row of each column.  Each slot votes as in
+    :func:`echo_panel_grid_reference`, with the source feature of column s
+    of panel p at row src_idx[p, s].  Returns grid (nb_out, 2w², C, TBt)."""
+    idx = src_idx.long()
+    return _grid_reference(lambda lo, hi: x[idx[lo:hi]], x, sten,
+                           meta[0].long(), n_bins, nb_out)
+
+
+@functools.cache
+def _k7_entry():
+    fn = kernels.library("echo_compact_fwd").echo_compact_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _echo_compact_fwd_cuda(x, sten, meta, src_idx, n_bins: int,
+                           nb_out: int):
+    name = "echo_compact_fwd"
+    P, TBt, TS = sten.shape[0], sten.shape[2], sten.shape[-1]
+    _check(x, sten, meta, n_bins, nb_out, name, ("src_idx", src_idx), ts=TS)
+    if tuple(meta.shape) != (4, P) or tuple(src_idx.shape) != (P, TS):
+        raise ValueError(f"{name}: meta {tuple(meta.shape)}, src_idx "
+                         f"{tuple(src_idx.shape)} for {P} panels of {TS} "
+                         "columns")
+    rows, C = x.shape[0], x.shape[1]
+    w = 2 * n_bins + 1
+    fn = _k7_entry()
+    out = torch.empty((nb_out, 2 * w * w, C, TBt), dtype=torch.float32,
+                      device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(x.data_ptr(), sten.data_ptr(), meta.data_ptr(),
+             src_idx.data_ptr(), out.data_ptr(), P, nb_out, C, TBt, TS,
+             n_bins, rows, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    kernels.launches[name] += 1
+    return out
+
+
+def echo_compact_grid(x, sten, meta, src_idx, n_bins: int, nb_out: int):
+    """K7 forward: the ECHO grid (nb_out, 2w², C, TBt) of every target
+    block over a CompactPanelTable (shapes as in
+    :func:`echo_compact_grid_reference`).
+
+    CPU tensors run the plain version (differentiable by autograd); CUDA
+    tensors launch the kernel (building it on first use) or raise.  On the
+    card the op is forward-only: a gradient request raises, since K7's
+    backward is not ported yet (ROADMAP Queue 2, K7 bwd: slice 8)."""
+    if x.device.type == "cpu":
+        return echo_compact_grid_reference(x, sten, meta, src_idx, n_bins,
+                                           nb_out)
+    if x.device.type == "cuda":
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise NotImplementedError(
+                "a gradient through the compact ECHO on the card needs K7's "
+                "backward (_bwd_impl_compact), which is not ported yet: "
+                "ROADMAP Queue 2, K7 bwd (compact training, slice 8)")
+        return _echo_compact_fwd_cuda(x, sten, meta, src_idx, n_bins, nb_out)
+    raise ValueError(f"echo_compact_grid has no kernel for device {x.device}")
+
+
 def _check_panel(x, panel):
-    if not isinstance(panel, PanelTable) or not panel.compressed:
+    if not isinstance(panel, CompactPanelTable) and not (
+            isinstance(panel, PanelTable) and panel.compressed):
         raise ValueError("panel ECHO needs a compressed PanelTable "
-                         "(build_panel_table(compressed=True))")
+                         "(build_panel_table(compressed=True)) or a "
+                         "CompactPanelTable")
     rows = x[..., 0, 0].numel()
     if rows != panel.n_mesh * panel.n_pad:
         raise ValueError(
@@ -329,21 +420,26 @@ def _check_panel(x, panel):
             f"{panel.n_mesh} mesh(es) of {panel.n_pad}")
 
 
-def echo_panel_fused(x, panel: PanelTable, n_bins: int):
-    """Panel ECHO through K2: (..., N, C, 2) -> (..., N, C, dS).
+def echo_panel_fused(x, panel, n_bins: int):
+    """Panel ECHO: (..., N, C, 2) -> (..., N, C, dS), through K2 over a
+    compressed PanelTable or through K7 over a CompactPanelTable.
 
-    panel: a compressed PanelTable covering the meshes of x's leading axes
-    (one table and one launch serve a whole batch, forward and backward).
-    The kernel's w×w grid is folded onto the disk bins and soft_abs gives
-    the magnitudes."""
+    panel: a table covering the meshes of x's leading axes (one table and
+    one launch serve a whole batch).  The kernel's w×w grid is folded onto
+    the disk bins and soft_abs gives the magnitudes, as
+    ``echo_panel_pallas`` does."""
     _check_panel(x, panel)
     lead, N, C = x.shape[:-3], x.shape[-3], x.shape[-2]
     TB = panel.tb
     w = 2 * n_bins + 1
     xf = x.reshape(-1, C, 2).contiguous()
     rows = xf.shape[0]
-    grid = _EchoPanelFn.apply(xf, panel.sten, panel.meta, panel.meta_s,
-                              n_bins, rows // TB)
+    if isinstance(panel, CompactPanelTable):
+        grid = echo_compact_grid(xf, panel.sten, panel.meta, panel.src_idx,
+                                 n_bins, rows // TB)
+    else:
+        grid = _EchoPanelFn.apply(xf, panel.sten, panel.meta, panel.meta_s,
+                                  n_bins, rows // TB)
     # (nb, 2w², C, TB) -> (rows, C, 2, w²) -> fold -> (rows, C, dS, 2)
     grid4 = grid.permute(0, 3, 2, 1).reshape(rows, C, 2, w * w)
     hist = torch.einsum("ncpu,us->ncsp", grid4,

@@ -1,7 +1,7 @@
 """TransField — learned "gradient" lifting scalar features to tangent fields.
 
-Counterpart of ``fieldconv_tpu/ops/trans_field.py`` (gather, dense banded
-and panel routes).  Two aggregations over the support edges, using two columns
+Counterpart of ``fieldconv_tpu/ops/trans_field.py`` (gather, dense banded,
+panel and compact routes).  Two aggregations over the support edges, using two columns
 of the stencil:
 
   contribAng[i,c,r] = -Σ_e (x[j]-x[i]) · sten1[e,r]
@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from ..precomp.banded import CompressedBandedTable, PanelTable, window_blocks
+from ..precomp.banded import (CompactPanelTable, CompressedBandedTable,
+                              PanelTable, window_blocks)
 from ..precomp.edge_table import EdgeTable
 from ..utils.complexops import cpolar, soft_abs, soft_absolute, soft_angle
 from .band_conv import _hats_from_r
@@ -152,30 +153,73 @@ def trans_field_panel_contrib(x, panel: PanelTable, lift_cols=(0, 1),
             "the lift over a dense PanelTable (R+2K planes) is not ported: "
             "the mixed route builds compressed panels; dense panels wait for "
             "the 100k layout (ROADMAP Queue 1 item 6)")
-    sten, meta = panel.sten, panel.meta.long()
     R, B, TB = panel.n_rings, panel.band_limit, panel.tb
     lead, N, C = x.shape[:-2], x.shape[-2], x.shape[-1]
     xb = x.reshape(-1, TB, C)                       # (nb, TB, C)
-    nb_out = xb.shape[0]
-    if nb_out * TB != panel.n_mesh * panel.n_pad:
-        raise ValueError(f"x carries {nb_out * TB} rows but the panel table "
-                         f"covers {panel.n_mesh} mesh(es) of {panel.n_pad}")
-    k1 = lift_cols[1]
+    if xb.shape[0] * TB != panel.n_mesh * panel.n_pad:
+        raise ValueError(f"x carries {xb.shape[0] * TB} rows but the panel "
+                         f"table covers {panel.n_mesh} mesh(es) of "
+                         f"{panel.n_pad}")
+    meta = panel.meta.long()
+    ang, mag = _lift_over_panels(lambda lo, hi: xb[meta[1, lo:hi]], xb,
+                                 panel.sten, meta[0], R, B, lift_cols[1],
+                                 panel_chunk)
+    return (ang.reshape(*lead, N, C, R, 2), mag.reshape(*lead, N, C, R))
 
-    seg = x.new_zeros(nb_out, TB, C, R, 2)
-    ssum_seg = x.new_zeros(nb_out, TB, R, 2)
-    mag = x.new_zeros(nb_out, TB, C, R)
+
+def trans_field_compact_contrib(x, compact: CompactPanelTable,
+                                lift_cols=(0, 1), panel_chunk: int = 256):
+    """TransField aggregation over the CompactPanelTable layout: the math of
+    :func:`trans_field_panel_contrib` with each panel's source columns
+    gathered per ``src_idx`` (the row gather written out, ``panel_chunk``
+    panels at a time) instead of read as whole blocks.  Forward only here:
+    the JAX package's custom VJP of this aggregation (``_compact_lift_agg``)
+    is ROADMAP Queue 1 item 6 (compact training, slice 8); on CPU tensors
+    autograd differentiates the plain ops.
+
+    x: (..., N, C) real scalars; the table covers the meshes of x's leading
+    axes (precomp.banded.concat_compact_panel_tables).
+    Returns contribAng (..., N, C, R, 2), contribMag (..., N, C, R)."""
+    R, B, TB = compact.n_rings, compact.band_limit, compact.tb
+    lead, N, C = x.shape[:-2], x.shape[-2], x.shape[-1]
+    xf = x.reshape(-1, C)
+    if xf.shape[0] != compact.n_mesh * compact.n_pad:
+        raise ValueError(f"x carries {xf.shape[0]} rows but the compact "
+                         f"table covers {compact.n_mesh} mesh(es) of "
+                         f"{compact.n_pad}")
+    idx = compact.src_idx.long()
+    ang, mag = _lift_over_panels(lambda lo, hi: xf[idx[lo:hi]],
+                                 xf.reshape(-1, TB, C), compact.sten,
+                                 compact.meta[0].long(), R, B, lift_cols[1],
+                                 panel_chunk)
+    return (ang.reshape(*lead, N, C, R, 2), mag.reshape(*lead, N, C, R))
+
+
+def _lift_over_panels(rows, xb, sten, tgt, R: int, B: int, k1: int,
+                      panel_chunk: int):
+    """The lift's aggregation over compressed panels sten (P, 5, TBt, TS) of
+    target blocks tgt (P,), each panel against its source rows
+    ``rows(lo, hi)`` ((hi − lo, TS, C), one per column): per panel a (TBt,
+    C, R, 2) partial of the angular sum and a (TBt, C, R) one of the
+    magnitude sum, summed per target block.  The hats and fwxp_k1 =
+    wxp·e^{ik1θ} are rebuilt from the planes; the magnitude stencil uses
+    rsten·|wxp|.  xb: (nb_out, TBt, C), the target rows.  Returns contribAng
+    (nb_out, TBt, C, R, 2), contribMag (nb_out, TBt, C, R)."""
+    nb_out, TB, C = xb.shape
+    seg = xb.new_zeros(nb_out, TB, C, R, 2)
+    ssum_seg = xb.new_zeros(nb_out, TB, R, 2)
+    mag = xb.new_zeros(nb_out, TB, C, R)
     for lo in range(0, sten.shape[0], panel_chunk):
         sten_c = sten[lo:lo + panel_chunk]
-        tgt_c, src_c = meta[0, lo:lo + panel_chunk], meta[1, lo:lo + panel_chunk]
-        hats = _hats_from_r(sten_c[:, 0], R)               # (R, cb, TB, TB)
+        tgt_c = tgt[lo:lo + panel_chunk]
+        hats = _hats_from_r(sten_c[:, 0], R)               # (R, cb, TB, TS)
         pr, pi = sten_c[:, 1], sten_c[:, 2]
         wr, wi = sten_c[:, 3], sten_c[:, 4]
         e1r, e1i = _phasor_power(pr, pi, k1 - B)
         f1 = torch.stack([wr * e1r - wi * e1i, wr * e1i + wi * e1r], -1)
         wmag = torch.sqrt(wr * wr + wi * wi)
-        xs = xb[src_c]                                     # (cb, TB_s, C)
-        s1 = hats[..., None] * f1                          # (R, cb, TB, TB, 2)
+        xs = rows(lo, lo + panel_chunk)                    # (cb, TS, C)
+        s1 = hats[..., None] * f1                          # (R, cb, TB, TS, 2)
         part = torch.einsum("rptsj,psc->ptcrj", s1, xs)
         ssum = torch.sum(s1, dim=3).permute(1, 2, 0, 3)    # (cb, TB, R, 2)
         magp = torch.einsum("rpts,psc->ptcr", hats * wmag, xs)
@@ -184,22 +228,24 @@ def trans_field_panel_contrib(x, panel: PanelTable, lift_cols=(0, 1),
         mag = mag.index_add(0, tgt_c, magp)
 
     ang = -(seg - xb[..., None, None] * ssum_seg[:, :, None])
-    return (ang.reshape(*lead, N, C, R, 2), mag.reshape(*lead, N, C, R))
+    return ang, mag
 
 
 def trans_field(x, table, zonal_ang, zonal_mag, phase, ftype,
                 lift_cols=(0, 1), d_chunk: int = 128, comp=None):
     """TransField lift.  A CompressedBandedTable ``comp`` routes the
     aggregation to the gather-free banded path, a PanelTable to the
-    panel-CSR path; None uses the padded-CSR gather path."""
+    panel-CSR path, a CompactPanelTable to the compacted-column path; None
+    uses the padded-CSR gather path."""
     if isinstance(comp, CompressedBandedTable):
         ang, mag = trans_field_banded_contrib(x, comp, lift_cols=lift_cols)
     elif isinstance(comp, PanelTable):
         ang, mag = trans_field_panel_contrib(x, comp, lift_cols=lift_cols)
+    elif isinstance(comp, CompactPanelTable):
+        ang, mag = trans_field_compact_contrib(x, comp, lift_cols=lift_cols)
     elif comp is not None:
         raise NotImplementedError(
-            f"the {type(comp).__name__} lift is not ported yet (ROADMAP "
-            "Queue 1 item 6: the compact layout)")
+            f"the lift over {type(comp).__name__} is not ported")
     else:
         ang, mag = trans_field_contrib(x, table, lift_cols=lift_cols,
                                        d_chunk=d_chunk)

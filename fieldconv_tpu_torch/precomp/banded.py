@@ -14,11 +14,14 @@ The panel-CSR PanelTable stores only the nonempty (target-block,
 source-block) pairs of the same slot layout, as (planes, TB, TB) panels;
 the mixed route of the ECHO presets runs ECHO and the lift over it, and
 the pure-panel layout of large meshes (vertices in :func:`kd_order`) runs
-every op over it.
+every op over it.  The CompactPanelTable packs each target block's
+distinct sources into dense TS-wide columns instead; the compact route
+runs ECHO and the lift (and, with conv_impl="compact", the convs) over it.
 
 The builders run in numpy and return CPU tensors; stacked batches carry a
-leading mesh axis on ``sten_band``, and one PanelTable covers a batch
-(:func:`concat_panel_tables`).
+leading mesh axis on ``sten_band``, and one PanelTable (or
+CompactPanelTable) covers a batch (:func:`concat_panel_tables`,
+:func:`concat_compact_panel_tables`).
 """
 
 from __future__ import annotations
@@ -439,6 +442,158 @@ def concat_panel_tables(panels) -> PanelTable:
         p0, sten=torch.cat([p.sten for p in panels]),
         meta=torch.cat(metas, dim=1), meta_s=torch.cat(metas_s, dim=1),
         n_mesh=len(panels))
+
+
+@dataclasses.dataclass
+class CompactPanelTable:
+    """Compacted panel-CSR: dense TS-wide panels of gathered sources.
+
+    Each target block's DISTINCT source vertices are compacted into
+    consecutive columns (padded to a multiple of ``ts`` with dead columns),
+    so a panel holds many more occupied slots than a (TB, TB) block panel;
+    column j of panel p reads the source row ``src_idx[p, j]``.
+
+      sten: (P, 5, TB, TS) compressed planes (r, e^{iθ} re/im, wxp re/im),
+        R_SENTINEL in the r plane at empty slots (PanelTable's compressed
+        format).
+      meta: (4, P) int32 rows (tgt_block, panel_id, first_t, last_t),
+        panels sorted by target block; every block owns >= 1 panel.
+      src_idx: (P, TS) int32 source row per column; dead columns point at
+        the mesh's vertex 0 (their planes are empty, so they add nothing).
+
+    A batch of meshes is one table (:func:`concat_compact_panel_tables`):
+    mesh m's target blocks are offset by m·nb and its source rows by
+    m·n_pad, so they index the meshes' features flattened to (n_mesh·n_pad,
+    ...).
+    """
+
+    sten: torch.Tensor
+    meta: torch.Tensor
+    src_idx: torch.Tensor
+    tb: int
+    n_pad: int
+    band_limit: int
+    n_rings: int
+    compressed: bool = True
+    ts: int = 128
+    n_mesh: int = 1
+
+    @property
+    def n_panels(self) -> int:
+        return self.meta.shape[1]
+
+    @property
+    def k_width(self) -> int:
+        return 2 * self.band_limit + 1
+
+    def to(self, device) -> "CompactPanelTable":
+        return dataclasses.replace(self, sten=self.sten.to(device),
+                                   meta=self.meta.to(device),
+                                   src_idx=self.src_idx.to(device))
+
+
+def build_compact_panel_table(table: EdgeTable, tb: int = 128,
+                              ts: int = 128) -> CompactPanelTable:
+    """Build the compacted panel-CSR table of one mesh from its padded-CSR
+    EdgeTable (vertex order block-local, e.g. kd_order; numpy, returns CPU
+    tensors).  Compressed planes only."""
+    src = table.src.numpy()
+    mask = table.mask.numpy() > 0
+    N, D = src.shape
+    if N % tb:
+        raise ValueError(f"n_pad={N} not a multiple of tb={tb}")
+    nb = N // tb
+
+    tgt_idx, slot_idx = np.nonzero(mask)
+    s = src[tgt_idx, slot_idx]
+    blk = tgt_idx // tb
+    order = np.lexsort((s, blk))
+    tgt_o, slot_o, s_o, blk_o = (tgt_idx[order], slot_idx[order], s[order],
+                                 blk[order])
+
+    # distinct (block, source) pairs -> one compact column each
+    key = blk_o.astype(np.int64) * N + s_o
+    uk, inv_k = np.unique(key, return_inverse=True)
+    ub = (uk // N).astype(np.int64)
+    us = (uk % N).astype(np.int32)
+    counts = np.bincount(ub, minlength=nb)           # distinct srcs / block
+    padded = np.maximum(-(-counts // ts) * ts, ts)   # >= 1 panel per block
+    col_start = np.concatenate([[0], np.cumsum(padded)[:-1]])
+    first_of = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    rank = np.arange(len(uk)) - first_of[ub]         # rank within block
+    gcol = col_start[ub] + rank                      # global column slot
+    total_cols = int(padded.sum())
+    P = total_cols // ts
+
+    pan_tgt = np.repeat(np.arange(nb, dtype=np.int32), padded // ts)
+    first = np.ones(P, np.int32)
+    first[1:] = (pan_tgt[1:] != pan_tgt[:-1]).astype(np.int32)
+    last = np.ones(P, np.int32)
+    last[:-1] = (pan_tgt[:-1] != pan_tgt[1:]).astype(np.int32)
+    meta = np.stack([pan_tgt, np.arange(P, dtype=np.int32), first, last],
+                    axis=0)
+
+    src_cols = np.zeros(total_cols, np.int32)        # dead columns -> 0
+    src_cols[gcol] = us
+    src_idx = src_cols.reshape(P, ts)
+
+    # edges -> (panel, target row, compact column)
+    edge_gcol = gcol[inv_k]
+    pid = edge_gcol // ts
+    c_loc = (edge_gcol % ts).astype(np.int64)
+    t_loc = (tgt_o % tb).astype(np.int64)
+    flat = pid * np.int64(tb * ts) + t_loc * ts + c_loc
+    if len(np.unique(flat)) != len(flat):
+        raise ValueError(
+            "parallel edges cannot be represented in the compact layout")
+
+    ln = table.ln.numpy().astype(np.float64)
+    wxp = table.wxp.numpy()
+    lv = ln[tgt_o, slot_o]                           # (E, 2)
+    rv = np.hypot(lv[:, 0], lv[:, 1])
+    with np.errstate(invalid="ignore"):
+        ph = lv / np.maximum(rv, 1e-30)[:, None]
+    ph[rv < 1e-30] = [1.0, 0.0]                      # θ=0 at r=0 edges
+    sten = np.zeros((P, 5, tb, ts), dtype=np.float32)
+    sten[:, 0] = R_SENTINEL
+    sten[pid, 0, t_loc, c_loc] = rv
+    sten[pid, 1, t_loc, c_loc] = ph[:, 0]
+    sten[pid, 2, t_loc, c_loc] = ph[:, 1]
+    sten[pid, 3, t_loc, c_loc] = wxp[tgt_o, slot_o, 0]
+    sten[pid, 4, t_loc, c_loc] = wxp[tgt_o, slot_o, 1]
+
+    return CompactPanelTable(
+        sten=torch.from_numpy(sten), meta=torch.from_numpy(meta),
+        src_idx=torch.from_numpy(src_idx), tb=tb, n_pad=N,
+        band_limit=table.band_limit, n_rings=table.n_rings, ts=ts)
+
+
+def concat_compact_panel_tables(tables) -> CompactPanelTable:
+    """One table for a batch of meshes' CompactPanelTables (same tb, ts and
+    n_pad): mesh m's target blocks (meta row 0) are offset by m·nb, its
+    panel ids (meta row 1) by the panels before it and its source rows
+    (src_idx) by m·n_pad.  A single table comes back as it is (no copy of
+    its stencil)."""
+    c0 = tables[0]
+    if len(tables) == 1 and c0.n_mesh == 1:
+        return c0
+    for c in tables[1:]:
+        if (c.tb, c.ts, c.n_pad, c.n_mesh) != (c0.tb, c0.ts, c0.n_pad, 1):
+            raise ValueError("compact tables of one batch must share tb, ts "
+                             "and n_pad")
+    nb = c0.n_pad // c0.tb
+    metas, idxs, pid0 = [], [], 0
+    for m, c in enumerate(tables):
+        meta = c.meta.clone()
+        meta[0] += m * nb
+        meta[1] += pid0
+        metas.append(meta)
+        idxs.append(c.src_idx + m * c0.n_pad)
+        pid0 += c.n_panels
+    return dataclasses.replace(
+        c0, sten=torch.cat([c.sten for c in tables]),
+        meta=torch.cat(metas, dim=1), src_idx=torch.cat(idxs),
+        n_mesh=len(tables))
 
 
 def window_blocks(a: torch.Tensor, tb: int, nh: int) -> torch.Tensor:

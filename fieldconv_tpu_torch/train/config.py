@@ -4,9 +4,9 @@ A copy of ``fieldconv_tpu/train/config.py`` (importing that module would
 import JAX), so configs and bundle JSON carry the same fields in both
 packages.  The routing options name the JAX package's layouts; the port
 runs the dense banded layout, the mixed route, the pure-panel layout
-(``layout``, ``panel_threshold``) and the gather path, and its
-train/loop.py::make_batches raises on the compact ones (``echo_impl`` /
-``conv_impl`` "compact") and on ``echo_impl="banded"``.
+(``layout``, ``panel_threshold``), the compact route (``echo_impl`` /
+``conv_impl`` "compact"; serving only) and the gather path, and its
+train/loop.py::make_batches raises on ``echo_impl="banded"``.
 """
 
 from __future__ import annotations

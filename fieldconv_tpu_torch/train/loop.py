@@ -5,9 +5,11 @@ Counterpart of ``build_model``, ``make_batches``, ``fit`` and
 cover classification, segmentation and correspondence: the dense banded
 layout, the mixed route (banded convs, panel ECHO and lift) of the ECHO
 presets, the pure-panel layout of large meshes (every op over one
-PanelTable), or the gather path when ``banded_tb`` is None.  ``fit`` and
-``evaluate_task`` train and evaluate the three of them on every layout;
-matching is ROADMAP Queue 1 item 3.
+PanelTable), the compact route (ECHO and the lift, and optionally the
+convs, over one CompactPanelTable), or the gather path when ``banded_tb``
+is None.  ``fit`` and ``evaluate_task`` train and evaluate the three of
+them on every layout but the compact route (slice 8); matching is ROADMAP
+Queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -74,12 +76,18 @@ def make_batches(records: List[MeshRecord], config: ExperimentConfig,
     config.panel_threshold) takes the pure-panel layout, banded_tb serving
     as the panel target-block size: one compressed PanelTable per batch
     for every op (K5 convs, panel ECHO and lift), no banded or compressed
-    banded tables.  Below it the dense banded tables (K1 convs) are built;
-    an ECHO task with config.echo_impl == "panel" takes the mixed route
-    (one compressed PanelTable per batch for ECHO and the lift), otherwise
-    the compressed banded tables of the gather-free lift are built when
-    config.lift_impl == "banded".  Without banded_tb an ECHO task whose
-    echo_impl needs block tables warns and takes the one-hot ECHO."""
+    banded tables.  An ECHO task with config.echo_impl == "compact" adds
+    one CompactPanelTable per batch at target-block size min(banded_tb, 32)
+    for ECHO (K7) and the lift, and with config.conv_impl == "compact" it
+    serves the convs (K6) too, in place of the PanelTable.  Below it the
+    dense banded tables (K1 convs) are built; an ECHO task with
+    config.echo_impl "panel" / "compact" takes the mixed route (one
+    compressed PanelTable / CompactPanelTable at banded_tb per batch for
+    ECHO and the lift), otherwise the compressed banded tables of the
+    gather-free lift are built when config.lift_impl == "banded".  Without
+    banded_tb an ECHO task whose echo_impl needs block tables warns and
+    takes the one-hot ECHO; conv_impl "compact" without the compact ECHO
+    warns, as in the JAX package, and runs the other convs."""
     device = resolve_device(device)
     if config.task == "matching":
         raise NotImplementedError(
@@ -96,14 +104,14 @@ def make_batches(records: List[MeshRecord], config: ExperimentConfig,
             "echo_impl='banded' runs echo_banded over compressed banded "
             "tables, which is not ported yet (ROADMAP Queue 1, ECHO item: "
             "echo_banded)")
-    if echo_task and config.echo_impl == "compact":
-        raise NotImplementedError(
-            "echo_impl='compact' runs K7 over the CompactPanelTable, which "
-            "is not ported yet (ROADMAP Queue 1 item 6 and Queue 2, K7)")
-    if config.conv_impl == "compact":
-        raise NotImplementedError(
-            "conv_impl='compact' runs K6 over the CompactPanelTable, which "
-            "is not ported yet (ROADMAP Queue 1 item 6 and Queue 2, K6)")
+    echo_compact = echo_task and config.echo_impl == "compact"
+    if config.conv_impl == "compact" and not echo_compact:
+        # the compact convs ride the ECHO/lift CompactPanelTable, which is
+        # not built here: say so rather than quietly running other convs
+        warnings.warn(
+            "conv_impl='compact' requires echo_impl='compact' on an ECHO "
+            f"task (task={config.task!r}, echo_impl={config.echo_impl!r}); "
+            "the convs will run on the block-panel/banded layout")
     if n_pad is None or d_slots is None:
         n_pad, d_slots = shared_bucket(records)
     panel = (banded_tb is not None
@@ -111,7 +119,7 @@ def make_batches(records: List[MeshRecord], config: ExperimentConfig,
     echo_panel = (banded_tb is not None and not panel and echo_task
                   and config.echo_impl == "panel")
     need_comp = (banded_tb is not None and not panel and not echo_panel
-                 and config.lift_impl == "banded")
+                 and not echo_compact and config.lift_impl == "banded")
 
     def build_group(group):
         items = []
@@ -121,10 +129,13 @@ def make_batches(records: List[MeshRecord], config: ExperimentConfig,
             items.append((r.padded_pos(n_pad, center=config.center), table,
                           r.padded_labels(n_pad)))
         if panel:
-            batch = stack_panel_batch(items, banded_tb)
+            batch = stack_panel_batch(
+                items, banded_tb, echo_compact=echo_compact,
+                conv_compact=echo_compact and config.conv_impl == "compact")
         else:
             batch = stack_batch(items, banded_tb=banded_tb,
-                                echo_banded=need_comp, echo_panel=echo_panel)
+                                echo_banded=need_comp, echo_panel=echo_panel,
+                                echo_compact=echo_compact)
         return batch.to(device)
 
     return [build_group(records[lo:lo + batch_size])
@@ -155,8 +166,12 @@ def fit(config: ExperimentConfig, train_records: List[MeshRecord],
 
     A bucket on the pure-panel layout trains as the others do: every conv
     runs K5 forward and backward, ECHO K2, over the batch's one
-    PanelTable."""
+    PanelTable.  An ECHO config with echo_impl "compact" (and banded_tb
+    set) raises on either device: its training is ROADMAP slice 8."""
     device = resolve_device(device)
+    if banded_tb is not None and config.echo_impl == "compact" \
+            and config.task in ("segmentation", "correspondence"):
+        _compact_training_unported("echo_impl='compact'")
     net = build_model(config, n_classes,
                       generator=torch.Generator().manual_seed(seed),
                       device=device)
@@ -245,10 +260,21 @@ def fit(config: ExperimentConfig, train_records: List[MeshRecord],
     return net, opt, final
 
 
+def _compact_training_unported(what: str):
+    raise NotImplementedError(
+        f"{what} puts a CompactPanelTable in the batches, whose training and "
+        "evaluation need K6's and K7's backwards and the compact lift's "
+        "VJP, not ported yet: ROADMAP Queue 1 item 6 (compact training, "
+        "slice 8); serve it with Predictor, or set config.echo_impl='panel'")
+
+
 def evaluate_task(net, config: ExperimentConfig, test_batches,
                   n_classes: int):
     """The task's test metric: accuracy (classification, per-vertex for
-    segmentation) or the mean test cross entropy (correspondence)."""
+    segmentation) or the mean test cross entropy (correspondence).  Batches
+    that carry a CompactPanelTable raise, as :func:`fit` does."""
+    if any(b.compact is not None for b in test_batches):
+        _compact_training_unported("a test batch")
     if config.task == "classification":
         return evaluate.classification_accuracy(net, test_batches)
     if config.task == "segmentation":

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -25,11 +25,14 @@ import torch
 from ..precomp.banded import (
     R_SENTINEL,
     BandedTable,
+    CompactPanelTable,
     CompressedBandedTable,
     PanelTable,
     build_banded_table,
+    build_compact_panel_table,
     build_compressed_banded,
     build_panel_table,
+    concat_compact_panel_tables,
     concat_panel_tables,
 )
 from ..nn.losses import cross_entropy, label_smoothing_loss
@@ -49,7 +52,11 @@ class MeshBatch:
     panel: optional compressed PanelTable of every mesh of the batch (one
       table, precomp.banded.concat_panel_tables): ECHO and the lift of the
       mixed route (with ``banded``), or every op of the pure-panel layout
-      (``banded`` None)
+      (``banded`` None); on the all-compact pure-panel layout the same
+      object as ``compact``
+    compact: optional CompactPanelTable of every mesh of the batch (one
+      table, precomp.banded.concat_compact_panel_tables): ECHO and the lift
+      of the compact route
     """
 
     pos: torch.Tensor
@@ -57,16 +64,20 @@ class MeshBatch:
     labels: torch.Tensor
     banded: Optional[BandedTable] = None
     comp: Optional[CompressedBandedTable] = None
-    panel: Optional[PanelTable] = None
+    panel: Optional[Union[PanelTable, CompactPanelTable]] = None
+    compact: Optional[CompactPanelTable] = None
 
     def to(self, device) -> "MeshBatch":
         def move(t):
             return None if t is None else t.to(device)
 
+        compact = move(self.compact)
         return MeshBatch(
             pos=self.pos.to(device), table=self.table.to(device),
             labels=self.labels.to(device), banded=move(self.banded),
-            comp=move(self.comp), panel=move(self.panel))
+            comp=move(self.comp),
+            panel=compact if self.panel is self.compact else move(self.panel),
+            compact=compact)
 
 
 def _stack_items(items):
@@ -88,22 +99,41 @@ def _stack_items(items):
     return pos, stacked, lab, tables
 
 
-def stack_panel_batch(items, tb: int) -> MeshBatch:
+def stack_panel_batch(items, tb: int, echo_compact: bool = False,
+                      conv_compact: bool = False) -> MeshBatch:
     """Stack (pos, table, label) triples for the pure-panel layout (CPU):
     each mesh's compressed PanelTable with target-block size ``tb``, joined
     into one that serves every op (K5 convs, panel ECHO and lift).  The
-    counterpart of the JAX package's ``_stack_batch_panel`` without its
-    compact options (echo_compact, conv_compact: ROADMAP Queue 2, K6 and
-    K7); the batch has ``banded`` and ``comp`` None."""
+    counterpart of the JAX package's ``_stack_batch_panel``:
+
+    echo_compact: also build each mesh's CompactPanelTable at target-block
+      size min(tb, 32), joined into one (``compact``): ECHO (K7) and the
+      lift run over it, the convs over the block panels (K5);
+    conv_compact (requires echo_compact): the convs run over the compact
+      table too (K6); no block-panel table is built, and ``panel`` is the
+      same object as ``compact``.
+
+    The batch has ``banded`` and ``comp`` None."""
+    if conv_compact and not echo_compact:
+        raise ValueError("conv_compact requires echo_compact")
     pos, stacked, lab, tables = _stack_items(items)
-    panel = concat_panel_tables(
-        [build_panel_table(t, tb=tb, compressed=True) for t in tables])
-    return MeshBatch(pos=pos, table=stacked, labels=lab, panel=panel)
+    compact = None
+    if echo_compact:
+        compact = concat_compact_panel_tables(
+            [build_compact_panel_table(t, tb=min(tb, 32)) for t in tables])
+    if conv_compact:
+        panel = compact          # the same object: no duplicate stencil
+    else:
+        panel = concat_panel_tables(
+            [build_panel_table(t, tb=tb, compressed=True) for t in tables])
+    return MeshBatch(pos=pos, table=stacked, labels=lab, panel=panel,
+                     compact=compact)
 
 
 def stack_batch(items, banded_tb: Optional[int] = None,
                 echo_banded: bool = False,
-                echo_panel: bool = False) -> MeshBatch:
+                echo_panel: bool = False,
+                echo_compact: bool = False) -> MeshBatch:
     """Stack (pos, table, label) triples sharing bucket shapes (CPU).
 
     banded_tb: when set, also build + stack BandedTables (K1 conv path)
@@ -114,6 +144,9 @@ def stack_batch(items, banded_tb: Optional[int] = None,
     echo_panel: when set (requires banded_tb), also build each mesh's
     compressed PanelTable and join them into one (the mixed route: K1
     convs, panel ECHO and lift).
+    echo_compact: as echo_panel with each mesh's CompactPanelTable at
+    target-block size banded_tb (``compact``: K1 convs, compact ECHO and
+    lift).  echo_banded, echo_panel and echo_compact exclude each other.
 
     The stacked table keeps the first mesh's ``n_valid`` (ROADMAP Queue 3).
     """
@@ -141,16 +174,21 @@ def stack_batch(items, banded_tb: Optional[int] = None,
             tb=banded_tb, nh=nh, n_pad=cs[0].n_pad,
             band_limit=t0.band_limit, n_rings=t0.n_rings,
         )
-    panel = None
+    panel = compact = None
+    if echo_panel or echo_compact:
+        if banded_tb is None or echo_banded + echo_panel + echo_compact > 1:
+            raise ValueError("echo_panel and echo_compact require banded_tb; "
+                             "pass one of echo_banded, echo_panel and "
+                             "echo_compact")
     if echo_panel:
-        if banded_tb is None or echo_banded:
-            raise ValueError("echo_panel requires banded_tb and excludes "
-                             "echo_banded")
         panel = concat_panel_tables(
             [build_panel_table(t, tb=banded_tb, compressed=True)
              for t in tables])
+    if echo_compact:
+        compact = concat_compact_panel_tables(
+            [build_compact_panel_table(t, tb=banded_tb) for t in tables])
     return MeshBatch(pos=pos, table=stacked, labels=lab, banded=banded,
-                     comp=comp, panel=panel)
+                     comp=comp, panel=panel, compact=compact)
 
 
 def _pad_banded(b: BandedTable, nh: int) -> BandedTable:
@@ -181,15 +219,18 @@ def batched_apply(net, batch: MeshBatch, **kw):
     """Run the model over the batch's mesh axis in one call: the banded
     route (BandedTable convs, plus the compressed lift when ``comp`` is
     set), the mixed route (BandedTable convs, ECHO and lift over the
-    batch's one PanelTable), the pure-panel route (the PanelTable passed
-    as both ``banded`` and ``comp``: K5 convs, ECHO and lift) or, without
-    tables, the padded-CSR gather route.  ``kw`` goes to the model (e.g.
-    ``dropout_mask``).
+    batch's one PanelTable, or over its CompactPanelTable), the pure-panel
+    route (the PanelTable passed as both ``banded`` and ``comp``: K5 convs,
+    ECHO and lift; with a CompactPanelTable, ECHO and the lift over it and
+    the convs over ``panel``, which is the compact table itself on the
+    all-compact route) or, without tables, the padded-CSR gather route.
+    ``kw`` goes to the model (e.g. ``dropout_mask``).
 
     The JAX package unrolls a batch that carries panels mesh by mesh (its
     panel counts differ); here the meshes' panels form one table, so one
     K5 or K2 launch and one lift serve the batch, as one K1 launch does."""
-    comp = batch.panel if batch.panel is not None else batch.comp
+    comp = next((t for t in (batch.compact, batch.panel, batch.comp)
+                 if t is not None), None)
     banded = batch.banded if batch.banded is not None else batch.panel
     return net(batch.pos, batch.table, banded, comp, **kw)
 

@@ -442,3 +442,106 @@ def test_segmentation_pure_panel_forward_card_matches_cpu():
         assert grew == ({} if dev == "cpu" else {
             "band_panel_fwd": 9, "echo_panel_fwd": 1}), grew
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-3, atol=1e-4)
+
+
+# --- the compact route: K6 and K7 forward ----------------------------------------
+
+# (target block, columns) of the compact tables: the pure-panel layout's
+# TBt = 32 by TS = 128, and the mixed route's 128 × 128
+COMPACT_SHAPES = pytest.mark.parametrize("tbt,ts", [(32, 128), (128, 128)])
+
+
+def _compact_table(rng, B, R, tbt, ts):
+    """The compact table of a kd-ordered sphere of 1500 samples (ε-ball
+    graph), on the card."""
+    from fieldconv_tpu_torch.precomp.banded import build_compact_panel_table
+
+    table = sphere_record(rng, 1500, 4).table(B, R, n_multiple=128)
+    return build_compact_panel_table(table, tb=tbt, ts=ts).to("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,O2,B,R", [(16, 24, 1, 3), (32, 64, 1, 3),
+                                      (48, 96, 2, 6)])
+@COMPACT_SHAPES
+def test_k6_kernel_matches_plain_on_card(C, O2, B, R, tbt, ts):
+    """K6 against its plain version on the card, at both instantiations
+    (K = 3, R = 3 and K = 5, R = 6) and both panel shapes: tolerance 1e-4
+    of the output's scale (f32 sums over a target's panels and slots in
+    another order).  A second call is bitwise equal (one writer per output,
+    no atomics); a gradient request raises."""
+    _need_card()
+    rng = np.random.default_rng(C + R + tbt)
+    comp = _compact_table(rng, B, R, tbt, ts)
+    M = (2 * B + 1) * 2 * C
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    g = torch.randn(comp.n_pad, M, device="cuda", generator=gen)
+    wmat = torch.randn(R, M, O2, device="cuda", generator=gen) / (R * M) ** .5
+    args = (g, wmat, comp.sten, comp.meta, comp.src_idx, tbt, R, B)
+    before = kernels.launches["band_compact_fwd"]
+    got = tbc.band_compact_fwd(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["band_compact_fwd"] == before + 1
+    want = tbc.band_compact_fwd_reference(*args)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
+    assert torch.equal(got, tbc.band_compact_fwd(*args))
+    with pytest.raises(NotImplementedError, match="slice 8"):
+        tbc.band_compact_fwd(g.requires_grad_(), *args[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bins,C", [(2, 12), (3, 48)])
+@COMPACT_SHAPES
+def test_k7_kernel_matches_plain_on_card(n_bins, C, tbt, ts):
+    """K7 against its plain version on the card, on both panel shapes, with
+    ~20% origin rows: tolerance 1e-4 of the grid's scale (f32 sums over a
+    target's panels in another order, and FMA).  A second call is bitwise
+    equal; a gradient request raises."""
+    _need_card()
+    rng = np.random.default_rng(C + tbt)
+    comp = _compact_table(rng, 1, 3, tbt, ts)
+    x = rng.normal(size=(comp.n_pad, C, 2)).astype(np.float32)
+    x[rng.random(comp.n_pad) < 0.2] = 0.0
+    x = torch.from_numpy(x).cuda()
+    args = (x, comp.sten, comp.meta, comp.src_idx, n_bins, comp.n_pad // tbt)
+    before = kernels.launches["echo_compact_fwd"]
+    got = tep.echo_compact_grid(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["echo_compact_fwd"] == before + 1
+    want = tep.echo_compact_grid_reference(*args)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
+    assert torch.equal(got, tep.echo_compact_grid(*args))
+    with pytest.raises(NotImplementedError, match="slice 8"):
+        tep.echo_compact_grid(x.requires_grad_(), *args[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conv_impl", ["panel", "compact"])
+def test_correspondence_compact_forward_card_matches_cpu(conv_impl):
+    """One CorrespondenceNet forward on the pure-panel layout with the
+    compact ECHO (K5 convs, or K6 with conv_impl="compact", and K7) against
+    the same on the CPU: logits within rtol 1e-3 / atol 1e-4 (every op sums
+    in another order), exact launches."""
+    _need_card()
+    rng = np.random.default_rng(1)
+    config = dataclasses.replace(PRESETS["correspondence"], nf=8, n_des=8,
+                                 layout="panel", echo_impl="compact",
+                                 conv_impl=conv_impl)
+    recs = [sphere_record(rng, 1500, 5)]
+    net = build_model(config, 5, torch.Generator().manual_seed(0),
+                      device="cpu").eval()
+    conv = "band_compact_fwd" if conv_impl == "compact" else "band_panel_fwd"
+    out = {}
+    for dev in ("cpu", "cuda"):
+        batch = make_batches(recs, config, 1, 128, device=dev)[0]
+        assert batch.compact.tb == 32 and batch.banded is None
+        before = dict(kernels.launches)
+        with torch.no_grad():
+            out[dev] = batched_apply(net.to(dev), batch).cpu()
+        grew = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+                if v != before.get(k, 0)}
+        assert grew == ({} if dev == "cpu" else {
+            conv: 17, "echo_compact_fwd": 1}), grew
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-3, atol=1e-4)

@@ -461,7 +461,8 @@ def test_predictor_echo_tasks_match_jax(jax_nets, task, rng):
 
 def test_make_batches_echo_routes(rng):
     """Without banded_tb the panel preset warns and takes the one-hot ECHO
-    (the JAX semantics); the unported ECHO layouts and matching raise."""
+    (the JAX semantics); echo_impl="compact" takes the mixed route over a
+    CompactPanelTable; the unported banded ECHO and matching raise."""
     _, config = _configs("segmentation")
     recs = _port_records(_records(rng, "segmentation", n_meshes=1, N=20))
     with pytest.warns(UserWarning, match="one-hot"):
@@ -474,10 +475,13 @@ def test_make_batches_echo_routes(rng):
             recs, config, 1, TB, 128, 8, device="cpu")[0])
     np.testing.assert_allclose(onehot.numpy(), mixed.numpy(), **NET_TOL)
     for impl in ("banded", "compact"):
+        cfg = dataclasses.replace(config, echo_impl=impl)
+        if impl == "compact":        # the mixed route over a compact table
+            b = tloop.make_batches(recs, cfg, 1, TB, device="cpu")[0]
+            assert b.compact is not None and b.banded is not None
+            continue
         with pytest.raises(NotImplementedError, match="Queue"):
-            tloop.make_batches(recs, dataclasses.replace(config,
-                                                         echo_impl=impl),
-                               1, TB, device="cpu")
+            tloop.make_batches(recs, cfg, 1, TB, device="cpu")
     matching = ExperimentConfig(task="matching")
     with pytest.raises(NotImplementedError, match="matching"):
         tloop.build_model(matching, 3, device="cpu")

@@ -221,8 +221,9 @@ def test_make_batches_routes_the_panel_layout(rng):
     layout above the threshold.  The port's batch joins the meshes'
     compressed tables (equal to the JAX batch's per-mesh ones, block ids
     offset) and builds no banded tables; below the threshold the mixed
-    route stays.  The compact layouts raise; fit trains a panel bucket and
-    evaluate_task evaluates it."""
+    route stays.  The compact options add a joined CompactPanelTable (and
+    with conv_impl="compact" it replaces the PanelTable); fit trains a
+    panel bucket and evaluate_task evaluates it."""
     jrecs = _records(rng, "segmentation", n_meshes=2, N=20)
     kw = dict(task="segmentation", band_limit=1, n_rings=2, nf=4, n_des=4,
               n_bins=2, echo_impl="panel", panel_threshold=8)
@@ -247,11 +248,12 @@ def test_make_batches_routes_the_panel_layout(rng):
         cfg, panel_threshold=10**9), 2, TB, device="cpu")[0]
     assert mixed.banded is not None and mixed.panel is not None
 
-    for bad in (dict(echo_impl="compact"),
-                dict(echo_impl="compact", conv_impl="compact")):
-        with pytest.raises(NotImplementedError, match="K[67]"):
-            tloop.make_batches(recs, dataclasses.replace(cfg, **bad), 2, TB,
-                               device="cpu")
+    for opts in (dict(echo_impl="compact"),
+                 dict(echo_impl="compact", conv_impl="compact")):
+        cb = tloop.make_batches(recs, dataclasses.replace(cfg, **opts), 2, TB,
+                                device="cpu")[0]
+        assert cb.banded is None and cb.compact.n_mesh == 2
+        assert (cb.panel is cb.compact) == ("conv_impl" in opts)
     net, opt, acc = tloop.fit(dataclasses.replace(cfg, epochs=1), recs, recs,
                               n_classes=3, batch_size=2, banded_tb=TB,
                               device="cpu")
