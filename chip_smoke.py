@@ -37,6 +37,15 @@ Phases, any failure exits non-zero:
      records' compact table (TBt 128) at C=48, O2=96, K=5, R=6; K7 on the
      163,842-sample table at C=12, n_bins 2 and on the segmentation table
      at C=48, n_bins 3;
+  3e. hold K6's backward (dg after the fold, and dw) against its plain
+     version and the plain fold and bitwise against a second call, on the
+     163,842-sample compact table at the four correspondence widths and on
+     the segmentation records' compact table at TBt 32 (C=48, O2=96, K=5,
+     R=6); K7's backward the same way on the 163,842-sample table (C=12,
+     n_bins 2) and on the segmentation batch's mixed-route table (TBt 128,
+     C=48, n_bins 3), for a contiguous and a cells-minor cotangent; the
+     compact lift's backward (the fold alone) against autograd of its
+     plain source sums, and the fold against index_add_; each timed;
   4. serve the SHREC11 classification network (the CLASSIFICATION preset:
      nf=32, B=2, R=6, ftype=1, 30 classes, random weights from a seed)
      through Predictor(banded_tb=128, device="cuda"): one batch of 8
@@ -68,8 +77,7 @@ Phases, any failure exits non-zero:
      mixed route with echo_impl="compact" (9 K1 + 1 K7), each held against
      the CPU, and the 163,842-sample record both ways (its compact table
      built from the serving batch's EdgeTable at TBt 32): logits finite, of
-     shape (163842, 4999), exact launches and no K2; the 163k compact
-     table then waits on the host until phase 8;
+     shape (163842, 4999), exact launches and no K2;
   6. train the classification network with fit(banded_tb=128,
      batch_size=8, device="cuda") on 16 SHREC11-sized records (2 batches)
      for 2 epochs, testing on 8 more, checkpointing into a temporary
@@ -86,17 +94,28 @@ Phases, any failure exits non-zero:
      training records forced there (layout="panel"), held against the CPU
      fit as in 6, then fit(banded_tb=128, batch_size=1, device="cuda") on
      the 163,842-sample record of 5b for 3 steps (the preset's 60 epochs
-     cut to 3), testing on the same record.  Each step must launch K5's
-     forward and backward 17 times each, K2's forward and backward once
-     each and K1 never; each test batch K5's forward 17 times and K2's
-     once; losses finite;
+     cut to 3), testing on 5b's batch of the same record.  Each step must
+     launch K5's forward and backward 17 times each, K2's forward and
+     backward once each and K1 never; each test batch K5's forward 17
+     times and K2's once; losses finite;
+  7c. train on the compact route: the 5120 training records forced onto
+     the pure-panel layout with echo_impl="compact" (17 K5 + 1 K7, forward
+     and backward, per step) and with conv_impl="compact" too (17 K6 + 1
+     K7), and the segmentation records on the mixed route with the compact
+     ECHO (9 K1 + 1 K7), each held against the CPU fit as in 6, no K2; one
+     make_train_step step on the 163,842-sample batch of 5c (17 K5 + 1 K7).
+     The fold runs as the last pass of every K6 and K7 backward;
   8. time the kernels and their plain versions, each request shape (at
      163,842 samples also Predictor.logits alone and the peak device
-     memory), a training step at each training shape (at 163,842 samples
-     also the peak device memory, and one step of a net built with
-     remat_blocks), and one forward and backward of five convs at
-     bench.py's shape; then the all-compact 163,842-sample request once
-     the block-panel table is freed;
+     memory), a training step at each training shape (at 163,842 samples,
+     on the block panels and with the compact ECHO, also the peak device
+     memory, and one step of a net built with remat_blocks on the block
+     panels), and one forward and backward of five convs at bench.py's
+     shape; then, once the block-panel table is freed, the all-compact
+     163,842-sample request and the rest of 7c (its launches counted into
+     7c's): fit all-compact on the 163,842-sample record for 3 steps,
+     testing on 5c's batch of the same record (17 K6 + 1 K7 per step),
+     and time its step as above, with a remat_blocks step;
   9. print the kernels line, the card line and the result line.
 
 Records are synthetic, built with numpy from --seed by
@@ -119,6 +138,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -128,6 +148,8 @@ from fieldconv_tpu_torch.data.base import shared_bucket
 from fieldconv_tpu_torch.data.synthetic import sphere_record, synthetic_record
 from fieldconv_tpu_torch.deploy import Predictor
 from fieldconv_tpu_torch.ops.band_conv import (_panel_pairs,
+                                               band_compact_bwd,
+                                               band_compact_bwd_reference,
                                                band_compact_fwd,
                                                band_compact_fwd_reference,
                                                band_fused_bwd,
@@ -139,7 +161,11 @@ from fieldconv_tpu_torch.ops.band_conv import (_panel_pairs,
                                                band_panel_fwd,
                                                band_panel_fwd_reference,
                                                field_conv_banded)
+from fieldconv_tpu_torch.ops.compact_fold import (compact_fold,
+                                                  compact_fold_reference)
 from fieldconv_tpu_torch.ops.echo_panel import (echo_compact_grid,
+                                                echo_compact_grid_bwd,
+                                                echo_compact_grid_bwd_reference,
                                                 echo_compact_grid_reference,
                                                 echo_panel_grid,
                                                 echo_panel_grid_bwd,
@@ -147,10 +173,12 @@ from fieldconv_tpu_torch.ops.echo_panel import (echo_compact_grid,
                                                 echo_panel_grid_reference)
 from fieldconv_tpu_torch.precomp.banded import (build_compact_panel_table,
                                                 build_panel_table)
+from fieldconv_tpu_torch.ops.trans_field import (_compact_lift_agg_bwd,
+                                                 _lift_sums)
 from fieldconv_tpu_torch.train.checkpoint import CheckpointManager
 from fieldconv_tpu_torch.train.config import PRESETS
-from fieldconv_tpu_torch.train.loop import (build_model, fit, make_batches,
-                                            resolve_layout)
+from fieldconv_tpu_torch.train.loop import (build_model, evaluate_task, fit,
+                                            make_batches, resolve_layout)
 from fieldconv_tpu_torch.train.trainer import make_optimizer, make_train_step
 from fieldconv_tpu_torch.utils.complexops import EPS
 
@@ -209,13 +237,24 @@ LOSS_ATOL_STEP1, LOSS_ATOL_LATER = 2e-4, 2e-3
 TRAIN_EPOCHS = 2
 # the fits on the card, per shape: (train records, batch size, test
 # records), TRAIN_EPOCHS epochs each (4 steps; 2 for the correspondence
-# shapes)
+# shapes), so that the first epoch, held against the CPU, holds 2 steps
 TRAIN_FIT = {"shrec11_b8": (16, 8, 8), "seg_n2048_b4": (8, 4, 4),
-             "corr_n5120_b1": (2, 1, 1), "corr_n5120_b1_panel": (2, 1, 1)}
-# conv launches (K1, or K5 on the pure-panel layout) per forward (and per
-# backward) pass of each net
+             "corr_n5120_b1": (2, 1, 1), "corr_n5120_b1_panel": (2, 1, 1),
+             "corr_n5120_b1_panel_compact": (2, 1, 1),
+             "corr_n5120_b1_panel_allcompact": (2, 1, 1),
+             "seg_n2048_b4_compact": (8, 4, 4)}
+# conv launches (K1, or K5 on the pure-panel layout, or K6 on the
+# all-compact route) per forward (and per backward) pass of each net
 CONVS_PER_PASS = {"shrec11_b8": 5, "seg_n2048_b4": 9, "corr_n5120_b1": 17,
-                  "corr_n5120_b1_panel": 17, f"corr_n{N_LARGE}_b1": 17}
+                  "corr_n5120_b1_panel": 17, f"corr_n{N_LARGE}_b1": 17,
+                  "corr_n5120_b1_panel_compact": 17,
+                  "corr_n5120_b1_panel_allcompact": 17,
+                  "seg_n2048_b4_compact": 9,
+                  f"corr_n{N_LARGE}_b1_compact": 17,
+                  f"corr_n{N_LARGE}_b1_allcompact": 17}
+# the kernels' short names in the printed lines
+SHORT = {"band_fused": "K1", "echo_panel": "K2", "band_panel": "K5",
+         "band_compact": "K6", "echo_compact": "K7"}
 # the fit at N_LARGE: the CORRESPONDENCE preset's 60 epochs cut to 3 (one
 # record, so 3 steps); nothing else is cut
 LARGE_EPOCHS = 3
@@ -257,9 +296,10 @@ def echo_records(rng, n, count, eps, n_classes, name):
 
 # --- timing ----------------------------------------------------------------------
 
-def time_cuda(fn, iters, reps=5):
-    """Median ms per call over `reps` CUDA-event windows of `iters` calls."""
-    for _ in range(2):
+def time_cuda(fn, iters, reps=5, warmup=2):
+    """Median ms per call over `reps` CUDA-event windows of `iters` calls,
+    after `warmup` calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -407,6 +447,36 @@ def check_fwd(kind, label, run, plain, tol, what="y"):
     return err, scale
 
 
+def check_bwd(kind, label, run, plain, tol, names):
+    """A backward kernel's ``run()`` (a tuple of outputs named ``names``)
+    against its plain version ``plain()``, each within ``tol`` of its own
+    scale, then a second call that must be bitwise equal; returns the
+    errors as row fields."""
+    got = run()
+    torch.cuda.synchronize()
+    want = plain()
+    row = {}
+    for name, a, b in zip(names, got, want):
+        check(torch.isfinite(a).all().item(), f"{kind} {label}: non-finite "
+                                              f"{name}")
+        err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        check(err <= tol * scale,
+              f"{kind} {label}: {name} max abs err {err} > {tol} x {scale}")
+        row[f"{name}_max_abs_err"] = err
+        row[f"{name}_max_rel_err"] = err / scale
+    again = run()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{kind} {label}: two calls differ")
+    row["max_abs_err"] = max(row[f"{n}_max_abs_err"] for n in names)
+    print(f"{kind} {label}: " + ", ".join(
+        f"{n} max abs err {row[f'{n}_max_abs_err']:.3e} (rel "
+        f"{row[f'{n}_max_rel_err']:.3e})" for n in names)
+        + f"; tolerance {tol} of each one's scale; a second call is bitwise "
+        "equal")
+    return row
+
+
 def k1_check(label, g, sten, wmat, tb, nh):
     y = band_fused_fwd(g, sten, wmat, tb, nh)
     torch.cuda.synchronize()
@@ -433,32 +503,15 @@ def k1_time(row, g, sten, wmat, tb, nh):
 
 
 def k1_bwd_check(label, g, sten, wmat, dy, tb, nh):
-    """K1's backward against its plain version, then a second call that
-    must give bitwise-equal dg and dw."""
-    dg, dw = band_fused_bwd(dy, g, sten, wmat, tb, nh)
-    torch.cuda.synchronize()
-    ref_g, ref_w = band_fused_bwd_reference(dy, g, sten, wmat, tb, nh)
-    row = dict(shape=label, n_mesh=g.shape[0], N=g.shape[1], M=g.shape[2],
-               nh=nh, O2=wmat.shape[2])
-    for name, got, ref in (("dg", dg, ref_g), ("dw", dw, ref_w)):
-        check(torch.isfinite(got).all().item(),
-              f"K1 bwd {label}: non-finite {name}")
-        err = (got - ref).abs().max().item()
-        scale = ref.abs().max().item()
-        check(err <= K1_RTOL_SCALE * scale,
-              f"K1 bwd {label}: {name} max abs err {err} > "
-              f"{K1_RTOL_SCALE} x {scale}")
-        row[f"{name}_max_abs_err"] = err
-        row[f"{name}_max_rel_err"] = err / scale
-    dg2, dw2 = band_fused_bwd(dy, g, sten, wmat, tb, nh)
-    check(torch.equal(dg, dg2) and torch.equal(dw, dw2),
-          f"K1 bwd {label}: two calls differ")
-    row["max_abs_err"] = max(row["dg_max_abs_err"], row["dw_max_abs_err"])
-    print(f"K1 bwd {label}: dg max abs err {row['dg_max_abs_err']:.3e} "
-          f"(rel {row['dg_max_rel_err']:.3e}), dw {row['dw_max_abs_err']:.3e}"
-          f" (rel {row['dw_max_rel_err']:.3e}); tolerance {K1_RTOL_SCALE} "
-          "of each one's scale; a second call is bitwise equal")
-    return row
+    """K1's backward against its plain version (dg and dw each to
+    K1_RTOL_SCALE of its own scale), then a second call that must give
+    bitwise-equal dg and dw."""
+    row = check_bwd(
+        "K1 bwd", label, lambda: band_fused_bwd(dy, g, sten, wmat, tb, nh),
+        lambda: band_fused_bwd_reference(dy, g, sten, wmat, tb, nh),
+        K1_RTOL_SCALE, ("dg", "dw"))
+    return dict(shape=label, n_mesh=g.shape[0], N=g.shape[1], M=g.shape[2],
+                nh=nh, O2=wmat.shape[2], **row)
 
 
 def k1_bwd_time(row, g, sten, wmat, dy, tb, nh):
@@ -570,26 +623,36 @@ def k2_bwd_inputs(x, n_bins, TB, gen):
     return dg, dg.permute(0, 3, 2, 1).contiguous().permute(0, 3, 2, 1)
 
 
+def check_echo_bwd(kind, label, run, ref, cotangents):
+    """An ECHO backward kernel ``run(dg)`` against its plain version's dx
+    ``ref`` for each cotangent layout in ``cotangents`` (contiguous, cells
+    minor), within K2_RTOL_SCALE of dx's scale, each then against a second
+    call that must be bitwise equal; returns the max abs err and the
+    scale."""
+    scale = ref.abs().max().item()
+    err = 0.0
+    for g in cotangents:
+        dx = run(g)
+        torch.cuda.synchronize()
+        check(torch.isfinite(dx).all().item(), f"{kind} {label}: non-finite")
+        err = max(err, (dx - ref).abs().max().item())
+        check(torch.equal(dx, run(g)), f"{kind} {label}: two calls differ")
+    check(err <= K2_RTOL_SCALE * scale,
+          f"{kind} {label}: max abs err {err} > {K2_RTOL_SCALE} x {scale}")
+    print(f"{kind} {label}: max abs err {err:.3e}, rel {err / scale:.3e} "
+          f"(tolerance {K2_RTOL_SCALE} of max |dx| = {scale:.3e}), "
+          "contiguous and cells-minor cotangents; a second call is bitwise "
+          "equal")
+    return err, scale
+
+
 def k2_bwd_check(label, dg, dg_cells_minor, x, panel, n_bins):
     """K2's backward against its plain version for both cotangent layouts,
     each then against a second call that must be bitwise equal."""
     args = (x, panel.sten, panel.meta_s, n_bins, x.shape[0] // panel.tb)
-    ref = echo_panel_grid_bwd_reference(dg, *args)
-    scale = ref.abs().max().item()
-    err = 0.0
-    for g in (dg, dg_cells_minor):
-        dx = echo_panel_grid_bwd(g, *args)
-        torch.cuda.synchronize()
-        check(torch.isfinite(dx).all().item(), f"K2 bwd {label}: non-finite")
-        err = max(err, (dx - ref).abs().max().item())
-        check(torch.equal(dx, echo_panel_grid_bwd(g, *args)),
-              f"K2 bwd {label}: two calls differ")
-    check(err <= K2_RTOL_SCALE * scale,
-          f"K2 bwd {label}: max abs err {err} > {K2_RTOL_SCALE} x {scale}")
-    print(f"K2 bwd {label}: max abs err {err:.3e}, rel {err / scale:.3e} "
-          f"(tolerance {K2_RTOL_SCALE} of max |dx| = {scale:.3e}), "
-          "contiguous and cells-minor cotangents; a second call is bitwise "
-          "equal")
+    err, scale = check_echo_bwd(
+        "K2 bwd", label, lambda g: echo_panel_grid_bwd(g, *args),
+        echo_panel_grid_bwd_reference(dg, *args), (dg, dg_cells_minor))
     return dict(shape=label, rows=x.shape[0], C=x.shape[1], n_bins=n_bins,
                 panels=panel.meta_s.shape[1], max_abs_err=err,
                 max_rel_err=err / scale)
@@ -726,32 +789,14 @@ def k5_bwd_check(label, g, wmat, dy, panel):
     K5_RTOL_SCALE of its own scale), then a second call that must give
     bitwise-equal dg and dw."""
     args = _k5_bwd_args(g, wmat, dy, panel)
-    dg, dw = band_panel_bwd(*args)
-    torch.cuda.synchronize()
-    ref = band_panel_bwd_reference(dy, g, wmat, panel.sten, panel.meta_s,
-                                   *args[6:])
-    row = dict(shape=label, N=g.shape[0], M=g.shape[1], O2=wmat.shape[-1],
-               panels=panel.meta_s.shape[1], compressed=panel.compressed,
-               chunk=panel.chunk)
-    for name, got, want in (("dg", dg, ref[0]), ("dw", dw, ref[1])):
-        check(torch.isfinite(got).all().item(),
-              f"K5 bwd {label}: non-finite {name}")
-        err = (got - want).abs().max().item()
-        scale = want.abs().max().item()
-        check(err <= K5_RTOL_SCALE * scale,
-              f"K5 bwd {label}: {name} max abs err {err} > "
-              f"{K5_RTOL_SCALE} x {scale}")
-        row[f"{name}_max_abs_err"] = err
-        row[f"{name}_max_rel_err"] = err / scale
-    dg2, dw2 = band_panel_bwd(*args)
-    check(torch.equal(dg, dg2) and torch.equal(dw, dw2),
-          f"K5 bwd {label}: two calls differ")
-    row["max_abs_err"] = max(row["dg_max_abs_err"], row["dw_max_abs_err"])
-    print(f"K5 bwd {label}: dg max abs err {row['dg_max_abs_err']:.3e} "
-          f"(rel {row['dg_max_rel_err']:.3e}), dw {row['dw_max_abs_err']:.3e}"
-          f" (rel {row['dw_max_rel_err']:.3e}); tolerance {K5_RTOL_SCALE} "
-          "of each one's scale; a second call is bitwise equal")
-    return row
+    row = check_bwd(
+        "K5 bwd", label, lambda: band_panel_bwd(*args),
+        lambda: band_panel_bwd_reference(dy, g, wmat, panel.sten,
+                                         panel.meta_s, *args[6:]),
+        K5_RTOL_SCALE, ("dg", "dw"))
+    return dict(shape=label, N=g.shape[0], M=g.shape[1], O2=wmat.shape[-1],
+                panels=panel.meta_s.shape[1], compressed=panel.compressed,
+                chunk=panel.chunk, **row)
 
 
 def k5_bwd_time(row, g, wmat, dy, panel):
@@ -880,6 +925,188 @@ def k7_time(row, x, comp, n_bins):
     row.update(k7_bound(x, comp, n_bins))
 
 
+def _k6_bwd_args(g, wmat, dy, comp):
+    return (dy, g, wmat, comp.sten, comp.meta, comp.src_idx, comp.fold_order,
+            comp.fold_ptr, comp.tb, comp.n_rings, comp.band_limit)
+
+
+def k6_bwd_plain(dy, g, wmat, comp):
+    """K6's plain backward and the plain fold: (dg, dw)."""
+    dgg, dw = band_compact_bwd_reference(dy, g, wmat, comp.sten, comp.meta,
+                                         comp.src_idx, comp.tb, comp.n_rings,
+                                         comp.band_limit)
+    return compact_fold_reference(dgg, comp.src_idx, g.shape[0]), dw
+
+
+def k6_bwd_bound(g, wmat, dy, comp):
+    """Least time for one K6 backward call: bytes (the stencil as _k5_table
+    counts it, meta and src_idx, the rows of g that live columns name, dy
+    and W read once, dg and dW written once) over HBM rate, and the f32
+    operations this data needs over the f32 rate: the forward's stencil
+    term to rematerialise contrib, the transposed stencil term for dG in
+    the cheaper of k1_bwd_bound's two orders, and 2·rows·R·M·O2 each for
+    dc = dy·Wᵀ and dW = contribᵀ·dy.  The dgg scratch and the contrib / dc
+    round trips are this design's cost, not the function's."""
+    N, M = g.shape
+    R, O2 = wmat.shape[0], wmat.shape[-1]
+    K = 2 * comp.band_limit + 1
+    C = M // (2 * K)
+    live = torch.zeros(comp.src_idx.shape, dtype=torch.bool,
+                       device=g.device)
+    hats, occupied, _, stencil_bytes = _k5_table(comp, R, K, live)
+    rows = _live_rows(comp, live)
+    contrib = min(occupied * K * 6 * C + hats * K * 4 * C,
+                  hats * K * (8 * C + 2))
+    dgrad = min(occupied * K * 8 * C + hats * K * 4 * C,
+                hats * K * (8 * C + 2))
+    flops = contrib + dgrad + 2 * 2 * dy.shape[0] * R * M * O2
+    nbytes = stencil_bytes + 4 * (comp.meta.numel() + comp.src_idx.numel()
+                                  + rows * M + dy.numel() + 2 * wmat.numel()
+                                  + N * M)
+    return _bound(nbytes, flops, occupied=occupied, hats=hats,
+                  live_rows=rows)
+
+
+def k6_bwd_check(label, g, wmat, dy, comp):
+    """K6's backward (dg after the fold, and dw) against its plain version
+    and the plain fold, each to K5_RTOL_SCALE of its own scale, then a
+    second call that must be bitwise equal."""
+    args = _k6_bwd_args(g, wmat, dy, comp)
+    row = check_bwd("K6 bwd", label, lambda: band_compact_bwd(*args),
+                    lambda: k6_bwd_plain(dy, g, wmat, comp), K5_RTOL_SCALE,
+                    ("dg", "dw"))
+    return dict(shape=label, N=g.shape[0], M=g.shape[1], O2=wmat.shape[-1],
+                panels=comp.n_panels, tbt=comp.tb, ts=comp.ts, **row)
+
+
+def k6_bwd_time(row, g, wmat, dy, comp):
+    args = _k6_bwd_args(g, wmat, dy, comp)
+    row["ms"] = time_cuda(lambda: band_compact_bwd(*args), iters=5)
+    row["plain_ms"] = time_cuda(lambda: k6_bwd_plain(dy, g, wmat, comp),
+                                iters=1, reps=3)
+    row.update(k6_bwd_bound(g, wmat, dy, comp))
+
+
+def k7_bwd_plain(dg, x, comp, n_bins):
+    """K7's plain backward and the plain fold: dx (rows, C, 2)."""
+    dxg = echo_compact_grid_bwd_reference(dg, x, comp.sten, comp.meta,
+                                          comp.src_idx, n_bins)
+    return compact_fold_reference(dxg.reshape(dxg.shape[0], -1),
+                                  comp.src_idx, x.shape[0]).reshape(x.shape)
+
+
+def k7_bwd_bound(dg, x, comp):
+    """Least time for one K7 backward call: bytes (dg, the stencil as
+    k7_pairs counts it, meta and src_idx, the rows of x that live columns
+    name read once, dx written once) over HBM rate, and the f32 operations
+    this data needs over the f32 rate: K2_BWD_FLOPS_PER_PAIR per (occupied
+    slot, non-origin channel) plus 2 per occupied slot for r·e^{iθ}.  The
+    per-column gradients the fold reads back are this design's cost."""
+    C = x.shape[1]
+    edges, pairs, _, sten_bytes, rows = k7_pairs(x, comp)
+    nbytes = sten_bytes + 4 * (dg.numel() + comp.meta.numel()
+                               + comp.src_idx.numel() + rows * 2 * C
+                               + x.numel())
+    return _bound(nbytes, K2_BWD_FLOPS_PER_PAIR * pairs + 2 * edges,
+                  edges=edges, pairs=pairs, live_rows=rows)
+
+
+def _k7_bwd_args(x, comp, n_bins):
+    return (x, comp.sten, comp.meta, comp.src_idx, comp.fold_order,
+            comp.fold_ptr, n_bins)
+
+
+def k7_bwd_check(label, dg, dg_cells_minor, x, comp, n_bins):
+    """K7's backward against its plain version and the plain fold for both
+    cotangent layouts, each then against a second call that must be
+    bitwise equal."""
+    args = _k7_bwd_args(x, comp, n_bins)
+    err, scale = check_echo_bwd(
+        "K7 bwd", label, lambda g: echo_compact_grid_bwd(g, *args),
+        k7_bwd_plain(dg, x, comp, n_bins), (dg, dg_cells_minor))
+    return dict(shape=label, rows=x.shape[0], C=x.shape[1], n_bins=n_bins,
+                panels=comp.n_panels, tbt=comp.tb, ts=comp.ts,
+                max_abs_err=err, max_rel_err=err / scale)
+
+
+def k7_bwd_time(row, dg, dg_cells_minor, x, comp, n_bins, plain=(3, 2)):
+    """ms: the cells-minor cotangent (what a training step passes);
+    ms_contiguous beside it; the plain version over (reps, warm-up
+    calls) ``plain``."""
+    args = _k7_bwd_args(x, comp, n_bins)
+    row["ms"] = time_cuda(lambda: echo_compact_grid_bwd(dg_cells_minor,
+                                                        *args), iters=10)
+    row["ms_contiguous"] = time_cuda(lambda: echo_compact_grid_bwd(dg, *args),
+                                     iters=10)
+    row["plain_ms"] = time_cuda(lambda: k7_bwd_plain(dg, x, comp, n_bins),
+                                iters=1, reps=plain[0], warmup=plain[1])
+    row.update(k7_bwd_bound(dg, x, comp))
+
+
+def lift_vjp_check(label, comp, gen):
+    """The compact lift's backward as a training step would run it, were
+    its input differentiable (_CompactLiftAggFn's: the per-column gradients
+    in plain torch, then compact_fold), against torch.autograd through the
+    plain source sums (_lift_sums), for random cotangents of the nets'
+    lift (positions, C = 3; lift columns (B, B + 1)): within
+    K5_RTOL_SCALE of dx's scale, and bitwise equal across two calls."""
+    rows, TB, R, B = comp.n_mesh * comp.n_pad, comp.tb, comp.n_rings, \
+        comp.band_limit
+    dev = comp.sten.device
+    statics = (R, B, B + 1, 256, TB)
+    x = torch.randn(rows, 3, device=dev, generator=gen).requires_grad_()
+    d_seg = torch.randn(rows // TB, TB, 3, R, 2, device=dev, generator=gen)
+    d_mag = torch.randn(rows // TB, TB, 3, R, device=dev, generator=gen)
+
+    def run():
+        return (_compact_lift_agg_bwd(d_seg, d_mag, comp.sten, comp.meta,
+                                      comp.src_idx, comp.fold_order,
+                                      comp.fold_ptr, statics, rows),)
+
+    def plain():
+        idx = comp.src_idx.long()
+        seg, _, mag = _lift_sums(lambda lo, hi: x[idx[lo:hi]], comp.sten,
+                                 comp.meta[0].long(), rows // TB, 3, R, B,
+                                 B + 1, 256)
+        return torch.autograd.grad((seg, mag), x, (d_seg, d_mag))
+
+    return check_bwd("lift VJP", label, run, plain, K5_RTOL_SCALE, ("dx",))
+
+
+def fold_check(label, vals, comp):
+    """The compact fold against its plain version (index_add_ over every
+    column), then a second call that must be bitwise equal; vals holds
+    exact zeros at dead columns, as every backward gives them."""
+    rows = comp.n_mesh * comp.n_pad
+    args = (vals, comp.src_idx, comp.fold_order, comp.fold_ptr, rows)
+    err, scale = check_fwd("compact_fold", label,
+                           lambda: compact_fold(*args),
+                           lambda: compact_fold_reference(vals, comp.src_idx,
+                                                          rows),
+                           K5_RTOL_SCALE, "out")
+    return dict(shape=label, rows=rows, W=vals.shape[1], max_abs_err=err,
+                max_rel_err=err / scale)
+
+
+def fold_time(row, vals, comp):
+    """ms of the kernel, of its plain version (zeros, then index_add_), and
+    of index_add_ alone into a placed buffer (the library call); bound:
+    the live columns' values and src_idx read once, the output written
+    once, one add per live value."""
+    rows, W = comp.n_mesh * comp.n_pad, vals.shape[1]
+    idx = comp.src_idx.reshape(-1).long()
+    buf = torch.zeros(rows, W, device=vals.device)
+    row["ms"] = time_cuda(lambda: compact_fold(
+        vals, comp.src_idx, comp.fold_order, comp.fold_ptr, rows), iters=20)
+    row["plain_ms"] = time_cuda(
+        lambda: compact_fold_reference(vals, comp.src_idx, rows), iters=20)
+    row["library_ms"] = time_cuda(lambda: buf.index_add_(0, idx, vals),
+                                  iters=20)
+    live = comp.fold_order.numel()
+    row.update(_bound(4 * (live * W + comp.src_idx.numel() + rows * W),
+                      live * W, live_columns=live))
+
+
 def compact_stats(kind, rows, card):
     """The kernel rows' times, then what each table holds."""
     print_times(kind, rows, card)
@@ -992,14 +1219,51 @@ def read_losses(path):
         return [json.loads(line)["loss"] for line in f]
 
 
+def path_kernels(cfg, n_pad):
+    """The conv and ECHO kernels (launch-count names without _fwd / _bwd)
+    that a net of ``cfg`` runs on a bucket of n_pad samples: K1, K5 on the
+    pure-panel layout or K6 on the all-compact route; K2, or K7 with the
+    compact ECHO."""
+    panel = resolve_layout(cfg, n_pad) == "panel"
+    compact = cfg.task != "classification" and cfg.echo_impl == "compact"
+    conv = ("band_compact" if panel and compact and cfg.conv_impl == "compact"
+            else "band_panel" if panel else "band_fused")
+    return conv, "echo_compact" if compact else "echo_panel"
+
+
+def step_launches(cfg, n_pad, n, steps, passes):
+    """The launches of ``steps`` training steps and ``passes`` forward
+    passes (the steps' and the test batches') of a net of ``cfg`` with n
+    convs per pass.  The fold kernel runs as the last pass of each K6 and
+    K7 backward."""
+    conv, echo = path_kernels(cfg, n_pad)
+    want = {f"{conv}_fwd": n * passes, f"{conv}_bwd": n * steps}
+    if cfg.task != "classification":
+        want.update({f"{echo}_fwd": passes, f"{echo}_bwd": steps})
+    if echo == "echo_compact":
+        want["compact_fold"] = steps * (1 + (n if conv == "band_compact"
+                                             else 0))
+    return {name: c for name, c in want.items() if c}
+
+
+def step_what(cfg, n_pad, n):
+    conv, echo = path_kernels(cfg, n_pad)
+    what = f"{n} {SHORT[conv]} fwd + {n} {SHORT[conv]} bwd"
+    if cfg.task != "classification":
+        what += f" + 1 {SHORT[echo]} fwd + 1 {SHORT[echo]} bwd"
+    return what
+
+
 def fit_counted(k, cfg, n_classes, train, test, bs, dev, seed, tmp):
     """fit ``cfg`` on the card (the main path, counted) at training shape
-    ``k``.  Each step must launch the conv kernel of the bucket's layout (K1,
-    or K5 on the pure-panel layout) forward and backward CONVS_PER_PASS[k]
-    times each and, for the ECHO presets, K2's forward and backward once
-    each; each test batch the forward ones.  Every loss must be finite, and
-    the test metric.  Returns the net, the optimizer, the metric, the
-    losses, the launches and the fit's seconds."""
+    ``k``.  Each step must launch the conv kernel of the bucket's route (K1,
+    K5 on the pure-panel layout, K6 on the all-compact route) forward and
+    backward CONVS_PER_PASS[k] times each and, for the ECHO presets, the
+    ECHO kernel's (K2, or K7 with the compact ECHO) forward and backward
+    once each; each test batch the forward ones; the fold as
+    step_launches counts it.  Every loss must be finite, and the test
+    metric.  Returns the net, the optimizer, the metric, the losses, the
+    launches and the fit's seconds."""
     before = dict(kernels.launches)
     t0 = time.perf_counter()
     net, opt, metric = fit(cfg, train, test, n_classes=n_classes,
@@ -1012,20 +1276,15 @@ def fit_counted(k, cfg, n_classes, train, test, bs, dev, seed, tmp):
             if c != before.get(n, 0)}
     steps = cfg.epochs * len(train) // bs
     passes = steps + -(-len(test) // bs)           # forward passes
-    n_pad = shared_bucket(train + test)[0]
-    conv = ("band_panel" if resolve_layout(cfg, n_pad) == "panel"
-            else "band_fused")
-    n = CONVS_PER_PASS[k]
-    want = {f"{conv}_fwd": n * passes, f"{conv}_bwd": n * steps}
-    if cfg.task != "classification":
-        want.update(echo_panel_fwd=passes, echo_panel_bwd=steps)
+    want = step_launches(cfg, shared_bucket(train + test)[0],
+                         CONVS_PER_PASS[k], steps, passes)
     check(int(opt.step.item()) == steps,
           f"{k}: fit ran {opt.step} steps, want {steps}")
     check(grew == want, f"{k}: fit launched {grew}, want {want}")
     losses = read_losses(os.path.join(tmp, f"{k}.jsonl"))
     check(len(losses) == steps and all(np.isfinite(losses)),
           f"{k}: card losses {losses}")
-    check(np.isfinite(metric), f"{k}: test metric {metric}")
+    check(not test or np.isfinite(metric), f"{k}: test metric {metric}")
     return net, opt, metric, losses, grew, fit_s
 
 
@@ -1069,28 +1328,63 @@ def fit_phase(k, cfg, n_classes, recs, dev, seed, tmp):
     return net, opt
 
 
-def fit_large(k, cfg, n_classes, recs, dev, seed, tmp):
+def fit_large(k, cfg, n_classes, recs, dev, seed, tmp, test_batch):
     """fit_counted at N_LARGE: the one record of ``recs`` trains for
-    LARGE_EPOCHS epochs (the preset's count is the one cut) and is the test
-    record, so evaluate_task runs once.  No CPU run at this size.  Returns
+    LARGE_EPOCHS epochs (the preset's count is the one cut); then
+    evaluate_task tests it on ``test_batch``, the serving phase's placed
+    batch of the same record, counted (forward launches only), rather than
+    on a second build of its tables.  No CPU run at this size.  Returns
     the net and optimizer."""
     ck = dataclasses.replace(cfg, epochs=LARGE_EPOCHS)
-    net, opt, metric, losses, grew, fit_s = fit_counted(
-        k, ck, n_classes, recs, recs, 1, dev, seed, tmp)
+    net, opt, _, losses, grew, fit_s = fit_counted(
+        k, ck, n_classes, recs, [], 1, dev, seed, tmp)
+    before = dict(kernels.launches)
+    metric = evaluate_task(net, ck, [test_batch], n_classes)
+    torch.cuda.synchronize()
+    evaluated = {n: c - before.get(n, 0) for n, c in kernels.launches.items()
+                 if c != before.get(n, 0)}
+    want = step_launches(ck, test_batch.pos.shape[1], CONVS_PER_PASS[k], 0, 1)
+    check(evaluated == want,
+          f"{k}: evaluate_task launched {evaluated}, want {want}")
+    check(np.isfinite(metric), f"{k}: test metric {metric}")
     print(f"train {k}: fit on the card, {len(losses)} steps of batch 1 "
           f"(epochs cut from the preset's {cfg.epochs} to {LARGE_EPOCHS}, "
-          f"nothing else cut; {fit_s:.1f} s with the train and test table "
-          f"builds and the test pass), losses {losses}, launches {grew}; "
-          f"evaluate_task ran once: test cross entropy {metric:.4f} (random "
-          "labels)")
+          f"nothing else cut; {fit_s:.1f} s with the train table build), "
+          f"losses {losses}, launches {grew}; evaluate_task on the serving "
+          f"batch of the same record launched {evaluated}: test cross "
+          f"entropy {metric:.4f} (random labels)")
+    return net, opt
+
+
+def step_counted(k, cfg, n_classes, batch, dev, seed):
+    """One make_train_step step, counted, of a net of ``cfg`` with the
+    weights fit would draw from ``seed`` on a placed ``batch``: the
+    launches step_launches counts and a finite loss.  Returns the net and
+    its optimizer."""
+    net = build_model(cfg, n_classes,
+                      generator=torch.Generator().manual_seed(seed),
+                      device=dev)
+    opt = make_optimizer(cfg, net.parameters())
+    step = make_train_step(net, cfg, n_classes, opt)
+    before = dict(kernels.launches)
+    loss = step(batch, torch.Generator().manual_seed(seed + 3))
+    torch.cuda.synchronize()
+    grew = {n: c - before.get(n, 0) for n, c in kernels.launches.items()
+            if c != before.get(n, 0)}
+    want = step_launches(cfg, batch.pos.shape[1], CONVS_PER_PASS[k], 1, 1)
+    check(grew == want, f"{k}: a step launched {grew}, want {want}")
+    check(torch.isfinite(loss).item(), f"{k}: loss {loss}")
+    print(f"train {k}: one make_train_step step on the serving batch, loss "
+          f"{loss.item():.4f}, launches {grew}")
     return net, opt
 
 
 def remat_step(k, tnet, cfg, n_classes, batch, dev, seed, card):
     """One training step of ``tnet``'s weights in a net built with
     remat_blocks (each FCResNetBlock recomputed in the backward: its 16
-    convs launch K5's forward once more), through make_train_step: the
-    launches, a finite loss and the peak device memory."""
+    convs launch the conv kernel's forward once more), through
+    make_train_step: its host clock, the launches, a finite loss and the
+    peak device memory."""
     rnet = build_model(cfg, n_classes, device=dev)
     rnet.remat_blocks = True
     rnet.load_state_dict(tnet.state_dict())
@@ -1101,18 +1395,22 @@ def remat_step(k, tnet, cfg, n_classes, batch, dev, seed, card):
     torch.cuda.reset_peak_memory_stats()
     base_gb = torch.cuda.memory_allocated() / 1e9
     before = dict(kernels.launches)
+    t0 = time.perf_counter()
     loss = step(batch, gen)
     torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     grew = {n: c - before.get(n, 0) for n, c in kernels.launches.items()
             if c != before.get(n, 0)}
     n = CONVS_PER_PASS[k]
-    want = {"band_panel_fwd": 2 * n - 1, "band_panel_bwd": n,
-            "echo_panel_fwd": 1, "echo_panel_bwd": 1}
+    want = step_launches(cfg, batch.pos.shape[1], n, 1, 1)
+    conv = path_kernels(cfg, batch.pos.shape[1])[0]
+    want[f"{conv}_fwd"] = 2 * n - 1
     check(grew == want, f"{k} remat_blocks: a step launched {grew}, want "
                         f"{want}")
     check(torch.isfinite(loss).item(), f"{k} remat_blocks: loss {loss}")
-    print(f"train step {k} with remat_blocks: loss {loss.item():.4f}, "
+    print(f"train step {k} with remat_blocks: {ms:.3f} ms (host clock, one "
+          f"step ending in a sync), loss {loss.item():.4f}, "
           f"launches {grew}, peak device memory {peak_gb:.2f} GB "
           f"({base_gb:.2f} GB allocated before the step) on {card}")
 
@@ -1477,6 +1775,60 @@ def main(argv=None) -> int:
         k7_time(k7_rows[-1], x, ct, n_bins)
     del g, wmat, x
 
+    # 3e. K6's and K7's backwards and the compact fold against their plain
+    # versions, each timed here too: K6 bwd on the 163k compact table (TBt
+    # 32) at the correspondence net's four widths and on the segmentation
+    # records' compact table at TBt 32 (forced onto the pure-panel layout
+    # with conv_impl="compact") at C=48, O2=96, K=5, R=6; K7 bwd on the 163k
+    # table at C=12, n_bins 2 and on the segmentation batch's mixed-route
+    # table (TBt 128) at C=48, n_bins 3, for both cotangent layouts; the
+    # compact lift's VJP and the fold alone on the 163k table
+    seg_comp32 = make_batches(
+        echo_recs["seg_n2048_b4"], dataclasses.replace(
+            seg_cfg, layout="panel", echo_impl="compact",
+            conv_impl="compact"), 4, TB, device=dev)[0].compact
+    k6b_rows, k7b_rows = [], []
+    for label, ct, C_, O2 in (
+            (big_c, comp_big, 32, 64), (big_c, comp_big, 16, 64),
+            (big_c, comp_big, 32, 32), (big_c, comp_big, 16, 24),
+            ("seg_n2048_b4 compact TBt 32", seg_comp32, 48, 96)):
+        g, wmat = k5_inputs(ct, C_, O2, gen)
+        dy = torch.randn(g.shape[0], O2, device=dev, generator=gen)
+        k6b_rows.append(k6_bwd_check(f"{label} C={C_} O2={O2}", g, wmat, dy,
+                                     ct))
+        k6_bwd_time(k6b_rows[-1], g, wmat, dy, ct)
+    del seg_comp32, g, wmat, dy
+    for label, ct, C_, n_bins in ((big_c, comp_big, 12, 2),
+                                  ("seg_n2048_b4_compact", seg_comp, 48, 3)):
+        x = k2_inputs(ct, C_, gen)
+        dg, dg_cm = k2_bwd_inputs(x, n_bins, ct.tb, gen)
+        label = f"{label} C={C_} n_bins={n_bins}"
+        k7b_rows.append(k7_bwd_check(label, dg, dg_cm, x, ct, n_bins))
+        # the plain version takes seconds a call at 163k
+        k7_bwd_time(k7b_rows[-1], dg, dg_cm, x, ct, n_bins,
+                    plain=(1, 0) if ct is comp_big else (3, 2))
+    del x, dg, dg_cm
+    lift_vjp_check(f"{big_c} C=3", comp_big, gen)
+    g, wmat = k5_inputs(comp_big, 32, 64, gen)
+    dy = torch.randn(g.shape[0], 64, device=dev, generator=gen)
+    vals, _ = band_compact_bwd_reference(
+        dy, g, wmat, comp_big.sten, comp_big.meta, comp_big.src_idx,
+        comp_big.tb, comp_big.n_rings, comp_big.band_limit)
+    del g, wmat, dy
+    fold_rows = [fold_check(f"{big_c} W=192 (K6 bwd's dG blocks at C=32)",
+                            vals, comp_big)]
+    fold_time(fold_rows[0], vals, comp_big)
+    del vals
+    print_times("K6 bwd", k6b_rows, card)
+    print_times("K7 bwd", k7b_rows, card)
+    for r in k7b_rows:
+        print(f"K7 bwd {r['shape']}: {r['ms_contiguous']:.4f} ms/call for a "
+              f"contiguous cotangent ({r['ms']:.4f} cells minor, as a "
+              f"training step passes it) on {card}")
+    print_times("compact_fold", fold_rows, card)
+    print(f"compact_fold {fold_rows[0]['shape']}: index_add_ alone "
+          f"{fold_rows[0]['library_ms']:.4f} ms/call on {card}")
+
     # 4. serving: the slice-1 path, counted
     for p, bs in zip(serve.values(), batches.values()):
         p.warmup(bs)
@@ -1561,13 +1913,10 @@ def main(argv=None) -> int:
                 "seg_n2048_b4" if k.startswith("seg") else "corr_n5120_b1"])
     print(f"serve compact: launches {compact_launches} for the "
           f"{len(compact_serve)} compact requests")
-    del out, served
-    # the 163k compact table waits on the host while the training phases
-    # run; phase 8 (where the profiler runs, after training) times its
-    # requests
-    comp_host = comp_big.to("cpu")
-    del comp_big, b0, compact_batches[big_c], compact_batches[big_a]
-    torch.cuda.empty_cache()
+    del out, served, b0
+    # the 163k compact-ECHO and all-compact batches, each built once above,
+    # serve 7c and phase 8 too
+    batch_c, batch_a = compact_batches[big_c][0], compact_batches[big_a][0]
 
     # 6., 7. and 7b. training: the slice-2 path (classification), the
     # slice-4 path (the ECHO presets on the mixed route) and the slice-6
@@ -1582,6 +1931,14 @@ def main(argv=None) -> int:
                                    N_CORR_CLASSES,
                                    echo_train_recs["corr_n5120_b1"])
     fits[big] = (corr_cfg, N_CORR_CLASSES, panel_recs[big])
+    compact_keys = ["corr_n5120_b1_panel_compact",
+                    "corr_n5120_b1_panel_allcompact", "seg_n2048_b4_compact"]
+    for k in compact_keys:
+        net_k = "seg_n2048_b4" if k.startswith("seg") else "corr_n5120_b1"
+        fits[k] = (compact_cfg[k], echo_classes[net_k],
+                   echo_train_recs[net_k])
+    fits[big_c] = (compact_cfg[big_c], N_CORR_CLASSES, panel_recs[big])
+    fits[big_a] = (compact_cfg[big_a], N_CORR_CLASSES, panel_recs[big])
     trained, train_launches = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for path, keys in (("train", ["shrec11_b8"]),
@@ -1589,10 +1946,26 @@ def main(argv=None) -> int:
                            ("train_panel", ["corr_n5120_b1_panel", big])):
             kernels.reset_launches()
             for k in keys:
-                trained[k] = (fit_large(k, *fits[k], dev, args.seed, tmp)
+                trained[k] = (fit_large(k, *fits[k], dev, args.seed, tmp,
+                                        panel_batches[big][0])
                               if k == big else
                               fit_phase(k, *fits[k], dev, args.seed, tmp))
             train_launches[path] = dict(kernels.launches)
+
+        # 7c. training on the compact route: the slice-8 path, counted.  The
+        # 5120 training records forced onto the pure-panel layout with the
+        # compact ECHO (K5 convs) and all-compact (K6 convs), and the
+        # segmentation records on the mixed route with the compact ECHO (K1
+        # convs), each held against the CPU's first epoch; one step of the
+        # compact-ECHO route on phase 5c's 163k batch.  The all-compact fit
+        # on the N_LARGE record comes at the end of phase 8, once the
+        # block-panel table is freed, and its launches count here too
+        kernels.reset_launches()
+        for k in compact_keys:
+            trained[k] = fit_phase(k, *fits[k], dev, args.seed, tmp)
+        trained[big_c] = step_counted(big_c, *fits[big_c][:2], batch_c, dev,
+                                      args.seed)
+        train_launches["train_compact"] = dict(kernels.launches)
 
     # 8. timing
     for args_ in timed:
@@ -1658,20 +2031,25 @@ def main(argv=None) -> int:
                  for k, p in echo_serve.items()]
     requests += [(k, p, panel_recs[k], panel_batches[k],
                   "17 K5 + 1 K2 launches") for k, p in panel_serve.items()]
-    comp_big = comp_host.to(dev)
-    compact_batches[big_c] = [dataclasses.replace(panel_batches[big][0],
-                                                  compact=comp_big)]
     requests += [(k, p, compact_recs[k], compact_batches[k], compact_what(k))
                  for k, p in compact_serve.items() if k != big_a]
     for k, p, rs_, bs_, what in requests:
         time_request(k, p, rs_, bs_, what, card, large=k in (big, big_c))
 
-    for k, (tnet, topt) in trained.items():
+    # the serving phases' batches: the same record, config and batch size
+    # as the 163k fits'
+    large_steps = {big: panel_batches[big][0], big_c: batch_c,
+                   big_a: batch_a}
+
+    def time_step(k, tnet, topt):
+        """Time one training step of the fitted ``tnet`` at training shape
+        ``k``: host clock, the profiler's breakdown and, at N_LARGE, the
+        peak device memory and (block panels, all-compact) a remat_blocks
+        step."""
         cfg, n_classes, recs_ = fits[k]
-        if k == big:
-            # the serving phase's batch: the same record, config and batch
-            # size as the fit's
-            tbatch = panel_batches[big][0]
+        large = k in large_steps
+        if large:
+            tbatch = large_steps[k]
         else:
             bs = TRAIN_FIT[k][1]
             n_pad, d_slots = shared_bucket(recs_)
@@ -1685,30 +2063,30 @@ def main(argv=None) -> int:
             step(tbatch, step_gen)
             torch.cuda.synchronize()
 
-        n = CONVS_PER_PASS[k]
-        conv = "K1" if tbatch.banded is not None else "K5"
-        what = f"{n} {conv} fwd + {n} {conv} bwd" + (
-            "" if cfg.task == "classification" else " + 1 K2 fwd + 1 K2 bwd")
+        what = step_what(cfg, tbatch.pos.shape[1], CONVS_PER_PASS[k])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base_gb = torch.cuda.memory_allocated() / 1e9
-        ms = time_host(train_step, reps=3 if k == big else 5)
+        ms = time_host(train_step, reps=3 if large else 5)
         print(f"train step {k}: {ms:.3f} ms per step (host clock, ending in "
               f"a sync; {what} launches) on {card}")
-        if k == big:
+        if large:
             print(f"train step {k}: peak device memory "
                   f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
                   f"({base_gb:.2f} GB allocated before the steps: tables, "
                   f"nets and the kernel checks' inputs) on {card}")
         wall, busy, kern = request_breakdown(train_step,
-                                             top=10 if k == big else 6)
+                                             top=12 if large else 6)
         print(f"train step {k} under the profiler: wall {wall:.3f} ms, "
               f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%) on "
               f"{card}; top kernels:")
         for t, name, count in kern:
             print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
-        if k == big:
+        if k in (big, big_a):
             remat_step(k, tnet, cfg, n_classes, tbatch, dev, args.seed, card)
+
+    for k, (tnet, topt) in trained.items():
+        time_step(k, tnet, topt)
 
     b8192 = batches["n8192_b1"][0]
     edges = int(b8192.table.mask.sum().item())
@@ -1730,17 +2108,25 @@ def main(argv=None) -> int:
     for t, name, count in kern:
         print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
 
-    # the all-compact 163k request last, once the block-panel table and
-    # everything that holds it are freed: its device memory is its own
-    compact_batches[big_a] = [dataclasses.replace(
-        panel_batches[big][0], panel=comp_big, compact=comp_big)]
-    del (panel_batches, requests, bs_, tbatch, k5_timed, k5b_timed, k2_big,
-         bigp, bigp_seg, compact_batches[big_c], args_)
+    # the all-compact 163k request and fit last, once the block-panel table
+    # and everything that holds it are freed: their device memory is their
+    # own.  The fit is the rest of 7c's path: counted from 0, its launches
+    # join 7c's
+    del (panel_batches, requests, bs_, k5_timed, k5b_timed, k2_big, bigp,
+         bigp_seg, compact_batches[big_c], batch_c, args_, large_steps[big],
+         large_steps[big_c])
     gc.collect()
     torch.cuda.empty_cache()
     time_request(big_a, compact_serve[big_a], compact_recs[big_a],
                  compact_batches[big_a], compact_what(big_a), card,
                  large=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_launches()
+        trained[big_a] = fit_large(big_a, *fits[big_a], dev, args.seed, tmp,
+                                   batch_a)
+        train_launches["train_compact"] = dict(
+            kernels.launches + Counter(train_launches["train_compact"]))
+    time_step(big_a, *trained[big_a])
 
     paths = {"serve": serve_launches, "serve_echo": echo_launches,
              "serve_panel": panel_launches, "serve_compact": compact_launches,
@@ -1756,7 +2142,7 @@ def main(argv=None) -> int:
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": rs[0]["ms"], "plain_ms": rs[0]["plain_ms"],
             "bound_ms": rs[0]["bound_ms"], "bound_by": rs[0]["bound_by"],
-            "library_ms": None,
+            "library_ms": rs[0].get("library_ms"),
             "shapes": rs,
         }
 
@@ -1779,6 +2165,16 @@ def main(argv=None) -> int:
         entry("echo_compact_fwd",
               "fieldconv_tpu_torch/csrc/echo_compact_fwd.cu",
               "fieldconv_tpu/ops/pallas/echo_panel.py:310", k7_rows),
+        entry("band_compact_bwd",
+              "fieldconv_tpu_torch/csrc/band_compact_bwd.cu",
+              "fieldconv_tpu/ops/pallas/band_conv.py:2084", k6b_rows),
+        entry("echo_compact_bwd",
+              "fieldconv_tpu_torch/csrc/echo_compact_bwd.cu",
+              "fieldconv_tpu/ops/pallas/echo_panel.py:342", k7b_rows),
+        entry("compact_fold", "fieldconv_tpu_torch/csrc/compact_fold.cuh",
+              "the XLA segment_sums at fieldconv_tpu/ops/pallas/band_conv.py"
+              ":2118, fieldconv_tpu/ops/pallas/echo_panel.py:378 and "
+              "fieldconv_tpu/ops/trans_field.py:408", fold_rows),
     ]}
     print(json.dumps(line))
     print(card)

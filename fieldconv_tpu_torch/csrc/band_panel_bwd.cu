@@ -34,10 +34,11 @@
 //   1. contrib of every target row, rematerialised exactly as the forward
 //      forms it (panel_walk.cuh over meta, the target order; only g, W and
 //      the stencil are kept from the forward, as in JAX), written to
-//      scratch as (rows, R·M);
+//      scratch as (rows, R·M) (panel_bwd.cuh, shared with K6's backward);
 //   2. dW = Σ_rows contribᵀ·dy: per-slice partials and a combine in slice
 //      order (dw_rows.cuh, K1's backward passes 3-4);
-//   3. dc = dy·Wᵀ, a tiled product written over contrib, same layout;
+//   3. dc = dy·Wᵀ, a tiled product written over contrib, same layout
+//      (panel_bwd.cuh);
 //   4. dG by source: a CTA owns a tile of T = min(8, 256 / C) source rows
 //      of one source block, one thread per (source, channel) with its K
 //      complex dG sums in registers, and walks the block's run of meta_s
@@ -63,6 +64,7 @@
 // and fusing the passes are left to later work.
 
 #include "dw_rows.cuh"
+#include "panel_bwd.cuh"
 #include "panel_walk.cuh"
 
 #include <algorithm>
@@ -70,107 +72,9 @@
 
 namespace {
 
+using panel::bwd_contrib_kernel;
 using panel::kMaxThreads;
 using panel::Knots;
-
-// --- pass 1: contrib per tile of targets ---------------------------------------------
-//
-// The forward's walk and launch bounds without its filter stage.
-
-template <int KMAX, int RMAX, int MINB>
-__global__ void __launch_bounds__(kMaxThreads, MINB)
-bwd_contrib_kernel(const float* __restrict__ g,
-                   const float* __restrict__ sten,
-                   const int* __restrict__ meta,
-                   float* __restrict__ contrib,
-                   int P, int C, int K, int R, int TB, int compressed,
-                   int nb_g, int T, Knots kn)
-{
-    const int M = 2 * K * C;
-    const int RM = R * M;
-    const int tiles = (TB + T - 1) / T;
-    const int blk = blockIdx.x / tiles;
-    const int t0 = (blockIdx.x % tiles) * T;
-    const int nt = min(T, TB - t0);
-    const int tid = threadIdx.x;
-    const bool active = tid < nt * C;
-    const int it = active ? tid / C : 0;     // (target, channel) of a thread
-    const int ic = active ? tid % C : 0;
-
-    extern __shared__ __align__(16) float smem[];
-    float are[KMAX][RMAX], aim[KMAX][RMAX];
-    panel::panel_contrib<KMAX, RMAX>(are, aim, smem, g, sten, meta, P, C, K,
-                                     R, TB, compressed, nb_g, T, blk, t0, nt,
-                                     active, it, ic, kn);
-    if (!active) return;
-    // contrib[row, j] with j = r·M + k·2C + (p·C + c): coalesced over c
-    float* cr = contrib + ((size_t)blk * TB + t0 + it) * RM;
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k)
-#pragma unroll
-        for (int r = 0; r < RMAX; ++r)
-            if (k < K && r < R) {
-                const int j = r * M + k * 2 * C + ic;
-                cr[j] = are[k][r];
-                cr[j + C] = aim[k][r];
-            }
-}
-
-// --- pass 3: dc = dy · Wᵀ -----------------------------------------------------------
-//
-// dc[row, j] = Σ_o dy[row, o] · W[j, o] with W viewed as (R·M, O2): a CTA
-// owns 64 rows × 64 columns, each thread 4 × 4 of them, summed over o in
-// order.
-
-constexpr int kGemmTile = 64;
-constexpr int kGemmDepth = 16;
-
-__global__ void __launch_bounds__(256)
-bwd_dc_kernel(const float* __restrict__ dy, const float* __restrict__ wmat,
-              float* __restrict__ dc, int rows, int RM, int O2)
-{
-    constexpr int LD = kGemmTile + 4;      // float4-aligned, fewer conflicts
-    __shared__ __align__(16) float as[kGemmDepth][LD];   // dyᵀ: [o][row]
-    __shared__ __align__(16) float bs[kGemmDepth][LD];   // Wᵀ:  [o][j]
-    const int r0 = blockIdx.x * kGemmTile, j0 = blockIdx.y * kGemmTile;
-    const int tid = threadIdx.x;
-    const int ty = tid / 16, tx = tid % 16;
-    float acc[4][4] = {};
-    for (int o0 = 0; o0 < O2; o0 += kGemmDepth) {
-        __syncthreads();                   // the last tile is read
-        for (int u = tid; u < kGemmTile * kGemmDepth; u += 256) {
-            const int i = u / kGemmDepth, o = u % kGemmDepth;
-            const bool ok = o0 + o < O2;
-            as[o][i] = ok && r0 + i < rows
-                ? dy[(size_t)(r0 + i) * O2 + o0 + o] : 0.f;
-            bs[o][i] = ok && j0 + i < RM
-                ? wmat[(size_t)(j0 + i) * O2 + o0 + o] : 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int o = 0; o < kGemmDepth; ++o) {
-            const float4 a = *reinterpret_cast<const float4*>(&as[o][ty * 4]);
-            const float4 b = *reinterpret_cast<const float4*>(&bs[o][tx * 4]);
-            const float av[4] = {a.x, a.y, a.z, a.w};
-            const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-            for (int x = 0; x < 4; ++x)
-#pragma unroll
-                for (int y = 0; y < 4; ++y)
-                    acc[x][y] = fmaf(av[x], bv[y], acc[x][y]);
-        }
-    }
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-        const int row = r0 + ty * 4 + x;
-        if (row >= rows) continue;
-#pragma unroll
-        for (int y = 0; y < 4; ++y) {
-            const int j = j0 + tx * 4 + y;
-            if (j < RM) dc[(size_t)row * RM + j] = acc[x][y];
-        }
-    }
-}
 
 // --- pass 4: dG gathered by source ----------------------------------------------------
 
@@ -369,22 +273,21 @@ int launch(const float* dy, const float* g, const float* wmat,
     float* contrib = scratch;                // then dc, same layout
     float* part = scratch + pl.part_at;
 
-    auto k1 = bwd_contrib_kernel<KMAX, RMAX, MINB>;
+    auto k1 = bwd_contrib_kernel<KMAX, RMAX, MINB, false>;
     cudaError_t err = cudaFuncSetAttribute(
         k1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem1);
     if (err != cudaSuccess) return (int)err;
     k1<<<(unsigned)((long)nb_out * tiles), pl.nthr, pl.smem1, stream>>>(
-        g, sten, meta, contrib, P, C, K, R, TB, compressed, nb_g, pl.T, kn);
+        g, sten, meta, contrib, P, C, K, R, TB, compressed, nb_g, pl.T, kn,
+        nullptr, TB);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
     err = band::launch_dw(contrib, dy, part, dw, rows, RM, O2, pl.dws,
                           stream);
     if (err != cudaSuccess) return (int)err;
 
-    bwd_dc_kernel<<<dim3((rows + kGemmTile - 1) / kGemmTile,
-                         (RM + kGemmTile - 1) / kGemmTile), 256, 0,
-                    stream>>>(dy, wmat, contrib, rows, RM, O2);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    err = panel::launch_dc(dy, wmat, contrib, rows, RM, O2, stream);
+    if (err != cudaSuccess) return (int)err;
 
     auto k4 = bwd_dg_kernel<KMAX, RMAX, MINB>;
     err = cudaFuncSetAttribute(

@@ -63,28 +63,15 @@
 // the scattered dg reads (a sector per 4 useful bytes at worst) and the
 // per-panel compaction; it makes no use of tensor cores.
 
-#include <cuda_runtime.h>
+#include "echo_vote.cuh"
 
 #include <algorithm>
 #include <cstddef>
 
 namespace {
 
-constexpr float kEps = 1e-7f;   // utils/complexops.py::EPS
-constexpr int kMaxThreads = 256;
+constexpr int kMaxThreads = echo::kMaxThreads;
 constexpr int kMaxSources = 32;
-
-__device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n,
-                                           int v)
-{
-    int lo = 0, hi = n;
-    while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (__ldg(a + mid) < v) lo = mid + 1;
-        else hi = mid;
-    }
-    return lo;
-}
 
 __global__ void __launch_bounds__(kMaxThreads)
 echo_panel_bwd_kernel(const float* __restrict__ dg, long long sb,
@@ -95,9 +82,6 @@ echo_panel_bwd_kernel(const float* __restrict__ dg, long long sb,
                       float2* __restrict__ dx,
                       int Ps, int C, int TB, int n_bins, int S)
 {
-    const int w = 2 * n_bins + 1;
-    const int w2 = w * w;
-    const float nbf = (float)n_bins;
     const int tiles = (TB + S - 1) / S;
     const int blk = blockIdx.x / tiles;      // source block
     const int s0 = (blockIdx.x % tiles) * S;
@@ -119,17 +103,13 @@ echo_panel_bwd_kernel(const float* __restrict__ dg, long long sb,
         xre = xv.x;
         xim = xv.y;
     }
-    const bool nz = active && (fabsf(xre) >= kEps || fabsf(xim) >= kEps);
-    // 1/|x| and û in the forward's exact rounding (see "Exact p")
-    const float inv_r = nz ? __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(
-                                 __fmul_rn(xre, xre), __fmul_rn(xim, xim))))
-                           : 0.f;
-    const float uR = __fmul_rn(xre, inv_r);
-    const float uI = __fmul_rn(xim, inv_r);
+    float inv_r, uR, uI;
+    // (an inactive thread holds x = 0, at the origin)
+    const bool nz = echo::unit_of(xre, xim, inv_r, uR, uI);
     float du_re = 0.f, du_im = 0.f, dxv_re = 0.f, dxv_im = 0.f;
 
-    const int p_lo = lower_bound(meta_s + 2 * (size_t)Ps, Ps, blk);
-    const int p_hi = lower_bound(meta_s + 2 * (size_t)Ps, Ps, blk + 1);
+    const int p_lo = echo::lower_bound(meta_s + 2 * (size_t)Ps, Ps, blk);
+    const int p_hi = echo::lower_bound(meta_s + 2 * (size_t)Ps, Ps, blk + 1);
     const size_t plane = (size_t)TB * TB;
     const int warp = tid >> 5, lane = tid & 31, nwarps = nthr >> 5;
 
@@ -140,27 +120,8 @@ echo_panel_bwd_kernel(const float* __restrict__ dg, long long sb,
         __syncthreads();                     // the last panel's lists are read
         // compact each source column's occupied slots, one warp per column
         for (int s = warp; s < ns; s += nwarps) {
-            int base = 0;
-            for (int t0 = 0; t0 < TB; t0 += 32) {
-                const int t = t0 + lane;
-                const size_t at = (size_t)t * TB + s;
-                float wre = 0.f, wim = 0.f;
-                if (t < TB) {
-                    wre = __ldg(sp + 3 * plane + at);
-                    wim = __ldg(sp + 4 * plane + at);
-                }
-                const bool occ = wre != 0.f || wim != 0.f;
-                const unsigned m = __ballot_sync(0xffffffffu, occ);
-                if (occ) {
-                    const float r = __ldg(sp + at);
-                    const float ln_re = r * __ldg(sp + plane + at);
-                    const float ln_im = r * __ldg(sp + 2 * plane + at);
-                    const int j = base + __popc(m & ((1u << lane) - 1u));
-                    slots[s * TB + j] = make_float4(ln_re, ln_im, wre, wim);
-                    tidx[s * TB + j] = t;
-                }
-                base += __popc(m);
-            }
+            const int base = echo::column_slots(slots + s * TB, tidx + s * TB,
+                                                sp, s, TB, TB, plane);
             if (lane == 0) cnt[s] = base;
         }
         __syncthreads();
@@ -172,50 +133,13 @@ echo_panel_bwd_kernel(const float* __restrict__ dg, long long sb,
         for (int j = 0; j < n; ++j) {
             const float4 e = sl[j];
             const float* gt = g + (long long)ti[j] * st;
-            const float p1 = __fmul_rn(
-                nbf, __fadd_rn(__fmul_rn(e.x, uR), __fmul_rn(e.y, uI)));
-            const float p2 = __fmul_rn(
-                nbf, __fadd_rn(__fmul_rn(-e.x, uI), __fmul_rn(e.y, uR)));
-            const float pC1 = fminf(fmaxf(ceilf(p1), -nbf), nbf);
-            const float pF1 = fminf(fmaxf(floorf(p1), -nbf), nbf);
-            const float pC2 = fminf(fmaxf(ceilf(p2), -nbf), nbf);
-            const float pF2 = fminf(fmaxf(floorf(p2), -nbf), nbf);
-            const float e1C = pC1 - p1, e1F = p1 - pF1;
-            const float e2C = pC2 - p2, e2F = p2 - pF2;
-            const int aF = (int)pF1 + n_bins, aC = (int)pC1 + n_bins;
-            const int bF = (int)pF2 + n_bins, bC = (int)pC2 + n_bins;
-            const int q[4] = {aF * w + bF, aC * w + bC, aC * w + bF,
-                              aF * w + bC};
-            const float wt[4] = {e1C * e2C, e1F * e2F, e1F * e2C, e1C * e2F};
-            const float vre = xre * e.z - xim * e.w;
-            const float vim = xre * e.w + xim * e.z;
-            float dv_re = 0.f, dv_im = 0.f, dW[4];
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-                const float gre = __ldg(gt + (long long)q[k] * sq);
-                const float gim = __ldg(gt + (long long)(w2 + q[k]) * sq);
-                dv_re += wt[k] * gre;
-                dv_im += wt[k] * gim;
-                dW[k] = vre * gre + vim * gim;
-            }
-            const float da1 = nbf * (-dW[0] * e2C + dW[1] * e2F
-                                     + dW[2] * e2C - dW[3] * e2F);
-            const float da2 = nbf * (-dW[0] * e1C + dW[1] * e1F
-                                     - dW[2] * e1F + dW[3] * e1C);
-            du_re += da1 * e.x + da2 * e.y;
-            du_im += da1 * e.y - da2 * e.x;
-            dxv_re += dv_re * e.z + dv_im * e.w;
-            dxv_im += dv_im * e.z - dv_re * e.w;
+            echo::unvote_slot(du_re, du_im, dxv_re, dxv_im, gt, sq, e, xre,
+                              xim, uR, uI, n_bins);
         }
     }
     if (!active) return;
-    float2 out = make_float2(0.f, 0.f);
-    if (nz) {
-        const float dot = uR * du_re + uI * du_im;
-        out.x = (du_re - uR * dot) * inv_r + dxv_re;
-        out.y = (du_im - uI * dot) * inv_r + dxv_im;
-    }
-    dx[xi] = out;
+    dx[xi] = echo::unit_grad(nz, du_re, du_im, dxv_re, dxv_im, uR, uI,
+                             inv_r);
 }
 
 size_t smem_bytes(int S, int TB)

@@ -1,7 +1,8 @@
 // The ECHO histogram walk shared by K2's forward (echo_panel_fwd.cu) and
 // K7's forward (echo_compact_fwd.cu): the per-slot vote of a source feature
 // into a target's w×w grid, and a CTA's walk over its target block's run
-// of panels.
+// of panels; and the vote's transpose, shared by K2's backward
+// (echo_panel_bwd.cu) and K7's (echo_compact_bwd.cu).
 //
 // A panel stencil (P, 5, TB, TS) holds rows the target slot t and columns
 // the source slot s, planes r, e^{iθ} re/im, wxp re/im.  K2's panels are
@@ -94,6 +95,133 @@ __device__ __forceinline__ void splat_vote(float* a, int nthr, float2 xv,
         a[q[k] * nthr] += wt[k] * vre;
         a[(w2 + q[k]) * nthr] += wt[k] * vim;
     }
+}
+
+// Compacts the occupied slots (wxp ≠ 0) of column s of a panel's planes sp
+// (plane floats apart, rows `stride` floats apart) over its n_t target
+// rows into a list, in target order, as (ln_re, ln_im, wxp_re, wxp_im) and
+// the target row; 32 rows per ballot.  Every lane of the warp calls it;
+// returns the list's length.  Empty slots and dead columns carry wxp = 0,
+// so their transposed votes are exactly 0 and leaving them out is exact.
+__device__ __forceinline__ int column_slots(float4* slots, int* tidx,
+                                            const float* __restrict__ sp,
+                                            int s, int n_t, int stride,
+                                            size_t plane)
+{
+    const int lane = threadIdx.x & 31;
+    int base = 0;
+    for (int t0 = 0; t0 < n_t; t0 += 32) {
+        const int t = t0 + lane;
+        const size_t at = (size_t)t * stride + s;
+        float wre = 0.f, wim = 0.f;
+        if (t < n_t) {
+            wre = __ldg(sp + 3 * plane + at);
+            wim = __ldg(sp + 4 * plane + at);
+        }
+        const bool occ = wre != 0.f || wim != 0.f;
+        const unsigned m = __ballot_sync(0xffffffffu, occ);
+        if (occ) {
+            const float r = __ldg(sp + at);
+            const float ln_re = r * __ldg(sp + plane + at);
+            const float ln_im = r * __ldg(sp + 2 * plane + at);
+            const int j = base + __popc(m & ((1u << lane) - 1u));
+            slots[j] = make_float4(ln_re, ln_im, wre, wim);
+            tidx[j] = t;
+        }
+        base += __popc(m);
+    }
+    return base;
+}
+
+// The transpose of one occupied slot's vote, for a source feature
+// (xre, xim) not at the origin with unit û = (uR, uI) (formed as in
+// splat_vote): the slot e = (ln_re, ln_im, wxp_re, wxp_im) of target row
+// gt of the grid's cotangent, read as gt[q·sq] (real part of cell q) and
+// gt[(w² + q)·sq] (imaginary part).  With p, the corners and the weights
+// w0..w3 recomputed as splat_vote forms them and G_k the cotangent of
+// corner k's cell:
+//
+//   dv   = Σ_k w_k·G_k                          the vote's cotangent
+//   dW_k = v_re·G_k,re + v_im·G_k,im            v = x·wxp
+//   dp1  = −dW0·e2C + dW1·e2F + dW2·e2C − dW3·e2F   (e1C = pC1 − p1, ...)
+//   dp2  = −dW0·e1C + dW1·e1F − dW2·e1F + dW3·e1C
+//   du  += n_bins·(dp1·ln_re + dp2·ln_im, dp1·ln_im − dp2·ln_re)
+//   dxv += conj(wxp)·dv
+//
+// Shared by K2's backward (echo_panel_bwd.cu) and K7's
+// (echo_compact_bwd.cu); finish with unit_grad.
+__device__ __forceinline__ void unvote_slot(
+    float& du_re, float& du_im, float& dxv_re, float& dxv_im,
+    const float* __restrict__ gt, long long sq, float4 e, float xre,
+    float xim, float uR, float uI, int n_bins)
+{
+    const int w = 2 * n_bins + 1;
+    const int w2 = w * w;
+    const float nbf = (float)n_bins;
+    const float p1 = __fmul_rn(
+        nbf, __fadd_rn(__fmul_rn(e.x, uR), __fmul_rn(e.y, uI)));
+    const float p2 = __fmul_rn(
+        nbf, __fadd_rn(__fmul_rn(-e.x, uI), __fmul_rn(e.y, uR)));
+    const float pC1 = fminf(fmaxf(ceilf(p1), -nbf), nbf);
+    const float pF1 = fminf(fmaxf(floorf(p1), -nbf), nbf);
+    const float pC2 = fminf(fmaxf(ceilf(p2), -nbf), nbf);
+    const float pF2 = fminf(fmaxf(floorf(p2), -nbf), nbf);
+    const float e1C = pC1 - p1, e1F = p1 - pF1;
+    const float e2C = pC2 - p2, e2F = p2 - pF2;
+    const int aF = (int)pF1 + n_bins, aC = (int)pC1 + n_bins;
+    const int bF = (int)pF2 + n_bins, bC = (int)pC2 + n_bins;
+    const int q[4] = {aF * w + bF, aC * w + bC, aC * w + bF, aF * w + bC};
+    const float wt[4] = {e1C * e2C, e1F * e2F, e1F * e2C, e1C * e2F};
+    const float vre = xre * e.z - xim * e.w;
+    const float vim = xre * e.w + xim * e.z;
+    float dv_re = 0.f, dv_im = 0.f, dW[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const float gre = __ldg(gt + (long long)q[k] * sq);
+        const float gim = __ldg(gt + (long long)(w2 + q[k]) * sq);
+        dv_re += wt[k] * gre;
+        dv_im += wt[k] * gim;
+        dW[k] = vre * gre + vim * gim;
+    }
+    const float da1 = nbf * (-dW[0] * e2C + dW[1] * e2F
+                             + dW[2] * e2C - dW[3] * e2F);
+    const float da2 = nbf * (-dW[0] * e1C + dW[1] * e1F
+                             - dW[2] * e1F + dW[3] * e1C);
+    du_re += da1 * e.x + da2 * e.y;
+    du_im += da1 * e.y - da2 * e.x;
+    dxv_re += dv_re * e.z + dv_im * e.w;
+    dxv_im += dv_im * e.z - dv_re * e.w;
+}
+
+// A source's dx from its summed unvote_slot terms: u = x/|x| is linear in
+// du, so its Jacobian (I − ûûᵀ)/|x| is applied once, dx = (I − ûûᵀ)·du·
+// inv_r + dxv; a source at the origin (nz false) gets 0.
+__device__ __forceinline__ float2 unit_grad(bool nz, float du_re,
+                                            float du_im, float dxv_re,
+                                            float dxv_im, float uR, float uI,
+                                            float inv_r)
+{
+    float2 out = make_float2(0.f, 0.f);
+    if (nz) {
+        const float dot = uR * du_re + uI * du_im;
+        out.x = (du_re - uR * dot) * inv_r + dxv_re;
+        out.y = (du_im - uI * dot) * inv_r + dxv_im;
+    }
+    return out;
+}
+
+// 1/|x| and the unit û of a source feature in the forward's exact
+// rounding (see "Exact p" above); 0 for a feature at the origin.
+__device__ __forceinline__ bool unit_of(float xre, float xim, float& inv_r,
+                                        float& uR, float& uI)
+{
+    const bool nz = fabsf(xre) >= kEps || fabsf(xim) >= kEps;
+    inv_r = nz ? __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(
+                     __fmul_rn(xre, xre), __fmul_rn(xim, xim))))
+               : 0.f;
+    uR = __fmul_rn(xre, inv_r);
+    uI = __fmul_rn(xim, inv_r);
+    return nz;
 }
 
 // Bytes of shared memory of a CTA of nthr threads and T targets over

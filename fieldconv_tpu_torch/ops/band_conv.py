@@ -1,6 +1,7 @@
 """Field convolution over the block layouts with the hand-written kernels:
 the dense BandedTable (K1 forward and backward), the PanelTable (K5
-forward and backward) and the CompactPanelTable (K6 forward).
+forward and backward) and the CompactPanelTable (K6 forward and
+backward).
 
 Counterpart of ``fieldconv_tpu/ops/pallas/band_conv.py`` for those three
 tables.  The contraction runs in hand-written CUDA kernels:
@@ -12,13 +13,16 @@ tables.  The contraction runs in hand-written CUDA kernels:
 ``pallas_call``s, bodies ``_fwd_panel_kernel`` and
 ``_fwd_panel_chunk_kernel``), ``csrc/band_panel_bwd.cu`` replaces
 ``_band_panel_bwd_impl`` (bodies ``_bwd_panel_kernel`` and
-``_bwd_panel_chunk_kernel``) and ``csrc/band_compact_fwd.cu`` replaces
-``_band_compact_fwd_impl`` (body ``_fwd_compact_kernel``).  The wrappers
+``_bwd_panel_chunk_kernel``), ``csrc/band_compact_fwd.cu`` replaces
+``_band_compact_fwd_impl`` (body ``_fwd_compact_kernel``) and
+``csrc/band_compact_bwd.cu`` replaces ``_band_compact_bwd_impl`` (body
+``_bwd_compact_kernel``) with the fold that follows it.  The wrappers
 :func:`band_fused_fwd`, :func:`band_fused_bwd`, :func:`band_panel_fwd`,
-:func:`band_panel_bwd` and :func:`band_compact_fwd` launch them for CUDA
-tensors and run the plain PyTorch versions (``*_reference``) for CPU
-tensors; they never move work between devices.  :class:`_BandFusedFn` and
-:class:`_BandPanelFn` tie each kernel's two directions together for
+:func:`band_panel_bwd`, :func:`band_compact_fwd` and
+:func:`band_compact_bwd` launch them for CUDA tensors and run the plain
+PyTorch versions (``*_reference``) for CPU tensors; they never move work
+between devices.  :class:`_BandFusedFn`, :class:`_BandPanelFn` and
+:class:`_BandCompactFn` tie each kernel's two directions together for
 autograd, as ``jax.custom_vjp`` does in the JAX package.
 """
 
@@ -33,6 +37,7 @@ import torch
 from .. import kernels
 from ..precomp.banded import (BandedTable, CompactPanelTable, PanelTable,
                               unwindow_blocks, window_blocks)
+from .compact_fold import compact_fold_reference
 from .field_conv import filter_coefficients, rotated_source_tensor
 
 
@@ -474,35 +479,51 @@ def band_panel_bwd_reference(dy, g, wmat, sten, meta_s, tb: int,
     zeros in dg (the Pallas kernel leaves it unwritten)."""
     N, M = g.shape
     R, K = n_rings, 2 * band_limit + 1
-    C = M // (2 * K)
-    O2 = wmat.shape[-1]
     gb = g.reshape(-1, tb, M)
-    dyb = dy.reshape(-1, tb, O2)
+    dyb = dy.reshape(-1, tb, dy.shape[-1])
     meta_s = meta_s.long()
     dgb = g.new_zeros(N // tb, tb, M)
     dw = g.new_zeros(wmat.shape)
     pc = 256                   # panels per step
     for lo in range(0, meta_s.shape[1], pc):
         pid, tgt, src = meta_s[:3, lo:lo + pc]
-        hats, pairs = _panel_pairs(sten[pid], R, K, compressed)
-        gs, dys = gb[src], dyb[tgt]               # (pc, TB, M), (pc, TB, O2)
-        dcon = torch.einsum("pto,rjo->prtj", dys, wmat)    # (pc, R, TB, M)
-        parts, dparts = [None] * (2 * K), [None] * (2 * K)
-        for k, fre, fim in pairs:
-            s_re, s_im = hats * fre[None], hats * fim[None]  # (R, pc, T, S)
-            gk = gs[..., k * 2 * C:(k + 1) * 2 * C]
-            pa = torch.einsum("rpts,psc->prtc", s_re, gk)
-            pb = torch.einsum("rpts,psc->prtc", s_im, gk)
-            parts[2 * k] = pa[..., :C] - pb[..., C:]
-            parts[2 * k + 1] = pa[..., C:] + pb[..., :C]
-            d = dcon[..., k * 2 * C:(k + 1) * 2 * C]      # (pc, R, T, 2C)
-            p1 = torch.einsum("rpts,prtc->psc", s_re, d)
-            p2 = torch.einsum("rpts,prtc->psc", s_im, d)
-            dparts[2 * k] = p1[..., :C] + p2[..., C:]
-            dparts[2 * k + 1] = p1[..., C:] - p2[..., :C]
-        dw += torch.einsum("prtj,pto->rjo", torch.cat(parts, dim=-1), dys)
-        dgb.index_add_(0, src, torch.cat(dparts, dim=-1))
+        dys = dyb[tgt]
+        dwp, dgp = _panel_bwd_chunk(sten[pid], gb[src], dys, wmat, R, K,
+                                    compressed)
+        dw += dwp
+        dgb.index_add_(0, src, dgp)
     return dgb.reshape(N, M), dw
+
+
+def _panel_bwd_chunk(sten_c, gs, dys, wmat, R: int, K: int,
+                     compressed: bool):
+    """One chunk of panels (pc, planes, TBt, TS) of the panel convs' plain
+    backwards: each panel against its source rows gs (pc, TS, M) and its
+    target rows' cotangent dys (pc, TBt, O2), S_k = hats_r ⊙ f_k:
+
+        dc  = dys · W_rᵀ                                    (per ring)
+        dW  = Σ_panels pcᵀ · dys,  pc the panel's partial contrib
+        dG  = Σ_r Σ_k S_kᵀ · [d_re | d_im ; d_im | −d_re]   (per panel)
+
+    Returns (dW (R, M, O2), dG (pc, TS, M))."""
+    C = gs.shape[-1] // (2 * K)
+    hats, pairs = _panel_pairs(sten_c, R, K, compressed)
+    dcon = torch.einsum("pto,rjo->prtj", dys, wmat)        # (pc, R, TB, M)
+    parts, dparts = [None] * (2 * K), [None] * (2 * K)
+    for k, fre, fim in pairs:
+        s_re, s_im = hats * fre[None], hats * fim[None]    # (R, pc, T, S)
+        gk = gs[..., k * 2 * C:(k + 1) * 2 * C]
+        pa = torch.einsum("rpts,psc->prtc", s_re, gk)
+        pb = torch.einsum("rpts,psc->prtc", s_im, gk)
+        parts[2 * k] = pa[..., :C] - pb[..., C:]
+        parts[2 * k + 1] = pa[..., C:] + pb[..., :C]
+        d = dcon[..., k * 2 * C:(k + 1) * 2 * C]          # (pc, R, T, 2C)
+        p1 = torch.einsum("rpts,prtc->psc", s_re, d)
+        p2 = torch.einsum("rpts,prtc->psc", s_im, d)
+        dparts[2 * k] = p1[..., :C] + p2[..., C:]
+        dparts[2 * k + 1] = p1[..., C:] - p2[..., :C]
+    return (torch.einsum("prtj,pto->rjo", torch.cat(parts, dim=-1), dys),
+            torch.cat(dparts, dim=-1))
 
 
 @functools.cache
@@ -657,26 +678,152 @@ def band_compact_fwd(g, wmat, sten, meta, src_idx, tbt: int, n_rings: int,
     """K6 forward y (n_out, O2) over a CompactPanelTable's panels (shapes as
     in :func:`band_compact_fwd_reference`).
 
-    CPU tensors run the plain version (differentiable by autograd); CUDA
-    tensors launch the kernel (building it on first use) or raise.  On the
-    card the op is forward-only: a gradient request raises, since K6's
-    backward is not ported yet (ROADMAP Queue 2, K6 bwd: slice 8).  A bf16
-    stencil is refused on both devices."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (building it on first use) or raise.  Gradients go through
+    :class:`_BandCompactFn`.  A bf16 stencil is refused on both devices."""
     n_out = g.shape[0] if n_out is None else n_out
     _k5_float32(sten)
     if g.device.type == "cpu":
         return band_compact_fwd_reference(g, wmat, sten, meta, src_idx, tbt,
                                           n_rings, band_limit, n_out)
     if g.device.type == "cuda":
-        if torch.is_grad_enabled() and (g.requires_grad
-                                        or wmat.requires_grad):
-            raise NotImplementedError(
-                "a gradient through the compact conv on the card needs K6's "
-                "backward (_band_compact_bwd_impl), which is not ported yet: "
-                "ROADMAP Queue 2, K6 bwd (compact training, slice 8)")
         return _band_compact_fwd_cuda(g, wmat, sten, meta, src_idx, tbt,
                                       n_rings, band_limit, n_out)
     raise ValueError(f"band_compact_fwd has no kernel for device {g.device}")
+
+
+# --- K6 backward: plain version, wrapper, kernel launch ----------------------
+
+def band_compact_bwd_reference(dy, g, wmat, sten, meta, src_idx, tbt: int,
+                               n_rings: int, band_limit: int):
+    """Plain PyTorch K6 backward, written out (not taken from autograd):
+    what ``_band_compact_bwd_impl`` (body ``_bwd_compact_kernel``) returns
+    on the gathered rows ``g[src_idx]``, 256 panels at a time.  For each
+    panel p of target block b = meta[0, p], with S_k = hats_r ⊙ f_k:
+
+        dc               = dy[b] · W_rᵀ                 (per ring)
+        dW              += pcᵀ · dy[b],  pc the panel's partial contrib
+        dgg[p·TS + s]    = Σ_r Σ_k S_kᵀ · [d_re | d_im ; d_im | −d_re]
+
+    dy: (n_out, O2); other shapes as in :func:`band_compact_fwd_reference`.
+    Returns the per-panel dG blocks dgg (P·TS, M), before the fold onto
+    g's rows (:func:`band_compact_bwd` folds them), and dw (R, M, O2)."""
+    M = g.shape[1]
+    P, TS = sten.shape[0], sten.shape[-1]
+    R, K = n_rings, 2 * band_limit + 1
+    idx, tgt = src_idx.long(), meta[0].long()
+    dyb = dy.reshape(-1, tbt, dy.shape[-1])
+    dgg = g.new_empty(P, TS, M)
+    dw = g.new_zeros(wmat.shape)
+    pc = 256                   # panels per step
+    for lo in range(0, P, pc):
+        dwp, dgg[lo:lo + pc] = _panel_bwd_chunk(
+            sten[lo:lo + pc], g[idx[lo:lo + pc]], dyb[tgt[lo:lo + pc]], wmat,
+            R, K, True)
+        dw += dwp
+    return dgg.reshape(P * TS, M), dw
+
+
+@functools.cache
+def _k6_bwd_entry():
+    """(kernel entry, floats of scratch it needs for given sizes)."""
+    lib = kernels.library("band_compact_bwd")
+    fn = lib.band_compact_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    size = lib.band_compact_bwd_scratch_floats
+    size.argtypes = [ctypes.c_int] * 8
+    size.restype = ctypes.c_longlong
+    return fn, size
+
+
+def _band_compact_bwd_cuda(dy, g, wmat, sten, meta, src_idx, fold_order,
+                           fold_ptr, tbt, n_rings, band_limit):
+    name = "band_compact_bwd"
+    n_out, O2 = dy.shape
+    N, M = g.shape
+    P, TS = sten.shape[0], sten.shape[-1]
+    _k5_check(name, g, wmat, sten, meta, tbt, n_rings, band_limit, True,
+              n_out, ("dy", dy, torch.float32),
+              ("src_idx", src_idx, torch.int32),
+              ("fold_order", fold_order, torch.int32),
+              ("fold_ptr", fold_ptr, torch.int32), ts=TS)
+    if tuple(src_idx.shape) != (P, TS) or O2 != wmat.shape[-1] \
+            or tuple(fold_ptr.shape) != (N + 1,):
+        raise ValueError(f"{name}: src_idx {tuple(src_idx.shape)} for {P} "
+                         f"panels of {TS} columns, dy {tuple(dy.shape)}, "
+                         f"wmat {tuple(wmat.shape)}, fold_ptr "
+                         f"{tuple(fold_ptr.shape)} for {N} rows")
+    if tbt > 32:
+        raise NotImplementedError(
+            f"{name}'s kernel takes panels of at most 32 target rows (the "
+            f"pure-panel layout's compact convs run at TBt 32), got TBt="
+            f"{tbt}")
+    K = 2 * band_limit + 1
+    fn, scratch_floats = _k6_bwd_entry()
+    sizes = (P, n_out // tbt, M // (2 * K), K, n_rings, tbt, TS, O2)
+    f32 = dict(dtype=torch.float32, device=g.device)
+    dg = torch.empty((N, M), **f32)
+    dw = torch.empty(tuple(wmat.shape), **f32)
+    # contrib, then dc, of every target row, the dW partial sums and the
+    # per-panel dG blocks
+    scratch = torch.empty((max(1, scratch_floats(*sizes)),), **f32)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = fn(dy.data_ptr(), g.data_ptr(), wmat.data_ptr(), sten.data_ptr(),
+             meta.data_ptr(), src_idx.data_ptr(), fold_order.data_ptr(),
+             fold_ptr.data_ptr(), dg.data_ptr(), dw.data_ptr(),
+             scratch.data_ptr(), *sizes, N, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    kernels.launches[name] += 1
+    kernels.launches["compact_fold"] += 1        # its last pass
+    return dg, dw
+
+
+def band_compact_bwd(dy, g, wmat, sten, meta, src_idx, fold_order, fold_ptr,
+                     tbt: int, n_rings: int, band_limit: int):
+    """K6 backward (dg (N, M), dw (R, M, O2)) for the output cotangent dy
+    (n_out, O2) (shapes as in :func:`band_compact_bwd_reference`): the
+    per-panel dG blocks folded onto g's rows through the table's fold index
+    (``fold_order``, ``fold_ptr``).
+
+    CPU tensors run the plain version and the plain fold
+    (ops/compact_fold.py); CUDA tensors launch the kernel, whose last pass
+    is the fold (building it on first use), or raise.  The kernel takes
+    TBt ≤ 32."""
+    _k5_float32(sten)
+    if g.device.type == "cpu":
+        dgg, dw = band_compact_bwd_reference(dy, g, wmat, sten, meta, src_idx,
+                                             tbt, n_rings, band_limit)
+        return compact_fold_reference(dgg, src_idx, g.shape[0]), dw
+    if g.device.type == "cuda":
+        return _band_compact_bwd_cuda(dy, g, wmat, sten, meta, src_idx,
+                                      fold_order, fold_ptr, tbt, n_rings,
+                                      band_limit)
+    raise ValueError(f"band_compact_bwd has no kernel for device {g.device}")
+
+
+class _BandCompactFn(torch.autograd.Function):
+    """K6 with its hand-written backward: the counterpart of the JAX
+    package's ``_band_compact`` custom VJP.  Keeps g, wmat, the stencil,
+    meta, src_idx and the fold index for the backward, which
+    rematerialises contrib; the table takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, g, wmat, sten, meta, src_idx, fold_order, fold_ptr,
+                tbt: int, n_rings: int, band_limit: int):
+        ctx.save_for_backward(g, wmat, sten, meta, src_idx, fold_order,
+                              fold_ptr)
+        ctx.args = (tbt, n_rings, band_limit)
+        return band_compact_fwd(g, wmat, sten, meta, src_idx, *ctx.args)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        dg, dw = band_compact_bwd(dy.contiguous(), *ctx.saved_tensors,
+                                  *ctx.args)
+        return dg, dw, None, None, None, None, None, None, None, None
 
 
 def field_conv_compact(x, comp: CompactPanelTable, zonal, spherical, phase,
@@ -702,8 +849,9 @@ def field_conv_banded(x, banded, zonal, spherical, phase, ftype,
     PanelTable covering the meshes of x's leading axes (one K5 launch
     serves the batch, forward and backward, through :class:`_BandPanelFn`
     on either device), or a CompactPanelTable covering them the same way
-    (one K6 launch; forward only on the card).  As in the JAX package,
-    fuse_filters only selects among the BandedTable kernels."""
+    (one K6 launch, forward and backward, through :class:`_BandCompactFn`).
+    As in the JAX package, fuse_filters only selects among the BandedTable
+    kernels."""
     compact = isinstance(banded, CompactPanelTable)
     if not compact and not isinstance(banded, (BandedTable, PanelTable)):
         raise NotImplementedError(
@@ -732,9 +880,10 @@ def field_conv_banded(x, banded, zonal, spherical, phase, ftype,
                 f"x carries {g.shape[0]} rows but the panel table covers "
                 f"{banded.n_mesh} mesh(es) of {banded.n_pad}")
         if compact:
-            y2 = band_compact_fwd(g, wmat, banded.sten, banded.meta,
-                                  banded.src_idx, banded.tb, banded.n_rings,
-                                  banded.band_limit)
+            y2 = _BandCompactFn.apply(g, wmat, banded.sten, banded.meta,
+                                      banded.src_idx, banded.fold_order,
+                                      banded.fold_ptr, banded.tb,
+                                      banded.n_rings, banded.band_limit)
         else:
             y2 = _BandPanelFn.apply(g, wmat, banded.sten, banded.meta,
                                     banded.meta_s, banded.tb,

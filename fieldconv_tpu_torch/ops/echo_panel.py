@@ -1,5 +1,6 @@
 """Panel ECHO with the hand-written kernels: K2 (forward and backward) over
-the compressed PanelTable, K7 (forward) over the CompactPanelTable.
+the compressed PanelTable, K7 (forward and backward) over the
+CompactPanelTable.
 
 Counterpart of ``fieldconv_tpu/ops/pallas/echo_panel.py``.  The
 rasterisation runs in ``csrc/echo_panel_fwd.cu``, which replaces the TPU
@@ -7,12 +8,15 @@ kernel ``_fwd_impl`` (body ``_fwd_kernel`` with the helpers
 ``_panel_tensors``, ``_b_factors`` and ``_a_masks``), its gradient in
 ``csrc/echo_panel_bwd.cu``, which replaces ``_bwd_impl`` (body
 ``_bwd_kernel``), and over compact panels in ``csrc/echo_compact_fwd.cu``,
-which replaces ``_fwd_impl_compact`` (the same body on gathered columns).
-The wrappers :func:`echo_panel_grid`, :func:`echo_panel_grid_bwd` and
-:func:`echo_compact_grid` launch them for CUDA tensors and run the plain
-PyTorch versions (``*_reference``) for CPU tensors; they never move work
-between devices.  :class:`_EchoPanelFn` ties K2's two directions together
-for autograd, as ``jax.custom_vjp`` does in the JAX package.
+which replaces ``_fwd_impl_compact`` (the same body on gathered columns),
+and ``csrc/echo_compact_bwd.cu``, which replaces ``_bwd_impl_compact``
+(body ``_bwd_kernel_compact``) with the fold that follows it.  The wrappers
+:func:`echo_panel_grid`, :func:`echo_panel_grid_bwd`,
+:func:`echo_compact_grid` and :func:`echo_compact_grid_bwd` launch them
+for CUDA tensors and run the plain PyTorch versions (``*_reference``) for
+CPU tensors; they never move work between devices.  :class:`_EchoPanelFn`
+and :class:`_EchoCompactFn` tie each kernel's two directions together for
+autograd, as ``jax.custom_vjp`` does in the JAX package.
 :func:`echo_panel_fused` does what ``echo_panel_pallas`` does around the
 kernels: the (w², dS) disk-map fold and soft_abs.
 """
@@ -27,6 +31,7 @@ import torch
 from .. import kernels
 from ..precomp.banded import CompactPanelTable, PanelTable
 from ..utils.complexops import EPS, soft_abs
+from .compact_fold import compact_fold_reference
 from .echo import fold_matrix
 
 
@@ -153,41 +158,66 @@ def echo_panel_grid_bwd_reference(dg, x, sten, meta_s, n_bins: int,
     none.  Returns dx (rows, C, 2); the rows of a source block with no
     panel in meta_s are zero."""
     C, TB = x.shape[1], sten.shape[-1]
-    w2 = (2 * n_bins + 1) ** 2
     xb = x.reshape(-1, TB, C, 2)
-    dgb = dg.reshape(nb_out, 2, w2, C, TB).permute(0, 1, 3, 4, 2)
+    dgb = _grid_cells_minor(dg, n_bins)
     meta_s = meta_s.long()
     dx = x.new_zeros(xb.shape)
     pc = 8
     for lo in range(0, meta_s.shape[1], pc):
         pid, tgt, src = (meta_s[i, lo:lo + pc] for i in range(3))
-        t = _panel_tensors(sten[pid], xb[src], n_bins)
-        (e1C, e1F, e2C, e2F), weights, cells = _corners(t["p1"], t["p2"],
-                                                        n_bins)
-        dgt = dgb[tgt]                                   # (pc, 2, C, TBt, w²)
-        dv = dp1 = dp2 = 0.0
-        for k, (cell, wk) in enumerate(zip(cells, weights)):
-            gk = torch.gather(dgt, -1, cell[:, None].expand(
-                -1, 2, -1, -1, -1))                      # (pc, 2, C, TBt, TBs)
-            dv = dv + wk[:, None] * gk
-            dW = t["v_re"] * gk[:, 0] + t["v_im"] * gk[:, 1]
-            dp1 = dp1 + dW * (-e2C, e2F, e2C, -e2F)[k]
-            dp2 = dp2 + dW * (-e1C, e1F, -e1F, e1C)[k]
-        lr, li = t["ln_re"], t["ln_im"]
-        du_re = (n_bins * (dp1 * lr + dp2 * li)).sum(2)  # (pc, C, TBs)
-        du_im = (n_bins * (dp1 * li - dp2 * lr)).sum(2)
-        uR, uI = t["uR"][:, :, 0], t["uI"][:, :, 0]
-        dot = uR * du_re + uI * du_im
-        scale = (t["inv_r"] * t["nzf"])[:, :, 0]
-        nzf = t["nzf"][:, :, 0]
-        wre, wim = t["wre"], t["wim"]
-        dx_re = ((du_re - uR * dot) * scale
-                 + (dv[:, 0] * wre + dv[:, 1] * wim).sum(2) * nzf)
-        dx_im = ((du_im - uI * dot) * scale
-                 + (dv[:, 1] * wre - dv[:, 0] * wim).sum(2) * nzf)
-        part = torch.stack([dx_re, dx_im], -1).transpose(1, 2)  # (pc,TBs,C,2)
+        part = _unvote(sten[pid], xb[src], dgb[tgt], n_bins)
         dx = dx.index_add(0, src, part)
     return dx.reshape(x.shape)
+
+
+def _grid_cells_minor(dg, n_bins: int):
+    """A grid or its cotangent (nb, 2w², C, TBt) (any strides) viewed as
+    (nb, 2, C, TBt, w²): re / im, then the cells last."""
+    nb, _, C, TBt = dg.shape
+    w2 = (2 * n_bins + 1) ** 2
+    return dg.reshape(nb, 2, w2, C, TBt).permute(0, 1, 3, 4, 2)
+
+
+def _unvote(sten_c, xs, dgt, n_bins: int):
+    """The transpose of K2's (and K7's) vote over a chunk of panels sten_c
+    (pc, 5, TBt, TS) against their source rows xs (pc, TS, C, 2), for the
+    cotangents dgt (pc, 2, C, TBt, w²) of their target blocks' grids: per
+    slot p, the corners, the weights and the vote recomputed as the
+    forward forms them, then
+
+        dv   = Σ_k w_k·G_k,  dW_k = v_re·G_k,re + v_im·G_k,im
+        dp1  = −dW0·e2C + dW1·e2F + dW2·e2C − dW3·e2F
+        dp2  = −dW0·e1C + dW1·e1F − dW2·e1F + dW3·e1C
+        du   = n_bins·(dp1·ln + dp2·i·ln) summed over the targets, taken
+               through u = x/|x| by (I − ûûᵀ)/|x|
+        dx   = conj(wxp)·dv summed over the targets, plus du's share
+
+    Returns each panel's column gradients (pc, TS, C, 2); a source at the
+    origin gets none."""
+    t = _panel_tensors(sten_c, xs, n_bins)
+    (e1C, e1F, e2C, e2F), weights, cells = _corners(t["p1"], t["p2"],
+                                                    n_bins)
+    dv = dp1 = dp2 = 0.0
+    for k, (cell, wk) in enumerate(zip(cells, weights)):
+        gk = torch.gather(dgt, -1, cell[:, None].expand(
+            -1, 2, -1, -1, -1))                          # (pc, 2, C, TBt, TS)
+        dv = dv + wk[:, None] * gk
+        dW = t["v_re"] * gk[:, 0] + t["v_im"] * gk[:, 1]
+        dp1 = dp1 + dW * (-e2C, e2F, e2C, -e2F)[k]
+        dp2 = dp2 + dW * (-e1C, e1F, -e1F, e1C)[k]
+    lr, li = t["ln_re"], t["ln_im"]
+    du_re = (n_bins * (dp1 * lr + dp2 * li)).sum(2)      # (pc, C, TS)
+    du_im = (n_bins * (dp1 * li - dp2 * lr)).sum(2)
+    uR, uI = t["uR"][:, :, 0], t["uI"][:, :, 0]
+    dot = uR * du_re + uI * du_im
+    scale = (t["inv_r"] * t["nzf"])[:, :, 0]
+    nzf = t["nzf"][:, :, 0]
+    wre, wim = t["wre"], t["wim"]
+    dx_re = ((du_re - uR * dot) * scale
+             + (dv[:, 0] * wre + dv[:, 1] * wim).sum(2) * nzf)
+    dx_im = ((du_im - uI * dot) * scale
+             + (dv[:, 1] * wre - dv[:, 0] * wim).sum(2) * nzf)
+    return torch.stack([dx_re, dx_im], -1).transpose(1, 2)
 
 
 def _check(x, sten, meta, n_bins: int, nb_out: int, name="echo_panel_fwd",
@@ -390,21 +420,139 @@ def echo_compact_grid(x, sten, meta, src_idx, n_bins: int, nb_out: int):
     block over a CompactPanelTable (shapes as in
     :func:`echo_compact_grid_reference`).
 
-    CPU tensors run the plain version (differentiable by autograd); CUDA
-    tensors launch the kernel (building it on first use) or raise.  On the
-    card the op is forward-only: a gradient request raises, since K7's
-    backward is not ported yet (ROADMAP Queue 2, K7 bwd: slice 8)."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (building it on first use) or raise.  Gradients go through
+    :class:`_EchoCompactFn`."""
     if x.device.type == "cpu":
         return echo_compact_grid_reference(x, sten, meta, src_idx, n_bins,
                                            nb_out)
     if x.device.type == "cuda":
-        if torch.is_grad_enabled() and x.requires_grad:
-            raise NotImplementedError(
-                "a gradient through the compact ECHO on the card needs K7's "
-                "backward (_bwd_impl_compact), which is not ported yet: "
-                "ROADMAP Queue 2, K7 bwd (compact training, slice 8)")
         return _echo_compact_fwd_cuda(x, sten, meta, src_idx, n_bins, nb_out)
     raise ValueError(f"echo_compact_grid has no kernel for device {x.device}")
+
+
+# --- K7 backward: plain version, wrapper, kernel launch -----------------------
+
+def echo_compact_grid_bwd_reference(dg, x, sten, meta, src_idx,
+                                    n_bins: int):
+    """Plain PyTorch K7 backward, written out (not taken from autograd):
+    what ``_bwd_impl_compact`` (body ``_bwd_kernel_compact``) returns on
+    the gathered columns, 8 panels at a time.
+
+    dg: (nb_out, 2w², C, TBt) cotangent of the grid (any strides); x,
+    sten, meta, src_idx as in :func:`echo_compact_grid_reference`.  Each
+    panel p of target block meta[0, p] transposes its votes as
+    :func:`echo_panel_grid_bwd_reference` does, with the source feature of
+    column s at row src_idx[p, s].  Returns the per-column gradients dxg
+    (P·TS, C, 2), before the fold onto x's rows
+    (:func:`echo_compact_grid_bwd` folds them)."""
+    idx, tgt = src_idx.long(), meta[0].long()
+    dgb = _grid_cells_minor(dg, n_bins)
+    P, TS = src_idx.shape
+    dxg = x.new_empty(P, TS, *x.shape[1:])
+    pc = 8
+    for lo in range(0, P, pc):
+        dxg[lo:lo + pc] = _unvote(sten[lo:lo + pc], x[idx[lo:lo + pc]],
+                                  dgb[tgt[lo:lo + pc]], n_bins)
+    return dxg.reshape(P * TS, *x.shape[1:])
+
+
+@functools.cache
+def _k7_bwd_entry():
+    """(kernel entry, floats of scratch it needs for given sizes)."""
+    lib = kernels.library("echo_compact_bwd")
+    fn = lib.echo_compact_bwd
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 4
+                   + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    size = lib.echo_compact_bwd_scratch_floats
+    size.argtypes = [ctypes.c_int] * 3
+    size.restype = ctypes.c_longlong
+    return fn, size
+
+
+def _echo_compact_bwd_cuda(dg, x, sten, meta, src_idx, fold_order,
+                           fold_ptr, n_bins: int):
+    name = "echo_compact_bwd"
+    P, TBt, TS = sten.shape[0], sten.shape[2], sten.shape[-1]
+    rows, C = x.shape[0], x.shape[1]
+    nb_out = rows // TBt
+    _check(x, sten, meta, n_bins, nb_out, name, ("src_idx", src_idx),
+           ("fold_order", fold_order), ("fold_ptr", fold_ptr), ts=TS)
+    want = (nb_out, 2 * (2 * n_bins + 1) ** 2, C, TBt)
+    if tuple(dg.shape) != want or dg.dtype != torch.float32 \
+            or dg.device != x.device:
+        raise ValueError(f"{name} needs float32 dg of shape {want} on "
+                         f"{x.device}, got {tuple(dg.shape)} {dg.dtype} on "
+                         f"{dg.device}")
+    if tuple(meta.shape) != (4, P) or tuple(src_idx.shape) != (P, TS) \
+            or tuple(fold_ptr.shape) != (rows + 1,):
+        raise ValueError(f"{name}: meta {tuple(meta.shape)}, src_idx "
+                         f"{tuple(src_idx.shape)} for {P} panels of {TS} "
+                         f"columns, fold_ptr {tuple(fold_ptr.shape)} for "
+                         f"{rows} rows")
+    fn, scratch_floats = _k7_bwd_entry()
+    dx = torch.empty_like(x)
+    # the per-column gradients, folded onto dx by the kernel's last pass
+    scratch = torch.empty((max(1, scratch_floats(P, C, TS)),),
+                          dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    # dg is read through its strides: the gradient autograd hands over is
+    # the transpose of the fold's cell-minor layout, taken without a copy
+    err = fn(dg.data_ptr(), *dg.stride(), x.data_ptr(), sten.data_ptr(),
+             meta.data_ptr(), src_idx.data_ptr(), fold_order.data_ptr(),
+             fold_ptr.data_ptr(), dx.data_ptr(), scratch.data_ptr(), P,
+             nb_out, C, TBt, TS, n_bins, rows, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    kernels.launches[name] += 1
+    kernels.launches["compact_fold"] += 1        # its last pass
+    return dx
+
+
+def echo_compact_grid_bwd(dg, x, sten, meta, src_idx, fold_order, fold_ptr,
+                          n_bins: int):
+    """K7 backward: dx (rows, C, 2) for the grid's cotangent dg (shapes as
+    in :func:`echo_compact_grid_bwd_reference`): the per-column gradients
+    folded onto x's rows through the table's fold index (``fold_order``,
+    ``fold_ptr``).
+
+    CPU tensors run the plain version and the plain fold
+    (ops/compact_fold.py); CUDA tensors launch the kernel, whose last pass
+    is the fold (building it on first use), or raise.  dg is taken in any
+    strides on both devices: contiguous, or cells minor as autograd hands
+    it over from :func:`echo_panel_fused`."""
+    if x.device.type == "cpu":
+        dxg = echo_compact_grid_bwd_reference(dg, x, sten, meta, src_idx,
+                                              n_bins)
+        return compact_fold_reference(dxg.reshape(dxg.shape[0], -1),
+                                      src_idx, x.shape[0]).reshape(x.shape)
+    if x.device.type == "cuda":
+        return _echo_compact_bwd_cuda(dg, x, sten, meta, src_idx, fold_order,
+                                      fold_ptr, n_bins)
+    raise ValueError(f"echo_compact_grid_bwd has no kernel for device "
+                     f"{x.device}")
+
+
+class _EchoCompactFn(torch.autograd.Function):
+    """K7 with its hand-written backward: the counterpart of the JAX
+    package's ``_echo_compact_grid`` custom VJP.  Keeps x, the stencil,
+    meta, src_idx and the fold index for the backward, not the grid; the
+    gradient goes to x only."""
+
+    @staticmethod
+    def forward(ctx, x, sten, meta, src_idx, fold_order, fold_ptr,
+                n_bins: int, nb_out: int):
+        ctx.save_for_backward(x, sten, meta, src_idx, fold_order, fold_ptr)
+        ctx.n_bins = n_bins
+        return echo_compact_grid(x, sten, meta, src_idx, n_bins, nb_out)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dg):
+        dx = echo_compact_grid_bwd(dg, *ctx.saved_tensors, ctx.n_bins)
+        return dx, None, None, None, None, None, None, None
 
 
 def _check_panel(x, panel):
@@ -435,8 +583,9 @@ def echo_panel_fused(x, panel, n_bins: int):
     xf = x.reshape(-1, C, 2).contiguous()
     rows = xf.shape[0]
     if isinstance(panel, CompactPanelTable):
-        grid = echo_compact_grid(xf, panel.sten, panel.meta, panel.src_idx,
-                                 n_bins, rows // TB)
+        grid = _EchoCompactFn.apply(xf, panel.sten, panel.meta, panel.src_idx,
+                                    panel.fold_order, panel.fold_ptr, n_bins,
+                                    rows // TB)
     else:
         grid = _EchoPanelFn.apply(xf, panel.sten, panel.meta, panel.meta_s,
                                   n_bins, rows // TB)

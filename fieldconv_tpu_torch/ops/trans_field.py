@@ -21,6 +21,7 @@ from ..precomp.banded import (CompactPanelTable, CompressedBandedTable,
 from ..precomp.edge_table import EdgeTable
 from ..utils.complexops import cpolar, soft_abs, soft_absolute, soft_angle
 from .band_conv import _hats_from_r
+from .compact_fold import compact_fold
 from .field_conv import gather_rows, resolve_d_chunk
 
 
@@ -161,9 +162,10 @@ def trans_field_panel_contrib(x, panel: PanelTable, lift_cols=(0, 1),
                          f"table covers {panel.n_mesh} mesh(es) of "
                          f"{panel.n_pad}")
     meta = panel.meta.long()
-    ang, mag = _lift_over_panels(lambda lo, hi: xb[meta[1, lo:hi]], xb,
-                                 panel.sten, meta[0], R, B, lift_cols[1],
-                                 panel_chunk)
+    seg, ssum_seg, mag = _lift_sums(lambda lo, hi: xb[meta[1, lo:hi]],
+                                    panel.sten, meta[0], xb.shape[0], C, R,
+                                    B, lift_cols[1], panel_chunk)
+    ang = _lift_angular(seg, ssum_seg, xb)
     return (ang.reshape(*lead, N, C, R, 2), mag.reshape(*lead, N, C, R))
 
 
@@ -172,63 +174,123 @@ def trans_field_compact_contrib(x, compact: CompactPanelTable,
     """TransField aggregation over the CompactPanelTable layout: the math of
     :func:`trans_field_panel_contrib` with each panel's source columns
     gathered per ``src_idx`` (the row gather written out, ``panel_chunk``
-    panels at a time) instead of read as whole blocks.  Forward only here:
-    the JAX package's custom VJP of this aggregation (``_compact_lift_agg``)
-    is ROADMAP Queue 1 item 6 (compact training, slice 8); on CPU tensors
-    autograd differentiates the plain ops.
+    panels at a time) instead of read as whole blocks.  The source sums go
+    through :class:`_CompactLiftAggFn`, the counterpart of the JAX
+    package's custom VJP ``_compact_lift_agg``, whose backward folds the
+    per-column gradients with one compact_fold; the target-row term is
+    ordinary autograd.
 
     x: (..., N, C) real scalars; the table covers the meshes of x's leading
     axes (precomp.banded.concat_compact_panel_tables).
     Returns contribAng (..., N, C, R, 2), contribMag (..., N, C, R)."""
-    R, B, TB = compact.n_rings, compact.band_limit, compact.tb
+    R, TB = compact.n_rings, compact.tb
     lead, N, C = x.shape[:-2], x.shape[-2], x.shape[-1]
     xf = x.reshape(-1, C)
     if xf.shape[0] != compact.n_mesh * compact.n_pad:
         raise ValueError(f"x carries {xf.shape[0]} rows but the compact "
                          f"table covers {compact.n_mesh} mesh(es) of "
                          f"{compact.n_pad}")
-    idx = compact.src_idx.long()
-    ang, mag = _lift_over_panels(lambda lo, hi: xf[idx[lo:hi]],
-                                 xf.reshape(-1, TB, C), compact.sten,
-                                 compact.meta[0].long(), R, B, lift_cols[1],
-                                 panel_chunk)
+    seg, ssum_seg, mag = _CompactLiftAggFn.apply(
+        xf, compact.sten, compact.meta, compact.src_idx, compact.fold_order,
+        compact.fold_ptr, (R, compact.band_limit, lift_cols[1], panel_chunk,
+                           TB))
+    ang = _lift_angular(seg, ssum_seg, xf.reshape(-1, TB, C))
     return (ang.reshape(*lead, N, C, R, 2), mag.reshape(*lead, N, C, R))
 
 
-def _lift_over_panels(rows, xb, sten, tgt, R: int, B: int, k1: int,
-                      panel_chunk: int):
-    """The lift's aggregation over compressed panels sten (P, 5, TBt, TS) of
+def _lift_stencils(sten_c, R: int, B: int, k1: int):
+    """A chunk of compressed panels' lift stencils: the hats (R, cb, TBt,
+    TS), s1 = hats ⊗ fwxp_k1 (R, cb, TBt, TS, 2) with fwxp_k1 =
+    wxp·e^{ik1θ} rebuilt from the planes, and sm = hats·|wxp| (the
+    magnitude stencil rsten·|wxp|)."""
+    hats = _hats_from_r(sten_c[:, 0], R)                   # (R, cb, TB, TS)
+    pr, pi = sten_c[:, 1], sten_c[:, 2]
+    wr, wi = sten_c[:, 3], sten_c[:, 4]
+    e1r, e1i = _phasor_power(pr, pi, k1 - B)
+    f1 = torch.stack([wr * e1r - wi * e1i, wr * e1i + wi * e1r], -1)
+    wmag = torch.sqrt(wr * wr + wi * wi)
+    return hats[..., None] * f1, hats * wmag
+
+
+def _lift_sums(rows, sten, tgt, nb_out: int, C: int, R: int, B: int,
+               k1: int, panel_chunk: int):
+    """The lift's source sums over compressed panels sten (P, 5, TBt, TS) of
     target blocks tgt (P,), each panel against its source rows
     ``rows(lo, hi)`` ((hi − lo, TS, C), one per column): per panel a (TBt,
-    C, R, 2) partial of the angular sum and a (TBt, C, R) one of the
-    magnitude sum, summed per target block.  The hats and fwxp_k1 =
-    wxp·e^{ik1θ} are rebuilt from the planes; the magnitude stencil uses
-    rsten·|wxp|.  xb: (nb_out, TBt, C), the target rows.  Returns contribAng
-    (nb_out, TBt, C, R, 2), contribMag (nb_out, TBt, C, R)."""
-    nb_out, TB, C = xb.shape
-    seg = xb.new_zeros(nb_out, TB, C, R, 2)
-    ssum_seg = xb.new_zeros(nb_out, TB, R, 2)
-    mag = xb.new_zeros(nb_out, TB, C, R)
+    C, R, 2) partial of the angular sum s1·x, a (TBt, R, 2) one of s1's
+    row sums and a (TBt, C, R) one of the magnitude sum sm·x, each summed
+    per target block.  Returns (seg (nb_out, TBt, C, R, 2), ssum_seg
+    (nb_out, TBt, R, 2), mag (nb_out, TBt, C, R))."""
+    TB = sten.shape[2]
+    seg = sten.new_zeros(nb_out, TB, C, R, 2)
+    ssum_seg = sten.new_zeros(nb_out, TB, R, 2)
+    mag = sten.new_zeros(nb_out, TB, C, R)
     for lo in range(0, sten.shape[0], panel_chunk):
-        sten_c = sten[lo:lo + panel_chunk]
         tgt_c = tgt[lo:lo + panel_chunk]
-        hats = _hats_from_r(sten_c[:, 0], R)               # (R, cb, TB, TS)
-        pr, pi = sten_c[:, 1], sten_c[:, 2]
-        wr, wi = sten_c[:, 3], sten_c[:, 4]
-        e1r, e1i = _phasor_power(pr, pi, k1 - B)
-        f1 = torch.stack([wr * e1r - wi * e1i, wr * e1i + wi * e1r], -1)
-        wmag = torch.sqrt(wr * wr + wi * wi)
+        s1, sm = _lift_stencils(sten[lo:lo + panel_chunk], R, B, k1)
         xs = rows(lo, lo + panel_chunk)                    # (cb, TS, C)
-        s1 = hats[..., None] * f1                          # (R, cb, TB, TS, 2)
         part = torch.einsum("rptsj,psc->ptcrj", s1, xs)
         ssum = torch.sum(s1, dim=3).permute(1, 2, 0, 3)    # (cb, TB, R, 2)
-        magp = torch.einsum("rpts,psc->ptcr", hats * wmag, xs)
+        magp = torch.einsum("rpts,psc->ptcr", sm, xs)
         seg = seg.index_add(0, tgt_c, part)
         ssum_seg = ssum_seg.index_add(0, tgt_c, ssum)
         mag = mag.index_add(0, tgt_c, magp)
+    return seg, ssum_seg, mag
 
-    ang = -(seg - xb[..., None, None] * ssum_seg[:, :, None])
-    return ang, mag
+
+def _lift_angular(seg, ssum_seg, xb):
+    """contribAng = −Σ (x_s − x_t)·s1 = −(seg − x_t·ssum), per target row;
+    xb (nb_out, TBt, C) the target rows."""
+    return -(seg - xb[..., None, None] * ssum_seg[:, :, None])
+
+
+class _CompactLiftAggFn(torch.autograd.Function):
+    """The compact lift's source sums (:func:`_lift_sums` over a
+    CompactPanelTable's gathered columns) with a hand-written backward: the
+    counterpart of the JAX package's ``_compact_lift_agg`` custom VJP.
+    Its backward is :func:`_compact_lift_agg_bwd`; the stencil sums
+    ``ssum_seg`` take no gradient, and neither does the table."""
+
+    @staticmethod
+    def forward(ctx, x, sten, meta, src_idx, fold_order, fold_ptr, statics):
+        R, B, k1, pc, TB = statics
+        ctx.save_for_backward(sten, meta, src_idx, fold_order, fold_ptr)
+        ctx.statics, ctx.rows = statics, x.shape[0]
+        idx = src_idx.long()
+        out = _lift_sums(lambda lo, hi: x[idx[lo:hi]], sten, meta[0].long(),
+                         x.shape[0] // TB, x.shape[1], R, B, k1, pc)
+        ctx.mark_non_differentiable(out[1])
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_seg, d_ssum, d_mag):
+        dx = _compact_lift_agg_bwd(d_seg, d_mag, *ctx.saved_tensors,
+                                   ctx.statics, ctx.rows)
+        return dx, None, None, None, None, None, None
+
+
+def _compact_lift_agg_bwd(d_seg, d_mag, sten, meta, src_idx, fold_order,
+                          fold_ptr, statics, rows: int):
+    """The transpose of the compact lift's per-panel contraction, as the
+    JAX package's ``_compact_lift_agg_bwd`` forms it: per chunk of panels
+    d_xs = s1ᵀ·d_part + smᵀ·d_magp (plain torch, where JAX runs XLA), with
+    d_part and d_magp each panel's target block's rows of d_seg and d_mag,
+    then one compact_fold of the (P·TS, C) column gradients onto x's rows.
+    Returns dx (rows, C)."""
+    R, B, k1, pc, TB = statics
+    tgt = meta[0].long()
+    P, TS = src_idx.shape
+    C = d_seg.shape[2]
+    d_xs = d_seg.new_empty(P, TS, C)
+    for lo in range(0, P, pc):
+        s1, sm = _lift_stencils(sten[lo:lo + pc], R, B, k1)
+        tgt_c = tgt[lo:lo + pc]
+        d_xs[lo:lo + pc] = (
+            torch.einsum("rptsj,ptcrj->psc", s1, d_seg[tgt_c])
+            + torch.einsum("rpts,ptcr->psc", sm, d_mag[tgt_c]))
+    return compact_fold(d_xs.reshape(P * TS, C), src_idx, fold_order,
+                        fold_ptr, rows)
 
 
 def trans_field(x, table, zonal_ang, zonal_mag, phase, ftype,

@@ -460,6 +460,12 @@ class CompactPanelTable:
         panels sorted by target block; every block owns >= 1 panel.
       src_idx: (P, TS) int32 source row per column; dead columns point at
         the mesh's vertex 0 (their planes are empty, so they add nothing).
+      fold_order: (L,) int32 flat columns p·TS + s of the L live columns
+        (those holding an occupied slot), stably sorted by source row: the
+        inverse of src_idx, with which a backward folds per-column
+        gradients onto vertices without atomics (ops/compact_fold.py);
+      fold_ptr: (rows + 1,) int32, row v's run fold_order[fold_ptr[v]:
+        fold_ptr[v + 1]] (rows = n_mesh·n_pad).
 
     A batch of meshes is one table (:func:`concat_compact_panel_tables`):
     mesh m's target blocks are offset by m·nb and its source rows by
@@ -470,6 +476,8 @@ class CompactPanelTable:
     sten: torch.Tensor
     meta: torch.Tensor
     src_idx: torch.Tensor
+    fold_order: torch.Tensor
+    fold_ptr: torch.Tensor
     tb: int
     n_pad: int
     band_limit: int
@@ -489,7 +497,21 @@ class CompactPanelTable:
     def to(self, device) -> "CompactPanelTable":
         return dataclasses.replace(self, sten=self.sten.to(device),
                                    meta=self.meta.to(device),
-                                   src_idx=self.src_idx.to(device))
+                                   src_idx=self.src_idx.to(device),
+                                   fold_order=self.fold_order.to(device),
+                                   fold_ptr=self.fold_ptr.to(device))
+
+
+def fold_index(live_cols: np.ndarray, live_src: np.ndarray, rows: int):
+    """(fold_order, fold_ptr) of a compact table whose live columns, in
+    ascending flat order, are ``live_cols`` reading source rows
+    ``live_src``: the columns stably sorted by source row, and each of the
+    ``rows`` rows' run in that order."""
+    by_src = np.argsort(live_src, kind="stable")
+    ptr = np.zeros(rows + 1, np.int64)
+    np.cumsum(np.bincount(live_src, minlength=rows), out=ptr[1:])
+    return (torch.from_numpy(live_cols[by_src].astype(np.int32)),
+            torch.from_numpy(ptr.astype(np.int32)))
 
 
 def build_compact_panel_table(table: EdgeTable, tb: int = 128,
@@ -562,9 +584,12 @@ def build_compact_panel_table(table: EdgeTable, tb: int = 128,
     sten[pid, 3, t_loc, c_loc] = wxp[tgt_o, slot_o, 0]
     sten[pid, 4, t_loc, c_loc] = wxp[tgt_o, slot_o, 1]
 
+    # gcol is ascending: the distinct (block, source) pairs in key order
+    fold_order, fold_ptr = fold_index(gcol, us, N)
     return CompactPanelTable(
         sten=torch.from_numpy(sten), meta=torch.from_numpy(meta),
-        src_idx=torch.from_numpy(src_idx), tb=tb, n_pad=N,
+        src_idx=torch.from_numpy(src_idx), fold_order=fold_order,
+        fold_ptr=fold_ptr, tb=tb, n_pad=N,
         band_limit=table.band_limit, n_rings=table.n_rings, ts=ts)
 
 
@@ -572,8 +597,9 @@ def concat_compact_panel_tables(tables) -> CompactPanelTable:
     """One table for a batch of meshes' CompactPanelTables (same tb, ts and
     n_pad): mesh m's target blocks (meta row 0) are offset by m·nb, its
     panel ids (meta row 1) by the panels before it and its source rows
-    (src_idx) by m·n_pad.  A single table comes back as it is (no copy of
-    its stencil)."""
+    (src_idx) by m·n_pad, its fold index's columns by the columns before it
+    and its runs by the live columns before it.  A single table comes back
+    as it is (no copy of its stencil)."""
     c0 = tables[0]
     if len(tables) == 1 and c0.n_mesh == 1:
         return c0
@@ -582,17 +608,22 @@ def concat_compact_panel_tables(tables) -> CompactPanelTable:
             raise ValueError("compact tables of one batch must share tb, ts "
                              "and n_pad")
     nb = c0.n_pad // c0.tb
-    metas, idxs, pid0 = [], [], 0
+    metas, idxs, orders, ptrs = [], [], [], [c0.fold_ptr[:1]]
+    pid0 = live0 = 0
     for m, c in enumerate(tables):
         meta = c.meta.clone()
         meta[0] += m * nb
         meta[1] += pid0
         metas.append(meta)
         idxs.append(c.src_idx + m * c0.n_pad)
+        orders.append(c.fold_order + pid0 * c0.ts)
+        ptrs.append(c.fold_ptr[1:] + live0)
         pid0 += c.n_panels
+        live0 += c.fold_order.shape[0]
     return dataclasses.replace(
         c0, sten=torch.cat([c.sten for c in tables]),
         meta=torch.cat(metas, dim=1), src_idx=torch.cat(idxs),
+        fold_order=torch.cat(orders), fold_ptr=torch.cat(ptrs),
         n_mesh=len(tables))
 
 

@@ -8,8 +8,7 @@ presets, the pure-panel layout of large meshes (every op over one
 PanelTable), the compact route (ECHO and the lift, and optionally the
 convs, over one CompactPanelTable), or the gather path when ``banded_tb``
 is None.  ``fit`` and ``evaluate_task`` train and evaluate the three of
-them on every layout but the compact route (slice 8); matching is ROADMAP
-Queue 1 item 3.
+them on every one of these layouts; matching is ROADMAP Queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -166,12 +165,11 @@ def fit(config: ExperimentConfig, train_records: List[MeshRecord],
 
     A bucket on the pure-panel layout trains as the others do: every conv
     runs K5 forward and backward, ECHO K2, over the batch's one
-    PanelTable.  An ECHO config with echo_impl "compact" (and banded_tb
-    set) raises on either device: its training is ROADMAP slice 8."""
+    PanelTable.  On the compact route (an ECHO config with echo_impl
+    "compact" and banded_tb set) ECHO runs K7 forward and backward over the
+    batch's one CompactPanelTable, and with conv_impl "compact" every conv
+    runs K6 forward and backward over it too."""
     device = resolve_device(device)
-    if banded_tb is not None and config.echo_impl == "compact" \
-            and config.task in ("segmentation", "correspondence"):
-        _compact_training_unported("echo_impl='compact'")
     net = build_model(config, n_classes,
                       generator=torch.Generator().manual_seed(seed),
                       device=device)
@@ -260,21 +258,11 @@ def fit(config: ExperimentConfig, train_records: List[MeshRecord],
     return net, opt, final
 
 
-def _compact_training_unported(what: str):
-    raise NotImplementedError(
-        f"{what} puts a CompactPanelTable in the batches, whose training and "
-        "evaluation need K6's and K7's backwards and the compact lift's "
-        "VJP, not ported yet: ROADMAP Queue 1 item 6 (compact training, "
-        "slice 8); serve it with Predictor, or set config.echo_impl='panel'")
-
-
 def evaluate_task(net, config: ExperimentConfig, test_batches,
                   n_classes: int):
     """The task's test metric: accuracy (classification, per-vertex for
-    segmentation) or the mean test cross entropy (correspondence).  Batches
-    that carry a CompactPanelTable raise, as :func:`fit` does."""
-    if any(b.compact is not None for b in test_batches):
-        _compact_training_unported("a test batch")
+    segmentation) or the mean test cross entropy (correspondence), over
+    batches of any layout."""
     if config.task == "classification":
         return evaluate.classification_accuracy(net, test_batches)
     if config.task == "segmentation":

@@ -17,6 +17,7 @@ from fieldconv_tpu_torch import kernels
 from fieldconv_tpu_torch.data.base import MeshRecord
 from fieldconv_tpu_torch.data.synthetic import sphere_record
 from fieldconv_tpu_torch.ops import band_conv as tbc
+from fieldconv_tpu_torch.ops import compact_fold as tcf
 from fieldconv_tpu_torch.ops import echo_panel as tep
 from fieldconv_tpu_torch.precomp.banded import (BandedTable,
                                                 build_panel_table,
@@ -469,7 +470,9 @@ def test_k6_kernel_matches_plain_on_card(C, O2, B, R, tbt, ts):
     (K = 3, R = 3 and K = 5, R = 6) and both panel shapes: tolerance 1e-4
     of the output's scale (f32 sums over a target's panels and slots in
     another order).  A second call is bitwise equal (one writer per output,
-    no atomics); a gradient request raises."""
+    no atomics).  K6's backward (dg after the fold, and dw) the same way,
+    each to 1e-4 of its own scale and bitwise repeatable, at TBt 32; over
+    128-row panels it raises."""
     _need_card()
     rng = np.random.default_rng(C + R + tbt)
     comp = _compact_table(rng, B, R, tbt, ts)
@@ -486,8 +489,25 @@ def test_k6_kernel_matches_plain_on_card(C, O2, B, R, tbt, ts):
     err = (got - want).abs().max().item()
     assert err <= 1e-4 * want.abs().max().item(), err
     assert torch.equal(got, tbc.band_compact_fwd(*args))
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tbc.band_compact_fwd(g.requires_grad_(), *args[1:])
+
+    dy = torch.randn(comp.n_pad, O2, device="cuda", generator=gen)
+    bargs = (dy, g, wmat, comp.sten, comp.meta, comp.src_idx,
+             comp.fold_order, comp.fold_ptr, tbt, R, B)
+    if tbt > 32:
+        with pytest.raises(NotImplementedError, match="at most 32"):
+            tbc.band_compact_bwd(*bargs)
+        return
+    before = kernels.launches["band_compact_bwd"]
+    dg, dw = tbc.band_compact_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert kernels.launches["band_compact_bwd"] == before + 1
+    dgg, want_w = tbc.band_compact_bwd_reference(*bargs[:6], tbt, R, B)
+    want_g = tcf.compact_fold_reference(dgg, comp.src_idx, comp.n_pad)
+    for got_, want_ in ((dg, want_g), (dw, want_w)):
+        err = (got_ - want_).abs().max().item()
+        assert err <= 1e-4 * want_.abs().max().item(), err
+    dg2, dw2 = tbc.band_compact_bwd(*bargs)
+    assert torch.equal(dg, dg2) and torch.equal(dw, dw2)
 
 
 @pytest.mark.cuda
@@ -497,7 +517,10 @@ def test_k7_kernel_matches_plain_on_card(n_bins, C, tbt, ts):
     """K7 against its plain version on the card, on both panel shapes, with
     ~20% origin rows: tolerance 1e-4 of the grid's scale (f32 sums over a
     target's panels in another order, and FMA).  A second call is bitwise
-    equal; a gradient request raises."""
+    equal.  K7's backward the same way, to 1e-4 of dx's scale (dx sums over
+    a column's targets and a row's columns in another order) and bitwise
+    repeatable, for a contiguous cotangent and one in the layout autograd
+    hands over (cells minor)."""
     _need_card()
     rng = np.random.default_rng(C + tbt)
     comp = _compact_table(rng, 1, 3, tbt, ts)
@@ -513,8 +536,50 @@ def test_k7_kernel_matches_plain_on_card(n_bins, C, tbt, ts):
     err = (got - want).abs().max().item()
     assert err <= 1e-4 * want.abs().max().item(), err
     assert torch.equal(got, tep.echo_compact_grid(*args))
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tep.echo_compact_grid(x.requires_grad_(), *args[1:])
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dg = torch.randn(got.shape, device="cuda", generator=gen)
+    cells_minor = dg.permute(0, 3, 2, 1).contiguous().permute(0, 3, 2, 1)
+    bargs = (x, comp.sten, comp.meta, comp.src_idx, comp.fold_order,
+             comp.fold_ptr, n_bins)
+    want = tcf.compact_fold_reference(
+        tep.echo_compact_grid_bwd_reference(dg, *args[:5]).reshape(
+            -1, 2 * C), comp.src_idx, comp.n_pad).reshape(x.shape)
+    for cot in (dg, cells_minor):
+        before = kernels.launches["echo_compact_bwd"]
+        dx = tep.echo_compact_grid_bwd(cot, *bargs)
+        torch.cuda.synchronize()
+        assert kernels.launches["echo_compact_bwd"] == before + 1
+        err = (dx - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), err
+        assert torch.equal(dx, tep.echo_compact_grid_bwd(cot, *bargs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [3, 24, 192])
+def test_compact_fold_kernel_matches_plain_on_card(W):
+    """The compact fold on the card against its plain version (index_add
+    over every column on the CPU), for per-column values whose dead columns
+    are zero, as every backward gives them: equal bit for bit (both sum a
+    row's live columns in ascending column order from 0), and bitwise
+    repeatable."""
+    _need_card()
+    rng = np.random.default_rng(W)
+    comp = _compact_table(rng, 1, 3, 32, 128)
+    live = (comp.sten[:, 3:5] != 0).any(1).any(1).reshape(-1)
+    vals = torch.from_numpy(rng.normal(size=(live.numel(), W)).astype(
+        np.float32)).cuda() * live[:, None]
+    before = kernels.launches["compact_fold"]
+    got = tcf.compact_fold(vals, comp.src_idx, comp.fold_order,
+                           comp.fold_ptr, comp.n_pad)
+    torch.cuda.synchronize()
+    assert kernels.launches["compact_fold"] == before + 1
+    want = tcf.compact_fold_reference(vals.cpu(), comp.src_idx.cpu(),
+                                      comp.n_pad)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, tcf.compact_fold(vals, comp.src_idx,
+                                             comp.fold_order, comp.fold_ptr,
+                                             comp.n_pad))
 
 
 @pytest.mark.cuda
@@ -545,3 +610,46 @@ def test_correspondence_compact_forward_card_matches_cpu(conv_impl):
         assert grew == ({} if dev == "cpu" else {
             conv: 17, "echo_compact_fwd": 1}), grew
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conv_impl", ["panel", "compact"])
+def test_correspondence_compact_loss_backward_card_matches_cpu(conv_impl):
+    """One correspondence loss backward on the compact route (K7 forward
+    and backward once, and K5 or, with conv_impl="compact", K6 forward and
+    backward 17 times each; no K2) with an injected dropout mask, against
+    the same on the CPU: every parameter's gradient within 1e-4 of its
+    scale (every op sums in another order)."""
+    _need_card()
+    rng = np.random.default_rng(2)
+    config = dataclasses.replace(PRESETS["correspondence"], nf=8, n_des=4,
+                                 layout="panel", echo_impl="compact",
+                                 conv_impl=conv_impl)
+    recs = [_record(rng, 200, 16, 40, 0.05, labels=rng.integers(0, 6, 200))]
+    net = build_model(config, 6, torch.Generator().manual_seed(0),
+                      device="cpu")
+    aug = draw_rotate_scale(torch.Generator().manual_seed(1), 1, 45.0, None)
+    conv = "band_compact" if conv_impl == "compact" else "band_panel"
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        batch = make_batches(recs, config, 1, 32, device=dev)[0]
+        assert batch.compact.tb == 32 and batch.banded is None
+        mask = torch.from_numpy((np.random.default_rng(3).random(
+            (1, batch.pos.shape[1], 256)) < 0.5).astype(np.float32))
+        net = net.to(dev)
+        before = dict(kernels.launches)
+        loss = make_loss_fn(net, config, 6)(batch, aug=aug,
+                                            dropout_mask=mask.to(dev))
+        grads[dev] = [g.cpu() for g in torch.autograd.grad(
+            loss, list(net.parameters()))]
+        grew = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+                if v != before.get(k, 0)}
+        # the fold kernel: the last pass of each K6 and K7 backward
+        folds = 18 if conv_impl == "compact" else 1
+        assert grew == ({} if dev == "cpu" else {
+            f"{conv}_fwd": 17, f"{conv}_bwd": 17, "echo_compact_fwd": 1,
+            "echo_compact_bwd": 1, "compact_fold": folds}), grew
+    for (name, _), a, b in zip(net.named_parameters(), grads["cuda"],
+                               grads["cpu"]):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * b.abs().max().item(), (name, err)
