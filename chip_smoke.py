@@ -118,6 +118,38 @@ Phases, any failure exits non-zero:
      and time its step as above, with a remat_blocks step;
   9. print the kernels line, the card line and the result line.
 
+The compressed banded layout (each phase's checks hold):
+  2b. hold K4's forward and backward (compressed banded conv) against their
+     plain versions (1e-4 of each output's scale; the backward bitwise
+     against a second call) on the compressed tables of the 8192-sample
+     record (C=32, O2=64, K=5, R=6), of the segmentation batch (C=48,
+     O2=96) and of the correspondence record at its four widths (K=3,
+     R=3), each also against K1 on the dense table of the same EdgeTable,
+     and on a random compressed table with nh=4 that reaches past both ends
+     of g; K3's forward and backward (the unfused contrib) the same way on
+     the dense tables; field_conv_banded(fuse_filters=False) against the
+     fused conv on y and every gradient; each timed beside its plain
+     version and its bound;
+  5d. path A: serve the segmentation batch and the correspondence record
+     with echo_impl="banded" (9 / 17 K1 launches a request and nothing
+     else: the banded ECHO and lift are plain torch over the batch's
+     CompressedBandedTable), each against the CPU;
+  5e. path B: the same batches with the compressed table as the conv table
+     (batch.banded = batch.comp: 9 / 17 K4 launches, no K1), against the
+     CPU;
+  7d. fit both presets with echo_impl="banded" as in 7 (9 / 17 K1 each way
+     per step), the first epoch against the CPU's;
+  7e. on the serving batches, the loss and every gradient of paths A and
+     B against the CPU's (each within 1e-4 of its own scale, or 10x the
+     CPU's path A against its path B where that is larger), then one
+     make_train_step step on path B (9 / 17 K4 each way);
+  8. also times path A's and path B's requests and steps, and five convs
+     unfused at bench.py's shape (path C: 5 K3 each way).
+
+The CPU's side of every first-epoch check of 6-7d (fit(device="cpu"))
+runs in one worker process, started with the records and stopped with the
+script, beside the card's phases.
+
 Records are synthetic, built with numpy from --seed by
 fieldconv_tpu_torch/data/synthetic.py, in the manner of
 bench.py::build_synthetic_tables: unique sources within ±bandwidth of each
@@ -131,6 +163,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import multiprocessing as mp
 import os
 import re
 import statistics
@@ -139,6 +172,7 @@ import sys
 import tempfile
 import time
 from collections import Counter
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -147,11 +181,19 @@ from fieldconv_tpu_torch import kernels
 from fieldconv_tpu_torch.data.base import shared_bucket
 from fieldconv_tpu_torch.data.synthetic import sphere_record, synthetic_record
 from fieldconv_tpu_torch.deploy import Predictor
-from fieldconv_tpu_torch.ops.band_conv import (_panel_pairs,
+from fieldconv_tpu_torch.ops.band_conv import (_hats_from_r, _panel_pairs,
+                                               band_cfused_bwd,
+                                               band_cfused_bwd_reference,
+                                               band_cfused_fwd,
+                                               band_cfused_reference,
                                                band_compact_bwd,
                                                band_compact_bwd_reference,
                                                band_compact_fwd,
                                                band_compact_fwd_reference,
+                                               band_contrib_bwd,
+                                               band_contrib_bwd_reference,
+                                               band_contrib_fwd,
+                                               band_contrib_reference,
                                                band_fused_bwd,
                                                band_fused_bwd_reference,
                                                band_fused_fwd,
@@ -172,6 +214,7 @@ from fieldconv_tpu_torch.ops.echo_panel import (echo_compact_grid,
                                                 echo_panel_grid_bwd_reference,
                                                 echo_panel_grid_reference)
 from fieldconv_tpu_torch.precomp.banded import (build_compact_panel_table,
+                                                build_compressed_banded,
                                                 build_panel_table)
 from fieldconv_tpu_torch.ops.trans_field import (_compact_lift_agg_bwd,
                                                  _lift_sums)
@@ -179,7 +222,10 @@ from fieldconv_tpu_torch.train.checkpoint import CheckpointManager
 from fieldconv_tpu_torch.train.config import PRESETS
 from fieldconv_tpu_torch.train.loop import (build_model, evaluate_task, fit,
                                             make_batches, resolve_layout)
-from fieldconv_tpu_torch.train.trainer import make_optimizer, make_train_step
+from fieldconv_tpu_torch.train.trainer import (draw_dropout_mask,
+                                               draw_rotate_scale,
+                                               make_loss_fn, make_optimizer,
+                                               make_train_step)
 from fieldconv_tpu_torch.utils.complexops import EPS
 
 # H100 SXM data-sheet peaks (dense, 700 W): HBM bytes/s and f32 FLOP/s
@@ -209,6 +255,15 @@ K5_RTOL_SCALE = 1e-4
 # scale, and bitwise against a second call.  K6 (the compact conv) and K7
 # (the compact ECHO) as K5 and K2: 1e-4 of the output's scale, and bitwise
 # against a second call
+# K4 (the compressed banded conv) and K3 (the unfused contrib) against
+# their plain versions as K1: each output to 1e-4 of its scale, and every
+# backward bitwise against a second call.  K4 against K1 on the dense table
+# of the same EdgeTable: what tests/test_band_conv.py::
+# test_compressed_matches_fused allows the JAX pair, y within 2e-5, the
+# gradients within 3e-4 + 1e-3·|K1's| (the hats rebuilt from r in f32
+# against the table's stored ones, and f32 sums in another order)
+K4_RTOL_SCALE = K3_RTOL_SCALE = 1e-4
+K4_K1_ATOL, K4_K1_GRAD = 2e-5, (3e-4, 1e-3)
 # the pure-panel request at the repo's north-star size (BASELINE.json
 # configs[4]: a correspondence mesh of 163,842 vertices, scripts/
 # train_100k.py), under layout="auto"
@@ -234,6 +289,18 @@ K2_BWD_FLOPS_PER_PAIR = 82
 # parameter's gradient is near zero, so its move barely shows in the next
 # loss whatever the task: every preset is held to the same bounds.
 LOSS_ATOL_STEP1, LOSS_ATOL_LATER = 2e-4, 2e-3
+# loss gradients of paths A and B, card against CPU, per parameter: within
+# 1e-4 of the parameter's own scale, or within GRAD_SPREAD times the spread
+# between the CPU's two routes of the same function (path A's K1 and path
+# B's K4 plain versions, whose conv outputs differ by rounding alone),
+# whichever is larger.  The ECHO-block conv's gradient is small (~1e-9 at
+# the segmentation width) and the two CPU routes already differ there by
+# ~6e-3 of it (a likely cause: a rounding difference that moves a vote
+# across a cell edge of ECHO's bilinear splat changes the derivative of
+# its weights).  No bar may exceed GRAD_BAR_CAP of the parameter's own
+# scale, so a gradient that is wrong outright fails.
+GRAD_SPREAD, GRAD_BAR_CAP = 10.0, 0.25
+
 TRAIN_EPOCHS = 2
 # the fits on the card, per shape: (train records, batch size, test
 # records), TRAIN_EPOCHS epochs each (4 steps; 2 for the correspondence
@@ -242,7 +309,8 @@ TRAIN_FIT = {"shrec11_b8": (16, 8, 8), "seg_n2048_b4": (8, 4, 4),
              "corr_n5120_b1": (2, 1, 1), "corr_n5120_b1_panel": (2, 1, 1),
              "corr_n5120_b1_panel_compact": (2, 1, 1),
              "corr_n5120_b1_panel_allcompact": (2, 1, 1),
-             "seg_n2048_b4_compact": (8, 4, 4)}
+             "seg_n2048_b4_compact": (8, 4, 4),
+             "seg_n2048_b4_bech": (8, 4, 4), "corr_n5120_b1_bech": (2, 1, 1)}
 # conv launches (K1, or K5 on the pure-panel layout, or K6 on the
 # all-compact route) per forward (and per backward) pass of each net
 CONVS_PER_PASS = {"shrec11_b8": 5, "seg_n2048_b4": 9, "corr_n5120_b1": 17,
@@ -251,13 +319,18 @@ CONVS_PER_PASS = {"shrec11_b8": 5, "seg_n2048_b4": 9, "corr_n5120_b1": 17,
                   "corr_n5120_b1_panel_allcompact": 17,
                   "seg_n2048_b4_compact": 9,
                   f"corr_n{N_LARGE}_b1_compact": 17,
-                  f"corr_n{N_LARGE}_b1_allcompact": 17}
+                  f"corr_n{N_LARGE}_b1_allcompact": 17,
+                  "seg_n2048_b4_bech": 9, "corr_n5120_b1_bech": 17}
 # the kernels' short names in the printed lines
 SHORT = {"band_fused": "K1", "echo_panel": "K2", "band_panel": "K5",
-         "band_compact": "K6", "echo_compact": "K7"}
+         "band_compact": "K6", "echo_compact": "K7", "band_cfused": "K4",
+         "band_contrib": "K3"}
 # the fit at N_LARGE: the CORRESPONDENCE preset's 60 epochs cut to 3 (one
 # record, so 3 steps); nothing else is cut
 LARGE_EPOCHS = 3
+# torch threads of the worker that runs the CPU's reference fits beside the
+# card's phases (the machine has 8 cores; the main process keeps the rest)
+CPU_THREADS = 6
 
 
 def check(cond, msg):
@@ -1107,6 +1180,227 @@ def fold_time(row, vals, comp):
                       live * W, live_columns=live))
 
 
+# --- K3 and K4 against their plain versions ---------------------------------------
+
+def _k4_table(sten, R):
+    """What a K4 call needs of a compressed band stencil (n_mesh, nb, 5, TB,
+    W'), a mesh at a time: the nonzero hats and occupied slots (any nonzero
+    hat) of the stencil it stands for, and the bytes it must read (the r
+    plane whole, the phasor and wxp planes only in the 32-byte sectors that
+    hold an occupied slot)."""
+    check(sten.shape[-1] % 8 == 0,
+          "the bounds count 32-byte sectors of 8 slots")
+    hats = occupied = sectors = 0
+    for m in range(sten.shape[0]):
+        nz = _hats_from_r(sten[m, :, 0], R) != 0            # (R, nb, TB, W')
+        occ = nz.any(0)
+        hats += int(nz.sum().item())
+        occupied += int(occ.sum().item())
+        sectors += int(occ.reshape(-1, 8).any(-1).sum().item())
+        del nz, occ
+    slots = sten[:, :, 0].numel()
+    return hats, occupied, _stencil_bytes(slots, 5, 1, sectors)
+
+
+def _stencil_ops(hats, occupied, K, C, transposed=False):
+    """The f32 operations of the stencil term in the cheaper of k1_bound's
+    (forward) or k1_bwd_bound's (transposed) two orders."""
+    per_slot = 8 if transposed else 6
+    return min(occupied * K * per_slot * C + hats * K * 4 * C,
+               hats * K * (8 * C + 2))
+
+
+def k4_bound(g, wmat, sten, K):
+    """Least time for one K4 call: bytes (the stencil as _k4_table counts
+    it, g and W read once, y written once) over HBM rate, and the f32
+    operations counted as in k1_bound over the f32 rate: the stencil term
+    and the filter contraction 2·N·R·M·O2."""
+    n_mesh, N, M = g.shape
+    R, _, O2 = wmat.shape
+    C = M // (2 * K)
+    hats, occupied, sten_bytes = _k4_table(sten, R)
+    flops = (_stencil_ops(hats, occupied, K, C)
+             + 2 * n_mesh * N * R * M * O2)
+    nbytes = sten_bytes + 4 * (g.numel() + wmat.numel() + n_mesh * N * O2)
+    return _bound(nbytes, flops, stencil_bytes=sten_bytes,
+                  stencil_bytes_whole=4 * sten.numel(),
+                  slot_fill=occupied / sten[:, :, 0].numel())
+
+
+def k4_bwd_bound(g, wmat, dy, sten, K):
+    """Least time for one K4 backward call: bytes (the stencil as
+    _k4_table counts it, g, dy and W read once, dg and dW written once) and
+    the f32 operations counted as in k1_bwd_bound."""
+    n_mesh, N, M = g.shape
+    R, _, O2 = wmat.shape
+    C = M // (2 * K)
+    hats, occupied, sten_bytes = _k4_table(sten, R)
+    flops = (_stencil_ops(hats, occupied, K, C)
+             + _stencil_ops(hats, occupied, K, C, transposed=True)
+             + 2 * 2 * n_mesh * N * R * M * O2)
+    nbytes = sten_bytes + 4 * (2 * g.numel() + 2 * wmat.numel()
+                               + dy.numel())
+    return _bound(nbytes, flops)
+
+
+def k3_bound(g, sten, R, K):
+    """Least time for one K3 call: bytes (the dense stencil and g read
+    once, contrib, N·R·M floats, written once: it is the function's
+    output) over HBM rate, and the stencil term of k1_bound (no filter
+    contraction) over the f32 rate."""
+    n_mesh, N, M = g.shape
+    hats, occupied = _stencil_counts(sten, R)
+    flops = _stencil_ops(hats, occupied, K, M // (2 * K))
+    nbytes = 4 * (sten.numel() + g.numel() + n_mesh * N * R * M)
+    return _bound(nbytes, flops)
+
+
+def k3_bwd_bound(dout, sten, R, K):
+    """Least time for one K3 backward call: bytes (the dense stencil and
+    the contrib cotangent read once, dG written once) and the transposed
+    stencil term of k1_bwd_bound."""
+    n_mesh, rows, M = dout.shape
+    hats, occupied = _stencil_counts(sten, R)
+    flops = _stencil_ops(hats, occupied, K, M // (2 * K), transposed=True)
+    nbytes = 4 * (sten.numel() + dout.numel() + n_mesh * (rows // R) * M)
+    return _bound(nbytes, flops)
+
+
+def k4_check(label, g, wmat, sten, nh, R, B, dy, dense=None):
+    """K4 forward and backward against their plain versions (y, dg and dw
+    each to K4_RTOL_SCALE of its scale; a second call bitwise equal) and,
+    given the dense stencil of the same EdgeTable, against K1's forward and
+    backward (values within K4_K1_ATOL, gradients within K4_K1_GRAD of the
+    JAX test that holds the same pair).  Returns the forward's and the
+    backward's rows."""
+    args = (sten, TB, nh, R, B)
+    err, scale = check_fwd(
+        "K4", label, lambda: band_cfused_fwd(g, wmat, *args),
+        lambda: band_cfused_reference(g, wmat, *args), K4_RTOL_SCALE)
+    bwd = check_bwd(
+        "K4 bwd", label, lambda: band_cfused_bwd(dy, g, wmat, *args),
+        lambda: band_cfused_bwd_reference(dy, g, wmat, *args), K4_RTOL_SCALE,
+        ("dg", "dw"))
+    shape = dict(shape=label, n_mesh=g.shape[0], N=g.shape[1], M=g.shape[2],
+                 nh=nh, O2=wmat.shape[2])
+    if dense is not None:
+        y4, y1 = (band_cfused_fwd(g, wmat, *args),
+                  band_fused_fwd(g, dense, wmat, TB, nh))
+        verr = (y4 - y1).abs().max().item()
+        check(verr <= K4_K1_ATOL, f"K4 {label}: y against K1's, max abs err "
+                                  f"{verr} > {K4_K1_ATOL}")
+        gerr = 0.0
+        for a, b in zip(band_cfused_bwd(dy, g, wmat, *args),
+                        band_fused_bwd(dy, g, dense, wmat, TB, nh)):
+            excess = ((a - b).abs() - K4_K1_GRAD[1] * b.abs()).max().item()
+            check(excess <= K4_K1_GRAD[0],
+                  f"K4 bwd {label}: against K1's by {excess} over rtol "
+                  f"{K4_K1_GRAD[1]}, atol {K4_K1_GRAD[0]}")
+            gerr = max(gerr, (a - b).abs().max().item())
+        print(f"K4 {label}: against K1 on the dense table of the same "
+              f"EdgeTable: y max abs err {verr:.3e} (atol {K4_K1_ATOL}), dg "
+              f"and dw max abs err {gerr:.3e} (atol {K4_K1_GRAD[0]}, rtol "
+              f"{K4_K1_GRAD[1]})")
+    return (dict(shape, max_abs_err=err, max_rel_err=err / scale),
+            dict(shape, **bwd))
+
+
+def k4_time(row, brow, g, wmat, sten, nh, R, B, dy):
+    args = (sten, TB, nh, R, B)
+    K = 2 * B + 1
+    row["ms"] = time_cuda(lambda: band_cfused_fwd(g, wmat, *args), iters=20)
+    row["plain_ms"] = time_cuda(
+        lambda: band_cfused_reference(g, wmat, *args), iters=2, reps=3)
+    row.update(k4_bound(g, wmat, sten, K))
+    brow["ms"] = time_cuda(lambda: band_cfused_bwd(dy, g, wmat, *args),
+                           iters=10)
+    brow["plain_ms"] = time_cuda(
+        lambda: band_cfused_bwd_reference(dy, g, wmat, *args), iters=1,
+        reps=3)
+    brow.update(k4_bwd_bound(g, wmat, dy, sten, K))
+
+
+def k3_check(label, g, sten, nh, R, K, dout):
+    """K3 forward and backward against their plain versions (contrib and
+    dg each to K3_RTOL_SCALE of its scale; a second call bitwise equal).
+    Returns the forward's and the backward's rows."""
+    args = (sten, TB, nh, R, K)
+    err, scale = check_fwd(
+        "K3", label, lambda: band_contrib_fwd(g, *args),
+        lambda: band_contrib_reference(g, *args), K3_RTOL_SCALE, "contrib")
+    bwd = check_bwd(
+        "K3 bwd", label, lambda: (band_contrib_bwd(dout, *args),),
+        lambda: (band_contrib_bwd_reference(dout, *args),), K3_RTOL_SCALE,
+        ("dg",))
+    shape = dict(shape=label, n_mesh=g.shape[0], N=g.shape[1], M=g.shape[2],
+                 nh=nh)
+    return (dict(shape, max_abs_err=err, max_rel_err=err / scale),
+            dict(shape, **bwd))
+
+
+def k3_time(row, brow, g, sten, nh, R, K, dout):
+    args = (sten, TB, nh, R, K)
+    row["ms"] = time_cuda(lambda: band_contrib_fwd(g, *args), iters=20)
+    row["plain_ms"] = time_cuda(lambda: band_contrib_reference(g, *args),
+                                iters=2, reps=3)
+    row.update(k3_bound(g, sten, R, K))
+    brow["ms"] = time_cuda(lambda: band_contrib_bwd(dout, *args), iters=20)
+    brow["plain_ms"] = time_cuda(
+        lambda: band_contrib_bwd_reference(dout, *args), iters=2, reps=3)
+    brow.update(k3_bwd_bound(dout, sten, R, K))
+
+
+def random_comp(n_mesh, nb, R, nh, gen):
+    """A random compressed band stencil (n_mesh, nb, 5, TB, (2nh+1)·TB):
+    ~60% empty slots (R_SENTINEL in r, zero wxp), r uniform in [0, 1] at
+    the others, unit phasors, random wxp."""
+    shape = (n_mesh, nb, TB, (2 * nh + 1) * TB)
+    dev = gen.device
+    empty = torch.rand(shape, device=dev, generator=gen) < 0.6
+    r = torch.rand(shape, device=dev, generator=gen).masked_fill(empty, 9.0)
+    th = torch.rand(shape, device=dev, generator=gen) * (2 * np.pi)
+    w = torch.randn((2, *shape), device=dev, generator=gen).masked_fill(
+        empty, 0.0)
+    return torch.stack([r, torch.cos(th), torch.sin(th), w[0], w[1]], dim=2)
+
+
+def unfused_check(label, banded, dev, gen, C=32):
+    """One field_conv_banded with fuse_filters=False (K3 each way, then the
+    filter product) against fuse_filters=True (K1 each way) on the same
+    card: y and the gradients of x and of the three filter tensors, each
+    within K3_RTOL_SCALE of its scale."""
+    B, R = banded.band_limit, banded.n_rings
+    lead = (banded.sten_band.shape[0], banded.n_pad)
+    x = torch.randn(*lead, C, 2, device=dev, generator=gen)
+    filt = [0.2 * torch.randn(sh, device=dev, generator=gen)
+            for sh in ((C, C, R), (C, C, R, B, 2), (C, C, B + 1))]
+    dy = torch.randn(*lead, C, 2, device=dev, generator=gen)
+    outs = []
+    for fuse in (False, True):
+        t = [a.clone().requires_grad_() for a in (x, *filt)]
+        y = field_conv_banded(t[0], banded, *t[1:], 1, fuse_filters=fuse)
+        y.backward(dy)
+        outs.append([y.detach()] + [a.grad for a in t])
+    errs = []
+    for name, a, b in zip(("y", "dx", "dzonal", "dspherical", "dphase"),
+                          *outs):
+        err, scale = (a - b).abs().max().item(), b.abs().max().item()
+        check(err <= K3_RTOL_SCALE * scale,
+              f"unfused {label}: {name} max abs err {err} > {K3_RTOL_SCALE} "
+              f"x {scale}")
+        errs.append(f"{name} {err / scale:.2e}")
+    print(f"unfused conv {label}: fuse_filters=False (K3) against True (K1) "
+          f"on the card, rel err {', '.join(errs)} (tolerance "
+          f"{K3_RTOL_SCALE} of each one's scale)")
+
+
+def stencil_mb(batch):
+    """MB of the dense band stencil and of the compressed one in a banded
+    batch."""
+    return (4 * batch.banded.sten_band.numel() / 1e6,
+            4 * batch.comp.sten_band.numel() / 1e6)
+
+
 def compact_stats(kind, rows, card):
     """The kernel rows' times, then what each table holds."""
     print_times(kind, rows, card)
@@ -1143,14 +1437,23 @@ def serve_counted(serve, recs, batches, want):
     return dict(kernels.launches), served
 
 
-def match_cpu(k, p, recs, served, cpu_net):
+def as_cbanded(batches):
+    """Path B: each banded batch with its compressed table as the conv
+    table too (every conv through K4), as the JAX FieldConv and
+    batched_apply accept it."""
+    return [dataclasses.replace(b, banded=b.comp) for b in batches]
+
+
+def match_cpu(k, p, recs, served, cpu_net, cbanded=False):
     """The card's outputs ``served`` of Predictor ``p`` against the same
-    Predictor on the CPU (plain versions): logits within LOGIT_RTOL /
-    LOGIT_ATOL, labels / maps equal wherever the CPU's top-two logit gap
-    exceeds LABEL_GAP."""
+    Predictor on the CPU (plain versions; with ``cbanded`` on path B's
+    batches): logits within LOGIT_RTOL / LOGIT_ATOL, labels / maps equal
+    wherever the CPU's top-two logit gap exceeds LABEL_GAP."""
     key = "labels" if p.config.task == "segmentation" else "map"
-    cpu = Predictor(cpu_net, p.config, batch_size=p.batch_size,
-                    banded_tb=TB, device="cpu").predict(recs)
+    cpu_p = Predictor(cpu_net, p.config, batch_size=p.batch_size,
+                      banded_tb=TB, device="cpu")
+    cpu = cpu_p.predict(recs, batches=as_cbanded(cpu_p.make_batches(recs))
+                        if cbanded else None)
     n_close = n_all = 0
     diff = 0.0
     for a, b, r in zip(served, cpu, recs):
@@ -1223,11 +1526,13 @@ def path_kernels(cfg, n_pad):
     """The conv and ECHO kernels (launch-count names without _fwd / _bwd)
     that a net of ``cfg`` runs on a bucket of n_pad samples: K1, K5 on the
     pure-panel layout or K6 on the all-compact route; K2, or K7 with the
-    compact ECHO."""
+    compact ECHO, or none with the banded ECHO (plain torch)."""
     panel = resolve_layout(cfg, n_pad) == "panel"
     compact = cfg.task != "classification" and cfg.echo_impl == "compact"
     conv = ("band_compact" if panel and compact and cfg.conv_impl == "compact"
             else "band_panel" if panel else "band_fused")
+    if cfg.task == "classification" or cfg.echo_impl == "banded":
+        return conv, None
     return conv, "echo_compact" if compact else "echo_panel"
 
 
@@ -1238,7 +1543,7 @@ def step_launches(cfg, n_pad, n, steps, passes):
     K7 backward."""
     conv, echo = path_kernels(cfg, n_pad)
     want = {f"{conv}_fwd": n * passes, f"{conv}_bwd": n * steps}
-    if cfg.task != "classification":
+    if echo is not None:
         want.update({f"{echo}_fwd": passes, f"{echo}_bwd": steps})
     if echo == "echo_compact":
         want["compact_fold"] = steps * (1 + (n if conv == "band_compact"
@@ -1246,10 +1551,13 @@ def step_launches(cfg, n_pad, n, steps, passes):
     return {name: c for name, c in want.items() if c}
 
 
-def step_what(cfg, n_pad, n):
-    conv, echo = path_kernels(cfg, n_pad)
+def step_what(cfg, n_pad, n, conv=None):
+    """What a step launches, in words (``conv``: the conv kernel when the
+    batch's tables do not say it, K4 on path B)."""
+    conv_, echo = path_kernels(cfg, n_pad)
+    conv = conv or conv_
     what = f"{n} {SHORT[conv]} fwd + {n} {SHORT[conv]} bwd"
-    if cfg.task != "classification":
+    if echo is not None:
         what += f" + 1 {SHORT[echo]} fwd + 1 {SHORT[echo]} bwd"
     return what
 
@@ -1288,12 +1596,28 @@ def fit_counted(k, cfg, n_classes, train, test, bs, dev, seed, tmp):
     return net, opt, metric, losses, grew, fit_s
 
 
-def fit_phase(k, cfg, n_classes, recs, dev, seed, tmp):
+def cpu_first_epoch(cfg, train, n_classes, bs, seed):
+    """The losses of the first epoch of ``fit(cfg, train, device="cpu")``
+    (batch ``bs``, no checkpoints) and its seconds.  fit_phase's CPU
+    reference: chip_smoke runs it in a worker process (CPU_THREADS torch
+    threads) beside the card's phases."""
+    torch.set_num_threads(CPU_THREADS)
+    cfg = dataclasses.replace(cfg, epochs=1, checkpoint_every=1,
+                              checkpoint_dir=None)
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "cpu.jsonl")
+        t0 = time.perf_counter()
+        fit(cfg, train, None, n_classes=n_classes, batch_size=bs,
+            banded_tb=TB, log_path=log, seed=seed, device="cpu")
+        return read_losses(log), time.perf_counter() - t0
+
+
+def fit_phase(k, cfg, n_classes, recs, dev, seed, tmp, cpu_job):
     """fit_counted for TRAIN_EPOCHS epochs, checkpointing every epoch, and
-    the first epoch of the same fit on the CPU, at training shape ``k``:
-    ``recs`` holds the train records then the test records (TRAIN_FIT[k]).
-    The first epoch's losses must match the CPU's.  Returns the card run's
-    net and optimizer."""
+    the first epoch of the same fit on the CPU (``cpu_job``, the future of
+    cpu_first_epoch), at training shape ``k``: ``recs`` holds the train
+    records then the test records (TRAIN_FIT[k]).  The first epoch's losses
+    must match the CPU's.  Returns the card run's net and optimizer."""
     n_train, bs, _ = TRAIN_FIT[k]
     train, test = recs[:n_train], recs[n_train:]
     ck = dataclasses.replace(cfg, epochs=TRAIN_EPOCHS, checkpoint_every=1,
@@ -1304,13 +1628,7 @@ def fit_phase(k, cfg, n_classes, recs, dev, seed, tmp):
     latest = CheckpointManager(ck.checkpoint_dir).latest_step()
     check(latest == steps, f"{k}: latest checkpoint {latest}, want {steps}")
 
-    cpu_cfg = dataclasses.replace(ck, epochs=1, checkpoint_dir=None)
-    t0 = time.perf_counter()
-    fit(cpu_cfg, train, None, n_classes=n_classes, batch_size=bs,
-        banded_tb=TB, log_path=os.path.join(tmp, f"{k}_cpu.jsonl"),
-        seed=seed, device="cpu")
-    cpu_s = time.perf_counter() - t0
-    cpu = read_losses(os.path.join(tmp, f"{k}_cpu.jsonl"))
+    cpu, cpu_s = cpu_job.result()
     diffs = [abs(a - b) for a, b in zip(losses, cpu)]
     check(len(cpu) == steps // TRAIN_EPOCHS, f"{k}: cpu losses {cpu}")
     check(diffs[0] <= LOSS_ATOL_STEP1
@@ -1379,6 +1697,75 @@ def step_counted(k, cfg, n_classes, batch, dev, seed):
     return net, opt
 
 
+def grad_bar(own, spread):
+    """The bar of a gradient whose largest entry on the CPU is ``own`` and
+    whose two CPU routes differ by ``spread`` (GRAD_SPREAD)."""
+    return max(K1_RTOL_SCALE * own, GRAD_SPREAD * spread)
+
+
+def cbanded_check(k, cfg, n_classes, weights, batch, cpu_batch, dev, seed):
+    """Paths A and B's gradient check at shape ``k``: a net of ``cfg``
+    holding ``weights``, its loss and every parameter's gradient on the
+    card against the same net on the CPU, with the same augmentation and
+    dropout mask, on ``batch`` / ``cpu_batch`` (path A: K1 convs and the
+    banded ECHO) and on the same batches with the compressed table as the
+    conv table (path B: K4 convs).  Each loss within LOSS_ATOL_STEP1; each
+    gradient within grad_bar of its CPU route's, whose spread is the CPU's
+    path A against its path B.  Returns the card's path-B net, a fresh
+    optimizer of it, and the step's inputs: {dev: the aug and dropout_mask
+    keywords, "cpu_loss": the CPU's path-B loss}."""
+    gen = torch.Generator().manual_seed(seed + 3)
+    aug = draw_rotate_scale(gen, batch.pos.shape[0], cfg.random_rotate_deg,
+                            cfg.random_scale)
+    nets, out, kw, mask = {}, {}, {}, None
+    for d, b in (("cpu", cpu_batch), (dev, batch)):
+        nets[d] = build_model(cfg, n_classes, device=d)
+        nets[d].load_state_dict({n: v.to(d) for n, v in weights.items()})
+        if cfg.task == "correspondence" and mask is None:
+            mask = draw_dropout_mask(gen, nets[d], b)
+        kw[d] = dict(aug=tuple(None if a is None else a.to(d) for a in aug),
+                     dropout_mask=None if mask is None else mask.to(d))
+        for path, b_ in (("A", b), ("B", as_cbanded([b])[0])):
+            loss = make_loss_fn(nets[d], cfg, n_classes)(b_, **kw[d])
+            grads = torch.autograd.grad(loss, list(nets[d].parameters()))
+            out[d, path] = (loss.item(), [g.cpu() for g in grads])
+    names = [n for n, _ in nets["cpu"].named_parameters()]
+    spread = [(a - b).abs().max().item()
+              for a, b in zip(out["cpu", "A"][1], out["cpu", "B"][1])]
+    for path in "AB":
+        dloss = abs(out[dev, path][0] - out["cpu", path][0])
+        check(dloss <= LOSS_ATOL_STEP1,
+              f"{k} path {path}: loss {out[dev, path][0]} on the card, "
+              f"{out['cpu', path][0]} on the CPU")
+        worst, widened = (0.0, ""), []
+        for name, a, b, s_ in zip(names, out[dev, path][1],
+                                  out["cpu", path][1], spread):
+            own = b.abs().max().item()
+            bar = grad_bar(own, s_)
+            err = (a - b).abs().max().item()
+            check(bar <= GRAD_BAR_CAP * own,
+                  f"{k} path {path}: {name}'s CPU routes differ by {s_}, "
+                  f"too much to hold its gradient (scale {own})")
+            check(err <= bar, f"{k} path {path}: gradient of {name} max abs "
+                              f"err {err} > {bar} (scale {own}, CPU spread "
+                              f"{s_})")
+            worst = max(worst, (err / max(own, 1e-30), name))
+            if bar > K1_RTOL_SCALE * own:
+                widened.append(f"{name} (scale {own:.3e}, CPU spread "
+                               f"{s_ / own:.3e}, card {err / own:.3e})")
+        print(f"train {k} path {path} (every conv through "
+              f"{'K1' if path == 'A' else 'K4'}): loss "
+              f"{out[dev, path][0]:.6f} on the card, |diff| {dloss:.3e} from "
+              f"the CPU's (within {LOSS_ATOL_STEP1}); the largest gradient "
+              f"error is {worst[0]:.3e} of its parameter's own scale "
+              f"({worst[1]}); bar {K1_RTOL_SCALE} of the own scale, widened "
+              f"to {GRAD_SPREAD}x the CPU routes' spread for "
+              f"{'; '.join(widened) or 'none'}")
+    kw["cpu_loss"] = out["cpu", "B"][0]
+    net = nets[dev]
+    return net, make_optimizer(cfg, net.parameters()), kw
+
+
 def remat_step(k, tnet, cfg, n_classes, batch, dev, seed, card):
     """One training step of ``tnet``'s weights in a net built with
     remat_blocks (each FCResNetBlock recomputed in the backward: its 16
@@ -1415,9 +1802,11 @@ def remat_step(k, tnet, cfg, n_classes, batch, dev, seed, card):
           f"({base_gb:.2f} GB allocated before the step) on {card}")
 
 
-def conv_fwd_bwd(banded, dev, gen, C=32, B=2, R=6, n_convs=5):
+def conv_fwd_bwd(banded, dev, gen, C=32, B=2, R=6, n_convs=5,
+                 fuse_filters=True):
     """fn() running forward and backward of n_convs C→C field convolutions
-    (ftype 1) over ``banded``, as bench.py times one."""
+    (ftype 1) over ``banded``, as bench.py times one (fuse_filters=False:
+    bench.py's BENCH_FUSE=0 A/B, K3 and the filter product)."""
     N = banded.n_pad
     x = torch.randn(1, N, C, 2, device=dev, generator=gen).requires_grad_()
     shapes = ((C, C, R), (C, C, R, B, 2), (C, C, B + 1))
@@ -1426,7 +1815,8 @@ def conv_fwd_bwd(banded, dev, gen, C=32, B=2, R=6, n_convs=5):
     dy = torch.randn(1, N, C, 2, device=dev, generator=gen)
 
     def run():
-        ys = [field_conv_banded(x, banded, *f, 1) for f in filters]
+        ys = [field_conv_banded(x, banded, *f, 1, fuse_filters=fuse_filters)
+              for f in filters]
         torch.autograd.backward(ys, [dy] * n_convs)
 
     return run
@@ -1442,10 +1832,26 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    # one worker process for the CPU's reference fits; on the way out the
+    # jobs not started are dropped and the worker stops
+    pool = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
+    try:
+        return phases(args, pool)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def phases(args, pool) -> int:
+    """The phases of the module docstring; ``pool`` runs the CPU's
+    reference fits."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    kind = torch.cuda.get_device_name(0)
+    t_start = time.perf_counter()
+
+    def stamp(what):
+        print(f"[{time.perf_counter() - t_start:.0f} s] {what}")
+
     card = card_line()
     print(f"card: {card}")
 
@@ -1643,6 +2049,71 @@ def main(argv=None) -> int:
               f"{how.get(k, 'tables built on the host and placed')} in "
               f"{build_s:.3f} s")
 
+    # the compressed banded layout: the ECHO presets with
+    # echo_impl="banded" on the mixed route's records and weights.  Path A:
+    # K1 convs, and the banded ECHO and lift over the batch's
+    # CompressedBandedTable; path B: the same batch with that table as the
+    # conv table too (every conv through K4)
+    bech_cfg = {f"{k}_bech": dataclasses.replace(cfg, echo_impl="banded")
+                for k, cfg in echo_cfg.items()}
+    bech_of = {k: k[:-len("_bech")] for k in bech_cfg}   # the mixed route's
+    bech_recs = {k: echo_recs[bech_of[k]] for k in bech_cfg}
+    bech_serve, bech_batches, cb_batches = {}, {}, {}
+    for k, cfg in bech_cfg.items():
+        bech_serve[k] = Predictor(echo_nets[bech_of[k]], cfg,
+                                  batch_size=len(bech_recs[k]), banded_tb=TB,
+                                  device=dev)
+        t0 = time.perf_counter()
+        bech_batches[k] = bech_serve[k].make_batches(bech_recs[k])
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(len(bech_batches[k]) == 1, f"{k}: expected one batch")
+        b = bech_batches[k][0]
+        check(b.comp is not None and b.banded is not None and b.panel is None
+              and b.compact is None and b.comp.nh == b.banded.nh,
+              f"{k}: not the banded ECHO's batch")
+        cb_batches[k] = as_cbanded(bech_batches[k])
+        dense_mb, comp_mb = stencil_mb(b)
+        print(f"request {k}: {b.pos.shape[0]} mesh(es), n_pad "
+              f"{b.pos.shape[1]}, nh {b.comp.nh}; stencil bytes: dense band "
+              f"{dense_mb:.1f} MB ({b.banded.sten_band.shape[-3]} planes), "
+              f"compressed band {comp_mb:.1f} MB (5 planes); tables built on "
+              f"the host and placed in {build_s:.3f} s")
+    # n8192's compressed table, from its serving batch's EdgeTable
+    b8192 = batches["n8192_b1"][0]
+    host = dataclasses.replace(b8192.table, **{
+        f: getattr(b8192.table, f)[0].cpu() for f in ("src", "mask", "ln",
+                                                      "wxp")})
+    comp8192 = build_compressed_banded(host, tb=TB).to(dev)
+    del host
+    check(comp8192.nh == b8192.banded.nh, "n8192: the two band tables' nh")
+
+    fits = {"shrec11_b8": (config, N_CLASSES, train_recs + test_recs)}
+    fits.update((k, (echo_cfg[k], echo_classes[k], echo_train_recs[k]))
+                for k in echo_cfg)
+    fits["corr_n5120_b1_panel"] = (panel_cfg["corr_n5120_b1_panel"],
+                                   N_CORR_CLASSES,
+                                   echo_train_recs["corr_n5120_b1"])
+    fits[big] = (corr_cfg, N_CORR_CLASSES, panel_recs[big])
+    compact_keys = ["corr_n5120_b1_panel_compact",
+                    "corr_n5120_b1_panel_allcompact", "seg_n2048_b4_compact"]
+    for k in compact_keys:
+        net_k = "seg_n2048_b4" if k.startswith("seg") else "corr_n5120_b1"
+        fits[k] = (compact_cfg[k], echo_classes[net_k],
+                   echo_train_recs[net_k])
+    for k in bech_cfg:
+        fits[k] = (bech_cfg[k], echo_classes[bech_of[k]],
+                   echo_train_recs[bech_of[k]][:sum(TRAIN_FIT[k][::2])])
+    fits[big_c] = (compact_cfg[big_c], N_CORR_CLASSES, panel_recs[big])
+    fits[big_a] = (compact_cfg[big_a], N_CORR_CLASSES, panel_recs[big])
+    # the first epoch of every fit_phase fit on the CPU, in the worker
+    # process, in the order the training phases need them, beside the
+    # card's phases
+    cpu_jobs = {k: pool.submit(cpu_first_epoch, fits[k][0],
+                               fits[k][2][:TRAIN_FIT[k][0]], fits[k][1],
+                               TRAIN_FIT[k][1], args.seed)
+                for k in fits if k in TRAIN_FIT}
+    stamp("tables built")
     # 2. K1 forward and backward against their plain versions at the
     # shapes serving and training give them
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -1684,6 +2155,69 @@ def main(argv=None) -> int:
                                      bt.nh))
         del g, wmat, dy
 
+    # 2b. K4 (compressed banded conv) and K3 (unfused contrib), forward and
+    # backward, against their plain versions, each timed here: K4 on the
+    # compressed tables of n8192 (C=32, O2=64, K=5, R=6), of the
+    # segmentation batch (C=48, O2=96) and of the correspondence batch at
+    # its four widths (K=3, R=3), each also against K1 on the dense table
+    # of the same EdgeTable, and on a random compressed table with nh=4
+    # that reaches past both ends of g; K3 on the dense tables at the same
+    # shapes; then field_conv_banded(fuse_filters=False) against True
+    k4_rows, k4b_rows, k3_rows, k3b_rows = [], [], [], []
+    seg_b = bech_batches["seg_n2048_b4_bech"][0]
+    corr_b = bech_batches["corr_n5120_b1_bech"][0]
+    for label, ct, bt, C_, O2 in (
+            ("n8192", comp8192, b8192.banded, 32, 64),
+            ("seg_n2048_b4", seg_b.comp, seg_b.banded, 48, 96),
+            ("corr_n5120_b1", corr_b.comp, corr_b.banded, 32, 64),
+            ("corr_n5120_b1", corr_b.comp, corr_b.banded, 16, 64),
+            ("corr_n5120_b1", corr_b.comp, corr_b.banded, 32, 32),
+            ("corr_n5120_b1", corr_b.comp, corr_b.banded, 16, 24)):
+        R_, B_ = bt.n_rings, bt.band_limit
+        csten = ct.sten_band.reshape(-1, *ct.sten_band.shape[-4:])
+        dsten = bt.sten_band
+        g, wmat = k1_inputs(dsten, R_, C_, O2, gen)
+        dy = torch.randn(g.shape[0], g.shape[1], O2, device=dev,
+                         generator=gen)
+        label = f"{label} C={C_} O2={O2}"
+        rows4 = k4_check(label, g, wmat, csten, ct.nh, R_, B_, dy, dsten)
+        k4_time(*rows4, g, wmat, csten, ct.nh, R_, B_, dy)
+        k4_rows.append(rows4[0])
+        k4b_rows.append(rows4[1])
+        dout = torch.randn(g.shape[0], g.shape[1] * R_, g.shape[2],
+                           device=dev, generator=gen)
+        rows3 = k3_check(label, g, dsten, bt.nh, R_, 2 * B_ + 1, dout)
+        k3_time(*rows3, g, dsten, bt.nh, R_, 2 * B_ + 1, dout)
+        k3_rows.append(rows3[0])
+        k3b_rows.append(rows3[1])
+        del g, wmat, dy, dout
+    R_, K_, C_, O2 = config.n_rings, 2 * config.band_limit + 1, 32, 60
+    label = "n640 b8 nh=4 random stencil"
+    csten = random_comp(8, 5, R_, 4, gen)
+    g = torch.randn(8, 5 * TB, K_ * 2 * C_, device=dev, generator=gen)
+    wmat = torch.randn(R_, K_ * 2 * C_, O2, device=dev, generator=gen) / 40.0
+    dy = torch.randn(8, 5 * TB, O2, device=dev, generator=gen)
+    rows4 = k4_check(label, g, wmat, csten, 4, R_, config.band_limit, dy)
+    k4_rows.append(rows4[0])
+    k4b_rows.append(rows4[1])
+    dense = torch.rand(8, 5, R_ + 2 * K_, TB, 9 * TB, device=dev,
+                       generator=gen)
+    dout = torch.randn(8, 5 * TB * R_, K_ * 2 * C_, device=dev,
+                       generator=gen)
+    rows3 = k3_check(label, g, dense, 4, R_, K_, dout)
+    k3_rows.append(rows3[0])
+    k3b_rows.append(rows3[1])
+    del csten, g, wmat, dy, dense, dout
+    unfused_check("n8192", b8192.banded, dev, gen)
+    for what, rs_ in (("K4", k4_rows), ("K4 bwd", k4b_rows), ("K3", k3_rows),
+                      ("K3 bwd", k3b_rows)):
+        print_times(what, rs_[:-1], card)
+    for r in k4_rows[:-1]:
+        print(f"K4 {r['shape']}: {r['stencil_bytes'] / 1e6:.1f} MB of the "
+              f"{r['stencil_bytes_whole'] / 1e6:.1f} MB compressed stencil "
+              f"needed (slot fill {r['slot_fill']:.4f})")
+
+    stamp("K1, K3 and K4 checked")
     # 3. K2 against its plain version on the records' own panels
     k2_rows, k2_timed = [], []
     for key, C_ in (("seg_n2048_b4", 48), ("corr_n5120_b1", 12)):
@@ -1829,6 +2363,7 @@ def main(argv=None) -> int:
     print(f"compact_fold {fold_rows[0]['shape']}: index_add_ alone "
           f"{fold_rows[0]['library_ms']:.4f} ms/call on {card}")
 
+    stamp("K2, K5, K6 and K7 checked")
     # 4. serving: the slice-1 path, counted
     for p, bs in zip(serve.values(), batches.values()):
         p.warmup(bs)
@@ -1914,31 +2449,35 @@ def main(argv=None) -> int:
     print(f"serve compact: launches {compact_launches} for the "
           f"{len(compact_serve)} compact requests")
     del out, served, b0
+    # 5d. path A: the banded ECHO over the batch's compressed table with K1
+    # convs, counted (9 / 17 K1 a request and nothing else: the banded ECHO
+    # and lift are plain torch), each request against the CPU
+    bech_launches, served = serve_counted(
+        bech_serve, bech_recs, bech_batches,
+        {k: {"band_fused_fwd": CONVS_PER_PASS[k]} for k in bech_serve})
+    for k, p in bech_serve.items():
+        match_cpu(k, p, bech_recs[k], served[k], echo_cpu_nets[bech_of[k]])
+    # 5e. path B: the same batches with the compressed table as the conv
+    # table, counted (9 / 17 K4 a request, no K1), against the CPU
+    cb_launches, served = serve_counted(
+        bech_serve, bech_recs, cb_batches,
+        {k: {"band_cfused_fwd": CONVS_PER_PASS[k]} for k in bech_serve})
+    for k, p in bech_serve.items():
+        match_cpu(f"{k} path B", p, bech_recs[k], served[k],
+                  echo_cpu_nets[bech_of[k]], cbanded=True)
+    del served
+
     # the 163k compact-ECHO and all-compact batches, each built once above,
     # serve 7c and phase 8 too
     batch_c, batch_a = compact_batches[big_c][0], compact_batches[big_a][0]
 
+    stamp("served")
     # 6., 7. and 7b. training: the slice-2 path (classification), the
     # slice-4 path (the ECHO presets on the mixed route) and the slice-6
     # path (the correspondence preset on the pure-panel layout: the 5120
     # training records forced there and held against the CPU, then the
     # N_LARGE record of the serving phase that layout="auto" sends there),
     # each counted
-    fits = {"shrec11_b8": (config, N_CLASSES, train_recs + test_recs)}
-    fits.update((k, (echo_cfg[k], echo_classes[k], echo_train_recs[k]))
-                for k in echo_cfg)
-    fits["corr_n5120_b1_panel"] = (panel_cfg["corr_n5120_b1_panel"],
-                                   N_CORR_CLASSES,
-                                   echo_train_recs["corr_n5120_b1"])
-    fits[big] = (corr_cfg, N_CORR_CLASSES, panel_recs[big])
-    compact_keys = ["corr_n5120_b1_panel_compact",
-                    "corr_n5120_b1_panel_allcompact", "seg_n2048_b4_compact"]
-    for k in compact_keys:
-        net_k = "seg_n2048_b4" if k.startswith("seg") else "corr_n5120_b1"
-        fits[k] = (compact_cfg[k], echo_classes[net_k],
-                   echo_train_recs[net_k])
-    fits[big_c] = (compact_cfg[big_c], N_CORR_CLASSES, panel_recs[big])
-    fits[big_a] = (compact_cfg[big_a], N_CORR_CLASSES, panel_recs[big])
     trained, train_launches = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for path, keys in (("train", ["shrec11_b8"]),
@@ -1949,7 +2488,8 @@ def main(argv=None) -> int:
                 trained[k] = (fit_large(k, *fits[k], dev, args.seed, tmp,
                                         panel_batches[big][0])
                               if k == big else
-                              fit_phase(k, *fits[k], dev, args.seed, tmp))
+                              fit_phase(k, *fits[k], dev, args.seed, tmp,
+                                        cpu_jobs[k]))
             train_launches[path] = dict(kernels.launches)
 
         # 7c. training on the compact route: the slice-8 path, counted.  The
@@ -1962,11 +2502,53 @@ def main(argv=None) -> int:
         # block-panel table is freed, and its launches count here too
         kernels.reset_launches()
         for k in compact_keys:
-            trained[k] = fit_phase(k, *fits[k], dev, args.seed, tmp)
+            trained[k] = fit_phase(k, *fits[k], dev, args.seed, tmp,
+                                   cpu_jobs[k])
         trained[big_c] = step_counted(big_c, *fits[big_c][:2], batch_c, dev,
                                       args.seed)
         train_launches["train_compact"] = dict(kernels.launches)
 
+        # 7d. path A training: fit with the banded ECHO (K1 convs each way,
+        # the banded ECHO and lift in plain torch), counted, each held
+        # against the CPU's first epoch
+        kernels.reset_launches()
+        for k in bech_cfg:
+            trained[k] = fit_phase(k, *fits[k], dev, args.seed, tmp,
+                                   cpu_jobs[k])
+        train_launches["train_banded_echo"] = dict(kernels.launches)
+
+    stamp("trained")
+    # 7e. path B training: on each preset's serving batch, the loss and
+    # every gradient on paths A and B against the CPU's on the same batch
+    # (uncounted), then one make_train_step step with the compressed table
+    # as the conv table, counted: 9 / 17 K4 each way, nothing else
+    cb_trained, cb_train = {}, Counter()
+    for k, cfg in bech_cfg.items():
+        n_classes = echo_classes[bech_of[k]]
+        cpu_b = make_batches(bech_recs[k], cfg, len(bech_recs[k]), TB,
+                             device="cpu")[0]
+        net_, opt_, kw = cbanded_check(
+            k, cfg, n_classes, echo_nets[bech_of[k]].state_dict(),
+            bech_batches[k][0], cpu_b, dev, args.seed)
+        step = make_train_step(net_, cfg, n_classes, opt_)
+        kernels.reset_launches()
+        loss = step(cb_batches[k][0], **kw[dev])
+        torch.cuda.synchronize()
+        grew = dict(kernels.launches)
+        n = CONVS_PER_PASS[k]
+        check(grew == {"band_cfused_fwd": n, "band_cfused_bwd": n},
+              f"{k} path B: a step launched {grew}, want {n} K4 each way")
+        check(abs(loss.item() - kw["cpu_loss"]) <= LOSS_ATOL_STEP1,
+              f"{k} path B: the step's loss {loss.item()} against the CPU's "
+              f"{kw['cpu_loss']}")
+        print(f"train {k} path B: one make_train_step step, loss "
+              f"{loss.item():.6f} (CPU {kw['cpu_loss']:.6f}), launches {grew}")
+        cb_train.update(grew)
+        cb_trained[k] = (net_, opt_)
+        del cpu_b
+    train_launches["train_cbanded"] = dict(cb_train)
+
+    stamp("path B trained")
     # 8. timing
     for args_ in timed:
         k1_time(*args_)
@@ -2033,6 +2615,12 @@ def main(argv=None) -> int:
                   "17 K5 + 1 K2 launches") for k, p in panel_serve.items()]
     requests += [(k, p, compact_recs[k], compact_batches[k], compact_what(k))
                  for k, p in compact_serve.items() if k != big_a]
+    requests += [(k, p, bech_recs[k], bech_batches[k],
+                  f"{CONVS_PER_PASS[k]} K1 launches and the banded ECHO")
+                 for k, p in bech_serve.items()]
+    requests += [(f"{bech_of[k]}_cbanded", p, bech_recs[k], cb_batches[k],
+                  f"{CONVS_PER_PASS[k]} K4 launches and the banded ECHO")
+                 for k, p in bech_serve.items()]
     for k, p, rs_, bs_, what in requests:
         time_request(k, p, rs_, bs_, what, card, large=k in (big, big_c))
 
@@ -2041,13 +2629,15 @@ def main(argv=None) -> int:
     large_steps = {big: panel_batches[big][0], big_c: batch_c,
                    big_a: batch_a}
 
-    def time_step(k, tnet, topt):
+    def time_step(k, tnet, topt, cbanded=False):
         """Time one training step of the fitted ``tnet`` at training shape
-        ``k``: host clock, the profiler's breakdown and, at N_LARGE, the
-        peak device memory and (block panels, all-compact) a remat_blocks
-        step."""
+        ``k`` (with ``cbanded``, on path B's batch: the compressed table as
+        the conv table): host clock, the profiler's breakdown and, at
+        N_LARGE, the peak device memory and (block panels, all-compact) a
+        remat_blocks step."""
         cfg, n_classes, recs_ = fits[k]
         large = k in large_steps
+        n_convs = CONVS_PER_PASS[k]
         if large:
             tbatch = large_steps[k]
         else:
@@ -2055,6 +2645,9 @@ def main(argv=None) -> int:
             n_pad, d_slots = shared_bucket(recs_)
             tbatch = make_batches(recs_[:bs], cfg, bs, TB, n_pad, d_slots,
                                   device=dev)[0]
+            if cbanded:
+                tbatch = as_cbanded([tbatch])[0]
+                k = f"{bech_of[k]}_cbanded"
         step = make_train_step(tnet, cfg, n_classes, topt)
         # the augmentation, and the correspondence net's dropout masks
         step_gen = torch.Generator().manual_seed(args.seed + 3)
@@ -2063,11 +2656,14 @@ def main(argv=None) -> int:
             step(tbatch, step_gen)
             torch.cuda.synchronize()
 
-        what = step_what(cfg, tbatch.pos.shape[1], CONVS_PER_PASS[k])
+        what = step_what(cfg, tbatch.pos.shape[1], n_convs,
+                         conv="band_cfused" if cbanded else None)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base_gb = torch.cuda.memory_allocated() / 1e9
-        ms = time_host(train_step, reps=3 if large else 5)
+        # the banded ECHO's steps take ~0.5 s on the host clock
+        ms = time_host(train_step, reps=3 if large or cfg.echo_impl ==
+                       "banded" else 5)
         print(f"train step {k}: {ms:.3f} ms per step (host clock, ending in "
               f"a sync; {what} launches) on {card}")
         if large:
@@ -2087,6 +2683,8 @@ def main(argv=None) -> int:
 
     for k, (tnet, topt) in trained.items():
         time_step(k, tnet, topt)
+    for k, (tnet, topt) in cb_trained.items():
+        time_step(k, tnet, topt, cbanded=True)
 
     b8192 = batches["n8192_b1"][0]
     edges = int(b8192.table.mask.sum().item())
@@ -2107,6 +2705,33 @@ def main(argv=None) -> int:
           "top kernels:")
     for t, name, count in kern:
         print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
+    # path C: the same five convs unfused (bench.py's BENCH_FUSE=0 A/B),
+    # counted: 5 K3 each way, nothing else
+    convs_u = conv_fwd_bwd(b8192.banded, dev, gen, fuse_filters=False)
+    kernels.reset_launches()
+    convs_u()
+    torch.cuda.synchronize()
+    unfused_launches = dict(kernels.launches)
+    check(unfused_launches == {"band_contrib_fwd": 5, "band_contrib_bwd": 5},
+          f"the five unfused convs launched {unfused_launches}, want 5 K3 "
+          "each way")
+    ms_u = time_cuda(convs_u, iters=5)
+    print(f"five convs fwd+bwd unfused (fuse_filters=False: K3, then the "
+          f"filter product): {ms_u:.3f} ms, {5 * edges / (ms_u / 1e3):.4g} "
+          f"edges/s on {card} (fused {ms:.3f} ms); launches "
+          f"{unfused_launches}")
+
+    def convs_u_synced():
+        convs_u()
+        torch.cuda.synchronize()
+
+    wall, busy, kern = request_breakdown(convs_u_synced)
+    print(f"five convs fwd+bwd unfused under the profiler: wall {wall:.3f} "
+          f"ms, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%); top "
+          "kernels:")
+    for t, name, count in kern:
+        print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
+    del convs_u
 
     # the all-compact 163k request and fit last, once the block-panel table
     # and everything that holds it are freed: their device memory is their
@@ -2128,9 +2753,11 @@ def main(argv=None) -> int:
             kernels.launches + Counter(train_launches["train_compact"]))
     time_step(big_a, *trained[big_a])
 
+    stamp("timed")
     paths = {"serve": serve_launches, "serve_echo": echo_launches,
              "serve_panel": panel_launches, "serve_compact": compact_launches,
-             **train_launches}
+             "serve_banded_echo": bech_launches, "serve_cbanded": cb_launches,
+             "unfused": unfused_launches, **train_launches}
 
     def entry(name, source, replaces, rs):
         by_path = {k: v.get(name, 0) for k, v in paths.items()}
@@ -2171,6 +2798,17 @@ def main(argv=None) -> int:
         entry("echo_compact_bwd",
               "fieldconv_tpu_torch/csrc/echo_compact_bwd.cu",
               "fieldconv_tpu/ops/pallas/echo_panel.py:342", k7b_rows),
+        entry("band_cfused_fwd", "fieldconv_tpu_torch/csrc/band_cfused_fwd.cu",
+              "fieldconv_tpu/ops/pallas/band_conv.py:1427 and :1176", k4_rows),
+        entry("band_cfused_bwd", "fieldconv_tpu_torch/csrc/band_cfused_bwd.cu",
+              "fieldconv_tpu/ops/pallas/band_conv.py:1462 and :1209",
+              k4b_rows),
+        entry("band_contrib_fwd",
+              "fieldconv_tpu_torch/csrc/band_contrib_fwd.cu",
+              "fieldconv_tpu/ops/pallas/band_conv.py:153", k3_rows),
+        entry("band_contrib_bwd",
+              "fieldconv_tpu_torch/csrc/band_contrib_bwd.cu",
+              "fieldconv_tpu/ops/pallas/band_conv.py:196", k3b_rows),
         entry("compact_fold", "fieldconv_tpu_torch/csrc/compact_fold.cuh",
               "the XLA segment_sums at fieldconv_tpu/ops/pallas/band_conv.py"
               ":2118, fieldconv_tpu/ops/pallas/echo_panel.py:378 and "
@@ -2179,7 +2817,7 @@ def main(argv=None) -> int:
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

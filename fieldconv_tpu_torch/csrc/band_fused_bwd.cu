@@ -60,386 +60,7 @@
 // pass was bound by integer address arithmetic and branches, not by data
 // movement, and its dW pass by load latency (PERF.md, Findings).
 
-#include "band_window.cuh"
-#include "dw_rows.cuh"
-
-#include <algorithm>
-#include <cstddef>
-
-namespace {
-
-using band::kThreads;
-using band::kTile;
-
-constexpr int kRowsPerThread = 4;   // pass 5: source rows per thread
-
-// dcontrib's layout between passes 2 and 5: per target row, channel-major
-// [c][k][r][p] with compile-time strides (KMAX, RMAX), so pass 5 reads one
-// frequency's rings for its channel as contiguous float4s; entries with
-// k ≥ K or r ≥ R hold zero.
-template <int KMAX, int RMAX>
-__host__ __device__ constexpr int dc_stride() { return 2 * KMAX * RMAX; }
-
-// --- pass 1: contrib per tile of targets --------------------------------------
-
-template <int KMAX, int RMAX>
-__global__ void __launch_bounds__(kThreads, 2)
-bwd_contrib_kernel(const float* __restrict__ g,
-                   const float* __restrict__ sten,
-                   float* __restrict__ contrib,
-                   int N, int C, int K, int R, int TB, int nh, int T)
-{
-    const int M = 2 * K * C;
-    const int RM = R * M;
-    const int P = R + 2 * K;
-    const int Wp = (2 * nh + 1) * TB;
-    const int nb = N / TB;
-    const int tiles = (TB + T - 1) / T;
-    const int blk = blockIdx.x / tiles;
-    const int t0 = (blockIdx.x % tiles) * T;
-    const int nt = min(T, TB - t0);
-    const int m = blockIdx.y;
-    const int tid = threadIdx.x;
-
-    extern __shared__ __align__(16) float smem[];
-    const float* gm = g + (size_t)m * N * M;
-    const float* sb = sten + ((size_t)m * nb + blk) * (size_t)P * TB * Wp;
-
-    const int item = tid;                  // (t, c) = (item / C, item % C)
-    const bool active = item < nt * C;
-    const int it = active ? item / C : 0;
-    const int ic = active ? item % C : 0;
-
-    float are[KMAX][RMAX], aim[KMAX][RMAX];
-    band::window_contrib<KMAX, RMAX>(are, aim, smem, gm, sb, N, C, K, R, TB,
-                                     nh, T, t0, nt, blk, active, it, ic);
-
-    // contrib[row, j] with j = r·M + k·2C + (p·C + c): coalesced over c
-    const size_t row = (size_t)m * N + (size_t)blk * TB + t0;
-    if (active) {
-        float* cr = contrib + (row + it) * RM;
-#pragma unroll
-        for (int k = 0; k < KMAX; ++k)
-#pragma unroll
-            for (int r = 0; r < RMAX; ++r)
-                if (k < K && r < R) {
-                    const int j = r * M + k * 2 * C + ic;
-                    cr[j] = are[k][r];
-                    cr[j + C] = aim[k][r];
-                }
-    }
-}
-
-// --- pass 2: dc = dy · Wᵀ into the channel-major layout -------------------------
-//
-// A tiled product: a CTA owns 64 target rows × 64 dc columns; each thread
-// 4 × 4 of them, summed over o in order.  Column i = c·QS + q maps to the W
-// row j(c, q) (or to zero for padding entries).
-
-constexpr int kGemmTile = 64;
-constexpr int kGemmDepth = 16;
-
-template <int KMAX, int RMAX>
-__global__ void __launch_bounds__(kThreads)
-bwd_dc_kernel(const float* __restrict__ dy, const float* __restrict__ wmat,
-              float* __restrict__ dc, int rows, int C, int K, int R, int O2)
-{
-    constexpr int QS = dc_stride<KMAX, RMAX>();
-    constexpr int LD = kGemmTile + 4;      // float4-aligned, fewer conflicts
-    __shared__ __align__(16) float as[kGemmDepth][LD];   // dyᵀ: [o][row]
-    __shared__ __align__(16) float bs[kGemmDepth][LD];   // Wᵀ:  [o][col]
-    __shared__ int jrow[kGemmTile];
-    const int M = 2 * K * C;
-    const int CQ = C * QS;
-    const int r0 = blockIdx.x * kGemmTile, i0 = blockIdx.y * kGemmTile;
-    const int tid = threadIdx.x;
-    const int ty = tid / 16, tx = tid % 16;
-    if (tid < kGemmTile) {
-        const int idx = i0 + tid;
-        const int c = idx / QS, q = idx - c * QS;
-        const int k = q / (2 * RMAX), r = (q / 2) % RMAX, p = q % 2;
-        jrow[tid] = (idx < CQ && k < K && r < R)
-            ? r * M + k * 2 * C + p * C + c : -1;
-    }
-    float acc[4][4] = {};
-    for (int o0 = 0; o0 < O2; o0 += kGemmDepth) {
-        __syncthreads();                   // jrow set, last tile read
-        for (int u = tid; u < kGemmTile * kGemmDepth; u += kThreads) {
-            const int i = u / kGemmDepth, o = u % kGemmDepth;
-            const bool ok = o0 + o < O2;
-            as[o][i] = ok && r0 + i < rows
-                ? dy[(size_t)(r0 + i) * O2 + o0 + o] : 0.f;
-            const int j = jrow[i];
-            bs[o][i] = ok && j >= 0 ? wmat[(size_t)j * O2 + o0 + o] : 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int o = 0; o < kGemmDepth; ++o) {
-            const float4 a = *reinterpret_cast<const float4*>(&as[o][ty * 4]);
-            const float4 b = *reinterpret_cast<const float4*>(&bs[o][tx * 4]);
-            const float av[4] = {a.x, a.y, a.z, a.w};
-            const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-            for (int x = 0; x < 4; ++x)
-#pragma unroll
-                for (int y = 0; y < 4; ++y)
-                    acc[x][y] = fmaf(av[x], bv[y], acc[x][y]);
-        }
-    }
-    const int col = i0 + tx * 4;           // CQ % 4 == 0: all 4 or none
-    if (col < CQ) {
-#pragma unroll
-        for (int x = 0; x < 4; ++x) {
-            const int row = r0 + ty * 4 + x;
-            if (row < rows)
-                *reinterpret_cast<float4*>(dc + (size_t)row * CQ + col) =
-                    make_float4(acc[x][0], acc[x][1], acc[x][2], acc[x][3]);
-        }
-    }
-}
-
-// --- pass 5: dG gathered by source ----------------------------------------------
-
-template <int KMAX, int RMAX>
-__global__ void __launch_bounds__(kThreads)
-bwd_dg_kernel(const float* __restrict__ dc,
-              const float* __restrict__ sten,
-              float* __restrict__ dg,
-              int N, int C, int K, int R, int TB, int nh, int G, int TC)
-{
-    const int M = 2 * K * C;
-    const int P = R + 2 * K;
-    const int Wp = (2 * nh + 1) * TB;
-    const int nb = N / TB;
-    const int TS = G * kRowsPerThread;     // source rows per CTA
-    const int tiles = (TB + TS - 1) / TS;
-    const int sblk = blockIdx.x / tiles;
-    const int s0 = (blockIdx.x % tiles) * TS;
-    const int ns = min(TS, TB - s0);
-    const int m = blockIdx.y;
-    const int tid = threadIdx.x;
-    const int rg = tid / C, ic = tid % C;
-    const bool active = rg < G;
-
-    constexpr int QS = dc_stride<KMAX, RMAX>();
-    static_assert(QS % 4 == 0 && RMAX % 2 == 0, "float4 reads of dc");
-    const int CQ = C * QS;                 // dc row length
-    extern __shared__ __align__(16) float smem[];
-    const int stage_floats = TC * CQ + TC * P * TS;
-    const float* dcm = dc + (size_t)m * N * CQ;
-
-    float gre[kRowsPerThread][KMAX], gim[kRowsPerThread][KMAX];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-        for (int k = 0; k < KMAX; ++k) { gre[i][k] = 0.f; gim[i][k] = 0.f; }
-
-    // steps: target blocks b whose ±nh window covers sblk, TC targets each
-    const int b_lo = max(0, sblk - nh), b_hi = min(nb - 1, sblk + nh);
-    const int tchunks = (TB + TC - 1) / TC;
-    const int n_steps = (b_hi - b_lo + 1) * tchunks;
-    auto prefetch = [&](int si) {
-        float* ds = smem + (si & 1) * stage_floats;
-        float* ss = ds + TC * CQ;
-        const int b = b_lo + si / tchunks;
-        const int tc0 = (si % tchunks) * TC;
-        const int ntc = min(TC, TB - tc0);
-        const int j = sblk - b + nh;       // the source block's place in b's window
-        const float* drow = dcm + ((size_t)b * TB + tc0) * CQ;
-        for (int i = tid; i < TC * CQ / 4; i += kThreads) {
-            const bool ok = i * 4 < ntc * CQ;
-            band::copy_async<16>(ds + i * 4, ok ? drow + i * 4 : dcm, ok);
-        }
-        const float* sbb = sten + ((size_t)m * nb + b) * (size_t)P * TB * Wp;
-        for (int i = tid; i < TC * P * TS; i += kThreads) {
-            const int sl = i % TS, tp = i / TS;
-            const int p = tp % P, t = tp / P;
-            const bool ok = t < ntc && sl < ns;
-            band::copy_async<4>(
-                ss + i,
-                ok ? sbb + ((size_t)p * TB + tc0 + t) * Wp + j * TB + s0 + sl
-                   : sbb, ok);
-        }
-        __pipeline_commit();
-    };
-
-    prefetch(0);
-    for (int si = 0; si < n_steps; ++si) {
-        if (si + 1 < n_steps) {
-            prefetch(si + 1);
-            __pipeline_wait_prior(1);
-        } else {
-            __pipeline_wait_prior(0);
-        }
-        const float* ds = smem + (si & 1) * stage_floats;
-        const float* ss = ds + TC * CQ;
-        const int ntc = min(TC, TB - (si % tchunks) * TC);
-
-        // vote on any nonzero radial weight of the tile in this step; each
-        // thread reads back only the stencil elements its own copies wrote
-        int nz = 0;
-        for (int i = tid; i < TC * P * TS; i += kThreads)
-            if ((i / TS) % P < R) nz |= ss[i] != 0.f;
-        if (__syncthreads_or(nz) && active) {
-            for (int t = 0; t < ntc; ++t) {
-                const float* st = ss + t * P * TS;
-                const float* d = ds + t * CQ + ic * QS;
-#pragma unroll
-                for (int i = 0; i < kRowsPerThread; ++i) {
-                    const int sl = rg * kRowsPerThread + i;
-                    float rs[RMAX];
-                    bool edge = false;
-#pragma unroll
-                    for (int r = 0; r < RMAX; ++r) {
-                        rs[r] = r < R ? st[r * TS + sl] : 0.f;
-                        edge |= rs[r] != 0.f;
-                    }
-                    // no edge from this source to target t (uniform across
-                    // a warp when C = 32: its lanes share the rows)
-                    if (!edge) continue;
-#pragma unroll
-                    for (int k = 0; k < KMAX; ++k) {
-                        if (k < K) {
-                            // u_k = Σ_r rs_r · dc[t, c, k, r, (re, im)]
-                            const float4* dk = reinterpret_cast<const float4*>(
-                                d + k * 2 * RMAX);
-                            float ur = 0.f, ui = 0.f;
-#pragma unroll
-                            for (int v = 0; v < RMAX / 2; ++v) {
-                                const float4 a = dk[v];
-                                ur = fmaf(rs[2 * v], a.x, ur);
-                                ui = fmaf(rs[2 * v], a.y, ui);
-                                ur = fmaf(rs[2 * v + 1], a.z, ur);
-                                ui = fmaf(rs[2 * v + 1], a.w, ui);
-                            }
-                            const float fr = st[(R + 2 * k) * TS + sl];
-                            const float fi = st[(R + 2 * k + 1) * TS + sl];
-                            gre[i][k] = fmaf(fr, ur, fmaf(fi, ui, gre[i][k]));
-                            gim[i][k] = fmaf(fr, ui, fmaf(-fi, ur, gim[i][k]));
-                        }
-                    }
-                }
-            }
-        }
-        __syncthreads();                   // buffer free for step si + 2
-    }
-
-    if (active) {
-#pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i) {
-            const int sl = rg * kRowsPerThread + i;
-            if (sl < ns) {
-                float* o = dg + ((size_t)m * N + (size_t)sblk * TB + s0 + sl) * M;
-#pragma unroll
-                for (int k = 0; k < KMAX; ++k)
-                    if (k < K) {
-                        o[k * 2 * C + ic] = gre[i][k];
-                        o[k * 2 * C + C + ic] = gim[i][k];
-                    }
-            }
-        }
-    }
-}
-
-// --- launch ------------------------------------------------------------------------
-
-size_t contrib_smem_bytes(int C, int K, int R, int T)
-{
-    return band::window_stage_floats(2 * K * C, R + 2 * K, T) * sizeof(float);
-}
-
-size_t dg_smem_bytes(int C, int K, int R, int QS, int G, int TC)
-{
-    const size_t P = R + 2 * (size_t)K;
-    return 2 * ((size_t)TC * C * QS + (size_t)TC * P * G * kRowsPerThread)
-        * sizeof(float);
-}
-
-size_t round4(size_t n) { return (n + 3) / 4 * 4; }
-
-// How one call is cut up, and where its scratch buffers lie in the one the
-// caller owns (offsets in floats, each 16-byte aligned).
-struct Plan {
-    int T, G, TC, QS, slices, slice_rows;
-    size_t smem1, smem4, dc_at, part_at, floats;
-};
-
-cudaError_t make_plan(int n_mesh, int N, int C, int K, int R, int O2,
-                      Plan* pl)
-{
-    int dev = 0, limit = 0, sms = 0;
-    cudaError_t err = band::smem_limit(&limit);
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                     dev);
-    if (err != cudaSuccess) return err;
-    pl->T = std::min(kTile, kThreads / C);
-    while (pl->T > 1 && contrib_smem_bytes(C, K, R, pl->T) > (size_t)limit)
-        pl->T /= 2;
-    pl->smem1 = contrib_smem_bytes(C, K, R, pl->T);
-    pl->G = std::min(kTile, kThreads / C);
-    pl->QS = K <= 3 ? dc_stride<3, 8>() : dc_stride<5, 6>();
-    pl->TC = 4;
-    while (pl->TC > 1
-           && dg_smem_bytes(C, K, R, pl->QS, pl->G, pl->TC) > (size_t)limit)
-        pl->TC /= 2;
-    pl->smem4 = dg_smem_bytes(C, K, R, pl->QS, pl->G, pl->TC);
-    if (pl->smem1 > (size_t)limit || pl->smem4 > (size_t)limit)
-        return cudaErrorInvalidValue;
-    const long long rows = (long long)n_mesh * N;
-    const int RM = R * 2 * K * C;
-    const band::DwSlices dws = band::dw_slices(rows, RM, O2, sms);
-    pl->slices = dws.slices;
-    pl->slice_rows = dws.slice_rows;
-    pl->dc_at = round4((size_t)rows * RM);
-    pl->part_at = pl->dc_at + round4((size_t)rows * C * pl->QS);
-    pl->floats = pl->part_at + (size_t)pl->slices * RM * O2;
-    return cudaSuccess;
-}
-
-template <int KMAX, int RMAX>
-int launch(const float* dy, const float* g, const float* sten,
-           const float* wmat, float* dg, float* dw, float* scratch,
-           int n_mesh, int N, int C, int K, int R, int TB, int nh, int O2,
-           const Plan& pl, cudaStream_t stream)
-{
-    float* contrib = scratch;
-    float* dc = scratch + pl.dc_at;
-    float* part = scratch + pl.part_at;
-    const int rows = n_mesh * N;
-    const int RM = R * 2 * K * C;
-
-    auto k1 = bwd_contrib_kernel<KMAX, RMAX>;
-    cudaError_t err = cudaFuncSetAttribute(
-        k1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem1);
-    if (err != cudaSuccess) return (int)err;
-    k1<<<dim3((N / TB) * ((TB + pl.T - 1) / pl.T), n_mesh), kThreads,
-         pl.smem1, stream>>>(g, sten, contrib, N, C, K, R, TB, nh, pl.T);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-    const int CQ = C * pl.QS;
-    bwd_dc_kernel<KMAX, RMAX><<<dim3((rows + kGemmTile - 1) / kGemmTile,
-                                     (CQ + kGemmTile - 1) / kGemmTile),
-                                kThreads, 0, stream>>>(dy, wmat, dc, rows, C,
-                                                       K, R, O2);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-    err = band::launch_dw(contrib, dy, part, dw, rows, RM, O2,
-                          band::DwSlices{pl.slices, pl.slice_rows}, stream);
-    if (err != cudaSuccess) return (int)err;
-
-    auto k4 = bwd_dg_kernel<KMAX, RMAX>;
-    err = cudaFuncSetAttribute(
-        k4, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem4);
-    if (err != cudaSuccess) return (int)err;
-    const int TS = pl.G * kRowsPerThread;
-    k4<<<dim3((N / TB) * ((TB + TS - 1) / TS), n_mesh), kThreads, pl.smem4,
-         stream>>>(dc, sten, dg, N, C, K, R, TB, nh, pl.G, pl.TC);
-    return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "band_bwd.cuh"
 
 // Floats of the scratch buffer band_fused_bwd needs for these sizes (0 for
 // sizes it does not take).
@@ -447,11 +68,8 @@ extern "C" long long band_fused_bwd_scratch_floats(int n_mesh, int N, int C,
                                                    int K, int R, int TB,
                                                    int nh, int O2)
 {
-    Plan pl;
-    if (!band::shapes_supported(n_mesh, N, C, K, R, TB, nh, O2)
-        || make_plan(n_mesh, N, C, K, R, O2, &pl) != cudaSuccess)
-        return 0;
-    return (long long)pl.floats;
+    return band::fused_bwd_scratch_floats(n_mesh, N, C, K, R, TB, nh, O2,
+                                          false);
 }
 
 // Launches the five kernels on `stream` and returns cudaGetLastError() (0
@@ -464,15 +82,7 @@ extern "C" int band_fused_bwd(const float* dy, const float* g,
                               int n_mesh, int N, int C, int K, int R, int TB,
                               int nh, int O2, void* stream)
 {
-    if (!band::shapes_supported(n_mesh, N, C, K, R, TB, nh, O2))
-        return (int)cudaErrorInvalidValue;
-    Plan pl;
-    const cudaError_t err = make_plan(n_mesh, N, C, K, R, O2, &pl);
-    if (err != cudaSuccess) return (int)err;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (K <= 3)
-        return launch<3, 8>(dy, g, sten, wmat, dg, dw, scratch, n_mesh, N, C,
-                            K, R, TB, nh, O2, pl, s);
-    return launch<5, 6>(dy, g, sten, wmat, dg, dw, scratch, n_mesh, N, C, K,
-                        R, TB, nh, O2, pl, s);
+    return band::fused_bwd<false>(dy, g, sten, wmat, dg, dw, scratch, n_mesh,
+                                  N, C, K, R, TB, nh, O2,
+                                  (cudaStream_t)stream);
 }

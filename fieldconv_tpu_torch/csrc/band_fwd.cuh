@@ -1,0 +1,162 @@
+// The fused banded forward shared by K1 (band_fused_fwd.cu, dense
+// stencil) and K4 (band_cfused_fwd.cu, compressed stencil): one CTA per tile
+// of targets of one block of one mesh forms the tile's contrib over the
+// window (band_window.cuh), then applies W.  See band_fused_fwd.cu for what
+// it computes and its design.
+
+#pragma once
+
+#include "band_window.cuh"
+
+#include <algorithm>
+#include <cstddef>
+
+namespace band {
+
+template <int KMAX, int RMAX, bool COMPRESSED>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_fwd_kernel(const float* __restrict__ g,
+                 const float* __restrict__ sten,
+                 const float* __restrict__ wmat,
+                 float* __restrict__ y,
+                 int N, int C, int K, int R, int TB, int nh, int O2, int T,
+                 panel::Knots kn)
+{
+    const int M = 2 * K * C;
+    const int RM = R * M;
+    const int P = COMPRESSED ? 5 : R + 2 * K;   // stencil planes
+    const int Wp = (2 * nh + 1) * TB;
+    const int nb = N / TB;
+    const int tiles = (TB + T - 1) / T;
+    const int blk = blockIdx.x / tiles;
+    const int t0 = (blockIdx.x % tiles) * T;
+    const int nt = min(T, TB - t0);
+    const int m = blockIdx.y;
+    const int tid = threadIdx.x;
+
+    extern __shared__ __align__(16) float smem[];
+    float* contrib = smem;                 // [R·M][kTile], after the window
+    float* red = smem + RM * kTile;        // [JG][T][O2]
+
+    const float* gm = g + (size_t)m * N * M;
+    const float* sb = sten + ((size_t)m * nb + blk) * (size_t)P * TB * Wp;
+
+    const int item = tid;                  // (t, c) = (item / C, item % C)
+    const bool active = item < nt * C;
+    const int it = active ? item / C : 0;
+    const int ic = active ? item % C : 0;
+
+    float are[KMAX][RMAX], aim[KMAX][RMAX];
+    window_contrib<KMAX, RMAX, COMPRESSED>(are, aim, smem, gm, sb, N, C, K,
+                                           R, TB, nh, T, t0, nt, blk, active,
+                                           it, ic, kn);
+
+    // contrib[j][t] with j = r·M + k·2C + (p·C + c), targets padded to kTile
+    if (active) {
+#pragma unroll
+        for (int k = 0; k < KMAX; ++k)
+#pragma unroll
+            for (int r = 0; r < RMAX; ++r)
+                if (k < K && r < R) {
+                    const int j = r * M + k * 2 * C + ic;
+                    contrib[j * kTile + it] = are[k][r];
+                    contrib[(j + C) * kTile + it] = aim[k][r];
+                }
+    }
+    __syncthreads();
+
+    // y[t, o] = Σ_j contrib[j][t] · W[j, o]: thread (o, jg) sums
+    // j ≡ jg (mod JG) for every target of the tile, so W is read once per
+    // CTA; the JG partials are reduced through `red`.
+    const int JG = max(1, kThreads / O2);
+    for (int u = tid; u < O2 * JG; u += kThreads) {
+        const int o = u % O2, jg = u / O2;
+        float acc[kTile];
+#pragma unroll
+        for (int t = 0; t < kTile; ++t) acc[t] = 0.f;
+#pragma unroll 4
+        for (int j = jg; j < RM; j += JG) {
+            const float wv = wmat[(size_t)j * O2 + o];
+            const float4 a = *reinterpret_cast<const float4*>(contrib + j * kTile);
+            const float4 b = *reinterpret_cast<const float4*>(contrib + j * kTile + 4);
+            acc[0] = fmaf(a.x, wv, acc[0]);
+            acc[1] = fmaf(a.y, wv, acc[1]);
+            acc[2] = fmaf(a.z, wv, acc[2]);
+            acc[3] = fmaf(a.w, wv, acc[3]);
+            acc[4] = fmaf(b.x, wv, acc[4]);
+            acc[5] = fmaf(b.y, wv, acc[5]);
+            acc[6] = fmaf(b.z, wv, acc[6]);
+            acc[7] = fmaf(b.w, wv, acc[7]);
+        }
+#pragma unroll
+        for (int t = 0; t < kTile; ++t)
+            if (t < nt) red[(jg * T + t) * O2 + o] = acc[t];
+    }
+    __syncthreads();
+    for (int u = tid; u < nt * O2; u += kThreads) {
+        const int o = u % O2, t = u / O2;
+        float acc = 0.f;
+        for (int jg = 0; jg < JG; ++jg) acc += red[(jg * T + t) * O2 + o];
+        y[((size_t)m * N + (size_t)blk * TB + t0 + t) * O2 + o] = acc;
+    }
+}
+
+inline size_t fused_fwd_smem_bytes(int C, int K, int R, int O2, int T,
+                                   bool compressed)
+{
+    const size_t M = 2 * (size_t)K * C;
+    const size_t P = R + 2 * (size_t)K;
+    const size_t JG = std::max(1, kThreads / O2);
+    const size_t stages = window_stage_floats((int)M, (int)P, T,
+                                              compressed);
+    const size_t filter = (size_t)R * M * kTile + JG * (size_t)T * O2;
+    return std::max(stages, filter) * sizeof(float);
+}
+
+template <int KMAX, int RMAX, bool COMPRESSED>
+int launch_fused_fwd(const float* g, const float* sten, const float* wmat,
+                     float* y, int n_mesh, int N, int C, int K, int R, int TB,
+                     int nh, int O2, int T, size_t smem, cudaStream_t stream)
+{
+    auto kernel = fused_fwd_kernel<KMAX, RMAX, COMPRESSED>;
+    const panel::Knots kn = COMPRESSED ? panel::ring_knots(R) : panel::Knots{};
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((N / TB) * ((TB + T - 1) / T), n_mesh);
+    kernel<<<grid, kThreads, smem, stream>>>(g, sten, wmat, y, N, C, K, R,
+                                             TB, nh, O2, T, kn);
+    return (int)cudaGetLastError();
+}
+
+// Launches K1's (dense) or K4's (COMPRESSED) forward on `stream`; returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for shapes
+// it does not take (K > 5, i.e. band limit > 2; R > 8, or R > 6 with K > 3;
+// C > 256; R > 6 when compressed).
+template <bool COMPRESSED>
+int fused_fwd(const float* g, const float* sten, const float* wmat, float* y,
+              int n_mesh, int N, int C, int K, int R, int TB, int nh, int O2,
+              cudaStream_t stream)
+{
+    if (!shapes_supported(n_mesh, N, C, K, R, TB, nh, O2)
+        || (COMPRESSED && R > panel::kMaxRings))
+        return (int)cudaErrorInvalidValue;
+    int limit = 0;
+    const cudaError_t err = smem_limit(&limit);
+    if (err != cudaSuccess) return (int)err;
+    int T = std::min(kTile, kThreads / C);
+    while (T > 1 && fused_fwd_smem_bytes(C, K, R, O2, T, COMPRESSED)
+                        > (size_t)limit)
+        T /= 2;
+    const size_t smem = fused_fwd_smem_bytes(C, K, R, O2, T, COMPRESSED);
+    if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+    if (K <= 3)
+        return launch_fused_fwd<3, 8, COMPRESSED>(g, sten, wmat, y, n_mesh, N,
+                                                  C, K, R, TB, nh, O2, T,
+                                                  smem, stream);
+    return launch_fused_fwd<5, 6, COMPRESSED>(g, sten, wmat, y, n_mesh, N, C,
+                                              K, R, TB, nh, O2, T, smem,
+                                              stream);
+}
+
+}  // namespace band

@@ -2,7 +2,9 @@
 // (band_panel_bwd.cu) and K6's forward (band_compact_fwd.cu): the per-slot
 // coefficients of a panel stencil, their compaction into lists of occupied
 // slots, the forward's contrib accumulation over a target block's run of
-// panels, and the forward's filter stage.
+// panels, and the forward's filter stage.  K4 (band_window.cuh, band_bwd.cuh)
+// rebuilds its compressed slots with the same ring_knots, hat and
+// phasor_powers.
 //
 // A panel stencil (P, planes, TB, TS) holds rows the target slot t and
 // columns the source slot s.  K5's panels are square (TS = TB) and column s
@@ -88,9 +90,33 @@ __device__ __forceinline__ float hat(float rv, int r, const Knots& kn)
     return fminf(fmaxf(fminf(a, b), 0.f), 1.f);
 }
 
+// f_k = wxp·e^{i(k−B)θ} re/im for k = 0..2B into cf[2k·stride] and
+// cf[(2k+1)·stride], from the unit phasor (pr, pi) and wxp (fr, fi): built
+// by repeated multiplication in _phasor_pairs' order and rounding (also
+// used by K4, band_window.cuh).
+__device__ __forceinline__ void phasor_powers(float* cf, int stride, float pr,
+                                              float pi, float fr, float fi,
+                                              int B)
+{
+    float cpr = fr, cpi = fi, cmr = fr, cmi = fi;
+    cf[2 * B * stride] = cpr;
+    cf[(2 * B + 1) * stride] = cpi;
+    for (int kk = 1; kk <= B; ++kk) {
+        const float npr = __fsub_rn(__fmul_rn(cpr, pr), __fmul_rn(cpi, pi));
+        const float npi = __fadd_rn(__fmul_rn(cpr, pi), __fmul_rn(cpi, pr));
+        const float nmr = __fadd_rn(__fmul_rn(cmr, pr), __fmul_rn(cmi, pi));
+        const float nmi = __fsub_rn(__fmul_rn(cmi, pr), __fmul_rn(cmr, pi));
+        cpr = npr; cpi = npi; cmr = nmr; cmi = nmi;
+        cf[2 * (B + kk) * stride] = cpr;
+        cf[(2 * (B + kk) + 1) * stride] = cpi;
+        cf[2 * (B - kk) * stride] = cmr;
+        cf[(2 * (B - kk) + 1) * stride] = cmi;
+    }
+}
+
 // The coefficients of the occupied slot at offset `at` of panel sp's
 // planes: its hats h, then f_k re/im for k = 0..K−1 (f_k, k = −B..B, built
-// in _phasor_pairs' order and rounding when compressed, read when dense).
+// by phasor_powers when compressed, read when dense).
 template <int RMAX>
 __device__ __forceinline__ void slot_coefs(
     float* cf, const float (&h)[RMAX], const float* __restrict__ sp,
@@ -100,29 +126,11 @@ __device__ __forceinline__ void slot_coefs(
     for (int r = 0; r < RMAX; ++r)
         if (r < R) cf[r] = h[r];
     if (compressed) {
-        const int B = K / 2;
         const float pr = __ldg(sp + plane + at);
         const float pi = __ldg(sp + 2 * plane + at);
-        float cpr = __ldg(sp + 3 * plane + at);
-        float cpi = __ldg(sp + 4 * plane + at);
-        float cmr = cpr, cmi = cpi;
-        cf[R + 2 * B] = cpr;
-        cf[R + 2 * B + 1] = cpi;
-        for (int kk = 1; kk <= B; ++kk) {
-            const float npr = __fsub_rn(__fmul_rn(cpr, pr),
-                                        __fmul_rn(cpi, pi));
-            const float npi = __fadd_rn(__fmul_rn(cpr, pi),
-                                        __fmul_rn(cpi, pr));
-            const float nmr = __fadd_rn(__fmul_rn(cmr, pr),
-                                        __fmul_rn(cmi, pi));
-            const float nmi = __fsub_rn(__fmul_rn(cmi, pr),
-                                        __fmul_rn(cmr, pi));
-            cpr = npr; cpi = npi; cmr = nmr; cmi = nmi;
-            cf[R + 2 * (B + kk)] = cpr;
-            cf[R + 2 * (B + kk) + 1] = cpi;
-            cf[R + 2 * (B - kk)] = cmr;
-            cf[R + 2 * (B - kk) + 1] = cmi;
-        }
+        const float fr = __ldg(sp + 3 * plane + at);
+        const float fi = __ldg(sp + 4 * plane + at);
+        phasor_powers(cf + R, 1, pr, pi, fr, fi, K / 2);
     } else {
         for (int q = 0; q < 2 * K; ++q)
             cf[R + q] = __ldg(sp + (R + q) * plane + at);

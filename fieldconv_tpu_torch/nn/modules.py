@@ -179,8 +179,9 @@ class ECHO(nn.Module):
     Routing, as in the JAX package: a compressed PanelTable ``comp`` runs
     the panel route through K2, a CompactPanelTable the compact route
     through K7 (ops/echo_panel.py).  A CompressedBandedTable with impl
-    "auto", or impl "banded", would take the banded ECHO, which is not
-    ported yet.  Otherwise the one-hot gather route over the EdgeTable runs.
+    "auto", or impl "banded", takes the gather-free banded ECHO
+    (ops/echo.py::echo_banded).  Otherwise the one-hot gather route over the
+    EdgeTable runs.
     """
 
     def __init__(self, n_bins: int = 2, d_chunk: int = 128,
@@ -194,10 +195,7 @@ class ECHO(nn.Module):
         use_banded = (comp is not None) if self.impl == "auto" \
             else self.impl == "banded"
         if use_banded and comp is not None:
-            raise NotImplementedError(
-                "echo_banded (ECHO over a CompressedBandedTable, "
-                "fieldconv_tpu/ops/echo.py:309) is not ported yet: ROADMAP "
-                "Queue 1, ECHO item")
+            return echo_ops.echo_banded(x, comp, self.n_bins)
         return echo_ops.echo(x, table, self.n_bins, d_chunk=self.d_chunk)
 
 

@@ -1,14 +1,21 @@
 """Field convolution over the block layouts with the hand-written kernels:
-the dense BandedTable (K1 forward and backward), the PanelTable (K5
-forward and backward) and the CompactPanelTable (K6 forward and
-backward).
+the dense BandedTable (K1 forward and backward, and the unfused contrib K3
+each way), the CompressedBandedTable (K4 forward and backward), the
+PanelTable (K5 forward and backward) and the CompactPanelTable (K6 forward
+and backward).
 
-Counterpart of ``fieldconv_tpu/ops/pallas/band_conv.py`` for those three
+Counterpart of ``fieldconv_tpu/ops/pallas/band_conv.py`` for those four
 tables.  The contraction runs in hand-written CUDA kernels:
 ``csrc/band_fused_fwd.cu`` replaces the TPU kernel ``_band_megaw_fwd_impl``
 (and its twins ``_band_fused_mega_fwd_impl``, ``_band_fused_fwd_impl``),
 ``csrc/band_fused_bwd.cu`` replaces ``_band_megaw_bwd_impl`` (and
 ``_band_fused_mega_bwd_impl``, ``_band_fused_bwd``),
+``csrc/band_contrib_fwd.cu`` and ``band_contrib_bwd.cu`` replace
+``_band_contrib_fwd_impl`` and ``_band_contrib_bwd`` (with its
+``_shift_combine``), ``csrc/band_cfused_fwd.cu`` replaces
+``_band_cfused_fwd_impl`` and ``_band_cmega_fwd_impl``,
+``csrc/band_cfused_bwd.cu`` replaces ``_band_cfused_bwd`` and
+``_band_cmega_bwd_impl``,
 ``csrc/band_panel_fwd.cu`` replaces ``_band_panel_fwd_impl`` (both of its
 ``pallas_call``s, bodies ``_fwd_panel_kernel`` and
 ``_fwd_panel_chunk_kernel``), ``csrc/band_panel_bwd.cu`` replaces
@@ -17,13 +24,14 @@ tables.  The contraction runs in hand-written CUDA kernels:
 ``_band_compact_fwd_impl`` (body ``_fwd_compact_kernel``) and
 ``csrc/band_compact_bwd.cu`` replaces ``_band_compact_bwd_impl`` (body
 ``_bwd_compact_kernel``) with the fold that follows it.  The wrappers
-:func:`band_fused_fwd`, :func:`band_fused_bwd`, :func:`band_panel_fwd`,
-:func:`band_panel_bwd`, :func:`band_compact_fwd` and
-:func:`band_compact_bwd` launch them for CUDA tensors and run the plain
-PyTorch versions (``*_reference``) for CPU tensors; they never move work
-between devices.  :class:`_BandFusedFn`, :class:`_BandPanelFn` and
-:class:`_BandCompactFn` tie each kernel's two directions together for
-autograd, as ``jax.custom_vjp`` does in the JAX package.
+(:func:`band_fused_fwd`, :func:`band_contrib_fwd`, :func:`band_cfused_fwd`,
+:func:`band_panel_fwd`, :func:`band_compact_fwd` and their ``*_bwd``)
+launch them for CUDA tensors and run the plain PyTorch versions
+(``*_reference``) for CPU tensors; they never move work between devices.
+:class:`_BandFusedFn`, :class:`_BandContribFn`, :class:`_BandCFusedFn`,
+:class:`_BandPanelFn` and :class:`_BandCompactFn` tie each kernel's two
+directions together for autograd, as ``jax.custom_vjp`` does in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -35,10 +43,12 @@ import math
 import torch
 
 from .. import kernels
-from ..precomp.banded import (BandedTable, CompactPanelTable, PanelTable,
+from ..precomp.banded import (BandedTable, CompactPanelTable,
+                              CompressedBandedTable, PanelTable,
                               unwindow_blocks, window_blocks)
 from .compact_fold import compact_fold_reference
-from .field_conv import filter_coefficients, rotated_source_tensor
+from .field_conv import (apply_filters, filter_coefficients,
+                         rotated_source_tensor)
 
 
 def rotated_source_tensor_kmajor(x, band_limit):
@@ -128,6 +138,27 @@ def band_fused_fwd_reference(g, sten_band, wmat, tb: int, nh: int):
     return y.reshape(n_mesh, N, O2)
 
 
+def _contrib_transpose_reference(dcon, sten_band, R, K, C, tb, nh):
+    """dG (n_mesh, N, M) from the contrib cotangent dcon (n_mesh, nb, R, TB,
+    M): the window rows gather S_kᵀ · [d_re | d_im ; d_im | −d_re], S_k =
+    rs ⊙ f_k, and the overlapping windows fold back onto g's rows; window
+    rows outside [0, N) take no gradient."""
+    rs = sten_band[:, :, :R]
+
+    def st(s, d):                                          # S_kᵀ · d
+        return torch.einsum("mbrtw,mbrtc->mbwc", s, d)
+
+    parts = []
+    for k in range(K):
+        s_re = rs * sten_band[:, :, R + 2 * k, None]       # (m, nb, R, TB, W')
+        s_im = rs * sten_band[:, :, R + 2 * k + 1, None]
+        d_re = dcon[..., 2 * k * C:(2 * k + 1) * C]        # (m, nb, R, TB, C)
+        d_im = dcon[..., (2 * k + 1) * C:(2 * k + 2) * C]
+        parts += [st(s_re, d_re) + st(s_im, d_im),
+                  st(s_re, d_im) - st(s_im, d_re)]
+    return unwindow_blocks(torch.cat(parts, dim=-1), tb, nh)
+
+
 def band_fused_bwd_reference(dy, g, sten_band, wmat, tb: int, nh: int):
     """Plain PyTorch K1 backward, written out (not taken from autograd):
     contrib is rematerialised as the forward forms it, then
@@ -144,20 +175,7 @@ def band_fused_bwd_reference(dy, g, sten_band, wmat, tb: int, nh: int):
     dyb = dy.reshape(n_mesh, N // tb, tb, O2)
     dw = torch.einsum("mbrtj,mbto->rjo", contrib, dyb)
     dcon = torch.einsum("mbto,rjo->mbrtj", dyb, wmat)      # (m, nb, R, TB, M)
-    rs = sten_band[:, :, :R]
-
-    def st(s, d):                                          # S_kᵀ · d
-        return torch.einsum("mbrtw,mbrtc->mbwc", s, d)
-
-    parts = []
-    for k in range(K):
-        s_re = rs * sten_band[:, :, R + 2 * k, None]       # (m, nb, R, TB, W')
-        s_im = rs * sten_band[:, :, R + 2 * k + 1, None]
-        d_re = dcon[..., 2 * k * C:(2 * k + 1) * C]        # (m, nb, R, TB, C)
-        d_im = dcon[..., (2 * k + 1) * C:(2 * k + 2) * C]
-        parts += [st(s_re, d_re) + st(s_im, d_im),
-                  st(s_re, d_im) - st(s_im, d_re)]
-    dg = unwindow_blocks(torch.cat(parts, dim=-1), tb, nh)
+    dg = _contrib_transpose_reference(dcon, sten_band, R, K, C, tb, nh)
     return dg, dw
 
 
@@ -169,24 +187,44 @@ def _k1_entry():
     return fn
 
 
+def _band_check(name, dims, sten_band, tb: int, nh: int, planes: int, K: int,
+                *tensors):
+    """Raise unless sten_band is (n_mesh, N/tb, planes, tb, W') for dims
+    (n_mesh, N, M), with M a multiple of 2K, and every named tensor (label,
+    tensor) is contiguous float32 on the first one's device."""
+    n_mesh, N, M = dims
+    want = (n_mesh, N // tb, planes, tb, (2 * nh + 1) * tb)
+    if N % tb or M % (2 * K) or tuple(sten_band.shape) != want:
+        raise ValueError(
+            f"{name} shapes do not agree: (n_mesh, N, M) {tuple(dims)}, "
+            f"sten_band {tuple(sten_band.shape)} (want {want})")
+    dev = tensors[0][1].device
+    for label, t in tensors:
+        if t.device != dev or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} needs contiguous float32 {label} on "
+                             f"{dev}, got {t.dtype} on {t.device} "
+                             f"(contiguous={t.is_contiguous()})")
+
+
+def _band_shapes(name, C: int, K: int, R: int):
+    """Raise for shapes the banded kernels (K1, K3, K4) have no
+    instantiation for: K ≤ 3 with R ≤ 8, or K = 5 with R ≤ 6; C ≤ 256."""
+    if K > 5 or R > (8 if K <= 3 else 6) or C > 256:
+        raise NotImplementedError(
+            f"{name} takes K ≤ 3 with R ≤ 8 or K = 5 with R ≤ 6, and C ≤ "
+            f"256; got K={K}, R={R}, C={C}")
+
+
 def _k1_check(name, g, sten_band, wmat, tb: int, nh: int, *more):
     """Raise unless the shapes agree and every tensor (g, sten_band, wmat
     and the named extra ones) is contiguous float32 on g's device."""
     n_mesh, N, M, R, K, C, O2 = _k1_dims(g, sten_band, wmat)
-    want = (n_mesh, N // tb, R + 2 * K, tb, (2 * nh + 1) * tb)
-    if N % tb or M != 2 * K * C or tuple(sten_band.shape) != want \
-            or wmat.shape[1] != M:
-        raise ValueError(
-            f"{name} shapes do not agree: g {tuple(g.shape)}, "
-            f"sten_band {tuple(sten_band.shape)} (want {want}), "
-            f"wmat {tuple(wmat.shape)}")
-    for label, t in (("g", g), ("sten_band", sten_band), ("wmat", wmat),
-                     *more):
-        if t.device != g.device or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError(f"{name} needs contiguous float32 {label} on "
-                             f"{g.device}, got {t.dtype} on {t.device} "
-                             f"(contiguous={t.is_contiguous()})")
+    if wmat.shape[1] != M:
+        raise ValueError(f"{name}: wmat {tuple(wmat.shape)} does not take "
+                         f"g's {M} columns")
+    _band_check(name, g.shape, sten_band, tb, nh, R + 2 * K, K, ("g", g),
+                ("sten_band", sten_band), ("wmat", wmat), *more)
 
 
 def _band_fused_fwd_cuda(g, sten_band, wmat, tb: int, nh: int):
@@ -826,6 +864,329 @@ class _BandCompactFn(torch.autograd.Function):
         return dg, dw, None, None, None, None, None, None, None, None
 
 
+# --- K4: K1 over the compressed banded stencil --------------------------------
+
+def _dense_from_compressed(sten_band, n_rings: int, band_limit: int):
+    """The dense band stencil (..., nb, R+2K, TB, W') that a compressed one
+    (..., nb, 5, TB, W') stands for: the R radial hats of the r plane
+    (:func:`_hats_from_r`), then f_k = wxp·e^{i(k−B)θ} re/im for k = 0..K−1
+    (:func:`_phasor_pairs`), in the JAX kernel's order of operations."""
+    sten = sten_band.movedim(-3, 0)                        # (5, ..., TB, W')
+    hats = _hats_from_r(sten[0], n_rings)
+    pairs = sorted(_phasor_pairs(sten[3], sten[4], sten[1], sten[2],
+                                 band_limit), key=lambda p: p[0])
+    return torch.stack([*hats] + [f for _, fr, fi in pairs for f in (fr, fi)],
+                       dim=-3)
+
+
+def _k4_dims(g, wmat, n_rings: int, band_limit: int):
+    n_mesh, N, M = g.shape
+    K = 2 * band_limit + 1
+    return n_mesh, N, M, n_rings, K, M // (2 * K), wmat.shape[-1]
+
+
+def band_cfused_reference(g, wmat, sten_band, tb: int, nh: int,
+                          n_rings: int, band_limit: int):
+    """Plain PyTorch K4 forward: K1's function with the stencil rebuilt
+    from the compressed planes (:func:`_dense_from_compressed`).
+
+    g: (n_mesh, N, M = K·2C); wmat: (R, M, O2); sten_band (n_mesh, nb, 5,
+    TB, W') of a CompressedBandedTable.  Returns y (n_mesh, N, O2)."""
+    dense = _dense_from_compressed(sten_band, n_rings, band_limit)
+    return band_fused_fwd_reference(g, dense, wmat, tb, nh)
+
+
+def band_cfused_bwd_reference(dy, g, wmat, sten_band, tb: int, nh: int,
+                              n_rings: int, band_limit: int):
+    """Plain PyTorch K4 backward (dg, dw): K1's written-out backward over
+    the rebuilt stencil (shapes as in :func:`band_cfused_reference`)."""
+    dense = _dense_from_compressed(sten_band, n_rings, band_limit)
+    return band_fused_bwd_reference(dy, g, dense, wmat, tb, nh)
+
+
+def _k4_check(name, g, wmat, sten_band, tb, nh, n_rings, band_limit, *more):
+    n_mesh, N, M, R, K, C, O2 = _k4_dims(g, wmat, n_rings, band_limit)
+    if tuple(wmat.shape[:2]) != (R, M):
+        raise ValueError(f"{name}: wmat {tuple(wmat.shape)}, want ({R}, {M}, "
+                         "O2)")
+    _band_check(name, g.shape, sten_band, tb, nh, 5, K, ("g", g),
+                ("sten_band", sten_band), ("wmat", wmat), *more)
+    _band_shapes(name, C, K, R)
+    if R > 6:
+        raise NotImplementedError(
+            f"{name} rebuilds at most R ≤ 6 rings (its ring knots); got "
+            f"R={R}")
+
+
+@functools.cache
+def _k4_entry():
+    fn = kernels.library("band_cfused_fwd").band_cfused_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def band_cfused_fwd(g, wmat, sten_band, tb: int, nh: int, n_rings: int,
+                    band_limit: int):
+    """K4 forward y (n_mesh, N, O2) over a compressed banded stencil
+    (shapes as in :func:`band_cfused_reference`).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (building it on first use) or raise."""
+    if g.device.type == "cpu":
+        return band_cfused_reference(g, wmat, sten_band, tb, nh, n_rings,
+                                     band_limit)
+    if g.device.type != "cuda":
+        raise ValueError(f"band_cfused_fwd has no kernel for device "
+                         f"{g.device}")
+    _k4_check("band_cfused_fwd", g, wmat, sten_band, tb, nh, n_rings,
+              band_limit)
+    n_mesh, N, M, R, K, C, O2 = _k4_dims(g, wmat, n_rings, band_limit)
+    fn = _k4_entry()
+    y = torch.empty((n_mesh, N, O2), dtype=torch.float32, device=g.device)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = fn(g.data_ptr(), sten_band.data_ptr(), wmat.data_ptr(),
+             y.data_ptr(), n_mesh, N, C, K, R, tb, nh, O2, stream)
+    if err != 0:
+        raise RuntimeError(f"band_cfused_fwd launch failed: cudaError {err}")
+    kernels.launches["band_cfused_fwd"] += 1
+    return y
+
+
+@functools.cache
+def _k4_bwd_entry():
+    """(kernel entry, floats of scratch it needs for given sizes)."""
+    lib = kernels.library("band_cfused_bwd")
+    fn = lib.band_cfused_bwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    size = lib.band_cfused_bwd_scratch_floats
+    size.argtypes = [ctypes.c_int] * 8
+    size.restype = ctypes.c_longlong
+    return fn, size
+
+
+def band_cfused_bwd(dy, g, wmat, sten_band, tb: int, nh: int, n_rings: int,
+                    band_limit: int):
+    """K4 backward (dg, dw) for the output cotangent dy (n_mesh, N, O2)
+    (shapes as in :func:`band_cfused_reference`).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (building it on first use) or raise."""
+    if g.device.type == "cpu":
+        return band_cfused_bwd_reference(dy, g, wmat, sten_band, tb, nh,
+                                         n_rings, band_limit)
+    if g.device.type != "cuda":
+        raise ValueError(f"band_cfused_bwd has no kernel for device "
+                         f"{g.device}")
+    n_mesh, N, M, R, K, C, O2 = _k4_dims(g, wmat, n_rings, band_limit)
+    if tuple(dy.shape) != (n_mesh, N, O2):
+        raise ValueError(f"band_cfused_bwd: dy {tuple(dy.shape)}, want "
+                         f"{(n_mesh, N, O2)}")
+    _k4_check("band_cfused_bwd", g, wmat, sten_band, tb, nh, n_rings,
+              band_limit, ("dy", dy))
+    fn, scratch_floats = _k4_bwd_entry()
+    sizes = (n_mesh, N, C, K, R, tb, nh, O2)
+    f32 = dict(dtype=torch.float32, device=g.device)
+    dg = torch.empty((n_mesh, N, M), **f32)
+    dw = torch.empty((R, M, O2), **f32)
+    # contrib and dcontrib of every target, and the dW partial sums
+    scratch = torch.empty((max(1, scratch_floats(*sizes)),), **f32)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = fn(dy.data_ptr(), g.data_ptr(), sten_band.data_ptr(),
+             wmat.data_ptr(), dg.data_ptr(), dw.data_ptr(), scratch.data_ptr(),
+             *sizes, stream)
+    if err != 0:
+        raise RuntimeError(f"band_cfused_bwd launch failed: cudaError {err}")
+    kernels.launches["band_cfused_bwd"] += 1
+    return dg, dw
+
+
+class _BandCFusedFn(torch.autograd.Function):
+    """K4 with its hand-written backward: the counterpart of the JAX
+    package's ``_band_cfused`` / ``_band_cmega`` custom VJPs.  Keeps g,
+    wmat and the compressed stencil; the backward rematerialises contrib."""
+
+    @staticmethod
+    def forward(ctx, g, wmat, sten_band, tb: int, nh: int, n_rings: int,
+                band_limit: int):
+        ctx.save_for_backward(g, wmat, sten_band)
+        ctx.args = (tb, nh, n_rings, band_limit)
+        return band_cfused_fwd(g, wmat, sten_band, *ctx.args)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        g, wmat, sten_band = ctx.saved_tensors
+        dg, dw = band_cfused_bwd(dy.contiguous(), g, wmat, sten_band,
+                                 *ctx.args)
+        return dg, dw, None, None, None, None, None
+
+
+# --- K3: the unfused banded contrib -------------------------------------------
+
+def band_contrib_reference(g, sten_band, tb: int, nh: int, n_rings: int,
+                           k_width: int):
+    """Plain PyTorch K3 forward: K1's contrib without the filter step.
+
+    g: (n_mesh, N, M = K·2C); sten_band (n_mesh, nb, R+2K, TB, W').
+    Returns contrib (n_mesh, nb·R·TB, M) as the JAX kernel lays it out:
+    row (b·R + r)·TB + t holds target t of block b, ring r; columns
+    k-major, [re C | im C] per k."""
+    n_mesh, N, M = g.shape
+    C = M // (2 * k_width)
+    con = _contrib_reference(g, sten_band, n_rings, k_width, C, tb, nh)
+    return con.reshape(n_mesh, -1, M)
+
+
+def band_contrib_bwd_reference(dout, sten_band, tb: int, nh: int,
+                               n_rings: int, k_width: int):
+    """Plain PyTorch K3 backward: dG (n_mesh, N, M) for the contrib
+    cotangent dout (n_mesh, nb·R·TB, M), the shifted window partials
+    already summed onto their rows (JAX's ``_shift_combine``)."""
+    n_mesh, _, M = dout.shape
+    nb = sten_band.shape[1]
+    C = M // (2 * k_width)
+    dcon = dout.reshape(n_mesh, nb, n_rings, tb, M)
+    return _contrib_transpose_reference(dcon, sten_band, n_rings, k_width, C,
+                                        tb, nh)
+
+
+def _k3_check(name, dims, sten_band, tb, nh, n_rings, k_width, *tensors):
+    _band_check(name, dims, sten_band, tb, nh, n_rings + 2 * k_width,
+                k_width, *tensors, ("sten_band", sten_band))
+    _band_shapes(name, dims[2] // (2 * k_width), k_width, n_rings)
+
+
+@functools.cache
+def _k3_entry():
+    fn = kernels.library("band_contrib_fwd").band_contrib_fwd
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def band_contrib_fwd(g, sten_band, tb: int, nh: int, n_rings: int,
+                     k_width: int):
+    """K3 forward: contrib (n_mesh, nb·R·TB, M) (shapes and layout as in
+    :func:`band_contrib_reference`).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (building it on first use) or raise."""
+    if g.device.type == "cpu":
+        return band_contrib_reference(g, sten_band, tb, nh, n_rings, k_width)
+    if g.device.type != "cuda":
+        raise ValueError(f"band_contrib_fwd has no kernel for device "
+                         f"{g.device}")
+    _k3_check("band_contrib_fwd", g.shape, sten_band, tb, nh, n_rings,
+              k_width, ("g", g))
+    n_mesh, N, M = g.shape
+    fn = _k3_entry()
+    out = torch.empty((n_mesh, N * n_rings, M), dtype=torch.float32,
+                      device=g.device)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = fn(g.data_ptr(), sten_band.data_ptr(), out.data_ptr(), n_mesh, N,
+             M // (2 * k_width), k_width, n_rings, tb, nh, stream)
+    if err != 0:
+        raise RuntimeError(f"band_contrib_fwd launch failed: cudaError {err}")
+    kernels.launches["band_contrib_fwd"] += 1
+    return out
+
+
+@functools.cache
+def _k3_bwd_entry():
+    """(kernel entry, floats of scratch it needs for given sizes)."""
+    lib = kernels.library("band_contrib_bwd")
+    fn = lib.band_contrib_bwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    size = lib.band_contrib_bwd_scratch_floats
+    size.argtypes = [ctypes.c_int] * 7
+    size.restype = ctypes.c_longlong
+    return fn, size
+
+
+def band_contrib_bwd(dout, sten_band, tb: int, nh: int, n_rings: int,
+                     k_width: int):
+    """K3 backward: dG (n_mesh, N, M) for the contrib cotangent dout
+    (n_mesh, nb·R·TB, M) (as in :func:`band_contrib_bwd_reference`).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (building it on first use) or raise."""
+    if dout.device.type == "cpu":
+        return band_contrib_bwd_reference(dout, sten_band, tb, nh, n_rings,
+                                          k_width)
+    if dout.device.type != "cuda":
+        raise ValueError(f"band_contrib_bwd has no kernel for device "
+                         f"{dout.device}")
+    n_mesh, rows, M = dout.shape
+    N = rows // n_rings
+    if rows % n_rings:
+        raise ValueError(f"band_contrib_bwd: dout {tuple(dout.shape)} is not "
+                         f"{n_rings} rings of targets")
+    _k3_check("band_contrib_bwd", (n_mesh, N, M), sten_band, tb, nh, n_rings,
+              k_width, ("dout", dout))
+    fn, scratch_floats = _k3_bwd_entry()
+    sizes = (n_mesh, N, M // (2 * k_width), k_width, n_rings, tb, nh)
+    f32 = dict(dtype=torch.float32, device=dout.device)
+    dg = torch.empty((n_mesh, N, M), **f32)
+    # the cotangent in the dG pass's channel-major layout
+    scratch = torch.empty((max(1, scratch_floats(*sizes)),), **f32)
+    stream = torch.cuda.current_stream(dout.device).cuda_stream
+    err = fn(dout.data_ptr(), sten_band.data_ptr(), dg.data_ptr(),
+             scratch.data_ptr(), *sizes, stream)
+    if err != 0:
+        raise RuntimeError(f"band_contrib_bwd launch failed: cudaError {err}")
+    kernels.launches["band_contrib_bwd"] += 1
+    return dg
+
+
+class _BandContribFn(torch.autograd.Function):
+    """K3 with its hand-written backward: the counterpart of the JAX
+    package's ``_band_contrib`` custom VJP.  Keeps the stencil; the
+    stencil takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, g, sten_band, tb: int, nh: int, n_rings: int,
+                k_width: int):
+        ctx.save_for_backward(sten_band)
+        ctx.args = (tb, nh, n_rings, k_width)
+        return band_contrib_fwd(g, sten_band, *ctx.args)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        (sten_band,) = ctx.saved_tensors
+        dg = band_contrib_bwd(dout.contiguous(), sten_band, *ctx.args)
+        return dg, None, None, None, None, None
+
+
+def _mesh_stencil(g, banded):
+    """g as (n_mesh, N, M) and the table's stencil as (n_mesh, nb, P, TB,
+    W'), both contiguous; raises when their mesh counts differ."""
+    g = g.reshape(-1, *g.shape[-2:]).contiguous()
+    sten = banded.sten_band
+    sten = sten.reshape(-1, *sten.shape[-4:]).contiguous()
+    if sten.shape[0] != g.shape[0]:
+        raise ValueError(f"x carries {g.shape[0]} meshes but the banded "
+                         f"table {sten.shape[0]}")
+    return g, sten
+
+
+def band_contrib(g, banded: BandedTable):
+    """contrib (..., N, R, C, K, 2) of the rotated-source tensor g (..., N,
+    K·2C, k-major; see :func:`rotated_source_tensor_kmajor`) over a
+    BandedTable whose sten_band carries g's leading mesh axes: one K3
+    launch serves the batch, forward and backward."""
+    lead, (N, M) = g.shape[:-2], g.shape[-2:]
+    R, K, tb = banded.n_rings, 2 * banded.band_limit + 1, banded.tb
+    g3, sten = _mesh_stencil(g, banded)
+    out = _BandContribFn.apply(g3, sten, tb, banded.nh, R, K)
+    out = out.reshape(-1, N // tb, R, tb, K, 2, M // (2 * K))
+    return out.permute(0, 1, 3, 2, 6, 4, 5).reshape(*lead, N, R,
+                                                    M // (2 * K), K, 2)
+
+
 def field_conv_compact(x, comp: CompactPanelTable, zonal, spherical, phase,
                        ftype, precision: str = "f32"):
     """Full field convolution over a CompactPanelTable: (..., N, C, 2) ->
@@ -843,35 +1204,40 @@ def field_conv_banded(x, banded, zonal, spherical, phase, ftype,
     """Full field convolution over a block layout: (..., N, C, 2) ->
     (..., N, O, 2).
 
-    banded: a BandedTable whose sten_band carries the same leading mesh
-    axes as x (one K1 launch serves the whole mesh batch, forward and
-    backward; gradients flow to x and the filters, not the stencil), or a
-    PanelTable covering the meshes of x's leading axes (one K5 launch
-    serves the batch, forward and backward, through :class:`_BandPanelFn`
-    on either device), or a CompactPanelTable covering them the same way
-    (one K6 launch, forward and backward, through :class:`_BandCompactFn`).
-    As in the JAX package, fuse_filters only selects among the BandedTable
-    kernels."""
+    banded, as in the JAX package's dispatch:
+    - a BandedTable whose sten_band carries the same leading mesh axes as x:
+      one K1 launch serves the whole mesh batch, forward and backward
+      (gradients flow to x and the filters, not the stencil); with
+      fuse_filters=False one K3 launch forms contrib (:func:`band_contrib`)
+      and a matrix product applies the filters
+      (``ops/field_conv.py::apply_filters``), the JAX package's A/B route;
+    - a CompressedBandedTable with the same leading axes: one K4 launch
+      each way (:class:`_BandCFusedFn`), whatever fuse_filters says;
+    - a PanelTable covering the meshes of x's leading axes: one K5 launch
+      each way (:class:`_BandPanelFn`);
+    - a CompactPanelTable covering them the same way: one K6 launch each
+      way (:class:`_BandCompactFn`).
+    fuse_filters only selects among the BandedTable kernels."""
     compact = isinstance(banded, CompactPanelTable)
-    if not compact and not isinstance(banded, (BandedTable, PanelTable)):
-        raise NotImplementedError(
-            f"field_conv_banded over {type(banded).__name__} is not ported "
-            "yet: the compressed banded and block-sparse conv kernels are "
-            "ROADMAP Queue 2 items K4 and K8")
+    if not isinstance(banded, (BandedTable, CompressedBandedTable,
+                               PanelTable, CompactPanelTable)):
+        raise TypeError(
+            "field_conv_banded takes a BandedTable, CompressedBandedTable, "
+            f"PanelTable or CompactPanelTable, got {type(banded).__name__} "
+            "(the JAX package's BlockSparseTable and its conv kernel, K8, "
+            "are not ported yet: ROADMAP Queue 2)")
     if precision != "f32":
         raise NotImplementedError(
             f"precision={precision!r}: the bf16 operand paths of K1 and K5 "
             "are ROADMAP Queue 2, K1 (bf16)")
     panel = compact or isinstance(banded, PanelTable)
-    if not fuse_filters and not panel:
-        raise NotImplementedError(
-            "fuse_filters=False runs the unfused contrib kernel, ROADMAP "
-            "Queue 2, K3")
     lead = x.shape[:-3]
     N = x.shape[-3]
     g = rotated_source_tensor_kmajor(x, banded.band_limit)
     coeff = filter_coefficients(zonal, spherical, phase, ftype,
                                 banded.band_limit)
+    if isinstance(banded, BandedTable) and not fuse_filters:
+        return apply_filters(band_contrib(g, banded), coeff)
     wmat = filters_to_wmat(coeff).contiguous()
     if panel:
         g = g.reshape(-1, g.shape[-1]).contiguous()
@@ -890,13 +1256,12 @@ def field_conv_banded(x, banded, zonal, spherical, phase, ftype,
                                     banded.n_rings, banded.band_limit,
                                     banded.compressed)
     else:
-        g = g.reshape(-1, N, g.shape[-1]).contiguous()
-        sten = banded.sten_band
-        sten = sten.reshape(-1, *sten.shape[-4:]).contiguous()
-        if sten.shape[0] != g.shape[0]:
-            raise ValueError(f"x carries {g.shape[0]} meshes but the banded "
-                             f"table {sten.shape[0]}")
-        y2 = _BandFusedFn.apply(g, wmat, sten, banded.tb, banded.nh)
+        g, sten = _mesh_stencil(g, banded)
+        if isinstance(banded, CompressedBandedTable):
+            y2 = _BandCFusedFn.apply(g, wmat, sten, banded.tb, banded.nh,
+                                     banded.n_rings, banded.band_limit)
+        else:
+            y2 = _BandFusedFn.apply(g, wmat, sten, banded.tb, banded.nh)
     O = wmat.shape[-1] // 2
     y = torch.stack([y2[..., :O], y2[..., O:]], dim=-1)
     return y.reshape(*lead, N, O, 2)

@@ -5,8 +5,8 @@ import JAX), so configs and bundle JSON carry the same fields in both
 packages.  The routing options name the JAX package's layouts; the port
 runs the dense banded layout, the mixed route, the pure-panel layout
 (``layout``, ``panel_threshold``), the compact route (``echo_impl`` /
-``conv_impl`` "compact") and the gather path, and its
-train/loop.py::make_batches raises on ``echo_impl="banded"``.
+``conv_impl`` "compact"), the banded ECHO (``echo_impl="banded"``) and
+the gather path.
 """
 
 from __future__ import annotations

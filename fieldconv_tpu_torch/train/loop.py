@@ -6,8 +6,9 @@ cover classification, segmentation and correspondence: the dense banded
 layout, the mixed route (banded convs, panel ECHO and lift) of the ECHO
 presets, the pure-panel layout of large meshes (every op over one
 PanelTable), the compact route (ECHO and the lift, and optionally the
-convs, over one CompactPanelTable), or the gather path when ``banded_tb``
-is None.  ``fit`` and ``evaluate_task`` train and evaluate the three of
+convs, over one CompactPanelTable), the banded ECHO (ECHO and the lift
+over one CompressedBandedTable beside banded convs), or the gather path
+when ``banded_tb`` is None.  ``fit`` and ``evaluate_task`` train and evaluate the three of
 them on every one of these layouts; matching is ROADMAP Queue 1 item 3.
 """
 
@@ -82,11 +83,13 @@ def make_batches(records: List[MeshRecord], config: ExperimentConfig,
     dense banded tables (K1 convs) are built; an ECHO task with
     config.echo_impl "panel" / "compact" takes the mixed route (one
     compressed PanelTable / CompactPanelTable at banded_tb per batch for
-    ECHO and the lift), otherwise the compressed banded tables of the
-    gather-free lift are built when config.lift_impl == "banded".  Without
-    banded_tb an ECHO task whose echo_impl needs block tables warns and
-    takes the one-hot ECHO; conv_impl "compact" without the compact ECHO
-    warns, as in the JAX package, and runs the other convs."""
+    ECHO and the lift), otherwise the compressed banded tables are built
+    when the ECHO runs on them (echo_impl "banded", ops/echo.py::
+    echo_banded) or config.lift_impl == "banded" (the gather-free lift).
+    Without banded_tb an ECHO task with echo_impl "panel" / "compact"
+    warns and takes the one-hot ECHO, and echo_impl "banded" raises a
+    ValueError, as in the JAX package; conv_impl "compact" without the
+    compact ECHO warns, as in the JAX package, and runs the other convs."""
     device = resolve_device(device)
     if config.task == "matching":
         raise NotImplementedError(
@@ -98,11 +101,6 @@ def make_batches(records: List[MeshRecord], config: ExperimentConfig,
         warnings.warn(f"echo_impl={config.echo_impl!r} needs banded_tb; "
                       "falling back to the one-hot ECHO for this run")
         config = dataclasses.replace(config, echo_impl="onehot")
-    if echo_task and config.echo_impl == "banded":
-        raise NotImplementedError(
-            "echo_impl='banded' runs echo_banded over compressed banded "
-            "tables, which is not ported yet (ROADMAP Queue 1, ECHO item: "
-            "echo_banded)")
     echo_compact = echo_task and config.echo_impl == "compact"
     if config.conv_impl == "compact" and not echo_compact:
         # the compact convs ride the ECHO/lift CompactPanelTable, which is
@@ -111,14 +109,22 @@ def make_batches(records: List[MeshRecord], config: ExperimentConfig,
             "conv_impl='compact' requires echo_impl='compact' on an ECHO "
             f"task (task={config.task!r}, echo_impl={config.echo_impl!r}); "
             "the convs will run on the block-panel/banded layout")
+    if config.echo_impl == "banded" and echo_task and banded_tb is None:
+        raise ValueError(
+            "config.echo_impl='banded' requires banded_tb: the gather-free "
+            "ECHO path runs on compressed banded tables built per "
+            "target-block size (pass banded_tb=, or use echo_impl='onehot')")
     if n_pad is None or d_slots is None:
         n_pad, d_slots = shared_bucket(records)
     panel = (banded_tb is not None
              and resolve_layout(config, n_pad) == "panel")
     echo_panel = (banded_tb is not None and not panel and echo_task
                   and config.echo_impl == "panel")
+    # compressed tables feed the banded ECHO and/or the gather-free lift
     need_comp = (banded_tb is not None and not panel and not echo_panel
-                 and not echo_compact and config.lift_impl == "banded")
+                 and not echo_compact
+                 and ((config.echo_impl == "banded" and echo_task)
+                      or config.lift_impl == "banded"))
 
     def build_group(group):
         items = []

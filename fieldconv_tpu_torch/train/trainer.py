@@ -139,8 +139,10 @@ def stack_batch(items, banded_tb: Optional[int] = None,
     banded_tb: when set, also build + stack BandedTables (K1 conv path)
     with that target-block size.
     echo_banded: when set (requires banded_tb), also build the compressed
-    banded tables that drive the gather-free lift
-    (ops/trans_field.py::trans_field_banded_contrib).
+    banded tables (``comp``) that drive the banded ECHO
+    (ops/echo.py::echo_banded) and the gather-free lift
+    (ops/trans_field.py::trans_field_banded_contrib); passed as ``banded``
+    too, the same table serves the convs (K4).
     echo_panel: when set (requires banded_tb), also build each mesh's
     compressed PanelTable and join them into one (the mixed route: K1
     convs, panel ECHO and lift).
@@ -217,8 +219,9 @@ def _pad_comp(c: CompressedBandedTable, nh: int) -> CompressedBandedTable:
 
 def batched_apply(net, batch: MeshBatch, **kw):
     """Run the model over the batch's mesh axis in one call: the banded
-    route (BandedTable convs, plus the compressed lift when ``comp`` is
-    set), the mixed route (BandedTable convs, ECHO and lift over the
+    route (BandedTable convs, plus the compressed lift and, with
+    echo_impl "banded", the banded ECHO when ``comp`` is set; a batch whose
+    ``banded`` is its ``comp`` runs every conv through K4), the mixed route (BandedTable convs, ECHO and lift over the
     batch's one PanelTable, or over its CompactPanelTable), the pure-panel
     route (the PanelTable passed as both ``banded`` and ``comp``: K5 convs,
     ECHO and lift; with a CompactPanelTable, ECHO and the lift over it and

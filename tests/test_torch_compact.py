@@ -55,6 +55,8 @@ from fieldconv_tpu_torch.precomp import banded as tbanded
 from fieldconv_tpu_torch.train import loop as tloop
 from fieldconv_tpu_torch.train.config import ExperimentConfig
 
+torch.set_num_threads(1)   # one per xdist worker: see test_torch_ops.py
+
 CONV_TOL = dict(atol=3e-5, rtol=2e-5)
 # (target block, columns) of the compact tables: square, and the
 # rectangular TBt < TS of the pure-panel layout's TBt = 32, TS = 128

@@ -71,6 +71,8 @@ from fieldconv_tpu_torch.train.config import ExperimentConfig
 from fieldconv_tpu_torch.utils.complexops import soft_abs
 from fieldconv_tpu_torch.utils.port_weights import params_from_jax
 
+torch.set_num_threads(1)   # one per xdist worker: see test_torch_ops.py
+
 C, O2, R, B = 4, 6, 3, 1
 K = 2 * B + 1
 

@@ -126,6 +126,150 @@ def test_field_conv_banded_backward_card_matches_cpu():
         assert err <= 1e-4 * b.abs().max().item(), err
 
 
+def _k4_stencil(R, B, tb, nh, n_mesh):
+    """A random compressed stencil on the card: r uniform in [0, 1] with
+    ~60% empty slots (R_SENTINEL), unit phasors, random wxp (zero at empty
+    slots, as build_compressed_banded leaves it)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    shape = (n_mesh, 4, tb, (2 * nh + 1) * tb)
+    dev = torch.device("cuda")
+    empty = torch.rand(shape, device=dev, generator=gen) < 0.6
+    r = torch.rand(shape, device=dev, generator=gen).masked_fill(empty, 9.0)
+    th = torch.rand(shape, device=dev, generator=gen) * 6.2831853
+    w = torch.randn((2, *shape), device=dev, generator=gen).masked_fill(
+        empty, 0.0)
+    return torch.stack([r, torch.cos(th), torch.sin(th), w[0], w[1]], dim=2)
+
+
+@pytest.mark.cuda
+@SHAPES
+def test_k4_kernel_matches_plain_on_card(C, O, R, B, tb, nh, n_mesh):
+    """K4 (compressed stencil) forward and backward equal their plain
+    versions on the card (y, dg and dw each to 1e-4 of its scale: f32 sums
+    in another order), one launch each, and two backward calls are bitwise
+    equal (no atomics)."""
+    _need_card()
+    g, _, wmat, dy = _k1_inputs(C, O, R, B, tb, nh, n_mesh)
+    sten = _k4_stencil(R, B, tb, nh, n_mesh)
+    args = (sten, tb, nh, R, B)
+    before = dict(kernels.launches)
+    y = tbc.band_cfused_fwd(g, wmat, *args)
+    dg, dw = tbc.band_cfused_bwd(dy, g, wmat, *args)
+    torch.cuda.synchronize()
+    assert kernels.launches["band_cfused_fwd"] == \
+        before.get("band_cfused_fwd", 0) + 1
+    assert kernels.launches["band_cfused_bwd"] == \
+        before.get("band_cfused_bwd", 0) + 1
+    want = (tbc.band_cfused_reference(g, wmat, *args),
+            *tbc.band_cfused_bwd_reference(dy, g, wmat, *args))
+    for got, w in zip((y, dg, dw), want):
+        err = (got - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item(), err
+    dg2, dw2 = tbc.band_cfused_bwd(dy, g, wmat, *args)
+    assert torch.equal(dg, dg2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+@SHAPES
+def test_k3_kernel_matches_plain_on_card(C, O, R, B, tb, nh, n_mesh):
+    """K3 (the unfused contrib) forward and backward equal their plain
+    versions on the card (contrib and dg to 1e-4 of their scale), one
+    launch each, and two backward calls are bitwise equal."""
+    _need_card()
+    g, sten, _, _ = _k1_inputs(C, O, R, B, tb, nh, n_mesh)
+    K = 2 * B + 1
+    args = (sten, tb, nh, R, K)
+    dout = torch.randn(n_mesh, g.shape[1] * R, g.shape[2], device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(2))
+    before = dict(kernels.launches)
+    out = tbc.band_contrib_fwd(g, *args)
+    dg = tbc.band_contrib_bwd(dout, *args)
+    torch.cuda.synchronize()
+    assert kernels.launches["band_contrib_fwd"] == \
+        before.get("band_contrib_fwd", 0) + 1
+    assert kernels.launches["band_contrib_bwd"] == \
+        before.get("band_contrib_bwd", 0) + 1
+    for got, w in ((out, tbc.band_contrib_reference(g, *args)),
+                   (dg, tbc.band_contrib_bwd_reference(dout, *args))):
+        err = (got - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item(), err
+    assert torch.equal(dg, tbc.band_contrib_bwd(dout, *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["banded_echo", "cbanded"])
+def test_banded_echo_loss_backward_card_matches_cpu(path):
+    """One segmentation loss backward with echo_impl="banded" (the banded
+    ECHO and lift over the compressed table; K1 convs, or with the
+    compressed table as the conv table K4 convs) on the card against the
+    same on the CPU: every parameter's gradient within 1e-4 of its scale,
+    with exactly 9 launches of the conv kernel each way and no other."""
+    _need_card()
+    rng = np.random.default_rng(3)
+    config = dataclasses.replace(PRESETS["segmentation"], nf=8, n_des=8,
+                                 echo_impl="banded")
+    recs = [_record(rng, 200 - 30 * i, 16, 40, 0.2,
+                    labels=rng.integers(0, 4, 200 - 30 * i))
+            for i in range(2)]
+    net = build_model(config, 4, torch.Generator().manual_seed(0),
+                      device="cpu")
+    aug = draw_rotate_scale(torch.Generator().manual_seed(1), 2)
+    grads = {}
+    conv = "band_cfused" if path == "cbanded" else "band_fused"
+    for dev in ("cpu", "cuda"):
+        batch = make_batches(recs, config, 2, 32, device=dev)[0]
+        if path == "cbanded":
+            batch = dataclasses.replace(batch, banded=batch.comp)
+        net = net.to(dev)
+        before = dict(kernels.launches)
+        loss = make_loss_fn(net, config, 4)(batch, aug=aug)
+        grads[dev] = [g.cpu() for g in torch.autograd.grad(
+            loss, list(net.parameters()))]
+        grew = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+                if v != before.get(k, 0)}
+        assert grew == ({} if dev == "cpu" else {
+            f"{conv}_fwd": 9, f"{conv}_bwd": 9}), grew
+    for (name, _), a, b in zip(net.named_parameters(), grads["cuda"],
+                               grads["cpu"]):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * b.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+def test_field_conv_banded_unfused_card_matches_fused():
+    """field_conv_banded(fuse_filters=False) on the card (K3 both ways,
+    then the filter product) equals the fused route (K1 both ways) on the
+    same card: y and the grads of x and the three filter tensors to 1e-4 of
+    their scale."""
+    _need_card()
+    rng = np.random.default_rng(0)
+    n_mesh, N, tb, nh, C, O, R, B = 2, 32, 8, 2, 4, 3, 6, 2
+    K = 2 * B + 1
+    sten = rng.normal(size=(n_mesh, N // tb, R + 2 * K, tb, (2 * nh + 1) * tb))
+    sten[:, :, :R] *= rng.random(sten[:, :, :R].shape) < 0.2   # sparse rings
+    x = rng.normal(size=(n_mesh, N, C, 2))
+    filt = [rng.normal(size=s) for s in ((O, C, R), (O, C, R, B, 2),
+                                         (O, C, B + 1))]
+    dy = rng.normal(size=(n_mesh, N, O, 2))
+    bt = BandedTable(torch.tensor(sten, dtype=torch.float32, device="cuda"),
+                     tb=tb, nh=nh, n_pad=N, band_limit=B, n_rings=R)
+    outs = []
+    for fuse in (False, True):
+        t = [torch.tensor(a, dtype=torch.float32, device="cuda",
+                          requires_grad=True) for a in (x, *filt)]
+        before = dict(kernels.launches)
+        y = tbc.field_conv_banded(t[0], bt, *t[1:], 1, fuse_filters=fuse)
+        y.backward(torch.tensor(dy, dtype=torch.float32, device="cuda"))
+        grew = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+                if v != before.get(k, 0)}
+        name = "band_fused" if fuse else "band_contrib"
+        assert grew == {f"{name}_fwd": 1, f"{name}_bwd": 1}, grew
+        outs.append([y.detach().cpu()] + [a.grad.cpu() for a in t])
+    for a, b in zip(*outs):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * b.abs().max().item(), err
+
+
 def _record(rng, n, deg, bw, eps, labels=None):
     """A mesh record whose targets have `deg` unique sources within ±bw,
     radii in [0, ε] and unit transports (chip_smoke.py's generator)."""

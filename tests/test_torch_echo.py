@@ -48,6 +48,8 @@ from fieldconv_tpu_torch.train.config import ExperimentConfig
 from fieldconv_tpu_torch.train.trainer import batched_apply, stack_batch
 from fieldconv_tpu_torch.utils.port_weights import params_from_jax
 
+torch.set_num_threads(1)   # one per xdist worker: see test_torch_ops.py
+
 ECHO_TOL = dict(atol=3e-5, rtol=2e-5)
 NET_TOL = dict(rtol=5e-4, atol=5e-5)
 TB = 8
@@ -462,7 +464,10 @@ def test_predictor_echo_tasks_match_jax(jax_nets, task, rng):
 def test_make_batches_echo_routes(rng):
     """Without banded_tb the panel preset warns and takes the one-hot ECHO
     (the JAX semantics); echo_impl="compact" takes the mixed route over a
-    CompactPanelTable; the unported banded ECHO and matching raise."""
+    CompactPanelTable; echo_impl="banded" builds the compressed banded
+    table (under lift_impl="gather" too) and routes ECHO through
+    echo_banded, and without banded_tb raises the JAX package's
+    ValueError; matching raises."""
     _, config = _configs("segmentation")
     recs = _port_records(_records(rng, "segmentation", n_meshes=1, N=20))
     with pytest.warns(UserWarning, match="one-hot"):
@@ -480,8 +485,17 @@ def test_make_batches_echo_routes(rng):
             b = tloop.make_batches(recs, cfg, 1, TB, device="cpu")[0]
             assert b.compact is not None and b.banded is not None
             continue
-        with pytest.raises(NotImplementedError, match="Queue"):
-            tloop.make_batches(recs, cfg, 1, TB, device="cpu")
+        cfg = dataclasses.replace(cfg, lift_impl="gather")
+        b = tloop.make_batches(recs, cfg, 1, TB, 128, 8, device="cpu")[0]
+        assert isinstance(b.comp, tbanded.CompressedBandedTable)
+        assert b.banded is not None and b.panel is None
+        echo = ECHO(cfg.n_bins, impl="banded")
+        x = torch.from_numpy(_features(rng, 128, 3))[None]
+        np.testing.assert_allclose(
+            echo(x, b.table, b.comp).numpy(),
+            techo.echo_banded(x, b.comp, cfg.n_bins).numpy())
+        with pytest.raises(ValueError, match="requires banded_tb"):
+            tloop.make_batches(recs, cfg, 1, None, device="cpu")
     matching = ExperimentConfig(task="matching")
     with pytest.raises(NotImplementedError, match="matching"):
         tloop.build_model(matching, 3, device="cpu")

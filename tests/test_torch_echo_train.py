@@ -48,6 +48,8 @@ from fieldconv_tpu_torch.train.config import ExperimentConfig
 from fieldconv_tpu_torch.utils.complexops import soft_abs
 from fieldconv_tpu_torch.utils.port_weights import params_from_jax
 
+torch.set_num_threads(1)   # one per xdist worker: see test_torch_ops.py
+
 # each preset's band limit, rings, bins and augmentation at narrow widths
 _PRESET = {
     "segmentation": dict(band_limit=2, n_rings=6, n_bins=3, smoothing=0.2),

@@ -54,6 +54,8 @@ from fieldconv_tpu_torch.train import loop as tloop
 from fieldconv_tpu_torch.train.config import ExperimentConfig
 from fieldconv_tpu_torch.train.trainer import batched_apply
 
+torch.set_num_threads(1)   # one per xdist worker: see test_torch_ops.py
+
 K5_TOL = dict(rtol=1e-5, atol=1e-6)
 CONV_TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -31,6 +31,8 @@ from fieldconv_tpu_torch.train.config import ExperimentConfig
 from fieldconv_tpu_torch.train.trainer import batched_apply
 from fieldconv_tpu_torch.utils.port_weights import params_from_jax
 
+torch.set_num_threads(1)   # one per xdist worker: see test_torch_ops.py
+
 RTOL, ATOL = 5e-4, 5e-5
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -16,6 +16,8 @@ from fieldconv_tpu_torch.precomp import banded as tbanded
 from fieldconv_tpu_torch.precomp.stencil import (build_edge_table,
                                                  radial_interpolant)
 
+torch.set_num_threads(1)   # one per xdist worker: see test_torch_ops.py
+
 _FIELDS = ("src", "mask", "rsten", "fwxp", "ln", "wxp", "vmask")
 
 

@@ -44,6 +44,8 @@ from fieldconv_tpu_torch.train.checkpoint import CheckpointManager
 from fieldconv_tpu_torch.train.config import ExperimentConfig
 from fieldconv_tpu_torch.utils.port_weights import params_from_jax
 
+torch.set_num_threads(1)   # one per xdist worker: see test_torch_ops.py
+
 _CFG = dict(task="classification", band_limit=2, n_rings=6, nf=8, ftype=1)
 
 
