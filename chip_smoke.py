@@ -146,6 +146,35 @@ The compressed banded layout (each phase's checks hold):
   8. also times path A's and path B's requests and steps, and five convs
      unfused at bench.py's shape (path C: 5 K3 each way).
 
+The block-sparse banded layout (each phase's checks hold):
+  2c. hold K8's forward and backward (block-sparse banded conv) against
+     their plain versions (1e-4 of each output's scale; both directions
+     bitwise against a second call) on the block-sparse tables of the
+     8192-sample record (C=32, O2=64, K=5, R=6), of the segmentation batch
+     (C=48, O2=96) and of the correspondence record at its four widths
+     (K=3, R=3), each built from its batch's own EdgeTable and also held
+     against K1 on the dense table of the same EdgeTable, and on two random
+     tables whose lists are shuffled, repeat no block and carry padding
+     entries; each timed beside its plain version and its bound;
+  5f. path D: the same serving batches with their block-sparse tables as
+     the conv table (batch.banded = the table: 9 / 17 K8 + 1 K2 a request,
+     no K1), each against the CPU; then the 163,842-sample request of 5b
+     with its block-sparse table, built after the K5 request from the
+     serving batch's EdgeTable and first held as in 2c at the four
+     correspondence widths: 17 K8 + 1 K2, no K5, its logits held against
+     the same request on K5's route on the card;
+  7f. on the serving batches, the loss and every gradient of paths A (K1)
+     and D (K8) against the CPU's (as in 7e), then one make_train_step step
+     on path D (9 / 17 K8 + 1 K2 each way); at 163,842 the first step's
+     loss and gradients on path D against K5's route on the card (each
+     gradient's bar widened by K5's route against the all-compact route
+     on the card, or by the corr_n5120_b1 spread relative to its scale),
+     then 3 make_train_step steps (17 K8 + 1 K2 each way a step);
+  8. also times path D's requests and steps (at 163,842 with the peak
+     device memory) and five convs over n8192's block-sparse table (path
+     E: 5 K8 each way), then frees the 163k block-sparse table before the
+     all-compact request.
+
 The CPU's side of every first-epoch check of 6-7d (fit(device="cpu"))
 runs in one worker process, started with the records and stopped with the
 script, beside the card's phases.
@@ -179,7 +208,9 @@ import torch
 
 from fieldconv_tpu_torch import kernels
 from fieldconv_tpu_torch.data.base import shared_bucket
-from fieldconv_tpu_torch.data.synthetic import sphere_record, synthetic_record
+from fieldconv_tpu_torch.data.synthetic import (random_block_sparse,
+                                                sphere_record,
+                                                synthetic_record)
 from fieldconv_tpu_torch.deploy import Predictor
 from fieldconv_tpu_torch.ops.band_conv import (_hats_from_r, _panel_pairs,
                                                band_cfused_bwd,
@@ -202,6 +233,10 @@ from fieldconv_tpu_torch.ops.band_conv import (_hats_from_r, _panel_pairs,
                                                band_panel_bwd_reference,
                                                band_panel_fwd,
                                                band_panel_fwd_reference,
+                                               band_sparse_bwd,
+                                               band_sparse_bwd_reference,
+                                               band_sparse_fwd,
+                                               band_sparse_reference,
                                                field_conv_banded)
 from fieldconv_tpu_torch.ops.compact_fold import (compact_fold,
                                                   compact_fold_reference)
@@ -213,9 +248,11 @@ from fieldconv_tpu_torch.ops.echo_panel import (echo_compact_grid,
                                                 echo_panel_grid_bwd,
                                                 echo_panel_grid_bwd_reference,
                                                 echo_panel_grid_reference)
-from fieldconv_tpu_torch.precomp.banded import (build_compact_panel_table,
+from fieldconv_tpu_torch.precomp.banded import (build_block_sparse_banded,
+                                                build_compact_panel_table,
                                                 build_compressed_banded,
-                                                build_panel_table)
+                                                build_panel_table,
+                                                stack_block_sparse_tables)
 from fieldconv_tpu_torch.ops.trans_field import (_compact_lift_agg_bwd,
                                                  _lift_sums)
 from fieldconv_tpu_torch.train.checkpoint import CheckpointManager
@@ -264,6 +301,12 @@ K5_RTOL_SCALE = 1e-4
 # against the table's stored ones, and f32 sums in another order)
 K4_RTOL_SCALE = K3_RTOL_SCALE = 1e-4
 K4_K1_ATOL, K4_K1_GRAD = 2e-5, (3e-4, 1e-3)
+# K8 (the block-sparse banded conv) against its plain version as K1: each
+# output to 1e-4 of its scale, the backward bitwise against a second call;
+# against K1 on the dense table of the same EdgeTable the same way (the
+# same products, summed in another order where a block's list is not its
+# window's order)
+K8_RTOL_SCALE = 1e-4
 # the pure-panel request at the repo's north-star size (BASELINE.json
 # configs[4]: a correspondence mesh of 163,842 vertices, scripts/
 # train_100k.py), under layout="auto"
@@ -324,12 +367,13 @@ CONVS_PER_PASS = {"shrec11_b8": 5, "seg_n2048_b4": 9, "corr_n5120_b1": 17,
 # the kernels' short names in the printed lines
 SHORT = {"band_fused": "K1", "echo_panel": "K2", "band_panel": "K5",
          "band_compact": "K6", "echo_compact": "K7", "band_cfused": "K4",
-         "band_contrib": "K3"}
+         "band_contrib": "K3", "band_sparse": "K8"}
 # the fit at N_LARGE: the CORRESPONDENCE preset's 60 epochs cut to 3 (one
 # record, so 3 steps); nothing else is cut
 LARGE_EPOCHS = 3
 # torch threads of the worker that runs the CPU's reference fits beside the
-# card's phases (the machine has 8 cores; the main process keeps the rest)
+# card's phases (the machine has 8 cores; the main process keeps the rest
+# until the worker's last result is read)
 CPU_THREADS = 6
 
 
@@ -1394,6 +1438,142 @@ def unfused_check(label, banded, dev, gen, C=32):
           f"{K3_RTOL_SCALE} of each one's scale)")
 
 
+# --- K8 against its plain version -------------------------------------------------
+
+def host_table(table, m=0):
+    """Mesh m of a batch's stacked EdgeTable, on the host (the fields the
+    block-layout builders read)."""
+    return dataclasses.replace(table, **{
+        f: getattr(table, f)[m].cpu() for f in ("src", "mask", "rsten",
+                                                "fwxp", "ln", "wxp")})
+
+
+def block_sparse_of(batch):
+    """Path D's conv table of a batch: each mesh's BlockSparseTable built on
+    the host from the batch's own EdgeTable (tb = TB) and stacked, placed
+    on the batch's device, as the JAX package's callers build it."""
+    tabs = [build_block_sparse_banded(host_table(batch.table, m), tb=TB)
+            for m in range(batch.pos.shape[0])]
+    return stack_block_sparse_tables(tabs).to(batch.pos.device)
+
+
+def as_block_sparse(batches):
+    """Path D: each batch with its block-sparse table as the conv table
+    (every conv through K8; ECHO and the lift stay on the batch's panels),
+    as the JAX batched_apply accepts it."""
+    return [dataclasses.replace(b, banded=block_sparse_of(b))
+            for b in batches]
+
+
+def as_compressed(batches):
+    """Each banded batch with the compressed band of its own EdgeTable as
+    the conv table (K4 convs; ECHO and the lift stay on the batch's
+    panels): a third route of the same function, for route_check's CPU
+    spread."""
+    out = []
+    for b in batches:
+        tabs = [build_compressed_banded(host_table(b.table, m), tb=TB)
+                for m in range(b.pos.shape[0])]
+        check(len({t.nh for t in tabs}) == 1, "the meshes' nh differ")
+        sten = torch.stack([t.sten_band for t in tabs]).to(b.pos.device)
+        out.append(dataclasses.replace(
+            b, banded=dataclasses.replace(tabs[0], sten_band=sten)))
+    return out
+
+
+def k8_bound(g, sten, nbr, wmat):
+    """Least time for one K8 call: k1_bound over the block-sparse planes
+    (each read once, with g and W, y written once; the stencil term from
+    this table's nonzero radial weights), plus nbr's bytes."""
+    b = k1_bound(g, sten, wmat)
+    return _bound(b["bytes"] + 4 * nbr.numel(), b["flops"],
+                  slot_fill=b["slot_fill"],
+                  rings_per_slot=b["rings_per_slot"])
+
+
+def k8_bwd_bound(g, sten, nbr, wmat):
+    """Least time for one K8 backward call: k1_bwd_bound over the
+    block-sparse planes (dG written once, not once per panel), plus nbr's
+    bytes."""
+    b = k1_bwd_bound(g, sten, wmat)
+    return _bound(b["bytes"] + 4 * nbr.numel(), b["flops"])
+
+
+def k8_check(label, tab, C, O2, gen, dense=None, plain=(2, 3)):
+    """K8 forward and backward on BlockSparseTable ``tab`` (on the card)
+    against their plain versions (y, dg and dw each to K8_RTOL_SCALE of its
+    scale; both directions bitwise against a second call) and, given
+    ``dense`` (the BandedTable of the same EdgeTable), against K1's forward
+    and backward (each output to K8_RTOL_SCALE of K1's scale); then each
+    direction timed beside its plain version (``plain``: iters, reps) and
+    its bound.  Returns the forward's and the backward's rows."""
+    R, K = tab.n_rings, tab.k_width
+    sten = tab.sten_band.reshape(-1, *tab.sten_band.shape[-4:])
+    nbr = tab.nbr.reshape(-1, *tab.nbr.shape[-2:])
+    n_mesh, N = nbr.shape[0], nbr.shape[1] * TB
+    dev = sten.device
+    g = torch.randn(n_mesh, N, K * 2 * C, device=dev, generator=gen)
+    wmat = torch.randn(R, K * 2 * C, O2, device=dev, generator=gen) / 40.0
+    dy = torch.randn(n_mesh, N, O2, device=dev, generator=gen)
+    args = (TB, R, K)
+    inv = (tab.inv_ptr, tab.inv_bj)
+
+    def fwd():
+        return band_sparse_fwd(g, wmat, sten, nbr, *args)
+
+    def bwd():
+        return band_sparse_bwd(dy, g, wmat, sten, nbr, *inv, *args)
+
+    err, scale = check_fwd(
+        "K8", label, fwd,
+        lambda: band_sparse_reference(g, wmat, sten, nbr, *args),
+        K8_RTOL_SCALE)
+    brow = check_bwd(
+        "K8 bwd", label, bwd,
+        lambda: band_sparse_bwd_reference(dy, g, wmat, sten, nbr, *args),
+        K8_RTOL_SCALE, ("dg", "dw"))
+    shape = dict(shape=label, n_mesh=n_mesh, N=N, M=g.shape[2], nj=tab.nj,
+                 O2=O2)
+    if dense is not None:
+        ds = dense.sten_band.reshape(-1, *dense.sten_band.shape[-4:])
+        errs = []
+        for name, a, b in zip(
+                ("y", "dg", "dw"), (fwd(), *bwd()),
+                (band_fused_fwd(g, ds, wmat, TB, dense.nh),
+                 *band_fused_bwd(dy, g, ds, wmat, TB, dense.nh))):
+            e, sc = (a - b).abs().max().item(), b.abs().max().item()
+            check(e <= K8_RTOL_SCALE * sc,
+                  f"K8 {label}: {name} against K1's, max abs err {e} > "
+                  f"{K8_RTOL_SCALE} x {sc}")
+            errs.append(f"{name} {e / sc:.2e}")
+        print(f"K8 {label}: against K1 on the dense table of the same "
+              f"EdgeTable, rel err {', '.join(errs)} (tolerance "
+              f"{K8_RTOL_SCALE} of each one's scale)")
+    row = dict(shape, max_abs_err=err, max_rel_err=err / scale)
+    brow = dict(shape, **brow)
+    if plain is not None:
+        big = N * n_mesh > 100_000
+        row["ms"] = time_cuda(fwd, iters=5 if big else 20)
+        row["plain_ms"] = time_cuda(
+            lambda: band_sparse_reference(g, wmat, sten, nbr, *args),
+            iters=plain[0], reps=plain[1], warmup=1)
+        row.update(k8_bound(g, sten, nbr, wmat))
+        brow["ms"] = time_cuda(bwd, iters=3 if big else 10)
+        brow["plain_ms"] = time_cuda(
+            lambda: band_sparse_bwd_reference(dy, g, wmat, sten, nbr, *args),
+            iters=plain[0], reps=plain[1], warmup=1)
+        brow.update(k8_bwd_bound(g, sten, nbr, wmat))
+    return row, brow
+
+
+def sparse_stats(tab):
+    """NJ, the mean live source blocks per target block, and the GB of the
+    table's stencil."""
+    nb = tab.nbr.numel() // tab.nj
+    return (tab.nj, tab.inv_bj.shape[0] / nb,
+            4 * tab.sten_band.numel() / 1e9)
+
+
 def stencil_mb(batch):
     """MB of the dense band stencil and of the compressed one in a banded
     batch."""
@@ -1444,16 +1624,17 @@ def as_cbanded(batches):
     return [dataclasses.replace(b, banded=b.comp) for b in batches]
 
 
-def match_cpu(k, p, recs, served, cpu_net, cbanded=False):
+def match_cpu(k, p, recs, served, cpu_net, alt=None):
     """The card's outputs ``served`` of Predictor ``p`` against the same
-    Predictor on the CPU (plain versions; with ``cbanded`` on path B's
-    batches): logits within LOGIT_RTOL / LOGIT_ATOL, labels / maps equal
-    wherever the CPU's top-two logit gap exceeds LABEL_GAP."""
+    Predictor on the CPU (plain versions; with ``alt``, on the batches it
+    makes of the CPU's: path B's or path D's): logits within LOGIT_RTOL /
+    LOGIT_ATOL, labels / maps equal wherever the CPU's top-two logit gap
+    exceeds LABEL_GAP."""
     key = "labels" if p.config.task == "segmentation" else "map"
     cpu_p = Predictor(cpu_net, p.config, batch_size=p.batch_size,
                       banded_tb=TB, device="cpu")
-    cpu = cpu_p.predict(recs, batches=as_cbanded(cpu_p.make_batches(recs))
-                        if cbanded else None)
+    cpu = cpu_p.predict(recs, batches=alt(cpu_p.make_batches(recs))
+                        if alt else None)
     n_close = n_all = 0
     diff = 0.0
     for a, b, r in zip(served, cpu, recs):
@@ -1490,7 +1671,7 @@ def time_request(k, p, rs_, bs_, what, card, large=False):
     predict under the profiler (wall, device busy share, top kernels).  A
     large request (N_LARGE) also times Predictor.logits alone and reads the
     peak device memory of one request beside what was allocated before it."""
-    reps = 3 if large else 5
+    reps = 2 if large else 5
     if large:
         def logits_synced():
             p.logits(bs_[0])
@@ -1703,17 +1884,29 @@ def grad_bar(own, spread):
     return max(K1_RTOL_SCALE * own, GRAD_SPREAD * spread)
 
 
-def cbanded_check(k, cfg, n_classes, weights, batch, cpu_batch, dev, seed):
-    """Paths A and B's gradient check at shape ``k``: a net of ``cfg``
-    holding ``weights``, its loss and every parameter's gradient on the
-    card against the same net on the CPU, with the same augmentation and
-    dropout mask, on ``batch`` / ``cpu_batch`` (path A: K1 convs and the
-    banded ECHO) and on the same batches with the compressed table as the
-    conv table (path B: K4 convs).  Each loss within LOSS_ATOL_STEP1; each
-    gradient within grad_bar of its CPU route's, whose spread is the CPU's
-    path A against its path B.  Returns the card's path-B net, a fresh
-    optimizer of it, and the step's inputs: {dev: the aug and dropout_mask
-    keywords, "cpu_loss": the CPU's path-B loss}."""
+def route_check(k, cfg, n_classes, weights, batch, cpu_batch, dev, seed,
+                alt=as_cbanded, name="B", conv="K4", card_ref=False,
+                spread_alts=()):
+    """A route's gradient check at shape ``k``: a net of ``cfg`` holding
+    ``weights``, its loss and every parameter's gradient on the card
+    against the same net on the CPU, with the same augmentation and dropout
+    mask, on ``batch`` / ``cpu_batch`` (path A: their own conv tables, K1)
+    and on the batches ``alt`` makes of them (path ``name``, every conv
+    through ``conv``: path B's compressed table, K4, or path D's
+    block-sparse one, K8).  Each loss within LOSS_ATOL_STEP1; each gradient
+    within grad_bar of its CPU route's, whose spread is the CPU's path A
+    against its path ``name`` and against each route ``spread_alts`` make
+    of the CPU's batch (the largest).  With ``card_ref``, path A is the
+    reference on the card and only reported: a path-``name`` gradient that
+    misses the CPU's where the card's path A misses it too, by more than
+    the bar (an op upstream of the convs that the two paths share, rounded
+    otherwise on the card), is held within the bar of the card's path A
+    instead.
+    Returns the card's net on path ``name``, a fresh optimizer of it, the
+    step's inputs ({dev: the aug and dropout_mask keywords, "cpu_loss": the
+    CPU's loss on path ``name``}) and each parameter's rounding spread
+    relative to its own scale (the CPU's two routes and, with card_ref, the
+    card's path A against the CPU's: the larger)."""
     gen = torch.Generator().manual_seed(seed + 3)
     aug = draw_rotate_scale(gen, batch.pos.shape[0], cfg.random_rotate_deg,
                             cfg.random_scale)
@@ -1725,45 +1918,163 @@ def cbanded_check(k, cfg, n_classes, weights, batch, cpu_batch, dev, seed):
             mask = draw_dropout_mask(gen, nets[d], b)
         kw[d] = dict(aug=tuple(None if a is None else a.to(d) for a in aug),
                      dropout_mask=None if mask is None else mask.to(d))
-        for path, b_ in (("A", b), ("B", as_cbanded([b])[0])):
+        for path, b_ in (("A", b), (name, alt([b])[0])):
             loss = make_loss_fn(nets[d], cfg, n_classes)(b_, **kw[d])
             grads = torch.autograd.grad(loss, list(nets[d].parameters()))
             out[d, path] = (loss.item(), [g.cpu() for g in grads])
     names = [n for n, _ in nets["cpu"].named_parameters()]
-    spread = [(a - b).abs().max().item()
-              for a, b in zip(out["cpu", "A"][1], out["cpu", "B"][1])]
-    for path in "AB":
+    others = [out["cpu", name][1]]
+    for make in spread_alts:
+        loss = make_loss_fn(nets["cpu"], cfg, n_classes)(
+            make([cpu_batch])[0], **kw["cpu"])
+        others.append(torch.autograd.grad(loss,
+                                          list(nets["cpu"].parameters())))
+    spread = [max((a - o[i]).abs().max().item() for o in others)
+              for i, a in enumerate(out["cpu", "A"][1])]
+    ref = None
+    if card_ref:
+        ref = (out[dev, "A"][1],
+               [(a - b).abs().max().item()
+                for a, b in zip(out[dev, "A"][1], out["cpu", "A"][1])])
+    for path in ("A", name):
         dloss = abs(out[dev, path][0] - out["cpu", path][0])
         check(dloss <= LOSS_ATOL_STEP1,
               f"{k} path {path}: loss {out[dev, path][0]} on the card, "
               f"{out['cpu', path][0]} on the CPU")
-        worst, widened = (0.0, ""), []
-        for name, a, b, s_ in zip(names, out[dev, path][1],
-                                  out["cpu", path][1], spread):
-            own = b.abs().max().item()
-            bar = grad_bar(own, s_)
-            err = (a - b).abs().max().item()
-            check(bar <= GRAD_BAR_CAP * own,
-                  f"{k} path {path}: {name}'s CPU routes differ by {s_}, "
-                  f"too much to hold its gradient (scale {own})")
-            check(err <= bar, f"{k} path {path}: gradient of {name} max abs "
-                              f"err {err} > {bar} (scale {own}, CPU spread "
-                              f"{s_})")
-            worst = max(worst, (err / max(own, 1e-30), name))
-            if bar > K1_RTOL_SCALE * own:
-                widened.append(f"{name} (scale {own:.3e}, CPU spread "
-                               f"{s_ / own:.3e}, card {err / own:.3e})")
-        print(f"train {k} path {path} (every conv through "
-              f"{'K1' if path == 'A' else 'K4'}): loss "
-              f"{out[dev, path][0]:.6f} on the card, |diff| {dloss:.3e} from "
-              f"the CPU's (within {LOSS_ATOL_STEP1}); the largest gradient "
-              f"error is {worst[0]:.3e} of its parameter's own scale "
-              f"({worst[1]}); bar {K1_RTOL_SCALE} of the own scale, widened "
-              f"to {GRAD_SPREAD}x the CPU routes' spread for "
-              f"{'; '.join(widened) or 'none'}")
-    kw["cpu_loss"] = out["cpu", "B"][0]
+        hold_grads(f"{k} path {path}", names, out[dev, path][1],
+                   out["cpu", path][1], spread,
+                   f"every conv through {'K1' if path == 'A' else conv}: "
+                   f"loss {out[dev, path][0]:.6f} on the card, |diff| "
+                   f"{dloss:.3e} from the CPU's (within {LOSS_ATOL_STEP1})",
+                   hold=not (card_ref and path == "A"),
+                   card_ref=ref if path == name else None)
+    kw["cpu_loss"] = out["cpu", name][0]
+    # each gradient's rounding spread relative to its scale: the CPU's two
+    # routes and, with card_ref, the card's path A against the CPU's
+    gaps = ref[1] if ref else [0.0] * len(names)
+    rel = {n: max(s_, g_) / max(b.abs().max().item(), 1e-30)
+           for n, s_, g_, b in zip(names, spread, gaps, out["cpu", "A"][1])}
     net = nets[dev]
-    return net, make_optimizer(cfg, net.parameters()), kw
+    return net, make_optimizer(cfg, net.parameters()), kw, rel
+
+
+def hold_grads(what, names, got, want, spread, head, hold=True,
+               card_ref=None):
+    """Each gradient of ``got`` within grad_bar of ``want``'s, given each
+    one's ``spread``; no bar above GRAD_BAR_CAP of the gradient's own scale
+    (``hold`` False: reported, not held).  ``card_ref``: (the card's
+    gradients on a reference route, each one's error against ``want``); a
+    gradient that misses the bar where the reference misses it too is held
+    within the bar of the reference's instead.  Prints the worst error, the
+    widened bars and the gradients held to the reference."""
+    worst, widened, to_ref, missed = (0.0, ""), [], [], []
+    for i, (name, a, b, s_) in enumerate(zip(names, got, want, spread)):
+        own = b.abs().max().item()
+        bar = grad_bar(own, s_)
+        err = (a - b).abs().max().item()
+        if hold:
+            check(bar <= GRAD_BAR_CAP * own,
+                  f"{what}: {name}'s routes differ by {s_}, too much to hold "
+                  f"its gradient (scale {own})")
+        if card_ref is not None and err > bar and card_ref[1][i] > bar:
+            err_ref = (a - card_ref[0][i]).abs().max().item()
+            check(err_ref <= bar, f"{what}: gradient of {name} max abs err "
+                                  f"{err_ref} > {bar} against the card's "
+                                  f"reference route (scale {own})")
+            to_ref.append(f"{name} (scale {own:.3e}, CPU {err / own:.3e}, "
+                          f"the reference's CPU {card_ref[1][i] / own:.3e},"
+                          f" the reference {err_ref / own:.3e})")
+        elif hold:
+            check(err <= bar, f"{what}: gradient of {name} max abs err {err} "
+                              f"> {bar} (scale {own}, spread {s_})")
+        elif err > bar:
+            missed.append(f"{name} (scale {own:.3e}, {err / own:.3e})")
+        worst = max(worst, (err / max(own, 1e-30), name))
+        if bar > K1_RTOL_SCALE * own:
+            widened.append(f"{name} (scale {own:.3e}, spread {s_ / own:.3e}"
+                           f", card {err / own:.3e})")
+    print(f"train {what} ({head}); the largest gradient error is "
+          f"{worst[0]:.3e} of its parameter's own scale ({worst[1]}); bar "
+          f"{K1_RTOL_SCALE} of the own scale, widened to {GRAD_SPREAD}x the "
+          f"spread for {'; '.join(widened) or 'none'}"
+          + (f"; held to the card's reference route: {'; '.join(to_ref)}"
+             if to_ref else "")
+          + ("" if hold else f"; reported, not held; above the bar: "
+             f"{'; '.join(missed) or 'none'}"))
+
+
+def logits_close(a, b, rows=16384):
+    """The largest |a − b| of two logit tensors on the card, and the
+    largest excess of |a − b| over LOGIT_RTOL·|b| (to be held within
+    LOGIT_ATOL), ``rows`` rows at a time; both must be finite."""
+    check(torch.isfinite(a).all().item() and torch.isfinite(b).all().item(),
+          "non-finite logits")
+    worst = excess = 0.0
+    for lo in range(0, a.shape[-2], rows):
+        d = (a[..., lo:lo + rows, :] - b[..., lo:lo + rows, :]).abs()
+        worst = max(worst, d.max().item())
+        excess = max(excess, (d - LOGIT_RTOL * b[..., lo:lo + rows, :].abs())
+                     .max().item())
+    return worst, excess
+
+
+def large_block_sparse_steps(k, cfg, weights, panel_batch, bsp_batch,
+                             compact_batch, rel_spread, dev, seed):
+    """Path D's training at N_LARGE: a net of ``cfg`` holding ``weights``,
+    its loss and every gradient on ``bsp_batch`` (K8 convs) against the
+    same on ``panel_batch`` (K5's route, the same function) on the card,
+    with the same augmentation and dropout mask, each gradient within
+    grad_bar of K5's.  No CPU run at this size: the spread is K5's route
+    against the all-compact route on ``compact_batch`` (K6, K7 and the
+    compact lift: a third route of the same function, on the card) or
+    ``rel_spread`` (each parameter's rounding spread relative to its own
+    scale at corr_n5120_b1, route_check's) times the parameter's scale,
+    whichever is larger.  Then LARGE_EPOCHS make_train_step steps on
+    ``bsp_batch``, counted (17 K8 + 1 K2 each way a step), each loss
+    finite.  Returns ((net, optimizer), the launches)."""
+    net = build_model(cfg, N_CORR_CLASSES, device=dev)
+    net.load_state_dict(weights)
+    gen = torch.Generator().manual_seed(seed + 3)
+    aug = draw_rotate_scale(gen, 1, cfg.random_rotate_deg, cfg.random_scale)
+    kw = dict(aug=tuple(None if a is None else a.to(dev) for a in aug),
+              dropout_mask=draw_dropout_mask(gen, net, bsp_batch).to(dev))
+    names = [n for n, _ in net.named_parameters()]
+    out = {}
+    for path, b in (("K5", panel_batch), ("D", bsp_batch),
+                    ("K6", compact_batch)):
+        loss = make_loss_fn(net, cfg, N_CORR_CLASSES)(b, **kw)
+        grads = torch.autograd.grad(loss, list(net.parameters()))
+        out[path] = (loss.item(), [g.cpu() for g in grads])
+        del loss, grads
+    dloss = abs(out["D"][0] - out["K5"][0])
+    check(dloss <= LOSS_ATOL_STEP1, f"{k} path D: loss {out['D'][0]}, on "
+                                    f"K5's route {out['K5'][0]}")
+    spread = [max(rel_spread[n] * b.abs().max().item(),
+                  (b - c).abs().max().item())
+              for n, b, c in zip(names, out["K5"][1], out["K6"][1])]
+    hold_grads(f"{k} path D", names, out["D"][1], out["K5"][1], spread,
+               f"every conv through K8, against K5's route on the card: loss "
+               f"{out['D'][0]:.6f}, |diff| {dloss:.3e} (within "
+               f"{LOSS_ATOL_STEP1}); spread K5's route against the "
+               f"all-compact one on the card, or corr_n5120_b1's scaled")
+    opt = make_optimizer(cfg, net.parameters())
+    step = make_train_step(net, cfg, N_CORR_CLASSES, opt)
+    step_gen = torch.Generator().manual_seed(seed + 3)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    losses = [step(bsp_batch, step_gen).item() for _ in range(LARGE_EPOCHS)]
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0
+    grew = dict(kernels.launches)
+    n = CONVS_PER_PASS[k] * LARGE_EPOCHS
+    want = {"band_sparse_fwd": n, "band_sparse_bwd": n,
+            "echo_panel_fwd": LARGE_EPOCHS, "echo_panel_bwd": LARGE_EPOCHS}
+    check(grew == want, f"{k} path D: {LARGE_EPOCHS} steps launched {grew}, "
+                        f"want {want}")
+    check(all(np.isfinite(losses)), f"{k} path D: losses {losses}")
+    print(f"train {k} path D: {LARGE_EPOCHS} make_train_step steps on the "
+          f"serving batch ({steps_s:.1f} s), losses {losses}, launches {grew}")
+    return (net, opt), grew
 
 
 def remat_step(k, tnet, cfg, n_classes, batch, dev, seed, card):
@@ -2019,11 +2330,8 @@ def phases(args, pool) -> int:
         t0 = time.perf_counter()
         if k == big_c:
             b0 = panel_batches[big][0]
-            host = dataclasses.replace(b0.table, **{
-                f: getattr(b0.table, f)[0].cpu()
-                for f in ("src", "mask", "ln", "wxp")})
-            comp_big = build_compact_panel_table(host, tb=min(TB, 32)).to(dev)
-            del host
+            comp_big = build_compact_panel_table(
+                host_table(b0.table), tb=min(TB, 32)).to(dev)
             compact_batches[big_c] = [dataclasses.replace(b0,
                                                           compact=comp_big)]
         elif k == big_a:
@@ -2081,11 +2389,8 @@ def phases(args, pool) -> int:
               f"the host and placed in {build_s:.3f} s")
     # n8192's compressed table, from its serving batch's EdgeTable
     b8192 = batches["n8192_b1"][0]
-    host = dataclasses.replace(b8192.table, **{
-        f: getattr(b8192.table, f)[0].cpu() for f in ("src", "mask", "ln",
-                                                      "wxp")})
-    comp8192 = build_compressed_banded(host, tb=TB).to(dev)
-    del host
+    comp8192 = build_compressed_banded(host_table(b8192.table),
+                                       tb=TB).to(dev)
     check(comp8192.nh == b8192.banded.nh, "n8192: the two band tables' nh")
 
     fits = {"shrec11_b8": (config, N_CLASSES, train_recs + test_recs)}
@@ -2113,6 +2418,7 @@ def phases(args, pool) -> int:
                                fits[k][2][:TRAIN_FIT[k][0]], fits[k][1],
                                TRAIN_FIT[k][1], args.seed)
                 for k in fits if k in TRAIN_FIT}
+    torch.set_num_threads(max(1, (os.cpu_count() or 8) - CPU_THREADS))
     stamp("tables built")
     # 2. K1 forward and backward against their plain versions at the
     # shapes serving and training give them
@@ -2217,7 +2523,45 @@ def phases(args, pool) -> int:
               f"{r['stencil_bytes_whole'] / 1e6:.1f} MB compressed stencil "
               f"needed (slot fill {r['slot_fill']:.4f})")
 
-    stamp("K1, K3 and K4 checked")
+    # 2c. K8 (block-sparse banded conv), forward and backward, against its
+    # plain versions, each timed here: on the block-sparse tables of n8192
+    # (C=32, O2=64, K=5, R=6), of the segmentation batch (C=48, O2=96) and
+    # of the correspondence batch at its four widths (K=3, R=3), each built
+    # from its batch's own EdgeTable and held against K1 on that batch's
+    # dense table too, and on two random tables whose lists are shuffled,
+    # repeat no block and carry padding entries (the 163k table's checks
+    # come with phase 5f, after the K5 request)
+    k8_rows, k8b_rows = [], []
+    bsp8192 = block_sparse_of(b8192)
+    for label, bsp, bt, C_, O2 in (
+            ("n8192", bsp8192, b8192.banded, 32, 64),
+            ("seg_n2048_b4", block_sparse_of(echo_batches["seg_n2048_b4"][0]),
+             echo_batches["seg_n2048_b4"][0].banded, 48, 96),
+            *(("corr_n5120_b1", block_sparse_of(
+                echo_batches["corr_n5120_b1"][0]),
+               echo_batches["corr_n5120_b1"][0].banded, C_, O2)
+              for C_, O2 in ((32, 64), (16, 64), (32, 32), (16, 24)))):
+        nj, per_block, gb = sparse_stats(bsp)
+        print(f"K8 {label}: NJ {nj}, {per_block:.2f} live source blocks per "
+              f"target block, stencil {1e3 * gb:.1f} MB (dense band "
+              f"{4e-6 * bt.sten_band.numel():.1f} MB, nh {bt.nh})")
+        rows8 = k8_check(f"{label} C={C_} O2={O2}", bsp, C_, O2, gen,
+                         dense=bt)
+        k8_rows.append(rows8[0])
+        k8b_rows.append(rows8[1])
+    rng8 = np.random.default_rng(args.seed + 8)
+    for B_, R_, C_, O2 in ((2, 6, 32, 60), (1, 3, 16, 24)):
+        tab = random_block_sparse(rng8, 2, 10, 6, R_, B_, TB).to(dev)
+        rows8 = k8_check(f"random shuffled lists b2 NJ=6 K={2 * B_ + 1} "
+                         f"R={R_} C={C_} O2={O2}", tab, C_, O2, gen,
+                         plain=None)
+        k8_rows.append(rows8[0])
+        k8b_rows.append(rows8[1])
+    del tab
+    print_times("K8", k8_rows[:6], card)
+    print_times("K8 bwd", k8b_rows[:6], card)
+
+    stamp("K1, K3, K4 and K8 checked")
     # 3. K2 against its plain version on the records' own panels
     k2_rows, k2_timed = [], []
     for key, C_ in (("seg_n2048_b4", 48), ("corr_n5120_b1", 12)):
@@ -2464,8 +2808,61 @@ def phases(args, pool) -> int:
         {k: {"band_cfused_fwd": CONVS_PER_PASS[k]} for k in bech_serve})
     for k, p in bech_serve.items():
         match_cpu(f"{k} path B", p, bech_recs[k], served[k],
-                  echo_cpu_nets[bech_of[k]], cbanded=True)
+                  echo_cpu_nets[bech_of[k]], alt=as_cbanded)
     del served
+
+    # 5f. path D: each batch's block-sparse table as the conv table (every
+    # conv through K8; ECHO and the lift stay on the batch's panels),
+    # counted (9 / 17 K8 + 1 K2 a request, no K1 or K5): the segmentation
+    # batch and the correspondence record on the mixed route, each against
+    # the CPU, and the 163k record on the pure-panel layout, held against
+    # the same request on K5's route on the card.  The 163k table is built
+    # now, from the serving batch's EdgeTable, and checked first (phase
+    # 2c's checks at its four widths)
+    t0 = time.perf_counter()
+    bsp_big = block_sparse_of(panel_batches[big][0])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    nj, per_block, gb = sparse_stats(bsp_big)
+    print(f"request {big} path D: block-sparse table NJ {nj}, "
+          f"{per_block:.2f} live source blocks per target block, stencil "
+          f"{gb:.3f} GB (the block panels: "
+          f"{4 * bigp.sten.numel() / 1e9:.3f} GB); built on the host from "
+          f"the serving batch's EdgeTable and placed in {build_s:.1f} s")
+    for C_, O2 in ((32, 64), (16, 64), (32, 32), (16, 24)):
+        rows8 = k8_check(f"{big} C={C_} O2={O2}", bsp_big, C_, O2, gen,
+                         plain=(1, 1))
+        k8_rows.append(rows8[0])
+        k8b_rows.append(rows8[1])
+    print_times("K8", k8_rows[-4:], card)
+    print_times("K8 bwd", k8b_rows[-4:], card)
+    bsp_serve = {**echo_serve, big: panel_serve[big]}
+    bsp_recs = {**echo_recs, big: panel_recs[big]}
+    bsp_batches = {k: as_block_sparse(echo_batches[k]) for k in echo_serve}
+    bsp_batches[big] = [dataclasses.replace(panel_batches[big][0],
+                                            banded=bsp_big)]
+    bsp_launches, served = serve_counted(
+        bsp_serve, bsp_recs, bsp_batches,
+        {k: {"band_sparse_fwd": CONVS_PER_PASS[k], "echo_panel_fwd": 1}
+         for k in bsp_serve})
+    for k in echo_serve:
+        match_cpu(f"{k} path D", bsp_serve[k], bsp_recs[k], served[k],
+                  echo_cpu_nets[k], alt=as_block_sparse)
+    out = served[big][0]
+    check(out["logits"].shape == (N_LARGE, N_CORR_CLASSES)
+          and np.isfinite(out["logits"]).all(),
+          f"{big} path D: bad output {out['logits'].shape}")
+    del out, served
+    worst, excess = logits_close(
+        panel_serve[big].logits(bsp_batches[big][0]),
+        panel_serve[big].logits(panel_batches[big][0]))
+    check(excess <= LOGIT_ATOL,
+          f"{big} path D: logits against K5's route exceed rtol "
+          f"{LOGIT_RTOL} by {excess} > atol {LOGIT_ATOL}")
+    print(f"serve {big} path D: logits ({N_LARGE}, {N_CORR_CLASSES}) finite, "
+          f"against K5's route on the card: max abs diff {worst:.3e} (rtol "
+          f"{LOGIT_RTOL}, atol {LOGIT_ATOL}); launches {bsp_launches} for the "
+          f"three path-D requests")
 
     # the 163k compact-ECHO and all-compact batches, each built once above,
     # serve 7c and phase 8 too
@@ -2517,6 +2914,7 @@ def phases(args, pool) -> int:
                                    cpu_jobs[k])
         train_launches["train_banded_echo"] = dict(kernels.launches)
 
+    torch.set_num_threads(os.cpu_count() or 8)   # the worker is done
     stamp("trained")
     # 7e. path B training: on each preset's serving batch, the loss and
     # every gradient on paths A and B against the CPU's on the same batch
@@ -2527,7 +2925,7 @@ def phases(args, pool) -> int:
         n_classes = echo_classes[bech_of[k]]
         cpu_b = make_batches(bech_recs[k], cfg, len(bech_recs[k]), TB,
                              device="cpu")[0]
-        net_, opt_, kw = cbanded_check(
+        net_, opt_, kw, _ = route_check(
             k, cfg, n_classes, echo_nets[bech_of[k]].state_dict(),
             bech_batches[k][0], cpu_b, dev, args.seed)
         step = make_train_step(net_, cfg, n_classes, opt_)
@@ -2549,6 +2947,46 @@ def phases(args, pool) -> int:
     train_launches["train_cbanded"] = dict(cb_train)
 
     stamp("path B trained")
+    # 7f. path D training: on each preset's serving batch the loss and every
+    # gradient of paths A (K1 convs) and D (K8 convs) against the CPU's
+    # (uncounted), then one make_train_step step on path D, counted (9 / 17
+    # K8 + 1 K2 each way); then LARGE_EPOCHS steps on the 163k path-D batch,
+    # counted, the first step's gradients held against K5's route
+    bsp_trained, bsp_train, rel_spread = {}, Counter(), {}
+    for k, cfg in echo_cfg.items():
+        n_classes = echo_classes[k]
+        cpu_b = make_batches(echo_recs[k], cfg, len(echo_recs[k]), TB,
+                             device="cpu")[0]
+        net_, opt_, kw, rel_spread[k] = route_check(
+            k, cfg, n_classes, echo_nets[k].state_dict(), echo_batches[k][0],
+            cpu_b, dev, args.seed, alt=as_block_sparse, name="D", conv="K8",
+            card_ref=True, spread_alts=(as_compressed,))
+        step = make_train_step(net_, cfg, n_classes, opt_)
+        kernels.reset_launches()
+        loss = step(bsp_batches[k][0], **kw[dev])
+        torch.cuda.synchronize()
+        grew = dict(kernels.launches)
+        n = CONVS_PER_PASS[k]
+        want = {"band_sparse_fwd": n, "band_sparse_bwd": n,
+                "echo_panel_fwd": 1, "echo_panel_bwd": 1}
+        check(grew == want, f"{k} path D: a step launched {grew}, want "
+                            f"{want}")
+        check(abs(loss.item() - kw["cpu_loss"]) <= LOSS_ATOL_STEP1,
+              f"{k} path D: the step's loss {loss.item()} against the CPU's "
+              f"{kw['cpu_loss']}")
+        print(f"train {k} path D: one make_train_step step, loss "
+              f"{loss.item():.6f} (CPU {kw['cpu_loss']:.6f}), launches {grew}")
+        bsp_train.update(grew)
+        bsp_trained[k] = (net_, opt_)
+        del cpu_b
+    bsp_trained[big], grew = large_block_sparse_steps(
+        big, corr_cfg, echo_nets["corr_n5120_b1"].state_dict(),
+        panel_batches[big][0], bsp_batches[big][0], batch_a,
+        rel_spread["corr_n5120_b1"], dev, args.seed)
+    bsp_train.update(grew)
+    train_launches["train_block_sparse"] = dict(bsp_train)
+
+    stamp("path D trained")
     # 8. timing
     for args_ in timed:
         k1_time(*args_)
@@ -2623,22 +3061,27 @@ def phases(args, pool) -> int:
                  for k, p in bech_serve.items()]
     for k, p, rs_, bs_, what in requests:
         time_request(k, p, rs_, bs_, what, card, large=k in (big, big_c))
+    stamp("requests timed")
 
     # the serving phases' batches: the same record, config and batch size
     # as the 163k fits'
     large_steps = {big: panel_batches[big][0], big_c: batch_c,
                    big_a: batch_a}
 
-    def time_step(k, tnet, topt, cbanded=False):
+    def time_step(k, tnet, topt, cbanded=False, batch=None, conv=None):
         """Time one training step of the fitted ``tnet`` at training shape
         ``k`` (with ``cbanded``, on path B's batch: the compressed table as
-        the conv table): host clock, the profiler's breakdown and, at
-        N_LARGE, the peak device memory and (block panels, all-compact) a
-        remat_blocks step."""
+        the conv table; given ``batch``, on that batch, whose conv kernel is
+        ``conv``): host clock, the profiler's breakdown and, at N_LARGE, the
+        peak device memory and (block panels, all-compact) a remat_blocks
+        step."""
         cfg, n_classes, recs_ = fits[k]
         large = k in large_steps
         n_convs = CONVS_PER_PASS[k]
-        if large:
+        if batch is not None:
+            tbatch = batch
+            k = f"{k}_bsp"
+        elif large:
             tbatch = large_steps[k]
         else:
             bs = TRAIN_FIT[k][1]
@@ -2657,12 +3100,12 @@ def phases(args, pool) -> int:
             torch.cuda.synchronize()
 
         what = step_what(cfg, tbatch.pos.shape[1], n_convs,
-                         conv="band_cfused" if cbanded else None)
+                         conv="band_cfused" if cbanded else conv)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base_gb = torch.cuda.memory_allocated() / 1e9
         # the banded ECHO's steps take ~0.5 s on the host clock
-        ms = time_host(train_step, reps=3 if large or cfg.echo_impl ==
+        ms = time_host(train_step, reps=2 if large else 3 if cfg.echo_impl ==
                        "banded" else 5)
         print(f"train step {k}: {ms:.3f} ms per step (host clock, ending in "
               f"a sync; {what} launches) on {card}")
@@ -2685,6 +3128,7 @@ def phases(args, pool) -> int:
         time_step(k, tnet, topt)
     for k, (tnet, topt) in cb_trained.items():
         time_step(k, tnet, topt, cbanded=True)
+    stamp("steps timed")
 
     b8192 = batches["n8192_b1"][0]
     edges = int(b8192.table.mask.sum().item())
@@ -2733,13 +3177,51 @@ def phases(args, pool) -> int:
         print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
     del convs_u
 
-    # the all-compact 163k request and fit last, once the block-panel table
-    # and everything that holds it are freed: their device memory is their
-    # own.  The fit is the rest of 7c's path: counted from 0, its launches
-    # join 7c's
+    # path D timed: its requests (at 163k also Predictor.logits alone and
+    # the peak device memory) and a make_train_step step at each shape (at
+    # 163k the peak memory); then path E: five convs fwd+bwd over n8192's
+    # block-sparse table, counted (5 K8 each way) and timed beside the five
+    # K1 convs above
+    for k, p in bsp_serve.items():
+        time_request(f"{k}_bsp", p, bsp_recs[k], bsp_batches[k],
+                     f"{CONVS_PER_PASS[k]} K8 + 1 K2 launches", card,
+                     large=k == big)
+    for k, (tnet, topt) in bsp_trained.items():
+        time_step(k, tnet, topt, batch=bsp_batches[k][0], conv="band_sparse")
+    convs_s = conv_fwd_bwd(bsp8192, dev, gen)
+    kernels.reset_launches()
+    convs_s()
+    torch.cuda.synchronize()
+    convs_launches = dict(kernels.launches)
+    check(convs_launches == {"band_sparse_fwd": 5, "band_sparse_bwd": 5},
+          f"the five block-sparse convs launched {convs_launches}, want 5 K8 "
+          "each way")
+    ms_s = time_cuda(convs_s, iters=5)
+    print(f"five convs fwd+bwd over the block-sparse table (path E, N=8192, "
+          f"NJ {bsp8192.nj}): {ms_s:.3f} ms, {5 * edges / (ms_s / 1e3):.4g} "
+          f"edges/s on {card} (K1 over the dense band {ms:.3f} ms); launches "
+          f"{convs_launches}")
+
+    def convs_s_synced():
+        convs_s()
+        torch.cuda.synchronize()
+
+    wall, busy, kern = request_breakdown(convs_s_synced)
+    print(f"five block-sparse convs fwd+bwd under the profiler: wall "
+          f"{wall:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / wall:.1f}%); top kernels:")
+    for t, name, count in kern:
+        print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
+    del convs_s
+    stamp("paths D and E timed")
+
+    # the all-compact 163k request and fit last, once the block-panel and
+    # block-sparse tables and everything that holds them are freed: their
+    # device memory is their own.  The fit is the rest of 7c's path:
+    # counted from 0, its launches join 7c's
     del (panel_batches, requests, bs_, k5_timed, k5b_timed, k2_big, bigp,
          bigp_seg, compact_batches[big_c], batch_c, args_, large_steps[big],
-         large_steps[big_c])
+         large_steps[big_c], bsp_big, bsp_batches, bsp_trained[big])
     gc.collect()
     torch.cuda.empty_cache()
     time_request(big_a, compact_serve[big_a], compact_recs[big_a],
@@ -2757,7 +3239,8 @@ def phases(args, pool) -> int:
     paths = {"serve": serve_launches, "serve_echo": echo_launches,
              "serve_panel": panel_launches, "serve_compact": compact_launches,
              "serve_banded_echo": bech_launches, "serve_cbanded": cb_launches,
-             "unfused": unfused_launches, **train_launches}
+             "unfused": unfused_launches, "serve_block_sparse": bsp_launches,
+             "convs_block_sparse": convs_launches, **train_launches}
 
     def entry(name, source, replaces, rs):
         by_path = {k: v.get(name, 0) for k, v in paths.items()}
@@ -2809,6 +3292,11 @@ def phases(args, pool) -> int:
         entry("band_contrib_bwd",
               "fieldconv_tpu_torch/csrc/band_contrib_bwd.cu",
               "fieldconv_tpu/ops/pallas/band_conv.py:196", k3b_rows),
+        entry("band_sparse_fwd", "fieldconv_tpu_torch/csrc/band_sparse_fwd.cu",
+              "fieldconv_tpu/ops/pallas/band_conv.py:839 and :979", k8_rows),
+        entry("band_sparse_bwd", "fieldconv_tpu_torch/csrc/band_sparse_bwd.cu",
+              "fieldconv_tpu/ops/pallas/band_conv.py:881 and :1012",
+              k8b_rows),
         entry("compact_fold", "fieldconv_tpu_torch/csrc/compact_fold.cuh",
               "the XLA segment_sums at fieldconv_tpu/ops/pallas/band_conv.py"
               ":2118, fieldconv_tpu/ops/pallas/echo_panel.py:378 and "

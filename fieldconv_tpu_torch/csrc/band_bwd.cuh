@@ -1,8 +1,11 @@
 // The passes of the banded backward shared by K1's backward
 // (band_fused_bwd.cu, dense stencil), K4's backward (band_cfused_bwd.cu,
-// compressed stencil) and K3 (band_contrib_fwd.cu: pass 1 alone, in the JAX
-// kernel's layout; band_contrib_bwd.cu: pass 5 alone, fed with K3's
-// cotangent).  See band_fused_bwd.cu for what they compute and their design.
+// compressed stencil), K8's backward (band_sparse_bwd.cu, block-sparse
+// stencil: pass 1 walks each block's NJ source blocks, pass 5 the panels
+// that read each source block through the table's inverse index) and K3
+// (band_contrib_fwd.cu: pass 1 alone, in the JAX kernel's layout;
+// band_contrib_bwd.cu: pass 5 alone, fed with K3's cotangent).  See
+// band_fused_bwd.cu for what they compute and their design.
 // A compressed stencil is staged as its 5 planes and expanded once per
 // (target, slot) into hats and factors in shared memory (band_window.cuh
 // for pass 1; the same in pass 5 per (target, source slot)).
@@ -34,16 +37,18 @@ __host__ __device__ constexpr int dc_stride() { return 2 * KMAX * RMAX; }
 // block and ring by ring, as the JAX kernel _band_contrib_fwd_impl does
 // (K3's forward, (nb·R·TB, M)).
 
-template <int KMAX, int RMAX, bool COMPRESSED>
+// SPARSE: nh is NJ and nbr the meshes' (n_mesh, nb, NJ) source blocks.
+template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false>
 __global__ void __launch_bounds__(kThreads, 2)
 bwd_contrib_kernel(const float* __restrict__ g,
                    const float* __restrict__ sten,
                    float* __restrict__ contrib, int N, int C, int K, int R,
-                   int TB, int nh, int T, int ts, int rs, panel::Knots kn)
+                   int TB, int nh, int T, int ts, int rs, panel::Knots kn,
+                   const int* __restrict__ nbr)
 {
     const int M = 2 * K * C;
     const int P = COMPRESSED ? 5 : R + 2 * K;   // stencil planes
-    const int Wp = (2 * nh + 1) * TB;
+    const int Wp = (SPARSE ? nh : 2 * nh + 1) * TB;
     const int nb = N / TB;
     const int tiles = (TB + T - 1) / T;
     const int blk = blockIdx.x / tiles;
@@ -62,9 +67,9 @@ bwd_contrib_kernel(const float* __restrict__ g,
     const int ic = active ? item % C : 0;
 
     float are[KMAX][RMAX], aim[KMAX][RMAX];
-    window_contrib<KMAX, RMAX, COMPRESSED>(are, aim, smem, gm, sb, N, C, K,
-                                           R, TB, nh, T, t0, nt, blk, active,
-                                           it, ic, kn);
+    window_contrib<KMAX, RMAX, COMPRESSED, SPARSE>(
+        are, aim, smem, gm, sb, N, C, K, R, TB, nh, T, t0, nt, blk, active,
+        it, ic, kn, SPARSE ? nbr + ((size_t)m * nb + blk) * nh : nullptr);
 
     // coalesced over c
     if (active) {
@@ -151,17 +156,24 @@ bwd_dc_kernel(const float* __restrict__ dy, const float* __restrict__ wmat,
 }
 
 // --- pass 5: dG gathered by source ----------------------------------------------
+//
+// The target blocks b whose window reads source block sblk, and the panel
+// j of b's window it is: the dense window's b = sblk − nh .. sblk + nh
+// (inside [0, nb)), j = sblk − b + nh; SPARSE (nh is NJ): the entries
+// b·NJ + j of inv_bj[inv_ptr[m·nb + sblk] .. inv_ptr[m·nb + sblk + 1]), in
+// that (ascending) order.
 
-template <int KMAX, int RMAX, bool COMPRESSED>
+template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false>
 __global__ void __launch_bounds__(kThreads)
 bwd_dg_kernel(const float* __restrict__ dc, const float* __restrict__ sten,
               float* __restrict__ dg, int N, int C, int K, int R, int TB,
-              int nh, int G, int TC, panel::Knots kn)
+              int nh, int G, int TC, panel::Knots kn,
+              const int* __restrict__ inv_ptr, const int* __restrict__ inv_bj)
 {
     const int M = 2 * K * C;
     const int P = R + 2 * K;               // expanded planes
     const int PS = COMPRESSED ? 5 : P;     // stencil planes
-    const int Wp = (2 * nh + 1) * TB;
+    const int Wp = (SPARSE ? nh : 2 * nh + 1) * TB;
     const int nb = N / TB;
     const int TS = G * kRowsPerThread;     // source rows per CTA
     const int tiles = (TB + TS - 1) / TS;
@@ -187,17 +199,34 @@ bwd_dg_kernel(const float* __restrict__ dc, const float* __restrict__ sten,
 #pragma unroll
         for (int k = 0; k < KMAX; ++k) { gre[i][k] = 0.f; gim[i][k] = 0.f; }
 
-    // steps: target blocks b whose ±nh window covers sblk, TC targets each
-    const int b_lo = max(0, sblk - nh), b_hi = min(nb - 1, sblk + nh);
+    // steps: the panels (b, j) that read sblk, TC targets each
+    int b_lo, n_panels;
+    const int* bj = nullptr;
+    if constexpr (SPARSE) {
+        const int e0 = __ldg(inv_ptr + (size_t)m * nb + sblk);
+        bj = inv_bj + e0;
+        b_lo = 0;
+        n_panels = __ldg(inv_ptr + (size_t)m * nb + sblk + 1) - e0;
+    } else {
+        b_lo = max(0, sblk - nh);
+        n_panels = min(nb - 1, sblk + nh) - b_lo + 1;
+    }
     const int tchunks = (TB + TC - 1) / TC;
-    const int n_steps = (b_hi - b_lo + 1) * tchunks;
+    const int n_steps = n_panels * tchunks;
     auto prefetch = [&](int si) {
         float* ds = smem + (si & 1) * stage_floats;
         float* ss = ds + TC * CQ;
-        const int b = b_lo + si / tchunks;
+        int b, j;                          // sblk is panel j of b's window
+        if constexpr (SPARSE) {
+            const int e = __ldg(bj + si / tchunks);
+            b = e / nh;
+            j = e - b * nh;
+        } else {
+            b = b_lo + si / tchunks;
+            j = sblk - b + nh;
+        }
         const int tc0 = (si % tchunks) * TC;
         const int ntc = min(TC, TB - tc0);
-        const int j = sblk - b + nh;       // the source block's place in b's window
         const float* drow = dcm + ((size_t)b * TB + tc0) * CQ;
         for (int i = tid; i < TC * CQ / 4; i += kThreads) {
             const bool ok = i * 4 < ntc * CQ;
@@ -216,7 +245,7 @@ bwd_dg_kernel(const float* __restrict__ dc, const float* __restrict__ sten,
         __pipeline_commit();
     };
 
-    prefetch(0);
+    if (n_steps > 0) prefetch(0);          // SPARSE: a block no panel reads
     for (int si = 0; si < n_steps; ++si) {
         if (si + 1 < n_steps) {
             prefetch(si + 1);
@@ -379,46 +408,54 @@ inline cudaError_t make_plan(int n_mesh, int N, int C, int K, int R, int O2,
 }
 
 // Pass 1 alone: contrib of every target into `out` with strides (ts, rs).
-template <int KMAX, int RMAX, bool COMPRESSED>
+// SPARSE: nh is NJ and nbr the (n_mesh, nb, NJ) source blocks.
+template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false>
 cudaError_t launch_contrib(const float* g, const float* sten, float* out,
                            int n_mesh, int N, int C, int K, int R, int TB,
                            int nh, int ts, int rs, const Plan& pl,
-                           cudaStream_t stream)
+                           cudaStream_t stream, const int* nbr = nullptr)
 {
-    auto k1 = bwd_contrib_kernel<KMAX, RMAX, COMPRESSED>;
+    auto k1 = bwd_contrib_kernel<KMAX, RMAX, COMPRESSED, SPARSE>;
     const panel::Knots kn = COMPRESSED ? panel::ring_knots(R) : panel::Knots{};
     cudaError_t err = cudaFuncSetAttribute(
         k1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem1);
     if (err != cudaSuccess) return err;
     k1<<<dim3((N / TB) * ((TB + pl.T - 1) / pl.T), n_mesh), kThreads,
          pl.smem1, stream>>>(g, sten, out, N, C, K, R, TB, nh, pl.T, ts, rs,
-                             kn);
+                             kn, nbr);
     return cudaGetLastError();
 }
 
 // Pass 5 alone: dG gathered by source from dc in the channel-major layout.
-template <int KMAX, int RMAX, bool COMPRESSED>
+// SPARSE: nh is NJ, and (inv_ptr, inv_bj) the table's inverse index.
+template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false>
 cudaError_t launch_dg(const float* dc, const float* sten, float* dg,
                       int n_mesh, int N, int C, int K, int R, int TB, int nh,
-                      const Plan& pl, cudaStream_t stream)
+                      const Plan& pl, cudaStream_t stream,
+                      const int* inv_ptr = nullptr,
+                      const int* inv_bj = nullptr)
 {
-    auto k4 = bwd_dg_kernel<KMAX, RMAX, COMPRESSED>;
+    auto k4 = bwd_dg_kernel<KMAX, RMAX, COMPRESSED, SPARSE>;
     const panel::Knots kn = COMPRESSED ? panel::ring_knots(R) : panel::Knots{};
     cudaError_t err = cudaFuncSetAttribute(
         k4, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem4);
     if (err != cudaSuccess) return err;
     const int TS = pl.G * kRowsPerThread;
     k4<<<dim3((N / TB) * ((TB + TS - 1) / TS), n_mesh), kThreads, pl.smem4,
-         stream>>>(dc, sten, dg, N, C, K, R, TB, nh, pl.G, pl.TC, kn);
+         stream>>>(dc, sten, dg, N, C, K, R, TB, nh, pl.G, pl.TC, kn, inv_ptr,
+                   inv_bj);
     return cudaGetLastError();
 }
 
-// The five passes of K1's (dense) or K4's (COMPRESSED) backward.
-template <int KMAX, int RMAX, bool COMPRESSED>
+// The five passes of K1's (dense), K4's (COMPRESSED) or K8's (SPARSE: nh
+// is NJ; nbr, inv_ptr and inv_bj the table's) backward.
+template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false>
 int launch_fused_bwd(const float* dy, const float* g, const float* sten,
                      const float* wmat, float* dg, float* dw, float* scratch,
                      int n_mesh, int N, int C, int K, int R, int TB, int nh,
-                     int O2, const Plan& pl, cudaStream_t stream)
+                     int O2, const Plan& pl, cudaStream_t stream,
+                     const int* nbr = nullptr, const int* inv_ptr = nullptr,
+                     const int* inv_bj = nullptr)
 {
     float* contrib = scratch;
     float* dc = scratch + pl.dc_at;
@@ -427,8 +464,8 @@ int launch_fused_bwd(const float* dy, const float* g, const float* sten,
     const int M = 2 * K * C;
     const int RM = R * M;
 
-    cudaError_t err = launch_contrib<KMAX, RMAX, COMPRESSED>(
-        g, sten, contrib, n_mesh, N, C, K, R, TB, nh, RM, M, pl, stream);
+    cudaError_t err = launch_contrib<KMAX, RMAX, COMPRESSED, SPARSE>(
+        g, sten, contrib, n_mesh, N, C, K, R, TB, nh, RM, M, pl, stream, nbr);
     if (err != cudaSuccess) return (int)err;
 
     const int CQ = C * pl.QS;
@@ -442,8 +479,9 @@ int launch_fused_bwd(const float* dy, const float* g, const float* sten,
                     DwSlices{pl.slices, pl.slice_rows}, stream);
     if (err != cudaSuccess) return (int)err;
 
-    return (int)launch_dg<KMAX, RMAX, COMPRESSED>(dc, sten, dg, n_mesh, N, C,
-                                                  K, R, TB, nh, pl, stream);
+    return (int)launch_dg<KMAX, RMAX, COMPRESSED, SPARSE>(
+        dc, sten, dg, n_mesh, N, C, K, R, TB, nh, pl, stream, inv_ptr,
+        inv_bj);
 }
 
 // Floats of the scratch buffer fused_bwd needs for these sizes (0 for
@@ -460,15 +498,17 @@ inline long long fused_bwd_scratch_floats(int n_mesh, int N, int C, int K,
     return (long long)pl.floats;
 }
 
-// Launches K1's (dense) or K4's (COMPRESSED) backward on `stream` and
-// returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue for
-// shapes it does not take (as the forward's, plus shared memory for one
-// target of dc rows).  scratch holds fused_bwd_scratch_floats floats.
-template <bool COMPRESSED>
+// Launches K1's (dense), K4's (COMPRESSED) or K8's (SPARSE: nh is NJ; nbr,
+// inv_ptr and inv_bj the table's) backward on `stream` and returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for shapes
+// it does not take (as the forward's, plus shared memory for one target of
+// dc rows).  scratch holds fused_bwd_scratch_floats floats.
+template <bool COMPRESSED, bool SPARSE = false>
 int fused_bwd(const float* dy, const float* g, const float* sten,
               const float* wmat, float* dg, float* dw, float* scratch,
               int n_mesh, int N, int C, int K, int R, int TB, int nh, int O2,
-              cudaStream_t stream)
+              cudaStream_t stream, const int* nbr = nullptr,
+              const int* inv_ptr = nullptr, const int* inv_bj = nullptr)
 {
     if (!shapes_supported(n_mesh, N, C, K, R, TB, nh, O2)
         || (COMPRESSED && R > panel::kMaxRings))
@@ -478,12 +518,12 @@ int fused_bwd(const float* dy, const float* g, const float* sten,
                                       &pl);
     if (err != cudaSuccess) return (int)err;
     if (K <= 3)
-        return launch_fused_bwd<3, 8, COMPRESSED>(
+        return launch_fused_bwd<3, 8, COMPRESSED, SPARSE>(
             dy, g, sten, wmat, dg, dw, scratch, n_mesh, N, C, K, R, TB, nh,
-            O2, pl, stream);
-    return launch_fused_bwd<5, 6, COMPRESSED>(
+            O2, pl, stream, nbr, inv_ptr, inv_bj);
+    return launch_fused_bwd<5, 6, COMPRESSED, SPARSE>(
         dy, g, sten, wmat, dg, dw, scratch, n_mesh, N, C, K, R, TB, nh, O2,
-        pl, stream);
+        pl, stream, nbr, inv_ptr, inv_bj);
 }
 
 }  // namespace band

@@ -1,8 +1,9 @@
 // The fused banded forward shared by K1 (band_fused_fwd.cu, dense
-// stencil) and K4 (band_cfused_fwd.cu, compressed stencil): one CTA per tile
-// of targets of one block of one mesh forms the tile's contrib over the
-// window (band_window.cuh), then applies W.  See band_fused_fwd.cu for what
-// it computes and its design.
+// stencil), K4 (band_cfused_fwd.cu, compressed stencil) and K8
+// (band_sparse_fwd.cu, block-sparse stencil): one CTA per tile of targets
+// of one block of one mesh forms the tile's contrib over the window
+// (band_window.cuh), then applies W.  See band_fused_fwd.cu for what it
+// computes and its design.
 
 #pragma once
 
@@ -13,19 +14,20 @@
 
 namespace band {
 
-template <int KMAX, int RMAX, bool COMPRESSED>
+// SPARSE: nh is NJ and nbr the meshes' (n_mesh, nb, NJ) source blocks.
+template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_fwd_kernel(const float* __restrict__ g,
                  const float* __restrict__ sten,
                  const float* __restrict__ wmat,
                  float* __restrict__ y,
                  int N, int C, int K, int R, int TB, int nh, int O2, int T,
-                 panel::Knots kn)
+                 panel::Knots kn, const int* __restrict__ nbr)
 {
     const int M = 2 * K * C;
     const int RM = R * M;
     const int P = COMPRESSED ? 5 : R + 2 * K;   // stencil planes
-    const int Wp = (2 * nh + 1) * TB;
+    const int Wp = (SPARSE ? nh : 2 * nh + 1) * TB;
     const int nb = N / TB;
     const int tiles = (TB + T - 1) / T;
     const int blk = blockIdx.x / tiles;
@@ -47,9 +49,9 @@ fused_fwd_kernel(const float* __restrict__ g,
     const int ic = active ? item % C : 0;
 
     float are[KMAX][RMAX], aim[KMAX][RMAX];
-    window_contrib<KMAX, RMAX, COMPRESSED>(are, aim, smem, gm, sb, N, C, K,
-                                           R, TB, nh, T, t0, nt, blk, active,
-                                           it, ic, kn);
+    window_contrib<KMAX, RMAX, COMPRESSED, SPARSE>(
+        are, aim, smem, gm, sb, N, C, K, R, TB, nh, T, t0, nt, blk, active,
+        it, ic, kn, SPARSE ? nbr + ((size_t)m * nb + blk) * nh : nullptr);
 
     // contrib[j][t] with j = r·M + k·2C + (p·C + c), targets padded to kTile
     if (active) {
@@ -113,30 +115,32 @@ inline size_t fused_fwd_smem_bytes(int C, int K, int R, int O2, int T,
     return std::max(stages, filter) * sizeof(float);
 }
 
-template <int KMAX, int RMAX, bool COMPRESSED>
+template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false>
 int launch_fused_fwd(const float* g, const float* sten, const float* wmat,
                      float* y, int n_mesh, int N, int C, int K, int R, int TB,
-                     int nh, int O2, int T, size_t smem, cudaStream_t stream)
+                     int nh, int O2, int T, size_t smem, cudaStream_t stream,
+                     const int* nbr = nullptr)
 {
-    auto kernel = fused_fwd_kernel<KMAX, RMAX, COMPRESSED>;
+    auto kernel = fused_fwd_kernel<KMAX, RMAX, COMPRESSED, SPARSE>;
     const panel::Knots kn = COMPRESSED ? panel::ring_knots(R) : panel::Knots{};
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((N / TB) * ((TB + T - 1) / T), n_mesh);
     kernel<<<grid, kThreads, smem, stream>>>(g, sten, wmat, y, N, C, K, R,
-                                             TB, nh, O2, T, kn);
+                                             TB, nh, O2, T, kn, nbr);
     return (int)cudaGetLastError();
 }
 
-// Launches K1's (dense) or K4's (COMPRESSED) forward on `stream`; returns
+// Launches K1's (dense), K4's (COMPRESSED) or K8's (SPARSE: nh is NJ, nbr
+// the (n_mesh, nb, NJ) source blocks) forward on `stream`; returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for shapes
 // it does not take (K > 5, i.e. band limit > 2; R > 8, or R > 6 with K > 3;
 // C > 256; R > 6 when compressed).
-template <bool COMPRESSED>
+template <bool COMPRESSED, bool SPARSE = false>
 int fused_fwd(const float* g, const float* sten, const float* wmat, float* y,
               int n_mesh, int N, int C, int K, int R, int TB, int nh, int O2,
-              cudaStream_t stream)
+              cudaStream_t stream, const int* nbr = nullptr)
 {
     if (!shapes_supported(n_mesh, N, C, K, R, TB, nh, O2)
         || (COMPRESSED && R > panel::kMaxRings))
@@ -151,12 +155,12 @@ int fused_fwd(const float* g, const float* sten, const float* wmat, float* y,
     const size_t smem = fused_fwd_smem_bytes(C, K, R, O2, T, COMPRESSED);
     if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
     if (K <= 3)
-        return launch_fused_fwd<3, 8, COMPRESSED>(g, sten, wmat, y, n_mesh, N,
-                                                  C, K, R, TB, nh, O2, T,
-                                                  smem, stream);
-    return launch_fused_fwd<5, 6, COMPRESSED>(g, sten, wmat, y, n_mesh, N, C,
-                                              K, R, TB, nh, O2, T, smem,
-                                              stream);
+        return launch_fused_fwd<3, 8, COMPRESSED, SPARSE>(
+            g, sten, wmat, y, n_mesh, N, C, K, R, TB, nh, O2, T, smem, stream,
+            nbr);
+    return launch_fused_fwd<5, 6, COMPRESSED, SPARSE>(
+        g, sten, wmat, y, n_mesh, N, C, K, R, TB, nh, O2, T, smem, stream,
+        nbr);
 }
 
 }  // namespace band

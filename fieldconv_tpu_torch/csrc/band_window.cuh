@@ -1,12 +1,15 @@
 // The banded-window contraction shared by K1's forward (band_fused_fwd.cu)
-// and its backward (band_fused_bwd.cu), K3 (band_contrib_fwd.cu) and K4
-// (band_cfused_fwd.cu, band_cfused_bwd.cu): staging of the ±nh block window
-// through shared memory and the per-thread contrib accumulation.
+// and its backward (band_fused_bwd.cu), K3 (band_contrib_fwd.cu), K4
+// (band_cfused_fwd.cu, band_cfused_bwd.cu) and K8 (band_sparse_fwd.cu,
+// band_sparse_bwd.cu): staging of the block window through shared memory
+// and the per-thread contrib accumulation.
 //
 // For mesh m, target n = blk·TB + t0 + it of a tile of nt ≤ T targets,
 // channel ic, ring r and frequency k it forms
 //
 //   s = (blk - nh)·TB + w  for window slot w < W' = (2nh+1)·TB
+//       (block-sparse, SPARSE: s = nbr[blk, w / TB]·TB + w % TB for
+//        w < W' = NJ·TB, with NJ passed as nh)
 //   h_k[w]  = f_k[n, w] · G_k[s, ic]                 (complex product)
 //   are[k][r] = Σ_w rs_r[n, w] · Re h_k[w],  aim[k][r] = Σ_w rs_r[n, w] · Im h_k[w]
 //
@@ -44,19 +47,34 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src,
     __pipeline_memcpy_async(dst, src, kBytes, valid ? 0 : kBytes);
 }
 
-template <int kBytes>
+// The source row of slot w: row0 + w in the dense window; in the
+// block-sparse one (SPARSE) row w % TB of source block nbr_b[w / TB].
+template <bool SPARSE>
+__device__ __forceinline__ long source_row(long row0, const int* nbr_b,
+                                           int w, int TB)
+{
+    if constexpr (SPARSE) {
+        const int j = w / TB;
+        return (long)__ldg(nbr_b + j) * TB + (w - j * TB);
+    } else {
+        return row0 + w;
+    }
+}
+
+template <int kBytes, bool SPARSE = false>
 __device__ __forceinline__ void stage_chunk(
     float* gs, float* ss, const float* gm, const float* sb,
     long row0, int w0, int nw, int N, int M, int P, int TB, int Wp, int t0,
-    int nt, int T)
+    int nt, int T, const int* nbr_b = nullptr)
 {
     constexpr int V = kBytes / 4;
     const int tid = threadIdx.x;
     const int mv = M / V;
     for (int i = tid; i < kChunk * mv; i += kThreads) {
         const int wi = i / mv;
-        const long s = row0 + w0 + wi;
-        const bool ok = wi < nw && s >= 0 && s < N;
+        const long s = wi < nw ? source_row<SPARSE>(row0, nbr_b, w0 + wi, TB)
+                               : -1;
+        const bool ok = s >= 0 && s < N;
         copy_async<kBytes>(gs + i * V,
                            ok ? gm + (size_t)s * M + (i - wi * mv) * V : gm,
                            ok);
@@ -108,24 +126,25 @@ __device__ __forceinline__ bool expand_slot(float* xp, const float* sp,
 
 // Every thread of the CTA must call this (it synchronises); inactive
 // threads keep zero sums.  gm: mesh m's g (N, M); sb: block blk's stencil
-// (P = R+2K planes, or 5 when COMPRESSED, × TB × W'); smem:
+// (P = R+2K planes, or 5 when COMPRESSED, × TB × W'); SPARSE: nh is NJ and
+// nbr_b block blk's NJ source blocks; smem:
 // window_stage_floats(M, R+2K, T, COMPRESSED) floats, free again on
 // return; kn: the ring knots (COMPRESSED only).  The window streams
 // through shared memory kChunk slots at a time, double-buffered with
 // cp.async; a chunk whose radial weights are all zero for the tile is
 // skipped, and so is a slot whose radial weights are all zero for the
 // thread's target (no edge there).
-template <int KMAX, int RMAX, bool COMPRESSED = false>
+template <int KMAX, int RMAX, bool COMPRESSED = false, bool SPARSE = false>
 __device__ __forceinline__ void window_contrib(
     float (&are)[KMAX][RMAX], float (&aim)[KMAX][RMAX], float* smem,
     const float* gm, const float* sb, int N, int C, int K, int R, int TB,
     int nh, int T, int t0, int nt, int blk, bool active, int it, int ic,
-    const panel::Knots& kn = panel::Knots{})
+    const panel::Knots& kn = panel::Knots{}, const int* nbr_b = nullptr)
 {
     const int M = 2 * K * C;
     const int P = R + 2 * K;
     const int PS = COMPRESSED ? 5 : P;     // planes staged per target
-    const int Wp = (2 * nh + 1) * TB;
+    const int Wp = (SPARSE ? nh : 2 * nh + 1) * TB;
     const int tid = threadIdx.x;
     const int stage_floats = kChunk * M + T * PS * kChunk;
     float* sx = smem + 2 * stage_floats;   // COMPRESSED: the expanded chunk
@@ -144,11 +163,11 @@ __device__ __forceinline__ void window_contrib(
         const int w0 = ci * kChunk;
         const int nw = min(kChunk, Wp - w0);
         if (vec && nw == kChunk)
-            stage_chunk<16>(buf, buf + kChunk * M, gm, sb, row0, w0, nw, N,
-                            M, PS, TB, Wp, t0, nt, T);
+            stage_chunk<16, SPARSE>(buf, buf + kChunk * M, gm, sb, row0, w0,
+                                    nw, N, M, PS, TB, Wp, t0, nt, T, nbr_b);
         else
-            stage_chunk<4>(buf, buf + kChunk * M, gm, sb, row0, w0, nw, N, M,
-                           PS, TB, Wp, t0, nt, T);
+            stage_chunk<4, SPARSE>(buf, buf + kChunk * M, gm, sb, row0, w0,
+                                   nw, N, M, PS, TB, Wp, t0, nt, T, nbr_b);
         __pipeline_commit();
     };
 

@@ -6,12 +6,14 @@ maps: ``synthetic_record`` in the manner of bench.py's
 ``build_synthetic_tables`` (unique sources within ±bandwidth of each
 target, the locality RCM ordering gives real meshes), and
 ``sphere_record`` for the large pure-panel meshes (an ε-ball graph on a
-Fibonacci sphere in ``kd_order``, the size of scripts/train_100k.py).
+Fibonacci sphere in ``kd_order``, the size of scripts/train_100k.py), and
+``random_block_sparse`` for block-sparse tables with shuffled lists.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..precomp.banded import kd_order
 from .base import MeshRecord
@@ -83,3 +85,34 @@ def sphere_record(rng, n, n_classes, name="sphere", tb=128):
         xp=np.stack([np.cos(ang), np.sin(ang)], -1).astype(np.float32),
         weights=rng.uniform(0.1, 1.0, n).astype(np.float32),
         labels=rng.integers(0, n_classes, n), epsilon=eps)
+
+
+def random_block_sparse(rng, n_mesh, nb, nj, n_rings, band_limit, tb,
+                        fill=0.4):
+    """A random BlockSparseTable (CPU tensors) of n_mesh meshes of nb
+    blocks, for checking K8 on lists that no builder makes: each nbr row
+    holds nj distinct blocks in random order, one of them the block itself,
+    and about a third of the rows carry that entry as padding (all-zero
+    planes, left out of the inverse index).  Planes are normal random
+    values at a fraction ``fill`` of the slots, zero elsewhere."""
+    from ..precomp.banded import BlockSparseTable, block_sparse_inverse
+
+    P = n_rings + 2 * (2 * band_limit + 1)
+    nbr = np.empty((n_mesh, nb, nj), np.int32)
+    live = np.ones(nbr.shape, bool)
+    for m in range(n_mesh):
+        for b in range(nb):
+            others = rng.choice(nb - 1, nj - 1, replace=False)
+            row = rng.permutation(np.append(others + (others >= b), b))
+            nbr[m, b] = row
+            live[m, b] = (row != b) | (rng.random() >= 1 / 3)
+    sten = rng.normal(size=(n_mesh, nb, P, tb, nj * tb)).astype(np.float32)
+    sten *= rng.random((n_mesh, nb, 1, tb, nj * tb)) < fill
+    sten.reshape(n_mesh, nb, P, tb, nj, tb)[
+        ~np.broadcast_to(live[:, :, None, None, :, None],
+                         (n_mesh, nb, P, tb, nj, tb))] = 0.0
+    inv_ptr, inv_bj = block_sparse_inverse(nbr, live)
+    return BlockSparseTable(
+        sten_band=torch.from_numpy(sten), nbr=torch.from_numpy(nbr),
+        inv_ptr=inv_ptr, inv_bj=inv_bj, tb=tb, n_pad=nb * tb,
+        band_limit=band_limit, n_rings=n_rings)

@@ -30,8 +30,9 @@ from .init import torch_linear_bias, torch_linear_weight, xavier_uniform
 
 class FieldConv(nn.Module):
     """Field convolution layer.  A BandedTable ``banded`` routes the
-    contraction to the fused K1 kernel, a PanelTable to the panel conv K5,
-    a CompactPanelTable to the compact conv K6
+    contraction to the fused K1 kernel, a CompressedBandedTable to K4, a
+    BlockSparseTable to the block-sparse conv K8, a PanelTable to the panel
+    conv K5, a CompactPanelTable to the compact conv K6
     (ops/band_conv.py::field_conv_banded); otherwise the padded-CSR gather
     path runs."""
 

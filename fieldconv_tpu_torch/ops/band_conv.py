@@ -1,10 +1,10 @@
 """Field convolution over the block layouts with the hand-written kernels:
 the dense BandedTable (K1 forward and backward, and the unfused contrib K3
 each way), the CompressedBandedTable (K4 forward and backward), the
-PanelTable (K5 forward and backward) and the CompactPanelTable (K6 forward
-and backward).
+BlockSparseTable (K8 forward and backward), the PanelTable (K5 forward and
+backward) and the CompactPanelTable (K6 forward and backward).
 
-Counterpart of ``fieldconv_tpu/ops/pallas/band_conv.py`` for those four
+Counterpart of ``fieldconv_tpu/ops/pallas/band_conv.py`` for those five
 tables.  The contraction runs in hand-written CUDA kernels:
 ``csrc/band_fused_fwd.cu`` replaces the TPU kernel ``_band_megaw_fwd_impl``
 (and its twins ``_band_fused_mega_fwd_impl``, ``_band_fused_fwd_impl``),
@@ -15,7 +15,10 @@ tables.  The contraction runs in hand-written CUDA kernels:
 ``_shift_combine``), ``csrc/band_cfused_fwd.cu`` replaces
 ``_band_cfused_fwd_impl`` and ``_band_cmega_fwd_impl``,
 ``csrc/band_cfused_bwd.cu`` replaces ``_band_cfused_bwd`` and
-``_band_cmega_bwd_impl``,
+``_band_cmega_bwd_impl``, ``csrc/band_sparse_fwd.cu`` replaces
+``_band_sparse_fwd_impl`` and ``_band_sparse_mega_fwd_impl``,
+``csrc/band_sparse_bwd.cu`` replaces ``_band_sparse_bwd_impl`` (with its
+``_sparse_combine``) and ``_band_sparse_mega_bwd_impl``,
 ``csrc/band_panel_fwd.cu`` replaces ``_band_panel_fwd_impl`` (both of its
 ``pallas_call``s, bodies ``_fwd_panel_kernel`` and
 ``_fwd_panel_chunk_kernel``), ``csrc/band_panel_bwd.cu`` replaces
@@ -25,11 +28,13 @@ tables.  The contraction runs in hand-written CUDA kernels:
 ``csrc/band_compact_bwd.cu`` replaces ``_band_compact_bwd_impl`` (body
 ``_bwd_compact_kernel``) with the fold that follows it.  The wrappers
 (:func:`band_fused_fwd`, :func:`band_contrib_fwd`, :func:`band_cfused_fwd`,
-:func:`band_panel_fwd`, :func:`band_compact_fwd` and their ``*_bwd``)
+:func:`band_sparse_fwd`, :func:`band_panel_fwd`, :func:`band_compact_fwd`
+and their ``*_bwd``)
 launch them for CUDA tensors and run the plain PyTorch versions
 (``*_reference``) for CPU tensors; they never move work between devices.
 :class:`_BandFusedFn`, :class:`_BandContribFn`, :class:`_BandCFusedFn`,
-:class:`_BandPanelFn` and :class:`_BandCompactFn` tie each kernel's two
+:class:`_BandSparseFn`, :class:`_BandPanelFn` and :class:`_BandCompactFn`
+tie each kernel's two
 directions together for autograd, as ``jax.custom_vjp`` does in the JAX
 package.
 """
@@ -43,9 +48,9 @@ import math
 import torch
 
 from .. import kernels
-from ..precomp.banded import (BandedTable, CompactPanelTable,
-                              CompressedBandedTable, PanelTable,
-                              unwindow_blocks, window_blocks)
+from ..precomp.banded import (BandedTable, BlockSparseTable,
+                              CompactPanelTable, CompressedBandedTable,
+                              PanelTable, unwindow_blocks, window_blocks)
 from .compact_fold import compact_fold_reference
 from .field_conv import (apply_filters, filter_coefficients,
                          rotated_source_tensor)
@@ -112,7 +117,12 @@ def _k1_dims(g, sten_band, wmat):
 def _contrib_reference(g, sten_band, R, K, C, tb, nh):
     """contrib (n_mesh, nb, R, TB, M) of every target: the window of g
     against S_k = rs ⊙ f_k, k-major columns [re C | im C] per k."""
-    gw = window_blocks(g, tb, nh)                          # (m, nb, W', M)
+    return _window_contrib(window_blocks(g, tb, nh), sten_band, R, K, C)
+
+
+def _window_contrib(gw, sten_band, R, K, C):
+    """contrib (n_mesh, nb, R, TB, M) of the targets of blocks whose
+    window rows of g are gw (n_mesh, nb, W', M)."""
     rs = sten_band[:, :, :R]                               # (m, nb, R, TB, W')
     parts = []
     for k in range(K):
@@ -143,6 +153,13 @@ def _contrib_transpose_reference(dcon, sten_band, R, K, C, tb, nh):
     M): the window rows gather S_kᵀ · [d_re | d_im ; d_im | −d_re], S_k =
     rs ⊙ f_k, and the overlapping windows fold back onto g's rows; window
     rows outside [0, N) take no gradient."""
+    return unwindow_blocks(_window_transpose(dcon, sten_band, R, K, C), tb,
+                           nh)
+
+
+def _window_transpose(dcon, sten_band, R, K, C):
+    """The window rows' dG (n_mesh, nb, W', M) from the contrib cotangent
+    dcon (n_mesh, nb, R, TB, M): S_kᵀ · [d_re | d_im ; d_im | −d_re]."""
     rs = sten_band[:, :, :R]
 
     def st(s, d):                                          # S_kᵀ · d
@@ -156,7 +173,7 @@ def _contrib_transpose_reference(dcon, sten_band, R, K, C, tb, nh):
         d_im = dcon[..., (2 * k + 1) * C:(2 * k + 2) * C]
         parts += [st(s_re, d_re) + st(s_im, d_im),
                   st(s_re, d_im) - st(s_im, d_re)]
-    return unwindow_blocks(torch.cat(parts, dim=-1), tb, nh)
+    return torch.cat(parts, dim=-1)
 
 
 def band_fused_bwd_reference(dy, g, sten_band, wmat, tb: int, nh: int):
@@ -1023,6 +1040,240 @@ class _BandCFusedFn(torch.autograd.Function):
         return dg, dw, None, None, None, None, None
 
 
+# --- K8: K1 over the block-sparse band ----------------------------------------
+
+_SPARSE_CHUNK = 64         # target blocks per step of the plain versions
+
+
+def _sparse_axes(g, sten_band, nbr):
+    """g (…, N, M), sten_band (…, nb, P, TB, NJ·TB) and nbr (…, nb, NJ)
+    with their leading mesh axes flattened into one."""
+    return (g.reshape(-1, *g.shape[-2:]),
+            sten_band.reshape(-1, *sten_band.shape[-4:]),
+            nbr.reshape(-1, *nbr.shape[-2:]))
+
+
+def _sparse_window(g, nbr, tb: int, lo: int, hi: int):
+    """The window rows (n_mesh, hi − lo, NJ·TB, M) of target blocks lo..hi
+    of every mesh: panel j of block b holds the rows of source block
+    nbr[m, b, j]."""
+    n_mesh, N, M = g.shape
+    nb = N // tb
+    idx = nbr[:, lo:hi].long() + nb * torch.arange(
+        n_mesh, device=nbr.device)[:, None, None]
+    rows = g.reshape(n_mesh * nb, tb, M)[idx]          # (m, nc, NJ, TB, M)
+    return rows.reshape(n_mesh, hi - lo, -1, M)
+
+
+def band_sparse_reference(g, wmat, sten_band, nbr, tb: int, n_rings: int,
+                          k_width: int):
+    """Plain PyTorch K8 forward: what ``_band_sparse_fwd_impl`` and
+    ``_band_sparse_mega_fwd_impl`` compute, _SPARSE_CHUNK target blocks
+    at a time (~0.3 GB of temporaries at C = 32, K = 3, R = 3, NJ = 19).
+
+    g: (…, N, M = K·2C) k-major rotated-source tensor; wmat: (R, M, O2);
+    sten_band: (…, nb, R+2K, TB, NJ·TB) and nbr (…, nb, NJ) of a
+    BlockSparseTable with g's leading mesh axes.  K1's contraction
+    (:func:`band_fused_fwd_reference`) with slot j·TB + s of block b
+    reading row nbr[b, j]·TB + s of g.  Returns y (…, N, O2)."""
+    lead, (N, M) = g.shape[:-2], g.shape[-2:]
+    g3, sten, nbr3 = _sparse_axes(g, sten_band, nbr)
+    R, K, C, O2 = n_rings, k_width, M // (2 * k_width), wmat.shape[-1]
+    nb = N // tb
+    y = g3.new_empty(g3.shape[0], nb, tb, O2)
+    for lo in range(0, nb, _SPARSE_CHUNK):
+        hi = min(nb, lo + _SPARSE_CHUNK)
+        contrib = _window_contrib(_sparse_window(g3, nbr3, tb, lo, hi),
+                                  sten[:, lo:hi], R, K, C)
+        y[:, lo:hi] = torch.einsum("mbrtj,rjo->mbto", contrib, wmat)
+    return y.reshape(*lead, N, O2)
+
+
+def band_sparse_bwd_reference(dy, g, wmat, sten_band, nbr, tb: int,
+                              n_rings: int, k_width: int):
+    """Plain PyTorch K8 backward, written out (not taken from autograd):
+    the (dg, dw) of ``_band_sparse_bwd_impl`` followed by its
+    ``_sparse_combine``, and of ``_band_sparse_mega_bwd_impl``.  Per chunk
+    of target blocks contrib is rematerialised as the forward forms it,
+    then
+
+        dW        += Σ_meshes Σ_targets contrib_rᵀ · dy
+        dcontrib   = dy · W_rᵀ
+        part[b, j] = S_kᵀ · [d_re | d_im ; d_im | −d_re]   (panel j of b)
+
+    and each panel's part is added onto source block nbr[b, j] (padding
+    panels carry zero planes and add nothing).  dy: (…, N, O2); other
+    shapes as in :func:`band_sparse_reference`.  Returns (dg (…, N, M), dw
+    (R, M, O2))."""
+    lead, (N, M) = g.shape[:-2], g.shape[-2:]
+    g3, sten, nbr3 = _sparse_axes(g, sten_band, nbr)
+    n_mesh = g3.shape[0]
+    R, K, C, O2 = n_rings, k_width, M // (2 * k_width), wmat.shape[-1]
+    nb = N // tb
+    dyb = dy.reshape(n_mesh, nb, tb, O2)
+    offs = nb * torch.arange(n_mesh, device=nbr.device)[:, None, None]
+    dg = g3.new_zeros(n_mesh * nb, tb, M)
+    dw = g3.new_zeros(wmat.shape)
+    for lo in range(0, nb, _SPARSE_CHUNK):
+        hi = min(nb, lo + _SPARSE_CHUNK)
+        contrib = _window_contrib(_sparse_window(g3, nbr3, tb, lo, hi),
+                                  sten[:, lo:hi], R, K, C)
+        dw += torch.einsum("mbrtj,mbto->rjo", contrib, dyb[:, lo:hi])
+        dcon = torch.einsum("mbto,rjo->mbrtj", dyb[:, lo:hi], wmat)
+        parts = _window_transpose(dcon, sten[:, lo:hi], R, K, C)
+        dg.index_add_(0, (nbr3[:, lo:hi].long() + offs).reshape(-1),
+                      parts.reshape(-1, tb, M))
+    return dg.reshape(*lead, N, M), dw
+
+
+def _k8_check(name, g, wmat, sten_band, nbr, tb, n_rings, k_width, *more):
+    """Raise unless sten_band is (n_mesh, N/tb, R+2K, tb, NJ·tb) and nbr
+    (n_mesh, N/tb, NJ) for g (n_mesh, N, M), the float32 tensors (g,
+    sten_band, wmat and the named extra ones) and the int32 ones (nbr and
+    the named extra ones) are contiguous on g's device, and the kernels
+    have an instantiation for the shape."""
+    n_mesh, N, M = g.shape
+    R, K = n_rings, k_width
+    nj = nbr.shape[-1]
+    want = (n_mesh, N // tb, R + 2 * K, tb, nj * tb)
+    if N % tb or M % (2 * K) or tuple(sten_band.shape) != want \
+            or tuple(nbr.shape) != (n_mesh, N // tb, nj) or nj < 1 \
+            or tuple(wmat.shape[:2]) != (R, M):
+        raise ValueError(
+            f"{name} shapes do not agree: g {tuple(g.shape)}, sten_band "
+            f"{tuple(sten_band.shape)} (want {want}), nbr "
+            f"{tuple(nbr.shape)}, wmat {tuple(wmat.shape)}")
+    for label, t, dtype in (("g", g, torch.float32),
+                            ("sten_band", sten_band, torch.float32),
+                            ("wmat", wmat, torch.float32),
+                            ("nbr", nbr, torch.int32), *more):
+        if t.device != g.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} needs contiguous {dtype} {label} on "
+                             f"{g.device}, got {t.dtype} on {t.device} "
+                             f"(contiguous={t.is_contiguous()})")
+    _band_shapes(name, M // (2 * K), K, R)
+
+
+@functools.cache
+def _k8_entry():
+    fn = kernels.library("band_sparse_fwd").band_sparse_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def band_sparse_fwd(g, wmat, sten_band, nbr, tb: int, n_rings: int,
+                    k_width: int):
+    """K8 forward y (n_mesh, N, O2) over a block-sparse stencil, g (n_mesh,
+    N, M), sten_band and nbr with the same mesh axis (as in
+    :func:`band_sparse_reference`).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (building it on first use) or raise."""
+    if g.device.type == "cpu":
+        return band_sparse_reference(g, wmat, sten_band, nbr, tb, n_rings,
+                                     k_width)
+    if g.device.type != "cuda":
+        raise ValueError(f"band_sparse_fwd has no kernel for device "
+                         f"{g.device}")
+    _k8_check("band_sparse_fwd", g, wmat, sten_band, nbr, tb, n_rings,
+              k_width)
+    n_mesh, N, M = g.shape
+    O2 = wmat.shape[-1]
+    fn = _k8_entry()
+    y = torch.empty((n_mesh, N, O2), dtype=torch.float32, device=g.device)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = fn(g.data_ptr(), sten_band.data_ptr(), nbr.data_ptr(),
+             wmat.data_ptr(), y.data_ptr(), n_mesh, N, M // (2 * k_width),
+             k_width, n_rings, tb, nbr.shape[-1], O2, stream)
+    if err != 0:
+        raise RuntimeError(f"band_sparse_fwd launch failed: cudaError {err}")
+    kernels.launches["band_sparse_fwd"] += 1
+    return y
+
+
+@functools.cache
+def _k8_bwd_entry():
+    """(kernel entry, floats of scratch it needs for given sizes)."""
+    lib = kernels.library("band_sparse_bwd")
+    fn = lib.band_sparse_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    size = lib.band_sparse_bwd_scratch_floats
+    size.argtypes = [ctypes.c_int] * 8
+    size.restype = ctypes.c_longlong
+    return fn, size
+
+
+def band_sparse_bwd(dy, g, wmat, sten_band, nbr, inv_ptr, inv_bj, tb: int,
+                    n_rings: int, k_width: int):
+    """K8 backward (dg (n_mesh, N, M), dw (R, M, O2)) for the output
+    cotangent dy (n_mesh, N, O2) (shapes as in :func:`band_sparse_fwd`).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (building it on first use) or raise.  The kernel gathers dG by source
+    block through the table's inverse index (inv_ptr (n_mesh·nb + 1,),
+    inv_bj; BlockSparseTable)."""
+    if g.device.type == "cpu":
+        return band_sparse_bwd_reference(dy, g, wmat, sten_band, nbr, tb,
+                                         n_rings, k_width)
+    if g.device.type != "cuda":
+        raise ValueError(f"band_sparse_bwd has no kernel for device "
+                         f"{g.device}")
+    name = "band_sparse_bwd"
+    n_mesh, N, M = g.shape
+    O2 = wmat.shape[-1]
+    _k8_check(name, g, wmat, sten_band, nbr, tb, n_rings, k_width,
+              ("dy", dy, torch.float32), ("inv_ptr", inv_ptr, torch.int32),
+              ("inv_bj", inv_bj, torch.int32))
+    if tuple(dy.shape) != (n_mesh, N, O2) \
+            or tuple(inv_ptr.shape) != (n_mesh * (N // tb) + 1,):
+        raise ValueError(f"{name}: dy {tuple(dy.shape)}, want "
+                         f"{(n_mesh, N, O2)}; inv_ptr "
+                         f"{tuple(inv_ptr.shape)} for {n_mesh} mesh(es) of "
+                         f"{N // tb} blocks")
+    fn, scratch_floats = _k8_bwd_entry()
+    sizes = (n_mesh, N, M // (2 * k_width), k_width, n_rings, tb,
+             nbr.shape[-1], O2)
+    f32 = dict(dtype=torch.float32, device=g.device)
+    dg = torch.empty((n_mesh, N, M), **f32)
+    dw = torch.empty(tuple(wmat.shape), **f32)
+    # contrib and dcontrib of every target, and the dW partial sums
+    scratch = torch.empty((max(1, scratch_floats(*sizes)),), **f32)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = fn(dy.data_ptr(), g.data_ptr(), sten_band.data_ptr(),
+             nbr.data_ptr(), inv_ptr.data_ptr(), inv_bj.data_ptr(),
+             wmat.data_ptr(), dg.data_ptr(), dw.data_ptr(), scratch.data_ptr(),
+             *sizes, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    kernels.launches[name] += 1
+    return dg, dw
+
+
+class _BandSparseFn(torch.autograd.Function):
+    """K8 with its hand-written backward: the counterpart of the JAX
+    package's ``_band_sparse`` custom VJP.  Keeps g, wmat and the table
+    (stencil, nbr, inverse index); the backward rematerialises contrib.
+    The stencil and nbr take no gradient."""
+
+    @staticmethod
+    def forward(ctx, g, wmat, sten_band, nbr, inv_ptr, inv_bj, tb: int,
+                n_rings: int, k_width: int):
+        ctx.save_for_backward(g, wmat, sten_band, nbr, inv_ptr, inv_bj)
+        ctx.args = (tb, n_rings, k_width)
+        return band_sparse_fwd(g, wmat, sten_band, nbr, *ctx.args)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        g, wmat, sten_band, nbr, inv_ptr, inv_bj = ctx.saved_tensors
+        dg, dw = band_sparse_bwd(dy.contiguous(), g, wmat, sten_band, nbr,
+                                 inv_ptr, inv_bj, *ctx.args)
+        return dg, dw, None, None, None, None, None, None, None
+
+
 # --- K3: the unfused banded contrib -------------------------------------------
 
 def band_contrib_reference(g, sten_band, tb: int, nh: int, n_rings: int,
@@ -1216,16 +1467,18 @@ def field_conv_banded(x, banded, zonal, spherical, phase, ftype,
     - a PanelTable covering the meshes of x's leading axes: one K5 launch
       each way (:class:`_BandPanelFn`);
     - a CompactPanelTable covering them the same way: one K6 launch each
-      way (:class:`_BandCompactFn`).
+      way (:class:`_BandCompactFn`);
+    - a BlockSparseTable whose sten_band and nbr carry x's leading mesh
+      axes: one K8 launch each way (:class:`_BandSparseFn`).
     fuse_filters only selects among the BandedTable kernels."""
     compact = isinstance(banded, CompactPanelTable)
     if not isinstance(banded, (BandedTable, CompressedBandedTable,
-                               PanelTable, CompactPanelTable)):
+                               PanelTable, CompactPanelTable,
+                               BlockSparseTable)):
         raise TypeError(
             "field_conv_banded takes a BandedTable, CompressedBandedTable, "
-            f"PanelTable or CompactPanelTable, got {type(banded).__name__} "
-            "(the JAX package's BlockSparseTable and its conv kernel, K8, "
-            "are not ported yet: ROADMAP Queue 2)")
+            "PanelTable, CompactPanelTable or BlockSparseTable, got "
+            f"{type(banded).__name__}")
     if precision != "f32":
         raise NotImplementedError(
             f"precision={precision!r}: the bf16 operand paths of K1 and K5 "
@@ -1257,7 +1510,12 @@ def field_conv_banded(x, banded, zonal, spherical, phase, ftype,
                                     banded.compressed)
     else:
         g, sten = _mesh_stencil(g, banded)
-        if isinstance(banded, CompressedBandedTable):
+        if isinstance(banded, BlockSparseTable):
+            nbr = banded.nbr.reshape(-1, *banded.nbr.shape[-2:]).contiguous()
+            y2 = _BandSparseFn.apply(g, wmat, sten, nbr, banded.inv_ptr,
+                                     banded.inv_bj, banded.tb,
+                                     banded.n_rings, banded.k_width)
+        elif isinstance(banded, CompressedBandedTable):
             y2 = _BandCFusedFn.apply(g, wmat, sten, banded.tb, banded.nh,
                                      banded.n_rings, banded.band_limit)
         else:

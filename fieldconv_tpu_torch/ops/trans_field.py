@@ -143,17 +143,15 @@ def trans_field_panel_contrib(x, panel: PanelTable, lift_cols=(0, 1),
     (target-block, source-block) panel: each panel contributes a (TB, C,
     R, 2) partial from its gathered source block, and the partials are
     summed per target block.  The compressed panels rebuild the radial hats
-    and fwxp_k = wxp·e^{ikθ} from their planes.  The magnitude stencil uses
-    rsten·|wxp| (as the banded path does).
+    and fwxp_k = wxp·e^{ikθ} from their planes, and the magnitude stencil
+    uses rsten·|wxp| (as the banded path does); dense panels (R+2K planes)
+    read the hats from planes 0..R-1 and fwxp_k1 from planes R+2k1,
+    R+2k1+1, and weigh the magnitude by |fwxp_k0|, as the JAX package's
+    dense branch does.
 
     x: (..., N, C) real scalars; the table covers the meshes of x's leading
     axes (precomp.banded.concat_panel_tables).
     Returns contribAng (..., N, C, R, 2), contribMag (..., N, C, R)."""
-    if not panel.compressed:
-        raise NotImplementedError(
-            "the lift over a dense PanelTable (R+2K planes) is not ported: "
-            "the mixed route builds compressed panels; dense panels wait for "
-            "the 100k layout (ROADMAP Queue 1 item 6)")
     R, B, TB = panel.n_rings, panel.band_limit, panel.tb
     lead, N, C = x.shape[:-2], x.shape[-2], x.shape[-1]
     xb = x.reshape(-1, TB, C)                       # (nb, TB, C)
@@ -162,9 +160,10 @@ def trans_field_panel_contrib(x, panel: PanelTable, lift_cols=(0, 1),
                          f"table covers {panel.n_mesh} mesh(es) of "
                          f"{panel.n_pad}")
     meta = panel.meta.long()
-    seg, ssum_seg, mag = _lift_sums(lambda lo, hi: xb[meta[1, lo:hi]],
-                                    panel.sten, meta[0], xb.shape[0], C, R,
-                                    B, lift_cols[1], panel_chunk)
+    seg, ssum_seg, mag = _lift_sums(
+        lambda lo, hi: xb[meta[1, lo:hi]], panel.sten, meta[0], xb.shape[0],
+        C, R, B, lift_cols[1], panel_chunk,
+        None if panel.compressed else lift_cols[0])
     ang = _lift_angular(seg, ssum_seg, xb)
     return (ang.reshape(*lead, N, C, R, 2), mag.reshape(*lead, N, C, R))
 
@@ -198,24 +197,32 @@ def trans_field_compact_contrib(x, compact: CompactPanelTable,
     return (ang.reshape(*lead, N, C, R, 2), mag.reshape(*lead, N, C, R))
 
 
-def _lift_stencils(sten_c, R: int, B: int, k1: int):
-    """A chunk of compressed panels' lift stencils: the hats (R, cb, TBt,
-    TS), s1 = hats ⊗ fwxp_k1 (R, cb, TBt, TS, 2) with fwxp_k1 =
-    wxp·e^{ik1θ} rebuilt from the planes, and sm = hats·|wxp| (the
-    magnitude stencil rsten·|wxp|)."""
-    hats = _hats_from_r(sten_c[:, 0], R)                   # (R, cb, TB, TS)
-    pr, pi = sten_c[:, 1], sten_c[:, 2]
-    wr, wi = sten_c[:, 3], sten_c[:, 4]
-    e1r, e1i = _phasor_power(pr, pi, k1 - B)
-    f1 = torch.stack([wr * e1r - wi * e1i, wr * e1i + wi * e1r], -1)
+def _lift_stencils(sten_c, R: int, B: int, k1: int, k0=None):
+    """A chunk of panels' lift stencils: the hats (R, cb, TBt, TS), s1 =
+    hats ⊗ fwxp_k1 (R, cb, TBt, TS, 2) and sm = hats·|fwxp_k0| (the
+    magnitude stencil rsten·|wxp|).  Compressed panels (k0 None) rebuild
+    the hats from r and fwxp_k1 = wxp·e^{i(k1−B)θ} from the phasor, with
+    |wxp| as |fwxp_k0|; dense panels (R+2K planes) read them from their
+    planes."""
+    if k0 is None:
+        hats = _hats_from_r(sten_c[:, 0], R)               # (R, cb, TB, TS)
+        pr, pi = sten_c[:, 1], sten_c[:, 2]
+        wr, wi = sten_c[:, 3], sten_c[:, 4]
+        e1r, e1i = _phasor_power(pr, pi, k1 - B)
+        f1 = torch.stack([wr * e1r - wi * e1i, wr * e1i + wi * e1r], -1)
+    else:
+        hats = sten_c[:, :R].movedim(1, 0)                 # (R, cb, TB, TS)
+        f1 = sten_c[:, R + 2 * k1:R + 2 * k1 + 2].movedim(1, -1)
+        wr, wi = sten_c[:, R + 2 * k0], sten_c[:, R + 2 * k0 + 1]
     wmag = torch.sqrt(wr * wr + wi * wi)
     return hats[..., None] * f1, hats * wmag
 
 
 def _lift_sums(rows, sten, tgt, nb_out: int, C: int, R: int, B: int,
-               k1: int, panel_chunk: int):
-    """The lift's source sums over compressed panels sten (P, 5, TBt, TS) of
-    target blocks tgt (P,), each panel against its source rows
+               k1: int, panel_chunk: int, k0=None):
+    """The lift's source sums over compressed panels sten (P, 5, TBt, TS)
+    (or dense ones, (P, R+2K, TBt, TS), with k0 set) of target blocks tgt
+    (P,), each panel against its source rows
     ``rows(lo, hi)`` ((hi − lo, TS, C), one per column): per panel a (TBt,
     C, R, 2) partial of the angular sum s1·x, a (TBt, R, 2) one of s1's
     row sums and a (TBt, C, R) one of the magnitude sum sm·x, each summed
@@ -227,7 +234,7 @@ def _lift_sums(rows, sten, tgt, nb_out: int, C: int, R: int, B: int,
     mag = sten.new_zeros(nb_out, TB, C, R)
     for lo in range(0, sten.shape[0], panel_chunk):
         tgt_c = tgt[lo:lo + panel_chunk]
-        s1, sm = _lift_stencils(sten[lo:lo + panel_chunk], R, B, k1)
+        s1, sm = _lift_stencils(sten[lo:lo + panel_chunk], R, B, k1, k0)
         xs = rows(lo, lo + panel_chunk)                    # (cb, TS, C)
         part = torch.einsum("rptsj,psc->ptcrj", s1, xs)
         ssum = torch.sum(s1, dim=3).permute(1, 2, 0, 3)    # (cb, TB, R, 2)

@@ -222,7 +222,10 @@ def batched_apply(net, batch: MeshBatch, **kw):
     route (BandedTable convs, plus the compressed lift and, with
     echo_impl "banded", the banded ECHO when ``comp`` is set; a batch whose
     ``banded`` is its ``comp`` runs every conv through K4), the mixed route (BandedTable convs, ECHO and lift over the
-    batch's one PanelTable, or over its CompactPanelTable), the pure-panel
+    batch's one PanelTable, or over its CompactPanelTable; a
+    BlockSparseTable set as ``banded``, on this route or on the pure-panel
+    layout, runs every conv through K8 and leaves ECHO and the lift on the
+    panels, as the JAX batched_apply takes it), the pure-panel
     route (the PanelTable passed as both ``banded`` and ``comp``: K5 convs,
     ECHO and lift; with a CompactPanelTable, ECHO and the lift over it and
     the convs over ``panel``, which is the compact table itself on the

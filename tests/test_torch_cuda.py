@@ -15,13 +15,17 @@ import torch
 
 from fieldconv_tpu_torch import kernels
 from fieldconv_tpu_torch.data.base import MeshRecord
-from fieldconv_tpu_torch.data.synthetic import sphere_record
+from fieldconv_tpu_torch.data.synthetic import (random_block_sparse,
+                                                sphere_record)
 from fieldconv_tpu_torch.ops import band_conv as tbc
 from fieldconv_tpu_torch.ops import compact_fold as tcf
 from fieldconv_tpu_torch.ops import echo_panel as tep
 from fieldconv_tpu_torch.precomp.banded import (BandedTable,
+                                                build_banded_table,
+                                                build_block_sparse_banded,
                                                 build_panel_table,
-                                                concat_panel_tables)
+                                                concat_panel_tables,
+                                                stack_block_sparse_tables)
 from fieldconv_tpu_torch.train.config import PRESETS
 from fieldconv_tpu_torch.train.loop import build_model, make_batches
 from fieldconv_tpu_torch.train.trainer import (batched_apply,
@@ -797,3 +801,88 @@ def test_correspondence_compact_loss_backward_card_matches_cpu(conv_impl):
                                grads["cpu"]):
         err = (a - b).abs().max().item()
         assert err <= 1e-4 * b.abs().max().item(), (name, err)
+
+
+# --- K8: the block-sparse banded conv ----------------------------------------
+
+def _k8_check(tab, C, O2, seed, dense=None):
+    """K8 forward and backward on ``tab`` (a BlockSparseTable on the card)
+    against their plain versions (y, dg and dw each to 1e-4 of its scale:
+    f32 sums in another order), one launch each, two backward calls bitwise
+    equal; given ``dense`` (the BandedTable of the same EdgeTable, on the
+    card), also against K1 (1e-4 of each output's scale)."""
+    R, K = tab.n_rings, tab.k_width
+    sten = tab.sten_band.reshape(-1, *tab.sten_band.shape[-4:])
+    nbr = tab.nbr.reshape(-1, *tab.nbr.shape[-2:])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_mesh, nb = nbr.shape[:2]
+    N = nb * tab.tb
+    g = torch.randn(n_mesh, N, K * 2 * C, device="cuda", generator=gen)
+    wmat = torch.randn(R, K * 2 * C, O2, device="cuda", generator=gen) / 40
+    dy = torch.randn(n_mesh, N, O2, device="cuda", generator=gen)
+    args = (tab.tb, R, K)
+    before = dict(kernels.launches)
+    y = tbc.band_sparse_fwd(g, wmat, sten, nbr, *args)
+    dg, dw = tbc.band_sparse_bwd(dy, g, wmat, sten, nbr, tab.inv_ptr,
+                                 tab.inv_bj, *args)
+    torch.cuda.synchronize()
+    for name in ("band_sparse_fwd", "band_sparse_bwd"):
+        assert kernels.launches[name] == before.get(name, 0) + 1
+    want = (tbc.band_sparse_reference(g, wmat, sten, nbr, *args),
+            *tbc.band_sparse_bwd_reference(dy, g, wmat, sten, nbr, *args))
+    for got, w in zip((y, dg, dw), want):
+        err = (got - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item(), err
+    dg2, dw2 = tbc.band_sparse_bwd(dy, g, wmat, sten, nbr, tab.inv_ptr,
+                                   tab.inv_bj, *args)
+    assert torch.equal(dg, dg2) and torch.equal(dw, dw2)
+    if dense is not None:
+        ds = dense.sten_band.reshape(-1, *dense.sten_band.shape[-4:])
+        k1 = (tbc.band_fused_fwd(g, ds, wmat, dense.tb, dense.nh),
+              *tbc.band_fused_bwd(dy, g, ds, wmat, dense.tb, dense.nh))
+        for got, w in zip((y, dg, dw), k1):
+            err = (got - w).abs().max().item()
+            assert err <= 1e-4 * w.abs().max().item(), err
+
+
+# the block-sparse tables of chip_smoke.py's phase 2c but 163,842: the
+# 8192-sample record (K = 5, R = 6), the 4 x 2048 segmentation batch and
+# the 5120-sample record at the correspondence net's four widths
+K8_RECORDS = pytest.mark.parametrize("n,n_mesh,B,R,C,O2", [
+    (8192, 1, 2, 6, 32, 64),
+    (2048, 4, 2, 6, 48, 96),
+    (5120, 1, 1, 3, 32, 64),
+    (5120, 1, 1, 3, 16, 64),
+    (5120, 1, 1, 3, 32, 32),
+    (5120, 1, 1, 3, 16, 24),
+])
+
+
+@pytest.mark.cuda
+@K8_RECORDS
+def test_k8_kernel_matches_plain_on_card(n, n_mesh, B, R, C, O2):
+    """K8 each way on the block-sparse tables of records of the serving
+    sizes (sources within ±128, so NJ ≤ 3) against its plain versions and
+    against K1 on the dense band of the same EdgeTable."""
+    _need_card()
+    rng = np.random.default_rng(n + C + O2)
+    tabs = [_record(rng, n, 100, 128, 0.05).table(B, R)
+            for _ in range(n_mesh)]
+    sps = [build_block_sparse_banded(t, tb=128) for t in tabs]
+    bands = [build_banded_table(t, tb=128) for t in tabs]
+    assert {sp.nj for sp in sps} == {3} and {b.nh for b in bands} == {1}
+    dense = BandedTable(torch.stack([b.sten_band for b in bands]).cuda(),
+                        tb=128, nh=1, n_pad=bands[0].n_pad, band_limit=B,
+                        n_rings=R)
+    _k8_check(stack_block_sparse_tables(sps).to("cuda"), C, O2, seed=n,
+              dense=dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,C,O2", [(2, 6, 32, 60), (1, 3, 16, 24)])
+def test_k8_kernel_on_shuffled_lists_on_card(B, R, C, O2):
+    """K8 each way on random tables whose nbr rows are shuffled, repeat no
+    block and include padding entries (two meshes, tb = 128)."""
+    _need_card()
+    tab = random_block_sparse(np.random.default_rng(C), 2, 10, 6, R, B, 128)
+    _k8_check(tab.to("cuda"), C, O2, seed=C)

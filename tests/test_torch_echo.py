@@ -304,13 +304,19 @@ def test_trans_field_panel_matches_jax(rng, lift_cols):
 
 
 def test_trans_field_panel_dense_raises(rng):
-    """The lift runs over compressed panels only (what the mixed route
-    builds); a dense PanelTable is refused, naming where it is queued."""
+    """The lift over a dense PanelTable, once refused here, now computes:
+    it equals the lift over the compressed panels of the same EdgeTable
+    (tests/test_torch_blocksparse.py holds it against the JAX package's
+    dense branch).  The name is the old behaviour's, kept so that the
+    test's record carries on."""
     _, jt, _ = _panel_setup(rng, compressed=False, B=1)
-    tp = tbanded.build_panel_table(_port_table(jt), tb=TB, compressed=False)
+    tt = _port_table(jt)
     x = _t(rng.normal(size=(jt.n_pad, 3)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ttf.trans_field_panel_contrib(x, tp, (1, 2))
+    dense, comp = (ttf.trans_field_panel_contrib(
+        x, tbanded.build_panel_table(tt, tb=TB, compressed=c), (1, 2))
+        for c in (False, True))
+    for a, b in zip(dense, comp):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **ECHO_TOL)
 
 
 # --- blocks and nets -----------------------------------------------------------------

@@ -211,9 +211,10 @@ def test_k1_unported_routes_raise(rng):
     CompressedBandedTable runs K4 and fuse_filters=False runs K3, both equal
     to the K1 route (tests/test_torch_cbanded.py holds them against JAX).
     The bf16 operand path still raises, and a table type field_conv_banded
-    does not take (here an EdgeTable; the port has no BlockSparseTable, the
-    K8 table) raises a TypeError that names it.  The name is the old
-    behaviour's, kept so that the test's record carries on."""
+    does not take (here an EdgeTable) raises a TypeError that names it
+    (the K8 table, BlockSparseTable, computes since its port:
+    tests/test_torch_blocksparse.py).  The name is the old behaviour's,
+    kept so that the test's record carries on."""
     g = banded_graph(rng, n_vertices=16, bw=5)
     table, band, comp = _port_tables(g)
     x = _t(_planar(random_field(rng, 16, 4)))
