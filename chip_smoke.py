@@ -164,8 +164,12 @@ The block-sparse banded layout (each phase's checks hold):
      correspondence widths: 17 K8 + 1 K2, no K5, its logits held against
      the same request on K5's route on the card;
   7f. on the serving batches, the loss and every gradient of paths A (K1)
-     and D (K8) against the CPU's (as in 7e), then one make_train_step step
-     on path D (9 / 17 K8 + 1 K2 each way); at 163,842 the first step's
+     and D (K8) against the CPU's (as in 7e; the lift's zonalMag against
+     the CPU's plus the term that the subgradient of |M| gives at the
+     entries of the lift's magnitude sum M whose sign differs between the
+     card and the CPU, route_check, lift_flip_term), then one
+     make_train_step step on path D (9 / 17 K8 + 1 K2 each way); at
+     163,842 the first step's
      loss and gradients on path D against K5's route on the card (each
      gradient's bar widened by K5's route against the all-compact route
      on the card, or by the corr_n5120_b1 spread relative to its scale),
@@ -174,6 +178,30 @@ The block-sparse banded layout (each phase's checks hold):
      device memory) and five convs over n8192's block-sparse table (path
      E: 5 K8 each way), then frees the 163k block-sparse table before the
      all-compact request.
+
+The bf16 panel stencils (precomp/banded.py::cast_panel_sten; each phase's
+checks hold):
+  3f. K5, K6, K2 and K7, each way, on the cast seg_n2048_b4 tables and on
+     the cast corr_n5120_b1 pure-panel and all-compact tables, against
+     their plain versions and bitwise against a second call; timed on the
+     163,842-sample tables cast on the card (K2 on corr_n5120_b1's), the
+     bounds counting the stencil at 2 bytes;
+  5g. serve the corr_n5120_b1 record on cast tables, on the mixed route
+     (17 K1 + 1 K2, the bf16 panel lift) and with the compact ECHO on the
+     pure-panel layout (17 K5 + 1 K7), counted, each against the CPU on the
+     same cast tables;
+  7g. the pure-panel route's and the mixed route's loss gradients bitwise
+     equal across two runs; scripts/train_100k.py's training at 163,842
+     samples (fieldconv_tpu_torch/scripts/train_100k.py::train) on the
+     cast tables for 3 steps (K5 convs, K7 and the compact lift at TBt 32;
+     each step 33 K5 forward with remat_blocks), all-compact for 2 (K6,
+     K7) and without the compact table for 1 (K5, K2 and the panel lift
+     on the cast block panels), counted, losses finite; each route's step peak above what it
+     held no more than on the f32 tables; one cast request on K5's route
+     against the all-compact route (logits within the bar of path D's at
+     163,842), and its logits against the f32 tables';
+  8. also times the cast request and a train_100k step on the f32 and on
+     the cast tables.
 
 The CPU's side of every first-epoch check of 6-7d (fit(device="cpu"))
 runs in one worker process, started with the records and stopped with the
@@ -252,9 +280,12 @@ from fieldconv_tpu_torch.precomp.banded import (build_block_sparse_banded,
                                                 build_compact_panel_table,
                                                 build_compressed_banded,
                                                 build_panel_table,
+                                                cast_panel_sten,
                                                 stack_block_sparse_tables)
+from fieldconv_tpu_torch.scripts import train_100k
 from fieldconv_tpu_torch.ops.trans_field import (_compact_lift_agg_bwd,
-                                                 _lift_sums)
+                                                 _lift_sums, _runs,
+                                                 lift_contribs)
 from fieldconv_tpu_torch.train.checkpoint import CheckpointManager
 from fieldconv_tpu_torch.train.config import PRESETS
 from fieldconv_tpu_torch.train.loop import (build_model, evaluate_task, fit,
@@ -263,7 +294,7 @@ from fieldconv_tpu_torch.train.trainer import (draw_dropout_mask,
                                                draw_rotate_scale,
                                                make_loss_fn, make_optimizer,
                                                make_train_step)
-from fieldconv_tpu_torch.utils.complexops import EPS
+from fieldconv_tpu_torch.utils.complexops import EPS, cpolar, soft_angle
 
 # H100 SXM data-sheet peaks (dense, 700 W): HBM bytes/s and f32 FLOP/s
 # outside the tensor cores
@@ -343,6 +374,14 @@ LOSS_ATOL_STEP1, LOSS_ATOL_LATER = 2e-4, 2e-3
 # its weights).  No bar may exceed GRAD_BAR_CAP of the parameter's own
 # scale, so a gradient that is wrong outright fails.
 GRAD_SPREAD, GRAD_BAR_CAP = 10.0, 0.25
+# the lift's magnitude sums M (route_check, lift_flip_term): the card's
+# within FLIP_GAP_REL of max|M| of the CPU's (f32 sums of C·R products,
+# some tens of ulps; 1e-5 is 84 ulps of max|M|, a sign fault in M moves it
+# by ~2·max|M|), and at most MAX_FLIPS entries whose sign differs (each
+# within that gap of 0, so both devices' |M| there are rounding).  The
+# card's runs read gaps of 1.9e-9 to 5.6e-9 and 0 or 1 flips of up to
+# 1.18M entries (NVIDIA H100 80GB HBM3, 700.00 W).
+FLIP_GAP_REL, MAX_FLIPS = 1e-5, 8
 
 TRAIN_EPOCHS = 2
 # the fits on the card, per shape: (train records, batch size, test
@@ -651,18 +690,23 @@ def k2_inputs(panel, C, gen):
     return torch.where(zero[:, None, None], torch.zeros_like(x), x)
 
 
-def _sectors(occ):
-    """32-byte sectors (8 source slots) of a (P, TB, TB) occupancy that
-    hold an occupied slot."""
-    return int(occ.reshape(*occ.shape[:2], -1, 8).any(-1).sum().item())
+def _slots_per_sector(sten):
+    """Stencil slots in a 32-byte sector: 8 of f32, 16 of bf16."""
+    return 32 // sten.element_size()
 
 
-def _stencil_bytes(slots, planes, whole, sectors):
-    """Bytes of a panel stencil that a kernel must read: the ``whole``
-    planes that say which slots are occupied (r, or a dense stencil's hat
-    planes) read whole, the other planes only in the 32-byte sectors that
-    hold an occupied slot."""
-    return 4 * whole * slots + 32 * (planes - whole) * sectors
+def _sectors(occ, per=8):
+    """32-byte sectors (``per`` source slots) of a (P, TB, TS) occupancy
+    that hold an occupied slot."""
+    return int(occ.reshape(*occ.shape[:2], -1, per).any(-1).sum().item())
+
+
+def _stencil_bytes(slots, planes, whole, sectors, elem=4):
+    """Bytes of a panel stencil of ``elem``-byte elements (4 f32, 2 bf16)
+    that a kernel must read: the ``whole`` planes that say which slots are
+    occupied (r, or a dense stencil's hat planes) read whole, the other
+    planes only in the 32-byte sectors that hold an occupied slot."""
+    return elem * whole * slots + 32 * (planes - whole) * sectors
 
 
 def k2_pairs(x, sten, pid, src):
@@ -670,8 +714,9 @@ def k2_pairs(x, sten, pid, src):
     the blocks ``src``, (occupied slot, channel whose source feature is not
     at the origin) pairs: the work K2 does, forward or backward; and the
     bytes of the stencil it must read for them."""
-    TB = sten.shape[-1]
-    check(TB % 8 == 0, "the stencil bytes count 32-byte sectors of 8 slots")
+    TB, per = sten.shape[-1], _slots_per_sector(sten)
+    check(TB % per == 0, f"the stencil bytes count 32-byte sectors of {per} "
+                         "slots")
     occ = (sten[pid.long(), 3] != 0) | (sten[pid.long(), 4] != 0)
     nzc = (x.abs() >= EPS).any(-1).sum(-1)               # (rows,)
     src_rows = (src.long()[:, None] * TB
@@ -679,7 +724,8 @@ def k2_pairs(x, sten, pid, src):
     return (int(occ.sum().item()),
             int((occ.sum(1) * nzc[src_rows]).sum().item()),
             occ.numel(),
-            _stencil_bytes(occ.numel(), sten.shape[1], 1, _sectors(occ)))
+            _stencil_bytes(occ.numel(), sten.shape[1], 1, _sectors(occ, per),
+                           sten.element_size()))
 
 
 def k2_bound(x, sten, meta, n_bins):
@@ -814,8 +860,9 @@ def _k5_table(panel, R, K, live=None):
     other planes, e^{iθ} and wxp or the f_k planes, only in the 32-byte
     sectors that hold an occupied slot).  live: a (P, TS) bool tensor that
     is set where a column holds an occupied slot."""
-    check(panel.sten.shape[-1] % 8 == 0,
-          "the bounds count 32-byte sectors of 8 slots")
+    per = _slots_per_sector(panel.sten)
+    check(panel.sten.shape[-1] % per == 0,
+          f"the bounds count 32-byte sectors of {per} slots")
     hats = occupied = sectors = 0
     for lo in range(0, panel.n_panels, 256):
         h, _ = _panel_pairs(panel.sten[lo:lo + 256], R, K, panel.compressed)
@@ -823,12 +870,13 @@ def _k5_table(panel, R, K, live=None):
         occ = nz.any(0)                                  # (pc, TBt, TS)
         hats += int(nz.sum().item())
         occupied += int(occ.sum().item())
-        sectors += _sectors(occ)
+        sectors += _sectors(occ, per)
         if live is not None:
             live[lo:lo + 256] = occ.any(1)
     slots = panel.sten[:, 0].numel()
     stencil_bytes = _stencil_bytes(slots, panel.sten.shape[1],
-                                   1 if panel.compressed else R, sectors)
+                                   1 if panel.compressed else R, sectors,
+                                   panel.sten.element_size())
     return hats, occupied, slots, stencil_bytes
 
 
@@ -851,7 +899,8 @@ def k5_bound(g, wmat, panel):
                                   + wmat.numel() + N * O2)
     return _bound(nbytes, flops, occupied=occupied, hats=hats,
                   slot_fill=occupied / slots, stencil_bytes=stencil_bytes,
-                  stencil_bytes_whole=4 * panel.sten.numel())
+                  stencil_bytes_whole=panel.sten.numel()
+                  * panel.sten.element_size())
 
 
 def k5_bwd_bound(g, wmat, dy, panel):
@@ -961,7 +1010,8 @@ def k6_bound(g, wmat, comp):
                                   + rows * M + wmat.numel() + N * O2)
     return _bound(nbytes, flops, occupied=occupied, hats=hats,
                   slot_fill=occupied / slots, stencil_bytes=stencil_bytes,
-                  stencil_bytes_whole=4 * comp.sten.numel(), live_rows=rows)
+                  stencil_bytes_whole=comp.sten.numel()
+                  * comp.sten.element_size(), live_rows=rows)
 
 
 def k6_check(label, g, wmat, comp):
@@ -989,15 +1039,17 @@ def k7_pairs(x, comp):
     whose source feature is not at the origin) pairs, slots, the stencil
     bytes K7 must read (r whole, the other planes where a slot is occupied)
     and the distinct source rows its live columns name."""
-    check(comp.ts % 8 == 0, "the stencil bytes count 32-byte sectors of 8 "
-                            "slots")
+    per = _slots_per_sector(comp.sten)
+    check(comp.ts % per == 0, "the stencil bytes count 32-byte sectors of "
+                              f"{per} slots")
     occ = (comp.sten[:, 3] != 0) | (comp.sten[:, 4] != 0)  # (P, TBt, TS)
     nzc = (x.abs() >= EPS).any(-1).sum(-1)                 # (rows,)
     per_col = occ.sum(1)                                   # (P, TS)
     return (int(occ.sum().item()),
             int((per_col * nzc[comp.src_idx.long()]).sum().item()),
             occ.numel(),
-            _stencil_bytes(occ.numel(), 5, 1, _sectors(occ)),
+            _stencil_bytes(occ.numel(), 5, 1, _sectors(occ, per),
+                           comp.sten.element_size()),
             _live_rows(comp, per_col > 0))
 
 
@@ -1034,11 +1086,13 @@ def k7_check(label, x, comp, n_bins):
                 max_abs_err=err, max_rel_err=err / scale)
 
 
-def k7_time(row, x, comp, n_bins):
+def k7_time(row, x, comp, n_bins, plain=(3, 2)):
+    """ms of the kernel, and of its plain version over (reps, warm-up
+    calls) ``plain``."""
     args = _k7_args(x, comp, n_bins)
     row["ms"] = time_cuda(lambda: echo_compact_grid(*args), iters=10)
     row["plain_ms"] = time_cuda(lambda: echo_compact_grid_reference(*args),
-                                iters=1, reps=3)
+                                iters=1, reps=plain[0], warmup=plain[1])
     row.update(k7_bound(x, comp, n_bins))
 
 
@@ -1160,6 +1214,61 @@ def k7_bwd_time(row, dg, dg_cells_minor, x, comp, n_bins, plain=(3, 2)):
     row.update(k7_bwd_bound(dg, x, comp))
 
 
+def bf16_checks(gen, k5_cases, k6_cases, k2_cases, k7_cases, card):
+    """K5, K6, K2 and K7, each way, on bf16 tables: each case (label,
+    table, C, O2 or n_bins) checked against its plain version and bitwise
+    against a second call (the kernels' *_check); the first case of each
+    kernel is timed beside its plain version and its bound, the stencil
+    counted at 2 bytes (*_time).  Returns the rows by kernel."""
+    rows = {n: [] for n in ("K5", "K5 bwd", "K6", "K6 bwd", "K2", "K2 bwd",
+                            "K7", "K7 bwd")}
+    for i, (label, pt, C, O2) in enumerate(k5_cases):
+        g, wmat = k5_inputs(pt, C, O2, gen)
+        dy = torch.randn(g.shape[0], O2, device=g.device, generator=gen)
+        rows["K5"].append(k5_check(f"{label} bf16", g, wmat, pt))
+        rows["K5 bwd"].append(k5_bwd_check(f"{label} bf16", g, wmat, dy, pt))
+        if i == 0:
+            k5_time(rows["K5"][0], g, wmat, pt)
+            k5_bwd_time(rows["K5 bwd"][0], g, wmat, dy, pt)
+    for i, (label, ct, C, O2) in enumerate(k6_cases):
+        g, wmat = k5_inputs(ct, C, O2, gen)
+        dy = torch.randn(g.shape[0], O2, device=g.device, generator=gen)
+        rows["K6"].append(k6_check(f"{label} bf16", g, wmat, ct))
+        rows["K6 bwd"].append(k6_bwd_check(f"{label} bf16", g, wmat, dy,
+                                           ct))
+        if i == 0:
+            k6_time(rows["K6"][0], g, wmat, ct)
+            k6_bwd_time(rows["K6 bwd"][0], g, wmat, dy, ct)
+    for i, (label, pt, C, n_bins) in enumerate(k2_cases):
+        x = k2_inputs(pt, C, gen)
+        dg, dg_cm = k2_bwd_inputs(x, n_bins, pt.tb, gen)
+        rows["K2"].append(k2_check(f"{label} bf16", x, pt, n_bins))
+        rows["K2 bwd"].append(k2_bwd_check(f"{label} bf16", dg, dg_cm, x, pt,
+                                           n_bins))
+        if i == 0:
+            k2_time(rows["K2"][0], x, pt, n_bins)
+            k2_bwd_time(rows["K2 bwd"][0], dg, dg_cm, x, pt, n_bins)
+    for i, (label, ct, C, n_bins) in enumerate(k7_cases):
+        x = k2_inputs(ct, C, gen)
+        dg, dg_cm = k2_bwd_inputs(x, n_bins, ct.tb, gen)
+        rows["K7"].append(k7_check(f"{label} bf16", x, ct, n_bins))
+        rows["K7 bwd"].append(k7_bwd_check(f"{label} bf16", dg, dg_cm, x, ct,
+                                           n_bins))
+        if i == 0:
+            # the plain versions take seconds a call at 163k
+            k7_time(rows["K7"][0], x, ct, n_bins, plain=(1, 0))
+            k7_bwd_time(rows["K7 bwd"][0], dg, dg_cm, x, ct, n_bins,
+                        plain=(1, 0))
+    for kind, rs in rows.items():
+        print_times(f"{kind} bf16", rs[:1], card)
+        r = rs[0]
+        if "stencil_bytes" in r:
+            print(f"{kind} bf16 {r['shape']}: {r['stencil_bytes'] / 1e9:.3f} "
+                  f"GB of the {r['stencil_bytes_whole'] / 1e9:.3f} GB bf16 "
+                  "stencil needed")
+    return rows
+
+
 def lift_vjp_check(label, comp, gen):
     """The compact lift's backward as a training step would run it, were
     its input differentiable (_CompactLiftAggFn's: the per-column gradients
@@ -1183,8 +1292,8 @@ def lift_vjp_check(label, comp, gen):
     def plain():
         idx = comp.src_idx.long()
         seg, _, mag = _lift_sums(lambda lo, hi: x[idx[lo:hi]], comp.sten,
-                                 comp.meta[0].long(), rows // TB, 3, R, B,
-                                 B + 1, 256)
+                                 _runs(comp.meta[0], rows // TB, 256),
+                                 rows // TB, 3, R, B, B + 1)
         return torch.autograd.grad((seg, mag), x, (d_seg, d_mag))
 
     return check_bwd("lift VJP", label, run, plain, K5_RTOL_SCALE, ("dx",))
@@ -1885,8 +1994,7 @@ def grad_bar(own, spread):
 
 
 def route_check(k, cfg, n_classes, weights, batch, cpu_batch, dev, seed,
-                alt=as_cbanded, name="B", conv="K4", card_ref=False,
-                spread_alts=()):
+                alt=as_cbanded, name="B", conv="K4", spread_alts=()):
     """A route's gradient check at shape ``k``: a net of ``cfg`` holding
     ``weights``, its loss and every parameter's gradient on the card
     against the same net on the CPU, with the same augmentation and dropout
@@ -1896,21 +2004,19 @@ def route_check(k, cfg, n_classes, weights, batch, cpu_batch, dev, seed,
     block-sparse one, K8).  Each loss within LOSS_ATOL_STEP1; each gradient
     within grad_bar of its CPU route's, whose spread is the CPU's path A
     against its path ``name`` and against each route ``spread_alts`` make
-    of the CPU's batch (the largest).  With ``card_ref``, path A is the
-    reference on the card and only reported: a path-``name`` gradient that
-    misses the CPU's where the card's path A misses it too, by more than
-    the bar (an op upstream of the convs that the two paths share, rounded
-    otherwise on the card), is held within the bar of the card's path A
-    instead.
+    of the CPU's batch (the largest); the lift's zonalMag against the
+    CPU's plus lift_flip_term's sign term (the subgradient of |M| at the
+    entries where the card's M and the CPU's differ in sign), once M is
+    held to rounding (FLIP_GAP_REL, MAX_FLIPS).
     Returns the card's net on path ``name``, a fresh optimizer of it, the
     step's inputs ({dev: the aug and dropout_mask keywords, "cpu_loss": the
     CPU's loss on path ``name``}) and each parameter's rounding spread
-    relative to its own scale (the CPU's two routes and, with card_ref, the
-    card's path A against the CPU's: the larger)."""
+    relative to its own scale (the CPU's two routes and the card's path A
+    against the CPU's: the larger)."""
     gen = torch.Generator().manual_seed(seed + 3)
     aug = draw_rotate_scale(gen, batch.pos.shape[0], cfg.random_rotate_deg,
                             cfg.random_scale)
-    nets, out, kw, mask = {}, {}, {}, None
+    nets, out, kw, mask, lifts = {}, {}, {}, None, {}
     for d, b in (("cpu", cpu_batch), (dev, batch)):
         nets[d] = build_model(cfg, n_classes, device=d)
         nets[d].load_state_dict({n: v.to(d) for n, v in weights.items()})
@@ -1919,10 +2025,26 @@ def route_check(k, cfg, n_classes, weights, batch, cpu_batch, dev, seed,
         kw[d] = dict(aug=tuple(None if a is None else a.to(d) for a in aug),
                      dropout_mask=None if mask is None else mask.to(d))
         for path, b_ in (("A", b), (name, alt([b])[0])):
+            cap = {}
+            hook = nets[d].lift.field.register_forward_hook(
+                lambda mod, args, o: cap.update(args=args, out=o))
             loss = make_loss_fn(nets[d], cfg, n_classes)(b_, **kw[d])
-            grads = torch.autograd.grad(loss, list(nets[d].parameters()))
-            out[d, path] = (loss.item(), [g.cpu() for g in grads])
+            hook.remove()
+            params = list(nets[d].parameters())
+            grads = torch.autograd.grad(loss, params + [cap["out"]])
+            if path == "A":
+                lifts[d] = (cap["args"], grads[-1])
+            out[d, path] = (loss.item(), [g.cpu() for g in grads[:-1]])
     names = [n for n, _ in nets["cpu"].named_parameters()]
+    flip, n_flips, m_gap, m_flip, m_max = lift_flip_term(
+        nets["cpu"].lift.field, lifts["cpu"], lifts[dev])
+    check(m_gap <= FLIP_GAP_REL * m_max and m_flip <= FLIP_GAP_REL * m_max
+          and n_flips <= MAX_FLIPS,
+          f"{k}: the lift's M on the card is {m_gap:.3e} from the CPU's "
+          f"(max|M| {m_max:.3e}), {n_flips} entries differ in sign, the "
+          f"largest |M| among them {m_flip:.3e}: more than rounding "
+          f"(FLIP_GAP_REL {FLIP_GAP_REL}, MAX_FLIPS {MAX_FLIPS})")
+    adjust = {"lift.field.zonalMag": flip}
     others = [out["cpu", name][1]]
     for make in spread_alts:
         loss = make_loss_fn(nets["cpu"], cfg, n_classes)(
@@ -1931,11 +2053,14 @@ def route_check(k, cfg, n_classes, weights, batch, cpu_batch, dev, seed,
                                           list(nets["cpu"].parameters())))
     spread = [max((a - o[i]).abs().max().item() for o in others)
               for i, a in enumerate(out["cpu", "A"][1])]
-    ref = None
-    if card_ref:
-        ref = (out[dev, "A"][1],
-               [(a - b).abs().max().item()
-                for a, b in zip(out[dev, "A"][1], out["cpu", "A"][1])])
+    own = {n: max(b.abs().max().item(), 1e-30)
+           for n, b in zip(names, out["cpu", "A"][1])}
+    print(f"train {k}: the lift's magnitude sums M (card against CPU within "
+          f"{m_gap:.3e}, {m_gap / m_max:.3e} of max|M| {m_max:.3e}) differ "
+          f"in sign at {n_flips} entries (|M| <= {m_flip:.3e}); their "
+          f"subgradient moves the CPU's zonalMag gradient by "
+          f"{flip.abs().max().item() / own['lift.field.zonalMag']:.3e} of "
+          "its scale (the sign term, added to the CPU's before it is held)")
     for path in ("A", name):
         dloss = abs(out[dev, path][0] - out["cpu", path][0])
         check(dloss <= LOSS_ATOL_STEP1,
@@ -1946,49 +2071,79 @@ def route_check(k, cfg, n_classes, weights, batch, cpu_batch, dev, seed,
                    f"every conv through {'K1' if path == 'A' else conv}: "
                    f"loss {out[dev, path][0]:.6f} on the card, |diff| "
                    f"{dloss:.3e} from the CPU's (within {LOSS_ATOL_STEP1})",
-                   hold=not (card_ref and path == "A"),
-                   card_ref=ref if path == name else None)
+                   adjust=adjust)
     kw["cpu_loss"] = out["cpu", name][0]
     # each gradient's rounding spread relative to its scale: the CPU's two
-    # routes and, with card_ref, the card's path A against the CPU's
-    gaps = ref[1] if ref else [0.0] * len(names)
-    rel = {n: max(s_, g_) / max(b.abs().max().item(), 1e-30)
-           for n, s_, g_, b in zip(names, spread, gaps, out["cpu", "A"][1])}
+    # routes, and the card's path A against the CPU's (sign term added)
+    rel = {n: max(s_, (a - b - adjust.get(n, 0.0)).abs().max().item())
+           / own[n] for n, s_, a, b in zip(names, spread, out[dev, "A"][1],
+                                           out["cpu", "A"][1])}
     net = nets[dev]
     return net, make_optimizer(cfg, net.parameters()), kw, rel
 
 
-def hold_grads(what, names, got, want, spread, head, hold=True,
-               card_ref=None):
-    """Each gradient of ``got`` within grad_bar of ``want``'s, given each
-    one's ``spread``; no bar above GRAD_BAR_CAP of the gradient's own scale
-    (``hold`` False: reported, not held).  ``card_ref``: (the card's
-    gradients on a reference route, each one's error against ``want``); a
-    gradient that misses the bar where the reference misses it too is held
-    within the bar of the reference's instead.  Prints the worst error, the
-    widened bars and the gradients held to the reference."""
-    worst, widened, to_ref, missed = (0.0, ""), [], [], []
-    for i, (name, a, b, s_) in enumerate(zip(names, got, want, spread)):
+def lift_flip_term(field, cpu_lift, dev_lift):
+    """The lift's rho = |M| (M = Σ_r contribMag·zonalMag, ops/trans_field.py
+    ::trans_field_weight) takes subgradient +1 at M ≥ 0 and −1 below, so an
+    entry whose M lies within rounding of 0 and differs in sign between two
+    devices moves zonalMag's gradient by 2·dρ·contribMag, though ρ is the
+    same.  ``field``: the CPU net's TransField; ``cpu_lift`` /
+    ``dev_lift``: (the TransField's call arguments, its output's gradient)
+    on each device.  Recomputes M on each device as the lift forms it and
+    returns (the CPU's zonalMag gradient with the card's signs minus the
+    same with its own, the entries whose signs differ, max |M_card −
+    M_CPU|, the largest |M| of either device at those entries, max
+    |M_CPU|); the caller holds the last three to rounding (FLIP_GAP_REL,
+    MAX_FLIPS) before it adds the term."""
+    def contribs(args):
+        x, table, cols, comp = args
+        with torch.no_grad():
+            return lift_contribs(x.detach(), table, cols, comp=comp)
+
+    def m_of(mag, zm):
+        return torch.einsum("...ncr,ocr->...noc", mag, zm)
+
+    (cargs, gout), (dargs, _) = cpu_lift, dev_lift
+    ang, mag = contribs(cargs)
+    zm_dev = dargs[0].new_tensor(field.zonalMag.detach().numpy())
+    m_cpu = m_of(mag, field.zonalMag.detach())
+    m_dev = m_of(contribs(dargs)[1], zm_dev).cpu()
+    signs = [torch.where(m < 0, -1.0, 1.0) for m in (m_cpu, m_dev)]
+    A = torch.einsum("...ncrp,ocr->...nocp", ang, field.zonalAng.detach())
+    phi = soft_angle(A)
+    if field.ftype == 1:
+        phi = phi + field.phase.detach()
+
+    def grad_zm(sign):
+        zm = field.zonalMag.detach().clone().requires_grad_()
+        rho = m_of(mag, zm) * sign
+        out = torch.sum(cpolar(rho, phi), dim=-2)
+        return torch.autograd.grad(out, zm, gout)[0]
+
+    flips = signs[0] != signs[1]
+    m_flip = (torch.maximum(m_cpu.abs(), m_dev.abs())[flips].max().item()
+              if flips.any() else 0.0)
+    return (grad_zm(signs[1]) - grad_zm(signs[0]), int(flips.sum().item()),
+            (m_dev - m_cpu).abs().max().item(), m_flip,
+            m_cpu.abs().max().item())
+
+
+def hold_grads(what, names, got, want, spread, head, adjust=None):
+    """Each gradient of ``got`` within grad_bar of ``want``'s (plus
+    ``adjust``'s term for the names it holds), given each one's
+    ``spread``; no bar above GRAD_BAR_CAP of the gradient's own scale.
+    Prints the worst error and the widened bars."""
+    adjust = adjust or {}
+    worst, widened = (0.0, ""), []
+    for name, a, b, s_ in zip(names, got, want, spread):
         own = b.abs().max().item()
         bar = grad_bar(own, s_)
-        err = (a - b).abs().max().item()
-        if hold:
-            check(bar <= GRAD_BAR_CAP * own,
-                  f"{what}: {name}'s routes differ by {s_}, too much to hold "
-                  f"its gradient (scale {own})")
-        if card_ref is not None and err > bar and card_ref[1][i] > bar:
-            err_ref = (a - card_ref[0][i]).abs().max().item()
-            check(err_ref <= bar, f"{what}: gradient of {name} max abs err "
-                                  f"{err_ref} > {bar} against the card's "
-                                  f"reference route (scale {own})")
-            to_ref.append(f"{name} (scale {own:.3e}, CPU {err / own:.3e}, "
-                          f"the reference's CPU {card_ref[1][i] / own:.3e},"
-                          f" the reference {err_ref / own:.3e})")
-        elif hold:
-            check(err <= bar, f"{what}: gradient of {name} max abs err {err} "
-                              f"> {bar} (scale {own}, spread {s_})")
-        elif err > bar:
-            missed.append(f"{name} (scale {own:.3e}, {err / own:.3e})")
+        err = (a - b - adjust.get(name, 0.0)).abs().max().item()
+        check(bar <= GRAD_BAR_CAP * own,
+              f"{what}: {name}'s routes differ by {s_}, too much to hold "
+              f"its gradient (scale {own})")
+        check(err <= bar, f"{what}: gradient of {name} max abs err {err} "
+                          f"> {bar} (scale {own}, spread {s_})")
         worst = max(worst, (err / max(own, 1e-30), name))
         if bar > K1_RTOL_SCALE * own:
             widened.append(f"{name} (scale {own:.3e}, spread {s_ / own:.3e}"
@@ -1996,11 +2151,7 @@ def hold_grads(what, names, got, want, spread, head, hold=True,
     print(f"train {what} ({head}); the largest gradient error is "
           f"{worst[0]:.3e} of its parameter's own scale ({worst[1]}); bar "
           f"{K1_RTOL_SCALE} of the own scale, widened to {GRAD_SPREAD}x the "
-          f"spread for {'; '.join(widened) or 'none'}"
-          + (f"; held to the card's reference route: {'; '.join(to_ref)}"
-             if to_ref else "")
-          + ("" if hold else f"; reported, not held; above the bar: "
-             f"{'; '.join(missed) or 'none'}"))
+          f"spread for {'; '.join(widened) or 'none'}")
 
 
 def logits_close(a, b, rows=16384):
@@ -2113,6 +2264,154 @@ def remat_step(k, tnet, cfg, n_classes, batch, dev, seed, card):
           f"({base_gb:.2f} GB allocated before the step) on {card}")
 
 
+def cast_batches(batches):
+    """The batches with their panel stencils cast to bf16
+    (scripts/train_100k.py::cast_batch)."""
+    return [train_100k.cast_batch(b) for b in batches]
+
+
+def repeat_check(k, cfg, n_classes, weights, batch, dev, seed):
+    """The loss gradient of a net of ``cfg`` holding ``weights`` on the
+    placed ``batch``, twice on the card with the same augmentation and
+    dropout mask: every parameter's bitwise equal (no sum of the route
+    depends on the order in which the card runs its threads)."""
+    net = build_model(cfg, n_classes, device=dev)
+    net.load_state_dict(weights)
+    gen = torch.Generator().manual_seed(seed + 3)
+    aug = draw_rotate_scale(gen, batch.pos.shape[0], cfg.random_rotate_deg,
+                            cfg.random_scale)
+    kw = dict(aug=tuple(None if a is None else a.to(dev) for a in aug))
+    if cfg.task == "correspondence":
+        kw["dropout_mask"] = draw_dropout_mask(gen, net, batch).to(dev)
+    runs = [torch.autograd.grad(make_loss_fn(net, cfg, n_classes)(batch,
+                                                                  **kw),
+                                list(net.parameters())) for _ in range(2)]
+    differ = [n for (n, _), a, b in zip(net.named_parameters(), *runs)
+              if not torch.equal(a, b)]
+    check(not differ, f"{k}: the loss gradient differs between two runs on "
+                      f"the card at {differ}")
+    print(f"train {k}: the loss gradient of every parameter is bitwise equal "
+          "across two runs on the card")
+
+
+def t100k_peak(what, batch, seed, card):
+    """A train_100k step (scripts/train_100k.py: remat_blocks, the head
+    row-chunked) of a fresh net on ``batch`` once to warm up, then once
+    more: the peak device memory of that step above what was allocated
+    before it (the tables, the net and the optimizer's moments, and
+    whatever the script holds), in GB."""
+    net = train_100k.build_net(seed, batch.pos.device)
+    step = train_100k.make_step(net, batch, seed)
+    step()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss = step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(torch.isfinite(loss).item(), f"{what}: loss {loss}")
+    print(f"train {what}: a step's peak device memory {peak / 1e9:.2f} GB, "
+          f"{base / 1e9:.2f} GB allocated before it, on {card}")
+    del net, step
+    return (peak - base) / 1e9
+
+
+def t100k_counted(what, batch, steps, conv, seed, echo="echo_compact"):
+    """train_100k.train on ``batch`` for ``steps`` steps, counted: each step
+    launches the conv kernel ``conv`` (K5 or K6) 2·17 − 1 times forward
+    (remat_blocks recomputes the 16 FCResNetBlock convs) and 17 times
+    backward, the ECHO kernel ``echo`` (K7, or K2 without a compact table)
+    once each way and the fold after K7's (and each K6's) backward; each
+    probe (steps 0 and the last) one forward (17 convs, one ECHO).  Losses
+    finite.  Returns the launches."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    _, records, losses = train_100k.train(batch, steps, log_every=10,
+                                          seed=seed)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    grew = dict(kernels.launches)
+    n, probes = 17, len(records)
+    want = {f"{conv}_fwd": steps * (2 * n - 1) + probes * n,
+            f"{conv}_bwd": steps * n, f"{echo}_fwd": steps + probes,
+            f"{echo}_bwd": steps}
+    if echo == "echo_compact":
+        want["compact_fold"] = steps * (1 + (n if conv == "band_compact"
+                                             else 0))
+    check(grew == want, f"{what}: train_100k launched {grew}, want {want}")
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"{what}: losses {losses}")
+    print(f"train {what} train_100k: {steps} steps ({secs:.1f} s with "
+          f"{probes} probes), losses {losses}, records {records}, launches "
+          f"{grew}")
+    return Counter(grew)
+
+
+def large_bf16_request(k, p_conv, p_compact, batch16, batch16_a, batch32):
+    """One request on the bf16 tables at N_LARGE on K5's route with the
+    compact ECHO (Predictor ``p_conv``: 17 K5 + 1 K7) and on the
+    all-compact route (``p_compact``: 17 K6 + 1 K7), counted: the two
+    compute one function from the same cast values, so their logits are
+    held to each other within LOGIT_RTOL / LOGIT_ATOL, the bar of path D's
+    163k logits against K5's route.  Then the bf16 logits against the f32
+    tables' (``batch32``, K5's route): the largest difference and the
+    share of rows whose argmax agrees.  Returns the launches."""
+    kernels.reset_launches()
+    a = p_conv.logits(batch16)
+    torch.cuda.synchronize()
+    grew = dict(kernels.launches)
+    check(grew == {"band_panel_fwd": 17, "echo_compact_fwd": 1},
+          f"{k} bf16: a request launched {grew}")
+    b = p_compact.logits(batch16_a)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    check(launches == {"band_panel_fwd": 17, "band_compact_fwd": 17,
+                       "echo_compact_fwd": 2},
+          f"{k} bf16: the two requests launched {launches}")
+    worst, excess = logits_close(a, b)
+    check(excess <= LOGIT_ATOL,
+          f"{k} bf16: K5's route against K6's exceeds rtol {LOGIT_RTOL} by "
+          f"{excess} > atol {LOGIT_ATOL}")
+    del b
+    c = p_conv.logits(batch32)
+    n = N_LARGE
+    diff, agree = 0.0, 0
+    for lo in range(0, n, 16384):
+        hi = min(n, lo + 16384)
+        diff = max(diff, (a[0, lo:hi] - c[0, lo:hi]).abs().max().item())
+        agree += int((a[0, lo:hi].argmax(-1) == c[0, lo:hi].argmax(-1))
+                     .sum().item())
+    print(f"serve {k} bf16: logits ({n}, {N_CORR_CLASSES}) on K5's route "
+          f"against the all-compact route on the same cast values: max abs "
+          f"diff {worst:.3e} (rtol {LOGIT_RTOL}, atol {LOGIT_ATOL}); "
+          f"against the f32 tables: max abs diff {diff:.3e}, argmax agrees "
+          f"at {agree} of {n} vertices ({agree / n:.4f}); launches "
+          f"{launches}")
+    return Counter(launches)
+
+
+def time_t100k(what, batch, seed, card):
+    """A train_100k step on ``batch`` timed: the host clock (2 steps, each
+    ending in a sync, after a warm-up step), then one under the profiler
+    (wall, device busy share, top kernels)."""
+    net = train_100k.build_net(seed, batch.pos.device)
+    step = train_100k.make_step(net, batch, seed)
+
+    def synced():
+        step()
+        torch.cuda.synchronize()
+
+    ms = time_host(synced, reps=2)
+    print(f"train step {what}: {ms:.3f} ms per step (host clock, ending in "
+          f"a sync) on {card}")
+    wall, busy, kern = request_breakdown(synced, top=12)
+    print(f"train step {what} under the profiler: wall {wall:.3f} ms, device "
+          f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%) on {card}; top "
+          "kernels:")
+    for t, name, count in kern:
+        print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
+
+
 def conv_fwd_bwd(banded, dev, gen, C=32, B=2, R=6, n_convs=5,
                  fuse_filters=True):
     """fn() running forward and backward of n_convs C→C field convolutions
@@ -2172,9 +2471,12 @@ def phases(args, pool) -> int:
     print(f"built {sorted(kernels.build_logs) or 'nothing (up to date)'} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in kernels.build_logs.items():
+        tag = ""
         for line in log.splitlines():
+            if "Compiling entry function" in line:
+                tag = " (bf16 stencil)" if "nv_bfloat16" in line else ""
             if "registers" in line or "spill" in line:
-                print(f"  nvcc {name}: {line.strip()}")
+                print(f"  nvcc {name}{tag}: {line.strip()}")
 
     rng = np.random.default_rng(args.seed)
     config = PRESETS["classification"]
@@ -2675,7 +2977,7 @@ def phases(args, pool) -> int:
         k6b_rows.append(k6_bwd_check(f"{label} C={C_} O2={O2}", g, wmat, dy,
                                      ct))
         k6_bwd_time(k6b_rows[-1], g, wmat, dy, ct)
-    del seg_comp32, g, wmat, dy
+    del g, wmat, dy
     for label, ct, C_, n_bins in ((big_c, comp_big, 12, 2),
                                   ("seg_n2048_b4_compact", seg_comp, 48, 3)):
         x = k2_inputs(ct, C_, gen)
@@ -2706,6 +3008,40 @@ def phases(args, pool) -> int:
     print_times("compact_fold", fold_rows, card)
     print(f"compact_fold {fold_rows[0]['shape']}: index_add_ alone "
           f"{fold_rows[0]['library_ms']:.4f} ms/call on {card}")
+
+    # 3f. the bf16 panel stencils (cast_panel_sten), each kernel each way
+    # against its plain version (1e-4 of each output's scale) and bitwise
+    # against a second call: on the cast seg_n2048_b4 tables (K5 on the
+    # forced panel table, K2 on the mixed route's, K6 on the compact table
+    # at TBt 32, K7 on the mixed route's compact table) and on the cast
+    # corr_n5120_b1 pure-panel (K5, K2) and all-compact (K6, K7) tables;
+    # then timed: K5, K6 and K7 on the 163k tables cast on the card (the
+    # shapes of train_100k), K2 on the corr_n5120_b1 mixed route's table
+    # (the f32 K2's first row)
+    bigp16, comp16 = cast_panel_sten(bigp), cast_panel_sten(comp_big)
+    corr_p16 = cast_panel_sten(panel_batches["corr_n5120_b1_panel"][0].panel)
+    corr_a16 = cast_panel_sten(compact_batches[
+        "corr_n5120_b1_panel_allcompact"][0].compact)
+    b16 = bf16_checks(
+        gen, ((f"{big} C=32 O2=64", bigp16, 32, 64),
+              ("seg_n2048_b4 panel C=48 O2=96", cast_panel_sten(seg_panel),
+               48, 96),
+              ("corr_n5120_b1_panel C=32 O2=64", corr_p16, 32, 64)),
+        ((f"{big_c} C=32 O2=64", comp16, 32, 64),
+         ("seg_n2048_b4 compact TBt 32 C=48 O2=96",
+          cast_panel_sten(seg_comp32), 48, 96),
+         ("corr_n5120_b1_panel_allcompact C=32 O2=64", corr_a16, 32, 64)),
+        (("corr_n5120_b1 C=12 n_bins=2", cast_panel_sten(
+            echo_batches["corr_n5120_b1"][0].panel), 12, 2),
+         ("seg_n2048_b4 C=48 n_bins=3", cast_panel_sten(
+             echo_batches["seg_n2048_b4"][0].panel), 48, 3),
+         ("corr_n5120_b1_panel C=12 n_bins=2", corr_p16, 12, 2)),
+        ((f"{big_c} C=12 n_bins=2", comp16, 12, 2),
+         ("seg_n2048_b4_compact C=48 n_bins=3", cast_panel_sten(seg_comp),
+          48, 3),
+         ("corr_n5120_b1_panel_allcompact C=12 n_bins=2", corr_a16, 12, 2)),
+        card)
+    del seg_comp32, corr_p16, corr_a16
 
     stamp("K2, K5, K6 and K7 checked")
     # 4. serving: the slice-1 path, counted
@@ -2793,6 +3129,29 @@ def phases(args, pool) -> int:
     print(f"serve compact: launches {compact_launches} for the "
           f"{len(compact_serve)} compact requests")
     del out, served, b0
+    # 5g. serving on bf16 tables (train_100k.cast_batch: each batch's
+    # PanelTable and CompactPanelTable cast by cast_panel_sten), counted:
+    # the corr_n5120_b1 record on the mixed route (17 K1 + 1 K2 and the
+    # bf16 panel lift) and forced onto the pure-panel layout with the
+    # compact ECHO (17 K5 + 1 K7 and the compact lift), each against the
+    # same Predictor on the CPU on its own cast tables
+    bf16_serve = {"corr_n5120_b1_bf16": echo_serve["corr_n5120_b1"],
+                  "corr_n5120_b1_panel_compact_bf16": compact_serve[
+                      "corr_n5120_b1_panel_compact"]}
+    bf16_recs = {k: echo_recs["corr_n5120_b1"] for k in bf16_serve}
+    bf16_batches = {
+        "corr_n5120_b1_bf16": cast_batches(echo_batches["corr_n5120_b1"]),
+        "corr_n5120_b1_panel_compact_bf16": cast_batches(
+            compact_batches["corr_n5120_b1_panel_compact"])}
+    bf16_launches, served = serve_counted(
+        bf16_serve, bf16_recs, bf16_batches,
+        {"corr_n5120_b1_bf16": {"band_fused_fwd": 17, "echo_panel_fwd": 1},
+         "corr_n5120_b1_panel_compact_bf16": {"band_panel_fwd": 17,
+                                              "echo_compact_fwd": 1}})
+    for k, p in bf16_serve.items():
+        match_cpu(k, p, bf16_recs[k], served[k],
+                  echo_cpu_nets["corr_n5120_b1"], alt=cast_batches)
+    del served
     # 5d. path A: the banded ECHO over the batch's compressed table with K1
     # convs, counted (9 / 17 K1 a request and nothing else: the banded ECHO
     # and lift are plain torch), each request against the CPU
@@ -2960,7 +3319,7 @@ def phases(args, pool) -> int:
         net_, opt_, kw, rel_spread[k] = route_check(
             k, cfg, n_classes, echo_nets[k].state_dict(), echo_batches[k][0],
             cpu_b, dev, args.seed, alt=as_block_sparse, name="D", conv="K8",
-            card_ref=True, spread_alts=(as_compressed,))
+            spread_alts=(as_compressed,))
         step = make_train_step(net_, cfg, n_classes, opt_)
         kernels.reset_launches()
         loss = step(bsp_batches[k][0], **kw[dev])
@@ -2987,6 +3346,58 @@ def phases(args, pool) -> int:
     train_launches["train_block_sparse"] = dict(bsp_train)
 
     stamp("path D trained")
+    # 7g. the pure-panel route's gradient (K5, K2 and the panel lift, every
+    # sum in a fixed order) and the mixed route's (K1, K2, the lift),
+    # bitwise equal across two runs; then the bf16 panel stencils at
+    # N_LARGE: scripts/train_100k.py's training (K5 convs on the bf16 block
+    # panels, K7 and the compact lift on the bf16 compact table at TBt 32,
+    # remat_blocks) for LARGE_EPOCHS steps and all-compact (K6 and K7 on
+    # the bf16 compact table) for 2, on the tables built above, cast on the
+    # card, counted; each route's step peak beside the same route's on the
+    # f32 tables; one bf16 request on K5's route against K6's
+    for k_, cfg_, b_ in (("corr_n5120_b1_panel",
+                          panel_cfg["corr_n5120_b1_panel"],
+                          panel_batches["corr_n5120_b1_panel"][0]),
+                         ("seg_n2048_b4", seg_cfg,
+                          echo_batches["seg_n2048_b4"][0])):
+        net_k = "seg_n2048_b4" if k_.startswith("seg") else "corr_n5120_b1"
+        repeat_check(k_, cfg_, echo_classes[net_k],
+                     echo_nets[net_k].state_dict(), b_, dev, args.seed)
+    lab100 = train_100k.template_labels(N_LARGE, bigp.n_pad).to(dev)
+    t100 = {"f32": dataclasses.replace(batch_c, labels=lab100),
+            "bf16": dataclasses.replace(batch_c, labels=lab100, panel=bigp16,
+                                        compact=comp16),
+            "f32 all-compact": dataclasses.replace(batch_a, labels=lab100),
+            "bf16 all-compact": dataclasses.replace(
+                batch_a, labels=lab100, panel=comp16, compact=comp16)}
+    transient = {w: t100k_peak(f"{big} train_100k {w}", b_, args.seed, card)
+                 for w, b_ in t100.items()}
+    for w in ("bf16", "bf16 all-compact"):
+        f32w = w.replace("bf16", "f32")
+        check(transient[w] <= transient[f32w],
+              f"{big} train_100k {w}: a step's peak above what it held "
+              f"{transient[w]:.3f} GB, above the f32 tables' "
+              f"{transient[f32w]:.3f} GB")
+    print(f"train {big} train_100k: a step's peak above what it held, bf16 "
+          f"tables {transient['bf16']:.3f} GB (f32 {transient['f32']:.3f}), "
+          f"all-compact {transient['bf16 all-compact']:.3f} GB (f32 "
+          f"{transient['f32 all-compact']:.3f}): no f32 copy of a table")
+    t100k_launches = t100k_counted(f"{big} bf16", t100["bf16"], LARGE_EPOCHS,
+                                   "band_panel", args.seed)
+    t100k_launches.update(t100k_counted(
+        f"{big} bf16 all-compact", t100["bf16 all-compact"], 2,
+        "band_compact", args.seed))
+    # T100K_COMPACT_TB=0: K2 and the panel lift on the bf16 block panels
+    t100k_launches.update(t100k_counted(
+        f"{big} bf16 T100K_COMPACT_TB=0", dataclasses.replace(
+            t100["bf16"], compact=None), 1, "band_panel", args.seed,
+        echo="echo_panel"))
+    req16 = {big_c: t100["bf16"], big_a: t100["bf16 all-compact"]}
+    large_bf16_launches = large_bf16_request(
+        big, compact_serve[big_c], compact_serve[big_a], req16[big_c],
+        req16[big_a], batch_c)
+
+    stamp("bf16 tables at 163k trained and served")
     # 8. timing
     for args_ in timed:
         k1_time(*args_)
@@ -3128,6 +3539,13 @@ def phases(args, pool) -> int:
         time_step(k, tnet, topt)
     for k, (tnet, topt) in cb_trained.items():
         time_step(k, tnet, topt, cbanded=True)
+    # the bf16 request at N_LARGE (K5's route with the compact ECHO) and a
+    # train_100k step on the f32 and on the bf16 tables
+    time_request(f"{big_c}_bf16", compact_serve[big_c], compact_recs[big_c],
+                 [req16[big_c]], "17 K5 + 1 K7 launches, bf16 tables", card,
+                 large=True)
+    for w in ("f32", "bf16"):
+        time_t100k(f"{big} train_100k {w}", t100[w], args.seed, card)
     stamp("steps timed")
 
     b8192 = batches["n8192_b1"][0]
@@ -3221,7 +3639,8 @@ def phases(args, pool) -> int:
     # counted from 0, its launches join 7c's
     del (panel_batches, requests, bs_, k5_timed, k5b_timed, k2_big, bigp,
          bigp_seg, compact_batches[big_c], batch_c, args_, large_steps[big],
-         large_steps[big_c], bsp_big, bsp_batches, bsp_trained[big])
+         large_steps[big_c], bsp_big, bsp_batches, bsp_trained[big], bigp16,
+         comp16, t100, req16)
     gc.collect()
     torch.cuda.empty_cache()
     time_request(big_a, compact_serve[big_a], compact_recs[big_a],
@@ -3240,12 +3659,23 @@ def phases(args, pool) -> int:
              "serve_panel": panel_launches, "serve_compact": compact_launches,
              "serve_banded_echo": bech_launches, "serve_cbanded": cb_launches,
              "unfused": unfused_launches, "serve_block_sparse": bsp_launches,
-             "convs_block_sparse": convs_launches, **train_launches}
+             "convs_block_sparse": convs_launches, **train_launches,
+             "serve_bf16": bf16_launches,
+             "serve_163k_bf16": large_bf16_launches,
+             "train_100k_bf16": t100k_launches}
+    # the paths whose panel stencils are bf16, and the kernels that read
+    # one: such a kernel's launches there count under its bf16 entry
+    bf16_paths = ("serve_bf16", "serve_163k_bf16", "train_100k_bf16")
+    bf16_kernels = tuple(f"{k}_{d}" for k in ("band_panel", "band_compact",
+                                              "echo_panel", "echo_compact")
+                         for d in ("fwd", "bwd"))
 
-    def entry(name, source, replaces, rs):
-        by_path = {k: v.get(name, 0) for k, v in paths.items()}
+    def entry(name, source, replaces, rs, bf16=False):
+        by_path = {k: v.get(name, 0) for k, v in paths.items()
+                   if name not in bf16_kernels or (k in bf16_paths) == bf16}
         return {
-            "name": name, "route": "cuda", "source": source,
+            "name": f"{name}_bf16" if bf16 else name, "route": "cuda",
+            "source": source,
             "replaces": replaces,
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
@@ -3301,6 +3731,18 @@ def phases(args, pool) -> int:
               "the XLA segment_sums at fieldconv_tpu/ops/pallas/band_conv.py"
               ":2118, fieldconv_tpu/ops/pallas/echo_panel.py:378 and "
               "fieldconv_tpu/ops/trans_field.py:408", fold_rows),
+        *(entry(name, f"fieldconv_tpu_torch/csrc/{name}.cu",
+                f"fieldconv_tpu/ops/pallas/{where} (bf16 stencil)",
+                b16[kind], bf16=True)
+          for name, where, kind in (
+              ("band_panel_fwd", "band_conv.py:2187", "K5"),
+              ("band_panel_bwd", "band_conv.py:2293", "K5 bwd"),
+              ("band_compact_fwd", "band_conv.py:2042", "K6"),
+              ("band_compact_bwd", "band_conv.py:2084", "K6 bwd"),
+              ("echo_panel_fwd", "echo_panel.py:408", "K2"),
+              ("echo_panel_bwd", "echo_panel.py:443", "K2 bwd"),
+              ("echo_compact_fwd", "echo_panel.py:310", "K7"),
+              ("echo_compact_bwd", "echo_panel.py:342", "K7 bwd"))),
     ]}
     print(json.dumps(line))
     print(card)

@@ -20,7 +20,8 @@
 //   dg[v]          = Σ_{(p, s) : src_idx[p, s] = v} dgg[p·TS + s]    (fold)
 //
 // Outputs dg (n_g, M) and dw (R, M, O2), f32; a row that no live column
-// reads gets zeros.
+// reads gets zeros.  The stencil is f32 or bf16, each element read as f32
+// (sten_load.cuh).
 //
 // Design.  Five passes over one scratch buffer owned by the caller
 // (band_compact_bwd_scratch_floats), every sum with one owner and a fixed
@@ -125,10 +126,10 @@ __device__ __forceinline__ void dg_slot(
 // groups of cs channels, then share out the occupied rows in ascending
 // order (group g takes the g-th of every nsub) and add the groups' sums
 // in group order at the end.  smem as make_plan counts it (smem4).
-template <int KMAX, int RMAX, int THREADS, int MINB>
+template <int KMAX, int RMAX, int THREADS, int MINB, typename ST>
 __global__ void __launch_bounds__(THREADS, MINB)
 compact_dg_kernel(const float* __restrict__ dc,
-                  const float* __restrict__ sten,
+                  const ST* __restrict__ sten,
                   const int* __restrict__ meta,
                   float* __restrict__ dgg,
                   int P, int C, int K, int R, int TBt, int TS, int cs,
@@ -173,10 +174,10 @@ compact_dg_kernel(const float* __restrict__ dc,
     const size_t plane = (size_t)TBt * TS;
     for (int j = warp; j < (p_hi - p_lo) * TS; j += kWarps) {
         const int p = p_lo + j / TS, s = j % TS;
-        const float* sp = sten + (size_t)p * 5 * plane;
+        const ST* sp = sten + (size_t)p * 5 * plane;
         const int t = lane;
         float h[RMAX];
-        const float rv = t < TBt ? __ldg(sp + (size_t)t * TS + s) : 0.f;
+        const float rv = t < TBt ? load_sten(sp, (size_t)t * TS + s) : 0.f;
         bool occ = false;
 #pragma unroll
         for (int r = 0; r < RMAX; ++r) {
@@ -184,8 +185,8 @@ compact_dg_kernel(const float* __restrict__ dc,
             occ |= h[r] != 0.f;
         }
         if (occ)
-            panel::slot_coefs<RMAX>(cfw + t * NC, h, sp, (size_t)t * TS + s,
-                                    plane, R, K, 1);
+            panel::slot_coefs<RMAX, ST>(cfw + t * NC, h, sp,
+                                        (size_t)t * TS + s, plane, R, K, 1);
         unsigned left = __ballot_sync(0xffffffffu, occ);
         __syncwarp();                        // the coefficients are written
         float gre[KMAX], gim[KMAX];
@@ -286,9 +287,9 @@ cudaError_t make_plan(int P, int nb_out, int C, int K, int R, int TBt,
     return cudaSuccess;
 }
 
-template <int KMAX, int RMAX, int MINB>
+template <int KMAX, int RMAX, int MINB, typename ST>
 int launch(const float* dy, const float* g, const float* wmat,
-           const float* sten, const int* meta, const int* src_idx,
+           const ST* sten, const int* meta, const int* src_idx,
            const int* fold_order, const int* fold_ptr, float* dg, float* dw,
            float* scratch, int P, int nb_out, int C, int K, int R, int TBt,
            int TS, int O2, int n_g, const Plan& pl, cudaStream_t stream)
@@ -302,7 +303,7 @@ int launch(const float* dy, const float* g, const float* wmat,
     float* part = scratch + pl.part_at;
     float* dgg = scratch + pl.dgg_at;
 
-    auto k1 = panel::bwd_contrib_kernel<KMAX, RMAX, MINB, true>;
+    auto k1 = panel::bwd_contrib_kernel<KMAX, RMAX, MINB, true, ST>;
     cudaError_t err = cudaFuncSetAttribute(
         k1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem1);
     if (err != cudaSuccess) return (int)err;
@@ -319,7 +320,8 @@ int launch(const float* dy, const float* g, const float* wmat,
     if (err != cudaSuccess) return (int)err;
 
     constexpr int kThreads4 = dg_threads(KMAX);
-    auto k4 = compact_dg_kernel<KMAX, RMAX, kThreads4, KMAX <= 3 ? 2 : 1>;
+    auto k4 = compact_dg_kernel<KMAX, RMAX, kThreads4, KMAX <= 3 ? 2 : 1,
+                                ST>;
     err = cudaFuncSetAttribute(
         k4, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem4);
     if (err != cudaSuccess) return (int)err;
@@ -329,6 +331,25 @@ int launch(const float* dy, const float* g, const float* wmat,
 
     return (int)fold::launch_fold(dgg, fold_order, fold_ptr, dg, n_g, M,
                                   stream);
+}
+
+// The instantiation for (K, R): K ≤ 3 with R ≤ 3, or K = 5 with R ≤ 6.
+template <typename ST>
+int launch_for(const float* dy, const float* g, const float* wmat,
+               const void* sten, const int* meta, const int* src_idx,
+               const int* fold_order, const int* fold_ptr, float* dg,
+               float* dw, float* scratch, int P, int nb_out, int C, int K,
+               int R, int TBt, int TS, int O2, int n_g, const Plan& pl,
+               cudaStream_t s)
+{
+    const ST* st = static_cast<const ST*>(sten);
+    if (K <= 3)
+        return launch<3, 3, 5>(dy, g, wmat, st, meta, src_idx, fold_order,
+                               fold_ptr, dg, dw, scratch, P, nb_out, C, K, R,
+                               TBt, TS, O2, n_g, pl, s);
+    return launch<5, 6, 2>(dy, g, wmat, st, meta, src_idx, fold_order,
+                           fold_ptr, dg, dw, scratch, P, nb_out, C, K, R, TBt,
+                           TS, O2, n_g, pl, s);
 }
 
 }  // namespace
@@ -353,14 +374,15 @@ extern "C" long long band_compact_bwd_scratch_floats(int P, int nb_out,
 // lists above the shared memory a CTA can have).  dy: (nb_out·TBt, O2);
 // g, dg: (n_g, M); fold_order and fold_ptr (n_g + 1) the table's fold
 // index; scratch holds band_compact_bwd_scratch_floats floats, owned by
-// the caller.
+// the caller; sten float32, or bfloat16 when sten_bf16 is set.
 extern "C" int band_compact_bwd(const float* dy, const float* g,
-                                const float* wmat, const float* sten,
+                                const float* wmat, const void* sten,
                                 const int* meta, const int* src_idx,
                                 const int* fold_order, const int* fold_ptr,
                                 float* dg, float* dw, float* scratch, int P,
                                 int nb_out, int C, int K, int R, int TBt,
-                                int TS, int O2, int n_g, void* stream)
+                                int TS, int O2, int n_g, int sten_bf16,
+                                void* stream)
 {
     if (!shapes_supported(P, nb_out, C, K, R, TBt, TS, O2) || n_g < TBt
         || n_g % TBt)
@@ -369,11 +391,12 @@ extern "C" int band_compact_bwd(const float* dy, const float* g,
     const cudaError_t err = make_plan(P, nb_out, C, K, R, TBt, TS, O2, &pl);
     if (err != cudaSuccess) return (int)err;
     cudaStream_t s = (cudaStream_t)stream;
-    if (K <= 3)
-        return launch<3, 3, 5>(dy, g, wmat, sten, meta, src_idx, fold_order,
-                               fold_ptr, dg, dw, scratch, P, nb_out, C, K, R,
-                               TBt, TS, O2, n_g, pl, s);
-    return launch<5, 6, 2>(dy, g, wmat, sten, meta, src_idx, fold_order,
-                           fold_ptr, dg, dw, scratch, P, nb_out, C, K, R, TBt,
-                           TS, O2, n_g, pl, s);
+    if (sten_bf16)
+        return launch_for<__nv_bfloat16>(dy, g, wmat, sten, meta, src_idx,
+                                         fold_order, fold_ptr, dg, dw,
+                                         scratch, P, nb_out, C, K, R, TBt, TS,
+                                         O2, n_g, pl, s);
+    return launch_for<float>(dy, g, wmat, sten, meta, src_idx, fold_order,
+                             fold_ptr, dg, dw, scratch, P, nb_out, C, K, R,
+                             TBt, TS, O2, n_g, pl, s);
 }

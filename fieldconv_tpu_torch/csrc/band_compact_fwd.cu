@@ -7,7 +7,8 @@
 // PyTorch version: fieldconv_tpu_torch/ops/band_conv.py (band_compact_fwd,
 // band_compact_fwd_reference).
 //
-// What it computes (all float32, complex values planar).  Inputs: the
+// What it computes (float32, complex values planar; the stencil float32
+// or bfloat16, each element read as f32, sten_load.cuh).  Inputs: the
 // k-major rotated-source tensor g (n_g, M = K·2C); W = filters_to_wmat
 // (R, M, O2), 1/K inside; the compact panel stencil sten (P, 5, TBt, TS),
 // rows the target slot t, columns the compact column s, planes r, e^{iθ}
@@ -66,11 +67,11 @@ using panel::Knots;
 
 // MINB as in K5's forward: its two instantiations, K = 3, R = 3
 // (correspondence) and K = 5, R = 6 (segmentation, classification).
-template <int KMAX, int RMAX, int MINB>
+template <int KMAX, int RMAX, int MINB, typename ST>
 __global__ void __launch_bounds__(kMaxThreads, MINB)
 band_compact_fwd_kernel(const float* __restrict__ g,
                         const float* __restrict__ wmat,
-                        const float* __restrict__ sten,
+                        const ST* __restrict__ sten,
                         const int* __restrict__ meta,
                         const int* __restrict__ src_idx,
                         float* __restrict__ y,
@@ -88,20 +89,20 @@ band_compact_fwd_kernel(const float* __restrict__ g,
 
     extern __shared__ __align__(16) float smem[];
     float are[KMAX][RMAX], aim[KMAX][RMAX];
-    panel::panel_contrib<KMAX, RMAX, true>(
+    panel::panel_contrib<KMAX, RMAX, true, ST>(
         are, aim, smem, g, sten, meta, P, C, K, R, TBt, 1, nb_g, T, blk, t0,
         nt, active, it, ic, kn, src_idx, TS);
     panel::filter_tile<KMAX, RMAX>(are, aim, smem, wmat, y, blk, TBt, t0, C,
                                    K, R, O2, T, nt, active, it, ic);
 }
 
-template <int KMAX, int RMAX, int MINB>
-int launch(const float* g, const float* wmat, const float* sten,
+template <int KMAX, int RMAX, int MINB, typename ST>
+int launch(const float* g, const float* wmat, const ST* sten,
            const int* meta, const int* src_idx, float* y, int P, int nb_out,
            int C, int K, int R, int TBt, int TS, int O2, int nb_g, int T,
            int nthr, size_t smem, const Knots& kn, cudaStream_t stream)
 {
-    auto kernel = band_compact_fwd_kernel<KMAX, RMAX, MINB>;
+    auto kernel = band_compact_fwd_kernel<KMAX, RMAX, MINB, ST>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -112,6 +113,22 @@ int launch(const float* g, const float* wmat, const float* sten,
     return (int)cudaGetLastError();
 }
 
+// The instantiation for (K, R): K ≤ 3 with R ≤ 3, or K = 5 with R ≤ 6.
+template <typename ST>
+int launch_for(const float* g, const float* wmat, const void* sten,
+               const int* meta, const int* src_idx, float* y, int P,
+               int nb_out, int C, int K, int R, int TBt, int TS, int O2,
+               int nb_g, int T, int nthr, size_t smem, const Knots& kn,
+               cudaStream_t s)
+{
+    const ST* st = static_cast<const ST*>(sten);
+    if (K <= 3)
+        return launch<3, 3, 5>(g, wmat, st, meta, src_idx, y, P, nb_out, C,
+                               K, R, TBt, TS, O2, nb_g, T, nthr, smem, kn, s);
+    return launch<5, 6, 2>(g, wmat, st, meta, src_idx, y, P, nb_out, C, K, R,
+                           TBt, TS, O2, nb_g, T, nthr, smem, kn, s);
+}
+
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
@@ -119,12 +136,14 @@ int launch(const float* g, const float* wmat, const float* sten,
 // > 5; R > 3 with K ≤ 3, or R > 6 with K = 5: the presets' shapes are
 // K = 3, R = 3 and K = 5, R = 6; R < 2; C > 256; n_g not a multiple of
 // TBt; lists or the filter stage above the shared memory a CTA can have).
-// y: (nb_out·TBt, O2); g: (n_g, M).
+// y: (nb_out·TBt, O2); g: (n_g, M); sten float32, or bfloat16 when
+// sten_bf16 is set.
 extern "C" int band_compact_fwd(const float* g, const float* wmat,
-                                const float* sten, const int* meta,
+                                const void* sten, const int* meta,
                                 const int* src_idx, float* y, int P,
                                 int nb_out, int C, int K, int R, int TBt,
-                                int TS, int O2, int n_g, void* stream)
+                                int TS, int O2, int n_g, int sten_bf16,
+                                void* stream)
 {
     if (P < 1 || nb_out < 1 || C < 1 || C > kMaxThreads || K < 1
         || K % 2 == 0 || K > 5 || R < 2 || R > (K <= 3 ? 3 : 6) || TBt < 1
@@ -143,9 +162,10 @@ extern "C" int band_compact_fwd(const float* g, const float* wmat,
     const Knots kn = panel::ring_knots(R);
     const int nb_g = n_g / TBt;
     cudaStream_t s = (cudaStream_t)stream;
-    if (K <= 3)
-        return launch<3, 3, 5>(g, wmat, sten, meta, src_idx, y, P, nb_out, C,
-                               K, R, TBt, TS, O2, nb_g, T, nthr, smem, kn, s);
-    return launch<5, 6, 2>(g, wmat, sten, meta, src_idx, y, P, nb_out, C, K,
-                           R, TBt, TS, O2, nb_g, T, nthr, smem, kn, s);
+    if (sten_bf16)
+        return launch_for<__nv_bfloat16>(g, wmat, sten, meta, src_idx, y, P,
+                                         nb_out, C, K, R, TBt, TS, O2, nb_g,
+                                         T, nthr, smem, kn, s);
+    return launch_for<float>(g, wmat, sten, meta, src_idx, y, P, nb_out, C, K,
+                             R, TBt, TS, O2, nb_g, T, nthr, smem, kn, s);
 }

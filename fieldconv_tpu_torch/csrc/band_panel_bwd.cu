@@ -17,7 +17,8 @@
 //   dG[s] += Σ_r Σ_k S_kᵀ ⊛ dc[t]:  re  S_re·d_re + S_im·d_im,
 //                                   im  S_re·d_im − S_im·d_re
 //
-// Outputs dg (nb_g·TB, M) and dw (R, M, O2), f32.  A source block with no
+// Outputs dg (nb_g·TB, M) and dw (R, M, O2), f32; the stencil is f32 or
+// bf16, each element read as f32 (sten_load.cuh).  A source block with no
 // panel in meta_s gets zeros in dg (the TPU kernel leaves it unwritten).
 // Chunked tables (chunk > 1) only pad source runs with all-zero panels, so
 // one kernel serves both pallas_calls.
@@ -81,10 +82,10 @@ using panel::Knots;
 // Compacts target slot t = t0 + lane of source column c (source slot s) of
 // panel sp into the column's list; every lane of the warp calls it with
 // its own t.  slab holds the column's whole planes: [q][TB][T].
-template <int RMAX>
+template <int RMAX, typename ST>
 __device__ __forceinline__ int compact_column(
     float* ct, int* st, int base, const float* slab,
-    const float* __restrict__ sp, int t, int s, int c, size_t plane, int TB,
+    const ST* __restrict__ sp, int t, int s, int c, size_t plane, int TB,
     int T, int R, int K, int compressed, const Knots& kn)
 {
     float h[RMAX];
@@ -97,8 +98,9 @@ __device__ __forceinline__ int compact_column(
                            : slab[((size_t)r * TB + t) * T + c];
         h[r] = v;
     }
-    return panel::append_slot<RMAX>(ct, st, base, h, sp, (size_t)t * TB + s,
-                                    t, plane, R, K, compressed);
+    return panel::append_slot<RMAX, false, ST>(ct, st, base, h, sp,
+                                               (size_t)t * TB + s, t, plane,
+                                               R, K, compressed);
 }
 
 // One occupied slot of a thread's source: its channel of the target row dr
@@ -131,10 +133,10 @@ __device__ __forceinline__ void dg_slot(
     }
 }
 
-template <int KMAX, int RMAX, int MINB>
+template <int KMAX, int RMAX, int MINB, typename ST>
 __global__ void __launch_bounds__(kMaxThreads, MINB)
 bwd_dg_kernel(const float* __restrict__ dc,
-              const float* __restrict__ sten,
+              const ST* __restrict__ sten,
               const int* __restrict__ meta_s,
               float* __restrict__ dg,
               int Ps, int C, int K, int R, int TB, int compressed,
@@ -174,11 +176,12 @@ bwd_dg_kernel(const float* __restrict__ dc,
     for (int p = p_lo; p < p_hi; ++p) {
         const int pid = __ldg(meta_s + p);
         const int tgt = __ldg(meta_s + Ps + p);
-        const float* sp = sten + (size_t)pid * planes * plane;
+        const ST* sp = sten + (size_t)pid * planes * plane;
         __syncthreads();                     // the last panel's lists are read
         for (int i = tid; i < whole * TB * ns; i += nthr) {
             const int sl = i % ns, qt = i / ns;          // qt = q·TB + t
-            slab[(size_t)qt * T + sl] = __ldg(sp + (size_t)qt * TB + s0 + sl);
+            slab[(size_t)qt * T + sl] =
+                load_sten(sp, (size_t)qt * TB + s0 + sl);
         }
         __syncthreads();
         for (int c = warp; c < ns; c += nwarps) {
@@ -186,9 +189,9 @@ bwd_dg_kernel(const float* __restrict__ dc,
             int* st = tidx + c * TB;
             int base = 0;
             for (int t0 = 0; t0 < TB; t0 += 32)
-                base = compact_column<RMAX>(ct, st, base, slab, sp, t0 + lane,
-                                            s0 + c, c, plane, TB, T, R, K,
-                                            compressed, kn);
+                base = compact_column<RMAX, ST>(ct, st, base, slab, sp,
+                                                t0 + lane, s0 + c, c, plane,
+                                                TB, T, R, K, compressed, kn);
             if (lane == 0) cnt[c] = base;
         }
         __syncthreads();
@@ -259,9 +262,9 @@ cudaError_t make_plan(int nb_out, int C, int K, int R, int TB, int O2,
     return cudaSuccess;
 }
 
-template <int KMAX, int RMAX, int MINB>
+template <int KMAX, int RMAX, int MINB, typename ST>
 int launch(const float* dy, const float* g, const float* wmat,
-           const float* sten, const int* meta, const int* meta_s, float* dg,
+           const ST* sten, const int* meta, const int* meta_s, float* dg,
            float* dw, float* scratch, int P, int Ps, int nb_out, int nb_g,
            int C, int K, int R, int TB, int O2, int compressed,
            const Plan& pl, cudaStream_t stream)
@@ -273,7 +276,7 @@ int launch(const float* dy, const float* g, const float* wmat,
     float* contrib = scratch;                // then dc, same layout
     float* part = scratch + pl.part_at;
 
-    auto k1 = bwd_contrib_kernel<KMAX, RMAX, MINB, false>;
+    auto k1 = bwd_contrib_kernel<KMAX, RMAX, MINB, false, ST>;
     cudaError_t err = cudaFuncSetAttribute(
         k1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem1);
     if (err != cudaSuccess) return (int)err;
@@ -289,7 +292,7 @@ int launch(const float* dy, const float* g, const float* wmat,
     err = panel::launch_dc(dy, wmat, contrib, rows, RM, O2, stream);
     if (err != cudaSuccess) return (int)err;
 
-    auto k4 = bwd_dg_kernel<KMAX, RMAX, MINB>;
+    auto k4 = bwd_dg_kernel<KMAX, RMAX, MINB, ST>;
     err = cudaFuncSetAttribute(
         k4, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem4);
     if (err != cudaSuccess) return (int)err;
@@ -297,6 +300,24 @@ int launch(const float* dy, const float* g, const float* wmat,
         contrib, sten, meta_s, dg, Ps, C, K, R, TB, compressed, nb_out, pl.T,
         kn);
     return (int)cudaGetLastError();
+}
+
+// The instantiation for (K, R): K ≤ 3 with R ≤ 3, or K = 5 with R ≤ 6.
+template <typename ST>
+int launch_for(const float* dy, const float* g, const float* wmat,
+               const void* sten, const int* meta, const int* meta_s,
+               float* dg, float* dw, float* scratch, int P, int Ps,
+               int nb_out, int nb_g, int C, int K, int R, int TB, int O2,
+               int compressed, const Plan& pl, cudaStream_t s)
+{
+    const ST* st = static_cast<const ST*>(sten);
+    if (K <= 3)
+        return launch<3, 3, 5>(dy, g, wmat, st, meta, meta_s, dg, dw,
+                               scratch, P, Ps, nb_out, nb_g, C, K, R, TB, O2,
+                               compressed, pl, s);
+    return launch<5, 6, 2>(dy, g, wmat, st, meta, meta_s, dg, dw, scratch, P,
+                           Ps, nb_out, nb_g, C, K, R, TB, O2, compressed, pl,
+                           s);
 }
 
 }  // namespace
@@ -321,13 +342,15 @@ extern "C" long long band_panel_bwd_scratch_floats(int nb_out, int nb_g,
 // R ≤ 6 with K = 5, R ≥ 2 when compressed, C ≤ 256; or lists above the
 // shared memory a CTA can have).  dy: (nb_out·TB, O2); g, dg: (nb_g·TB, M);
 // meta (4, P) by target, meta_s (4, Ps) by source; scratch holds
-// band_panel_bwd_scratch_floats floats, owned by the caller.
+// band_panel_bwd_scratch_floats floats, owned by the caller; sten float32,
+// or bfloat16 when sten_bf16 is set.
 extern "C" int band_panel_bwd(const float* dy, const float* g,
-                              const float* wmat, const float* sten,
+                              const float* wmat, const void* sten,
                               const int* meta, const int* meta_s, float* dg,
                               float* dw, float* scratch, int P, int Ps,
                               int nb_out, int nb_g, int C, int K, int R,
-                              int TB, int O2, int compressed, void* stream)
+                              int TB, int O2, int compressed, int sten_bf16,
+                              void* stream)
 {
     if (P < 1 || Ps < 1
         || !shapes_supported(nb_out, nb_g, C, K, R, TB, O2, compressed))
@@ -337,11 +360,11 @@ extern "C" int band_panel_bwd(const float* dy, const float* g,
                                       &pl);
     if (err != cudaSuccess) return (int)err;
     cudaStream_t s = (cudaStream_t)stream;
-    if (K <= 3)
-        return launch<3, 3, 5>(dy, g, wmat, sten, meta, meta_s, dg, dw,
-                               scratch, P, Ps, nb_out, nb_g, C, K, R, TB, O2,
-                               compressed, pl, s);
-    return launch<5, 6, 2>(dy, g, wmat, sten, meta, meta_s, dg, dw, scratch,
-                           P, Ps, nb_out, nb_g, C, K, R, TB, O2, compressed,
-                           pl, s);
+    if (sten_bf16)
+        return launch_for<__nv_bfloat16>(dy, g, wmat, sten, meta, meta_s, dg,
+                                         dw, scratch, P, Ps, nb_out, nb_g, C,
+                                         K, R, TB, O2, compressed, pl, s);
+    return launch_for<float>(dy, g, wmat, sten, meta, meta_s, dg, dw, scratch,
+                             P, Ps, nb_out, nb_g, C, K, R, TB, O2, compressed,
+                             pl, s);
 }

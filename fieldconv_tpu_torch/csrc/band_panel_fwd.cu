@@ -6,7 +6,8 @@
 // _panel_pairs, _panel_accum, _apply_w).  Python wrapper and plain PyTorch
 // version: fieldconv_tpu_torch/ops/band_conv.py.
 //
-// What it computes (all float32, complex values planar).  Inputs: the
+// What it computes (float32, complex values planar; the stencil float32
+// or bfloat16, each element read as f32, sten_load.cuh).  Inputs: the
 // k-major rotated-source tensor g (N, M = K·2C), columns k·2C + [re C | im C];
 // W = filters_to_wmat (R, M, O2), 1/K inside; the panel stencil sten
 // (P, planes, TB, TB), rows the target slot t, columns the source slot s;
@@ -78,11 +79,11 @@ using panel::Knots;
 // its loads, so at the correspondence widths (18 complex sums a thread) it
 // takes 5 CTAs of 48 registers; an unrolled slot or compaction loop, with
 // fewer CTAs or spills, measured slower at 163,842 samples.
-template <int KMAX, int RMAX, int MINB>
+template <int KMAX, int RMAX, int MINB, typename ST>
 __global__ void __launch_bounds__(kMaxThreads, MINB)
 band_panel_fwd_kernel(const float* __restrict__ g,
                       const float* __restrict__ wmat,
-                      const float* __restrict__ sten,
+                      const ST* __restrict__ sten,
                       const int* __restrict__ meta,
                       float* __restrict__ y,
                       int P, int C, int K, int R, int TB, int O2,
@@ -99,21 +100,21 @@ band_panel_fwd_kernel(const float* __restrict__ g,
 
     extern __shared__ __align__(16) float smem[];
     float are[KMAX][RMAX], aim[KMAX][RMAX];
-    panel::panel_contrib<KMAX, RMAX>(are, aim, smem, g, sten, meta, P, C, K,
-                                     R, TB, compressed, nb_g, T, blk, t0, nt,
-                                     active, it, ic, kn);
+    panel::panel_contrib<KMAX, RMAX, false, ST>(
+        are, aim, smem, g, sten, meta, P, C, K, R, TB, compressed, nb_g, T,
+        blk, t0, nt, active, it, ic, kn);
 
     panel::filter_tile<KMAX, RMAX>(are, aim, smem, wmat, y, blk, TB, t0, C,
                                    K, R, O2, T, nt, active, it, ic);
 }
 
-template <int KMAX, int RMAX, int MINB>
-int launch(const float* g, const float* wmat, const float* sten,
+template <int KMAX, int RMAX, int MINB, typename ST>
+int launch(const float* g, const float* wmat, const ST* sten,
            const int* meta, float* y, int P, int nb_out, int C, int K, int R,
            int TB, int O2, int compressed, int nb_g, int T, int nthr,
            size_t smem, const Knots& kn, cudaStream_t stream)
 {
-    auto kernel = band_panel_fwd_kernel<KMAX, RMAX, MINB>;
+    auto kernel = band_panel_fwd_kernel<KMAX, RMAX, MINB, ST>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -123,6 +124,21 @@ int launch(const float* g, const float* wmat, const float* sten,
     return (int)cudaGetLastError();
 }
 
+// The instantiation for (K, R): K ≤ 3 with R ≤ 3, or K = 5 with R ≤ 6.
+template <typename ST>
+int launch_for(const float* g, const float* wmat, const void* sten,
+               const int* meta, float* y, int P, int nb_out, int C, int K,
+               int R, int TB, int O2, int compressed, int nb_g, int T,
+               int nthr, size_t smem, const Knots& kn, cudaStream_t s)
+{
+    const ST* st = static_cast<const ST*>(sten);
+    if (K <= 3)
+        return launch<3, 3, 5>(g, wmat, st, meta, y, P, nb_out, C, K, R, TB,
+                               O2, compressed, nb_g, T, nthr, smem, kn, s);
+    return launch<5, 6, 2>(g, wmat, st, meta, y, P, nb_out, C, K, R, TB, O2,
+                           compressed, nb_g, T, nthr, smem, kn, s);
+}
+
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
@@ -130,11 +146,13 @@ int launch(const float* g, const float* wmat, const float* sten,
 // > 5, i.e. band limit > 2; R > 3 with K ≤ 3, or R > 6 with K = 5: the
 // presets' shapes are K = 3, R = 3 and K = 5, R = 6; R < 2 with compressed
 // planes; C > 256; lists or the filter stage above the shared memory a CTA
-// can have).  y: (nb_out·TB, O2); g: (nb_g·TB, M).
+// can have).  y: (nb_out·TB, O2); g: (nb_g·TB, M); sten float32, or
+// bfloat16 when sten_bf16 is set.
 extern "C" int band_panel_fwd(const float* g, const float* wmat,
-                              const float* sten, const int* meta, float* y,
+                              const void* sten, const int* meta, float* y,
                               int P, int nb_out, int C, int K, int R, int TB,
-                              int O2, int compressed, int nb_g, void* stream)
+                              int O2, int compressed, int nb_g, int sten_bf16,
+                              void* stream)
 {
     if (P < 1 || nb_out < 1 || nb_g < 1 || C < 1 || C > kMaxThreads
         || K < 1 || K % 2 == 0 || K > 5 || R < (compressed ? 2 : 1)
@@ -152,10 +170,10 @@ extern "C" int band_panel_fwd(const float* g, const float* wmat,
     if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
     const Knots kn = compressed ? panel::ring_knots(R) : Knots{};
     cudaStream_t s = (cudaStream_t)stream;
-    if (K <= 3)
-        return launch<3, 3, 5>(g, wmat, sten, meta, y, P, nb_out, C, K, R,
-                               TB, O2, compressed, nb_g, T, nthr, smem, kn,
-                               s);
-    return launch<5, 6, 2>(g, wmat, sten, meta, y, P, nb_out, C, K, R, TB,
-                           O2, compressed, nb_g, T, nthr, smem, kn, s);
+    if (sten_bf16)
+        return launch_for<__nv_bfloat16>(g, wmat, sten, meta, y, P, nb_out,
+                                         C, K, R, TB, O2, compressed, nb_g, T,
+                                         nthr, smem, kn, s);
+    return launch_for<float>(g, wmat, sten, meta, y, P, nb_out, C, K, R, TB,
+                             O2, compressed, nb_g, T, nthr, smem, kn, s);
 }

@@ -7,7 +7,8 @@
 // version: fieldconv_tpu_torch/ops/echo_panel.py (echo_compact_grid_bwd,
 // echo_compact_grid_bwd_reference).
 //
-// What it computes (all float32, complex values planar).  Inputs: the
+// What it computes (float32, complex values planar; the stencil float32
+// or bfloat16, each element read as f32, sten_load.cuh).  Inputs: the
 // cotangent dg of K7's grid, (nb_out, 2w², C, TBt), read through the four
 // strides the caller passes; source features x (rows, C, 2); the compact
 // stencil sten (P, 5, TBt, TS), meta (4, P) (tgt, panel id, first, last)
@@ -60,11 +61,12 @@ namespace {
 
 constexpr int kMaxColumns = 32;
 
+template <typename ST>
 __global__ void __launch_bounds__(echo::kMaxThreads)
 echo_compact_bwd_kernel(const float* __restrict__ dg, long long sb,
                         long long sq, long long sc, long long st,
                         const float2* __restrict__ x,
-                        const float* __restrict__ sten,
+                        const ST* __restrict__ sten,
                         const int* __restrict__ meta,
                         const int* __restrict__ src_idx,
                         float2* __restrict__ dxg,
@@ -101,7 +103,7 @@ echo_compact_bwd_kernel(const float* __restrict__ dg, long long sb,
     const bool nz = echo::unit_of(xre, xim, inv_r, uR, uI);
 
     const size_t plane = (size_t)TBt * TS;
-    const float* sp = sten + (size_t)p * 5 * plane;
+    const ST* sp = sten + (size_t)p * 5 * plane;
     const int warp = tid >> 5, lane = tid & 31, nwarps = nthr >> 5;
     for (int s = warp; s < ns; s += nwarps) {
         const int n = echo::column_slots(slots + s * TBt, tidx + s * TBt, sp,
@@ -131,6 +133,27 @@ size_t smem_bytes(int S, int TBt)
            + (size_t)S * sizeof(int);
 }
 
+template <typename ST>
+int launch(const float* dg, long long sb, long long sq, long long sc,
+           long long st, const float* x, const void* sten, const int* meta,
+           const int* src_idx, float* dxg, int P, int C, int TBt, int TS,
+           int n_bins, int S, int rows, int nb_out, size_t smem,
+           cudaStream_t stream)
+{
+    auto kernel = echo_compact_bwd_kernel<ST>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int nthr = echo::threads_for(S, C);
+    const long grid = (long)P * ((TS + S - 1) / S);
+    kernel<<<(unsigned)grid, nthr, smem, stream>>>(
+        dg, sb, sq, sc, st, reinterpret_cast<const float2*>(x),
+        static_cast<const ST*>(sten), meta, src_idx,
+        reinterpret_cast<float2*>(dxg), P, C, TBt, TS, n_bins, S, rows,
+        nb_out);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Floats of the per-column gradients echo_compact_bwd keeps in its scratch.
@@ -145,15 +168,16 @@ extern "C" long long echo_compact_bwd_scratch_floats(int P, int C, int TS)
 // shared memory).  dg is read as dg[b·sb + q·sq + c·sc + t·st] (strides in
 // elements); x, dx: (rows, C, 2); fold_order and fold_ptr (rows + 1) the
 // table's fold index; scratch holds echo_compact_bwd_scratch_floats
-// floats, owned by the caller.
+// floats, owned by the caller; sten float32, or bfloat16 when sten_bf16
+// is set.
 extern "C" int echo_compact_bwd(const float* dg, long long sb, long long sq,
                                 long long sc, long long st, const float* x,
-                                const float* sten, const int* meta,
+                                const void* sten, const int* meta,
                                 const int* src_idx, const int* fold_order,
                                 const int* fold_ptr, float* dx,
                                 float* scratch, int P, int nb_out, int C,
                                 int TBt, int TS, int n_bins, int rows,
-                                void* stream)
+                                int sten_bf16, void* stream)
 {
     if (P < 1 || nb_out < 1 || C < 1 || C > echo::kMaxThreads || TBt < 1
         || TS < 1 || n_bins < 1 || rows < 1 || sb < 0 || sq < 0 || sc < 0
@@ -169,18 +193,14 @@ extern "C" int echo_compact_bwd(const float* dg, long long sb, long long sq,
     while (S > 1 && smem_bytes(S, TBt) > (size_t)limit) S /= 2;
     const size_t smem = smem_bytes(S, TBt);
     if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(echo_compact_bwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
     cudaStream_t s = (cudaStream_t)stream;
-    const int nthr = echo::threads_for(S, C);
-    const long grid = (long)P * ((TS + S - 1) / S);
-    echo_compact_bwd_kernel<<<(unsigned)grid, nthr, smem, s>>>(
-        dg, sb, sq, sc, st, reinterpret_cast<const float2*>(x), sten, meta,
-        src_idx, reinterpret_cast<float2*>(scratch), P, C, TBt, TS, n_bins, S,
-        rows, nb_out);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    err = (cudaError_t)(sten_bf16
+        ? launch<__nv_bfloat16>(dg, sb, sq, sc, st, x, sten, meta, src_idx,
+                                scratch, P, C, TBt, TS, n_bins, S, rows,
+                                nb_out, smem, s)
+        : launch<float>(dg, sb, sq, sc, st, x, sten, meta, src_idx, scratch,
+                        P, C, TBt, TS, n_bins, S, rows, nb_out, smem, s));
+    if (err != cudaSuccess) return (int)err;
     return (int)fold::launch_fold(scratch, fold_order, fold_ptr, dx, rows,
                                   2 * C, s);
 }

@@ -7,7 +7,8 @@
 // PyTorch version: fieldconv_tpu_torch/ops/echo_panel.py
 // (echo_compact_grid, echo_compact_grid_reference).
 //
-// What it computes (all float32, complex values planar).  Inputs: source
+// What it computes (float32, complex values planar; the stencil float32
+// or bfloat16, each element read as f32, sten_load.cuh).  Inputs: source
 // features x (rows, C, 2); the compact panel stencil sten (P, 5, TBt, TS)
 // of a CompactPanelTable, planes r, e^{iθ} re/im, wxp re/im; meta (4, P)
 // int32 rows (tgt, panel id, first, last), sorted by target; src_idx
@@ -47,9 +48,10 @@
 
 namespace {
 
+template <typename ST>
 __global__ void __launch_bounds__(echo::kMaxThreads)
 echo_compact_fwd_kernel(const float2* __restrict__ x,
-                        const float* __restrict__ sten,
+                        const ST* __restrict__ sten,
                         const int* __restrict__ meta,
                         const int* __restrict__ src_idx,
                         float* __restrict__ out,
@@ -57,8 +59,25 @@ echo_compact_fwd_kernel(const float2* __restrict__ x,
                         int rows)
 {
     extern __shared__ __align__(16) float smem[];
-    echo::grid_tile<true>(x, sten, meta, src_idx, out, P, C, TBt, TS, n_bins,
-                          T, rows, smem);
+    echo::grid_tile<true, ST>(x, sten, meta, src_idx, out, P, C, TBt, TS,
+                              n_bins, T, rows, smem);
+}
+
+template <typename ST>
+int launch(const float* x, const void* sten, const int* meta,
+           const int* src_idx, float* out, int P, int nb_out, int C, int TBt,
+           int TS, int n_bins, int rows, int T, int nthr, size_t smem,
+           cudaStream_t stream)
+{
+    auto kernel = echo_compact_fwd_kernel<ST>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const long grid = (long)nb_out * ((TBt + T - 1) / T);
+    kernel<<<(unsigned)grid, nthr, smem, stream>>>(
+        reinterpret_cast<const float2*>(x), static_cast<const ST*>(sten),
+        meta, src_idx, out, P, C, TBt, TS, n_bins, T, rows);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -66,12 +85,13 @@ echo_compact_fwd_kernel(const float2* __restrict__ x,
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for sizes the kernel does not take (C > 256, no
 // tile of targets whose accumulators fit in shared memory).  out:
-// (nb_out, 2w², C, TBt); x: (rows, C, 2).
-extern "C" int echo_compact_fwd(const float* x, const float* sten,
+// (nb_out, 2w², C, TBt); x: (rows, C, 2); sten float32, or bfloat16 when
+// sten_bf16 is set.
+extern "C" int echo_compact_fwd(const float* x, const void* sten,
                                 const int* meta, const int* src_idx,
                                 float* out, int P, int nb_out, int C,
                                 int TBt, int TS, int n_bins, int rows,
-                                void* stream)
+                                int sten_bf16, void* stream)
 {
     if (P < 1 || nb_out < 1 || C < 1 || C > echo::kMaxThreads || TBt < 1
         || TS < 1 || n_bins < 1 || rows < 1)
@@ -91,14 +111,11 @@ extern "C" int echo_compact_fwd(const float* x, const float* sten,
     const int nthr = echo::threads_for(T, C);
     const size_t smem = echo::smem_bytes(w * w, nthr, T, TS);
     if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(echo_compact_fwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const long grid = (long)nb_out * ((TBt + T - 1) / T);
-    echo_compact_fwd_kernel<<<(unsigned)grid, nthr, smem,
-                              (cudaStream_t)stream>>>(
-        reinterpret_cast<const float2*>(x), sten, meta, src_idx, out, P, C,
-        TBt, TS, n_bins, T, rows);
-    return (int)cudaGetLastError();
+    cudaStream_t s = (cudaStream_t)stream;
+    if (sten_bf16)
+        return launch<__nv_bfloat16>(x, sten, meta, src_idx, out, P, nb_out,
+                                     C, TBt, TS, n_bins, rows, T, nthr, smem,
+                                     s);
+    return launch<float>(x, sten, meta, src_idx, out, P, nb_out, C, TBt, TS,
+                         n_bins, rows, T, nthr, smem, s);
 }

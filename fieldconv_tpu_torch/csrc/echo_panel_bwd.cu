@@ -5,7 +5,8 @@
 // PyTorch version: fieldconv_tpu_torch/ops/echo_panel.py
 // (echo_panel_grid_bwd, echo_panel_grid_bwd_reference).
 //
-// What it computes (all float32, complex values planar).  Inputs: the
+// What it computes (float32, complex values planar; the stencil float32
+// or bfloat16, each element read as f32, sten_load.cuh).  Inputs: the
 // cotangent dg of the forward's grid, (nb_out, 2w², C, TB), read through
 // the four strides the caller passes; source features x (rows, C, 2); the
 // compressed panel stencil sten (P, 5, TB, TB) (planes r, e^{iθ} re/im,
@@ -73,11 +74,12 @@ namespace {
 constexpr int kMaxThreads = echo::kMaxThreads;
 constexpr int kMaxSources = 32;
 
+template <typename ST>
 __global__ void __launch_bounds__(kMaxThreads)
 echo_panel_bwd_kernel(const float* __restrict__ dg, long long sb,
                       long long sq, long long sc, long long st,
                       const float2* __restrict__ x,
-                      const float* __restrict__ sten,
+                      const ST* __restrict__ sten,
                       const int* __restrict__ meta_s,
                       float2* __restrict__ dx,
                       int Ps, int C, int TB, int n_bins, int S)
@@ -116,7 +118,7 @@ echo_panel_bwd_kernel(const float* __restrict__ dg, long long sb,
     for (int p = p_lo; p < p_hi; ++p) {
         const int pid = __ldg(meta_s + p);
         const int tgt = __ldg(meta_s + Ps + p);
-        const float* sp = sten + (size_t)pid * 5 * plane + s0;
+        const ST* sp = sten + (size_t)pid * 5 * plane + s0;
         __syncthreads();                     // the last panel's lists are read
         // compact each source column's occupied slots, one warp per column
         for (int s = warp; s < ns; s += nwarps) {
@@ -148,17 +150,37 @@ size_t smem_bytes(int S, int TB)
            + (size_t)S * sizeof(int);
 }
 
+template <typename ST>
+int launch(const float* dg, long long sb, long long sq, long long sc,
+           long long st, const float* x, const void* sten, const int* meta_s,
+           float* dx, int Ps, int nb, int C, int TB, int n_bins, int S,
+           size_t smem, cudaStream_t stream)
+{
+    auto kernel = echo_panel_bwd_kernel<ST>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int nthr = (S * C + 31) / 32 * 32;
+    const long grid = (long)nb * ((TB + S - 1) / S);
+    kernel<<<(unsigned)grid, nthr, smem, stream>>>(
+        dg, sb, sq, sc, st, reinterpret_cast<const float2*>(x),
+        static_cast<const ST*>(sten), meta_s, reinterpret_cast<float2*>(dx),
+        Ps, C, TB, n_bins, S);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for sizes the kernel does not take (C > 256, no
 // tile of sources whose slot lists fit in shared memory).  dg is read as
-// dg[b·sb + q·sq + c·sc + t·st] (strides in elements).
+// dg[b·sb + q·sq + c·sc + t·st] (strides in elements); sten float32, or
+// bfloat16 when sten_bf16 is set.
 extern "C" int echo_panel_bwd(const float* dg, long long sb, long long sq,
                               long long sc, long long st, const float* x,
-                              const float* sten, const int* meta_s,
+                              const void* sten, const int* meta_s,
                               float* dx, int Ps, int nb, int C, int TB,
-                              int n_bins, void* stream)
+                              int n_bins, int sten_bf16, void* stream)
 {
     if (Ps < 1 || nb < 1 || C < 1 || C > kMaxThreads || TB < 1 || n_bins < 1
         || sb < 0 || sq < 0 || sc < 0 || st < 0)
@@ -173,15 +195,10 @@ extern "C" int echo_panel_bwd(const float* dg, long long sb, long long sq,
     while (S > 1 && smem_bytes(S, TB) > (size_t)limit) S /= 2;
     const size_t smem = smem_bytes(S, TB);
     if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(echo_panel_bwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const int nthr = (S * C + 31) / 32 * 32;
-    const long grid = (long)nb * ((TB + S - 1) / S);
-    echo_panel_bwd_kernel<<<(unsigned)grid, nthr, smem,
-                            (cudaStream_t)stream>>>(
-        dg, sb, sq, sc, st, reinterpret_cast<const float2*>(x), sten, meta_s,
-        reinterpret_cast<float2*>(dx), Ps, C, TB, n_bins, S);
-    return (int)cudaGetLastError();
+    cudaStream_t s = (cudaStream_t)stream;
+    if (sten_bf16)
+        return launch<__nv_bfloat16>(dg, sb, sq, sc, st, x, sten, meta_s, dx,
+                                     Ps, nb, C, TB, n_bins, S, smem, s);
+    return launch<float>(dg, sb, sq, sc, st, x, sten, meta_s, dx, Ps, nb, C,
+                         TB, n_bins, S, smem, s);
 }

@@ -5,7 +5,8 @@
 // _b_factors and _a_masks).  Python wrapper and plain PyTorch version:
 // fieldconv_tpu_torch/ops/echo_panel.py.
 //
-// What it computes (all float32, complex values planar).  Inputs: source
+// What it computes (float32, complex values planar; the stencil float32
+// or bfloat16, each element read as f32, sten_load.cuh).  Inputs: source
 // features x (rows, C, 2); the compressed panel stencil sten (P, 5, TB, TB)
 // with planes r, e^{iθ} re/im, wxp re/im; meta (4, P) int32 rows (tgt, src,
 // first, last), sorted by target.  For every slot (t, s) of every panel and
@@ -62,26 +63,45 @@
 
 namespace {
 
+template <typename ST>
 __global__ void __launch_bounds__(echo::kMaxThreads)
 echo_panel_fwd_kernel(const float2* __restrict__ x,
-                      const float* __restrict__ sten,
+                      const ST* __restrict__ sten,
                       const int* __restrict__ meta,
                       float* __restrict__ out,
                       int P, int C, int TB, int n_bins, int T)
 {
     extern __shared__ __align__(16) float smem[];
-    echo::grid_tile<false>(x, sten, meta, nullptr, out, P, C, TB, TB, n_bins,
-                           T, 0, smem);
+    echo::grid_tile<false, ST>(x, sten, meta, nullptr, out, P, C, TB, TB,
+                               n_bins, T, 0, smem);
+}
+
+template <typename ST>
+int launch(const float* x, const void* sten, const int* meta, float* out,
+           int P, int nb_out, int C, int TB, int n_bins, int T, int nthr,
+           size_t smem, cudaStream_t stream)
+{
+    auto kernel = echo_panel_fwd_kernel<ST>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const long grid = (long)nb_out * ((TB + T - 1) / T);
+    kernel<<<(unsigned)grid, nthr, smem, stream>>>(
+        reinterpret_cast<const float2*>(x), static_cast<const ST*>(sten),
+        meta, out, P, C, TB, n_bins, T);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for sizes the kernel does not take (C > 256, no
-// tile of targets whose accumulators fit in shared memory).
-extern "C" int echo_panel_fwd(const float* x, const float* sten,
+// tile of targets whose accumulators fit in shared memory).  sten float32,
+// or bfloat16 when sten_bf16 is set.
+extern "C" int echo_panel_fwd(const float* x, const void* sten,
                               const int* meta, float* out, int P, int nb_out,
-                              int C, int TB, int n_bins, void* stream)
+                              int C, int TB, int n_bins, int sten_bf16,
+                              void* stream)
 {
     if (P < 1 || nb_out < 1 || C < 1 || C > echo::kMaxThreads || TB < 1
         || n_bins < 1)
@@ -101,14 +121,10 @@ extern "C" int echo_panel_fwd(const float* x, const float* sten,
     const int nthr = echo::threads_for(T, C);
     const size_t smem = echo::smem_bytes(w * w, nthr, T, TB);
     if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(echo_panel_fwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const long grid = (long)nb_out * ((TB + T - 1) / T);
-    echo_panel_fwd_kernel<<<(unsigned)grid, nthr, smem,
-                            (cudaStream_t)stream>>>(
-        reinterpret_cast<const float2*>(x), sten, meta, out, P, C, TB,
-        n_bins, T);
-    return (int)cudaGetLastError();
+    cudaStream_t s = (cudaStream_t)stream;
+    if (sten_bf16)
+        return launch<__nv_bfloat16>(x, sten, meta, out, P, nb_out, C, TB,
+                                     n_bins, T, nthr, smem, s);
+    return launch<float>(x, sten, meta, out, P, nb_out, C, TB, n_bins, T,
+                         nthr, smem, s);
 }

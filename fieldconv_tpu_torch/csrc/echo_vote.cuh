@@ -20,7 +20,10 @@
 //   v  = x_s · wxp                                   (complex product)
 //
 // and w_i·v is added into cell (a, b) = corner + n_bins of target t's grid
-// (w = 2·n_bins + 1), real part and imaginary part.
+// (w = 2·n_bins + 1), real part and imaginary part.  The stencil is f32 or
+// bf16 (ST), each element read as f32 (sten_load.cuh), so that p is formed
+// from the same f32 values as in the plain version, which casts each chunk
+// of panels to f32 before it forms p.
 //
 // Exact p.  The bilinear weights are continuous in p except where p lands
 // exactly on an integer: there pF = pC and all four weights are 0, so the
@@ -32,6 +35,8 @@
 // the plain versions floor the same p on any device.
 
 #pragma once
+
+#include "sten_load.cuh"
 
 #include <cuda_runtime.h>
 
@@ -103,8 +108,9 @@ __device__ __forceinline__ void splat_vote(float* a, int nthr, float2 xv,
 // the target row; 32 rows per ballot.  Every lane of the warp calls it;
 // returns the list's length.  Empty slots and dead columns carry wxp = 0,
 // so their transposed votes are exactly 0 and leaving them out is exact.
+template <typename ST>
 __device__ __forceinline__ int column_slots(float4* slots, int* tidx,
-                                            const float* __restrict__ sp,
+                                            const ST* __restrict__ sp,
                                             int s, int n_t, int stride,
                                             size_t plane)
 {
@@ -115,15 +121,15 @@ __device__ __forceinline__ int column_slots(float4* slots, int* tidx,
         const size_t at = (size_t)t * stride + s;
         float wre = 0.f, wim = 0.f;
         if (t < n_t) {
-            wre = __ldg(sp + 3 * plane + at);
-            wim = __ldg(sp + 4 * plane + at);
+            wre = load_sten_ldg(sp, 3 * plane + at);
+            wim = load_sten_ldg(sp, 4 * plane + at);
         }
         const bool occ = wre != 0.f || wim != 0.f;
         const unsigned m = __ballot_sync(0xffffffffu, occ);
         if (occ) {
-            const float r = __ldg(sp + at);
-            const float ln_re = r * __ldg(sp + plane + at);
-            const float ln_im = r * __ldg(sp + 2 * plane + at);
+            const float r = load_sten_ldg(sp, at);
+            const float ln_re = r * load_sten_ldg(sp, plane + at);
+            const float ln_im = r * load_sten_ldg(sp, 2 * plane + at);
             const int j = base + __popc(m & ((1u << lane) - 1u));
             slots[j] = make_float4(ln_re, ln_im, wre, wim);
             tidx[j] = t;
@@ -256,9 +262,9 @@ inline int threads_for(int T, int C)
 // TB) with consecutive threads on consecutive targets.  GATHER: column s of
 // panel p reads row src_idx[p·TS + s]; a slot whose row lies outside [0,
 // n_rows) adds nothing.  smem as smem_bytes counts it.
-template <bool GATHER>
+template <bool GATHER, typename ST>
 __device__ __forceinline__ void grid_tile(
-    const float2* __restrict__ x, const float* __restrict__ sten,
+    const float2* __restrict__ x, const ST* __restrict__ sten,
     const int* __restrict__ meta, const int* __restrict__ src_idx,
     float* __restrict__ out, int P, int C, int TB, int TS, int n_bins, int T,
     int n_rows, float* smem)
@@ -289,7 +295,7 @@ __device__ __forceinline__ void grid_tile(
     for (int p = p_lo; p < p_hi; ++p) {
         const int sblk = GATHER ? 0 : __ldg(meta + P + p);
         const int* srow = GATHER ? src_idx + (size_t)p * TS : nullptr;
-        const float* sp = sten + (size_t)p * 5 * plane;
+        const ST* sp = sten + (size_t)p * 5 * plane;
         __syncthreads();                     // the last panel's lists are read
         // compact each target row's occupied slots, one warp per target
         for (int t = warp; t < nt; t += nwarps) {
@@ -299,8 +305,8 @@ __device__ __forceinline__ void grid_tile(
                 const int s = s0 + lane;
                 float wre = 0.f, wim = 0.f;
                 if (s < TS) {
-                    wre = __ldg(sp + 3 * plane + row + s);
-                    wim = __ldg(sp + 4 * plane + row + s);
+                    wre = load_sten(sp, 3 * plane + row + s);
+                    wim = load_sten(sp, 4 * plane + row + s);
                 }
                 bool occ = wre != 0.f || wim != 0.f;
                 int src = s;
@@ -310,9 +316,10 @@ __device__ __forceinline__ void grid_tile(
                 }
                 const unsigned m = __ballot_sync(0xffffffffu, occ);
                 if (occ) {
-                    const float r = __ldg(sp + row + s);
-                    const float ln_re = r * __ldg(sp + plane + row + s);
-                    const float ln_im = r * __ldg(sp + 2 * plane + row + s);
+                    const float r = load_sten(sp, row + s);
+                    const float ln_re = r * load_sten(sp, plane + row + s);
+                    const float ln_im =
+                        r * load_sten(sp, 2 * plane + row + s);
                     const int j = base + __popc(m & ((1u << lane) - 1u));
                     slots[t * TS + j] = make_float4(ln_re, ln_im, wre, wim);
                     sidx[t * TS + j] = src;

@@ -22,10 +22,10 @@ namespace {
 // K6's compact panels (TB × TS columns read through src_idx), as in
 // band_compact_fwd.cu.
 
-template <int KMAX, int RMAX, int MINB, bool GATHER>
+template <int KMAX, int RMAX, int MINB, bool GATHER, typename ST>
 __global__ void __launch_bounds__(kMaxThreads, MINB)
 bwd_contrib_kernel(const float* __restrict__ g,
-                   const float* __restrict__ sten,
+                   const ST* __restrict__ sten,
                    const int* __restrict__ meta,
                    float* __restrict__ contrib,
                    int P, int C, int K, int R, int TB, int compressed,
@@ -45,9 +45,10 @@ bwd_contrib_kernel(const float* __restrict__ g,
 
     extern __shared__ __align__(16) float smem[];
     float are[KMAX][RMAX], aim[KMAX][RMAX];
-    panel_contrib<KMAX, RMAX, GATHER>(are, aim, smem, g, sten, meta, P, C, K,
-                                      R, TB, compressed, nb_g, T, blk, t0, nt,
-                                      active, it, ic, kn, src_idx, TS);
+    panel_contrib<KMAX, RMAX, GATHER, ST>(are, aim, smem, g, sten, meta, P,
+                                          C, K, R, TB, compressed, nb_g, T,
+                                          blk, t0, nt, active, it, ic, kn,
+                                          src_idx, TS);
     if (!active) return;
     // contrib[row, j] with j = r·M + k·2C + (p·C + c): coalesced over c
     float* cr = contrib + ((size_t)blk * TB + t0 + it) * RM;

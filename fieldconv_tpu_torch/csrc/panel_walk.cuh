@@ -19,9 +19,12 @@
 // the dense planes read as they are.  A slot is occupied when any radial
 // hat is nonzero there; skipping the others is exact.  Hats and phasor
 // powers are formed with uncontracted, correctly rounded operations in the
-// plain version's order.
+// plain version's order.  The stencil is f32 or bf16 (ST, read through
+// sten_load.cuh::load_sten as f32).
 
 #pragma once
+
+#include "sten_load.cuh"
 
 #include <cuda_runtime.h>
 
@@ -117,23 +120,23 @@ __device__ __forceinline__ void phasor_powers(float* cf, int stride, float pr,
 // The coefficients of the occupied slot at offset `at` of panel sp's
 // planes: its hats h, then f_k re/im for k = 0..K−1 (f_k, k = −B..B, built
 // by phasor_powers when compressed, read when dense).
-template <int RMAX>
+template <int RMAX, typename ST = float>
 __device__ __forceinline__ void slot_coefs(
-    float* cf, const float (&h)[RMAX], const float* __restrict__ sp,
-    size_t at, size_t plane, int R, int K, int compressed)
+    float* cf, const float (&h)[RMAX], const ST* __restrict__ sp, size_t at,
+    size_t plane, int R, int K, int compressed)
 {
 #pragma unroll
     for (int r = 0; r < RMAX; ++r)
         if (r < R) cf[r] = h[r];
     if (compressed) {
-        const float pr = __ldg(sp + plane + at);
-        const float pi = __ldg(sp + 2 * plane + at);
-        const float fr = __ldg(sp + 3 * plane + at);
-        const float fi = __ldg(sp + 4 * plane + at);
+        const float pr = load_sten(sp, plane + at);
+        const float pi = load_sten(sp, 2 * plane + at);
+        const float fr = load_sten(sp, 3 * plane + at);
+        const float fi = load_sten(sp, 4 * plane + at);
         phasor_powers(cf + R, 1, pr, pi, fr, fi, K / 2);
     } else {
         for (int q = 0; q < 2 * K; ++q)
-            cf[R + q] = __ldg(sp + (R + q) * plane + at);
+            cf[R + q] = load_sten(sp, (R + q) * plane + at);
     }
 }
 
@@ -143,10 +146,10 @@ __device__ __forceinline__ void slot_coefs(
 // list keeps lane order.  Returns the list's new length.  GATHER: the index
 // kept is the column's source row srow[idx], and a slot whose source row
 // lies outside [0, n_rows) counts as empty.
-template <int RMAX, bool GATHER = false>
+template <int RMAX, bool GATHER = false, typename ST = float>
 __device__ __forceinline__ int append_slot(
     float* ct, int* st, int base, const float (&h)[RMAX],
-    const float* __restrict__ sp, size_t at, int idx, size_t plane, int R,
+    const ST* __restrict__ sp, size_t at, int idx, size_t plane, int R,
     int K, int compressed, const int* __restrict__ srow = nullptr,
     int n_rows = 0)
 {
@@ -161,8 +164,8 @@ __device__ __forceinline__ int append_slot(
     const unsigned m = __ballot_sync(0xffffffffu, occ);
     if (occ) {
         const int j = base + __popc(m & ((1u << lane) - 1u));
-        slot_coefs<RMAX>(ct + (size_t)j * (R + 2 * K), h, sp, at, plane, R, K,
-                         compressed);
+        slot_coefs<RMAX, ST>(ct + (size_t)j * (R + 2 * K), h, sp, at, plane,
+                             R, K, compressed);
         st[j] = idx;
     }
     return base + __popc(m);
@@ -171,23 +174,25 @@ __device__ __forceinline__ int append_slot(
 // Compacts slot s = s0 + lane of one target row of panel sp (TS columns)
 // into the row's list; every lane of the warp calls it with its own s.
 // GATHER: the list keeps each slot's source row srow[s] (append_slot).
-template <int RMAX, bool GATHER = false>
+template <int RMAX, bool GATHER = false, typename ST = float>
 __device__ __forceinline__ int compact_chunk(
-    float* ct, int* st, int base, const float* __restrict__ sp, size_t row,
+    float* ct, int* st, int base, const ST* __restrict__ sp, size_t row,
     int s, size_t plane, int TS, int R, int K, int compressed,
     const Knots& kn, const int* __restrict__ srow = nullptr, int n_rows = 0)
 {
     float h[RMAX];
-    const float rv = (compressed && s < TS) ? __ldg(sp + row + s) : 0.f;
+    const float rv = (compressed && s < TS) ? load_sten(sp, row + s) : 0.f;
 #pragma unroll
     for (int r = 0; r < RMAX; ++r) {
         float v = 0.f;
         if (r < R && s < TS)
-            v = compressed ? hat(rv, r, kn) : __ldg(sp + r * plane + row + s);
+            v = compressed ? hat(rv, r, kn)
+                           : load_sten(sp, r * plane + row + s);
         h[r] = v;
     }
-    return append_slot<RMAX, GATHER>(ct, st, base, h, sp, row + s, s, plane,
-                                     R, K, compressed, srow, n_rows);
+    return append_slot<RMAX, GATHER, ST>(ct, st, base, h, sp, row + s, s,
+                                         plane, R, K, compressed, srow,
+                                         n_rows);
 }
 
 // One occupied slot of a thread's target: its channel of the source row gr
@@ -233,10 +238,10 @@ __device__ __forceinline__ void accumulate_slot(
 // GATHER (K6: meta's second row is the panel id, panels TB × TS): column s
 // of panel p reads g's row src_idx[p·TS + s] in place of src·TB + s, and a
 // slot whose row lies outside [0, nb_g·TB) adds nothing.
-template <int KMAX, int RMAX, bool GATHER = false>
+template <int KMAX, int RMAX, bool GATHER = false, typename ST = float>
 __device__ __forceinline__ void panel_contrib(
     float (&are)[KMAX][RMAX], float (&aim)[KMAX][RMAX], float* smem,
-    const float* __restrict__ g, const float* __restrict__ sten,
+    const float* __restrict__ g, const ST* __restrict__ sten,
     const int* __restrict__ meta, int P, int C, int K, int R, int TB,
     int compressed, int nb_g, int T, int blk, int t0, int nt, bool active,
     int it, int ic, const Knots& kn,
@@ -264,7 +269,7 @@ __device__ __forceinline__ void panel_contrib(
     for (int p = p_lo; p < p_hi; ++p) {
         const int sblk = GATHER ? 0 : __ldg(meta + P + p);
         const int* srow = GATHER ? src_idx + (size_t)p * TS : nullptr;
-        const float* sp = sten + (size_t)p * planes * plane;
+        const ST* sp = sten + (size_t)p * planes * plane;
         __syncthreads();                     // the last panel's lists are read
         for (int t = warp; t < nt; t += nwarps) {
             const size_t row = (size_t)(t0 + t) * TS;
@@ -272,7 +277,7 @@ __device__ __forceinline__ void panel_contrib(
             int* st = sidx + t * TS;
             int base = 0;
             for (int s0 = 0; s0 < TS; s0 += 32)
-                base = compact_chunk<RMAX, GATHER>(
+                base = compact_chunk<RMAX, GATHER, ST>(
                     ct, st, base, sp, row, s0 + lane, plane, TS, R, K,
                     compressed, kn, srow, nb_g * TB);
             if (lane == 0) cnt[t] = base;

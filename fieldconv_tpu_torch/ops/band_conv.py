@@ -92,15 +92,21 @@ def _hats_from_r(rv, R):
     rv: tensor in [0,1] (R_SENTINEL at empty slots).  Returns (R, *rv.shape)
     equal to stencil.radial_interpolant on [0,1]: ring r's weight is the hat
     on knots (s_{r-1}, s_r, s_{r+1}) with virtual knots -1 and 2 at the ends.
+    The knots and slopes are rounded to rv's dtype first, as JAX rounds a
+    Python float to the dtype of the array it meets (a bf16 block-panel
+    lift forms its hats in bf16, from bf16 knots; no change in f32).
     """
+    def const(v):
+        return torch.tensor(v, dtype=rv.dtype).item()
+
     s = _ring_knots(R)
     hats = []
     for r in range(R):
         sl = s[r - 1] if r > 0 else -1.0
         sc = s[r]
         sr = s[r + 1] if r < R - 1 else 2.0
-        up = (rv - sl) * (1.0 / (sc - sl))
-        dn = (sr - rv) * (1.0 / (sr - sc))
+        up = (rv - const(sl)) * const(1.0 / (sc - sl))
+        dn = (const(sr) - rv) * const(1.0 / (sr - sc))
         hats.append(torch.clamp(torch.minimum(up, dn), 0.0, 1.0))
     return torch.stack(hats, dim=0)
 
@@ -360,7 +366,10 @@ def _panel_pairs(sten_c, R: int, K: int, compressed: bool):
     """Radial hats (R, pc, TB, TB) and the angular factors [(k, f_re,
     f_im)] of a chunk of panels (pc, planes, TB, TB): rebuilt from the r
     and phasor planes of a compressed stencil, read from the planes of a
-    dense one."""
+    dense one.  The chunk is cast to f32 on read (a bf16 table, cast by
+    ``precomp/banded.py::cast_panel_sten``), as the JAX package's
+    ``_panel_pairs`` casts each plane, and as the kernels read it."""
+    sten_c = sten_c.float()
     if compressed:
         hats = _hats_from_r(sten_c[:, 0], R)
         pairs = _phasor_pairs(sten_c[:, 3], sten_c[:, 4], sten_c[:, 1],
@@ -382,7 +391,8 @@ def _panel_contrib_reference(rows, sten, tgt, nb_out: int, M: int, R: int,
         contrib[tgt, r, t, k-pair] += Σ_s S_k[r, t, s] ⊗ rows[s, k]
     """
     C = M // (2 * K)
-    contrib = sten.new_zeros(nb_out, R, sten.shape[2], M)
+    contrib = sten.new_zeros(nb_out, R, sten.shape[2], M,
+                             dtype=torch.float32)
     pc = 256                   # panels per step
     for lo in range(0, sten.shape[0], pc):
         hats, pairs = _panel_pairs(sten[lo:lo + pc], R, K, compressed)
@@ -430,18 +440,27 @@ def band_panel_fwd_reference(g, wmat, sten, meta, tb: int, n_rings: int,
 @functools.cache
 def _k5_entry():
     fn = kernels.library("band_panel_fwd").band_panel_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
+STEN_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _is_bf16(sten) -> int:
+    """The kernels' sten_bf16 flag: 1 for a bf16 panel stencil."""
+    return int(sten.dtype == torch.bfloat16)
+
+
 def _k5_check(name, g, wmat, sten, meta, tb, n_rings, band_limit,
               compressed, n_out, *more, ts=None):
-    """Raise unless the shapes agree and g, wmat, sten (float32), meta
-    (int32) and the named extra tensors are contiguous on g's device, and
-    unless one of the kernel's two instantiations takes (K, R).  Panels
-    are (tb, ts) slots, ts = tb by default (K6's are rectangular)."""
+    """Raise unless the shapes agree and g, wmat (float32), sten (float32
+    or bfloat16), meta (int32) and the named extra tensors are contiguous
+    on g's device, and unless one of the kernel's two instantiations takes
+    (K, R).  Panels are (tb, ts) slots, ts = tb by default (K6's are
+    rectangular)."""
     N, M = g.shape
     R, K = n_rings, 2 * band_limit + 1
     planes = 5 if compressed else R + 2 * K
@@ -457,9 +476,11 @@ def _k5_check(name, g, wmat, sten, meta, tb, n_rings, band_limit,
             f"n_out {n_out}")
     for label, t, dtype in (("g", g, torch.float32),
                             ("wmat", wmat, torch.float32),
-                            ("sten", sten, torch.float32),
+                            ("sten", sten, STEN_DTYPES),
                             ("meta", meta, torch.int32), *more):
-        if t.device != g.device or t.dtype != dtype or not t.is_contiguous():
+        dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+        if t.device != g.device or t.dtype not in dtypes \
+                or not t.is_contiguous():
             raise ValueError(f"{name} needs contiguous {dtype} {label} on "
                              f"{g.device}, got {t.dtype} on {t.device} "
                              f"(contiguous={t.is_contiguous()})")
@@ -480,7 +501,8 @@ def _band_panel_fwd_cuda(g, wmat, sten, meta, tb, n_rings, band_limit,
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = fn(g.data_ptr(), wmat.data_ptr(), sten.data_ptr(), meta.data_ptr(),
              y.data_ptr(), sten.shape[0], n_out // tb, g.shape[1] // (2 * K),
-             K, n_rings, tb, O2, int(compressed), g.shape[0] // tb, stream)
+             K, n_rings, tb, O2, int(compressed), g.shape[0] // tb,
+             _is_bf16(sten), stream)
     if err != 0:
         raise RuntimeError(f"band_panel_fwd launch failed: cudaError {err}")
     kernels.launches["band_panel_fwd"] += 1
@@ -494,10 +516,10 @@ def band_panel_fwd(g, wmat, sten, meta, tb: int, n_rings: int,
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
     (building it on first use) or raise.  Gradients go through
-    :class:`_BandPanelFn`.  A stencil stored in bf16 (``cast_panel_sten`` in
-    the JAX package) is refused on both devices."""
+    :class:`_BandPanelFn`.  The stencil is float32 or bfloat16
+    (``precomp/banded.py::cast_panel_sten``), read as f32 on both
+    devices."""
     n_out = g.shape[0] if n_out is None else n_out
-    _k5_float32(sten)
     if g.device.type == "cpu":
         return band_panel_fwd_reference(g, wmat, sten, meta, tb, n_rings,
                                         band_limit, compressed, n_out)
@@ -505,13 +527,6 @@ def band_panel_fwd(g, wmat, sten, meta, tb: int, n_rings: int,
         return _band_panel_fwd_cuda(g, wmat, sten, meta, tb, n_rings,
                                     band_limit, compressed, n_out)
     raise ValueError(f"band_panel_fwd has no kernel for device {g.device}")
-
-
-def _k5_float32(sten):
-    if sten.dtype != torch.float32:
-        raise NotImplementedError(
-            f"a {sten.dtype} panel stencil: the bf16 options of K1 and K5 "
-            "are ROADMAP Queue 2 (K1 (bf16), K5)")
 
 
 # --- K5 backward: plain version, wrapper, kernel launch ----------------------
@@ -586,7 +601,7 @@ def _k5_bwd_entry():
     """(kernel entry, floats of scratch it needs for given sizes)."""
     lib = kernels.library("band_panel_bwd")
     fn = lib.band_panel_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     size = lib.band_panel_bwd_scratch_floats
@@ -618,7 +633,7 @@ def _band_panel_bwd_cuda(dy, g, wmat, sten, meta, meta_s, tb, n_rings,
     err = fn(dy.data_ptr(), g.data_ptr(), wmat.data_ptr(), sten.data_ptr(),
              meta.data_ptr(), meta_s.data_ptr(), dg.data_ptr(), dw.data_ptr(),
              scratch.data_ptr(), sten.shape[0], meta_s.shape[1], *sizes,
-             stream)
+             _is_bf16(sten), stream)
     if err != 0:
         raise RuntimeError(f"band_panel_bwd launch failed: cudaError {err}")
     kernels.launches["band_panel_bwd"] += 1
@@ -634,7 +649,6 @@ def band_panel_bwd(dy, g, wmat, sten, meta, meta_s, tb: int, n_rings: int,
     tensors launch the kernel (building it on first use) or raise.  The
     kernel also takes the table's target order ``meta``, over which it
     rematerialises contrib as the forward forms it."""
-    _k5_float32(sten)
     if g.device.type == "cpu":
         return band_panel_bwd_reference(dy, g, wmat, sten, meta_s, tb,
                                         n_rings, band_limit, compressed)
@@ -698,7 +712,7 @@ def band_compact_fwd_reference(g, wmat, sten, meta, src_idx, tbt: int,
 @functools.cache
 def _k6_entry():
     fn = kernels.library("band_compact_fwd").band_compact_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -721,7 +735,7 @@ def _band_compact_fwd_cuda(g, wmat, sten, meta, src_idx, tbt, n_rings,
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = fn(g.data_ptr(), wmat.data_ptr(), sten.data_ptr(), meta.data_ptr(),
              src_idx.data_ptr(), y.data_ptr(), P, n_out // tbt, M // (2 * K),
-             K, n_rings, tbt, TS, O2, N, stream)
+             K, n_rings, tbt, TS, O2, N, _is_bf16(sten), stream)
     if err != 0:
         raise RuntimeError(f"band_compact_fwd launch failed: cudaError {err}")
     kernels.launches["band_compact_fwd"] += 1
@@ -735,9 +749,9 @@ def band_compact_fwd(g, wmat, sten, meta, src_idx, tbt: int, n_rings: int,
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
     (building it on first use) or raise.  Gradients go through
-    :class:`_BandCompactFn`.  A bf16 stencil is refused on both devices."""
+    :class:`_BandCompactFn`.  The stencil is float32 or bfloat16, read as
+    f32 on both devices."""
     n_out = g.shape[0] if n_out is None else n_out
-    _k5_float32(sten)
     if g.device.type == "cpu":
         return band_compact_fwd_reference(g, wmat, sten, meta, src_idx, tbt,
                                           n_rings, band_limit, n_out)
@@ -784,7 +798,7 @@ def _k6_bwd_entry():
     """(kernel entry, floats of scratch it needs for given sizes)."""
     lib = kernels.library("band_compact_bwd")
     fn = lib.band_compact_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     size = lib.band_compact_bwd_scratch_floats
@@ -828,7 +842,7 @@ def _band_compact_bwd_cuda(dy, g, wmat, sten, meta, src_idx, fold_order,
     err = fn(dy.data_ptr(), g.data_ptr(), wmat.data_ptr(), sten.data_ptr(),
              meta.data_ptr(), src_idx.data_ptr(), fold_order.data_ptr(),
              fold_ptr.data_ptr(), dg.data_ptr(), dw.data_ptr(),
-             scratch.data_ptr(), *sizes, N, stream)
+             scratch.data_ptr(), *sizes, N, _is_bf16(sten), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     kernels.launches[name] += 1
@@ -847,7 +861,6 @@ def band_compact_bwd(dy, g, wmat, sten, meta, src_idx, fold_order, fold_ptr,
     (ops/compact_fold.py); CUDA tensors launch the kernel, whose last pass
     is the fold (building it on first use), or raise.  The kernel takes
     TBt ≤ 32."""
-    _k5_float32(sten)
     if g.device.type == "cpu":
         dgg, dw = band_compact_bwd_reference(dy, g, wmat, sten, meta, src_idx,
                                              tbt, n_rings, band_limit)

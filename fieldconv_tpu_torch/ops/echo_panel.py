@@ -31,6 +31,7 @@ import torch
 from .. import kernels
 from ..precomp.banded import CompactPanelTable, PanelTable
 from ..utils.complexops import EPS, soft_abs
+from .band_conv import STEN_DTYPES, _is_bf16
 from .compact_fold import compact_fold_reference
 from .echo import fold_matrix
 
@@ -45,7 +46,11 @@ def _panel_tensors(sten_c, xs, n_bins: int):
     1/|x| is 1/sqrt(|x|²) (correctly rounded, where the TPU kernel takes an
     rsqrt), so that the CUDA kernels can form the same p bit for bit: a vote
     whose p lands exactly on an integer gets weight 0, and an ulp apart
-    would move the whole vote (csrc/echo_panel_fwd.cu, "Exact p")."""
+    would move the whole vote (csrc/echo_panel_fwd.cu, "Exact p").  The
+    chunk is cast to f32 on read (a bf16 table), as the JAX kernel casts
+    each plane and as the CUDA kernels read it, so that both form p from
+    the same f32 values."""
+    sten_c = sten_c.float()
     rv = sten_c[:, 0]
     ln_re = (rv * sten_c[:, 1])[:, None]                 # (pc, 1, TBt, TBs)
     ln_im = (rv * sten_c[:, 2])[:, None]
@@ -222,9 +227,10 @@ def _unvote(sten_c, xs, dgt, n_bins: int):
 
 def _check(x, sten, meta, n_bins: int, nb_out: int, name="echo_panel_fwd",
            *more, ts=None):
-    """Raise unless the shapes agree and x, sten (float32), meta and the
-    named extra tensors (int32) are contiguous on x's device.  Panels are
-    (TB, ts) slots, ts = TB by default (K7's are rectangular)."""
+    """Raise unless the shapes agree and x (float32), sten (float32 or
+    bfloat16), meta and the named extra tensors (int32) are contiguous on
+    x's device.  Panels are (TB, ts) slots, ts = TB by default (K7's are
+    rectangular)."""
     rows, C = x.shape[0], x.shape[1]
     P, TB = sten.shape[0], sten.shape[2]
     ts = TB if ts is None else ts
@@ -237,10 +243,12 @@ def _check(x, sten, meta, n_bins: int, nb_out: int, name="echo_panel_fwd",
             f"{tuple(sten.shape)}, meta {tuple(meta.shape)}, nb_out {nb_out}, "
             f"n_bins {n_bins}")
     for label, t, dtype in (("x", x, torch.float32),
-                            ("sten", sten, torch.float32),
+                            ("sten", sten, STEN_DTYPES),
                             ("meta", meta, torch.int32),
                             *((lb, t, torch.int32) for lb, t in more)):
-        if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
+        dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+        if t.device != x.device or t.dtype not in dtypes \
+                or not t.is_contiguous():
             raise ValueError(f"{name} needs contiguous {dtype} "
                              f"{label} on {x.device}, got {t.dtype} on "
                              f"{t.device} (contiguous={t.is_contiguous()})")
@@ -252,7 +260,7 @@ def _check(x, sten, meta, n_bins: int, nb_out: int, name="echo_panel_fwd",
 @functools.cache
 def _k2_entry():
     fn = kernels.library("echo_panel_fwd").echo_panel_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -269,7 +277,7 @@ def _echo_panel_fwd_cuda(x, sten, meta, n_bins: int, nb_out: int):
                       device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), sten.data_ptr(), meta.data_ptr(), out.data_ptr(),
-             sten.shape[0], nb_out, C, TB, n_bins, stream)
+             sten.shape[0], nb_out, C, TB, n_bins, _is_bf16(sten), stream)
     if err != 0:
         raise RuntimeError(f"echo_panel_fwd launch failed: cudaError {err}")
     kernels.launches["echo_panel_fwd"] += 1
@@ -293,7 +301,7 @@ def echo_panel_grid(x, sten, meta, n_bins: int, nb_out: int):
 def _k2_bwd_entry():
     fn = kernels.library("echo_panel_bwd").echo_panel_bwd
     fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 4
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -316,7 +324,7 @@ def _echo_panel_bwd_cuda(dg, x, sten, meta_s, n_bins: int, nb_out: int):
     # the transpose of the fold's cell-minor layout, taken without a copy
     err = fn(dg.data_ptr(), *dg.stride(), x.data_ptr(), sten.data_ptr(),
              meta_s.data_ptr(), dx.data_ptr(), meta_s.shape[1], nb_out, C,
-             TB, n_bins, stream)
+             TB, n_bins, _is_bf16(sten), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     kernels.launches[name] += 1
@@ -385,7 +393,7 @@ def echo_compact_grid_reference(x, sten, meta, src_idx, n_bins: int,
 @functools.cache
 def _k7_entry():
     fn = kernels.library("echo_compact_fwd").echo_compact_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -408,7 +416,7 @@ def _echo_compact_fwd_cuda(x, sten, meta, src_idx, n_bins: int,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), sten.data_ptr(), meta.data_ptr(),
              src_idx.data_ptr(), out.data_ptr(), P, nb_out, C, TBt, TS,
-             n_bins, rows, stream)
+             n_bins, rows, _is_bf16(sten), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     kernels.launches[name] += 1
@@ -463,7 +471,7 @@ def _k7_bwd_entry():
     lib = kernels.library("echo_compact_bwd")
     fn = lib.echo_compact_bwd
     fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 4
-                   + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     size = lib.echo_compact_bwd_scratch_floats
@@ -503,7 +511,7 @@ def _echo_compact_bwd_cuda(dg, x, sten, meta, src_idx, fold_order,
     err = fn(dg.data_ptr(), *dg.stride(), x.data_ptr(), sten.data_ptr(),
              meta.data_ptr(), src_idx.data_ptr(), fold_order.data_ptr(),
              fold_ptr.data_ptr(), dx.data_ptr(), scratch.data_ptr(), P,
-             nb_out, C, TBt, TS, n_bins, rows, stream)
+             nb_out, C, TBt, TS, n_bins, rows, _is_bf16(sten), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     kernels.launches[name] += 1

@@ -14,6 +14,7 @@ accepts optional leading mesh-batch axes.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..precomp.banded import (CompactPanelTable, CompressedBandedTable,
@@ -147,7 +148,10 @@ def trans_field_panel_contrib(x, panel: PanelTable, lift_cols=(0, 1),
     uses rsten·|wxp| (as the banded path does); dense panels (R+2K planes)
     read the hats from planes 0..R-1 and fwxp_k1 from planes R+2k1,
     R+2k1+1, and weigh the magnitude by |fwxp_k0|, as the JAX package's
-    dense branch does.
+    dense branch does.  The source sums go through :class:`_PanelLiftAggFn`
+    (fixed-order sums each way).  A bf16 table (``cast_panel_sten``) forms
+    its stencil factors in bf16, as the JAX package's lift does
+    (:func:`_lift_stencils`).
 
     x: (..., N, C) real scalars; the table covers the meshes of x's leading
     axes (precomp.banded.concat_panel_tables).
@@ -159,11 +163,12 @@ def trans_field_panel_contrib(x, panel: PanelTable, lift_cols=(0, 1),
         raise ValueError(f"x carries {xb.shape[0] * TB} rows but the panel "
                          f"table covers {panel.n_mesh} mesh(es) of "
                          f"{panel.n_pad}")
-    meta = panel.meta.long()
-    seg, ssum_seg, mag = _lift_sums(
-        lambda lo, hi: xb[meta[1, lo:hi]], panel.sten, meta[0], xb.shape[0],
-        C, R, B, lift_cols[1], panel_chunk,
-        None if panel.compressed else lift_cols[0])
+    nb = xb.shape[0]
+    seg, ssum_seg, mag = _PanelLiftAggFn.apply(
+        xb, panel.sten, panel.meta, panel.meta_s,
+        (R, B, lift_cols[1], None if panel.compressed else lift_cols[0],
+         _table_runs(panel, "tgt", nb, panel_chunk),
+         _table_runs(panel, "src", nb, panel_chunk)))
     ang = _lift_angular(seg, ssum_seg, xb)
     return (ang.reshape(*lead, N, C, R, 2), mag.reshape(*lead, N, C, R))
 
@@ -177,7 +182,8 @@ def trans_field_compact_contrib(x, compact: CompactPanelTable,
     through :class:`_CompactLiftAggFn`, the counterpart of the JAX
     package's custom VJP ``_compact_lift_agg``, whose backward folds the
     per-column gradients with one compact_fold; the target-row term is
-    ordinary autograd.
+    ordinary autograd.  A bf16 table is cast to f32 a chunk at a time on
+    read, as the JAX package's ``_compact_lift_stencils`` does.
 
     x: (..., N, C) real scalars; the table covers the meshes of x's leading
     axes (precomp.banded.concat_compact_panel_tables).
@@ -191,19 +197,30 @@ def trans_field_compact_contrib(x, compact: CompactPanelTable,
                          f"{compact.n_pad}")
     seg, ssum_seg, mag = _CompactLiftAggFn.apply(
         xf, compact.sten, compact.meta, compact.src_idx, compact.fold_order,
-        compact.fold_ptr, (R, compact.band_limit, lift_cols[1], panel_chunk,
-                           TB))
+        compact.fold_ptr,
+        _table_runs(compact, "tgt", xf.shape[0] // TB, panel_chunk),
+        (R, compact.band_limit, lift_cols[1], panel_chunk, TB))
     ang = _lift_angular(seg, ssum_seg, xf.reshape(-1, TB, C))
     return (ang.reshape(*lead, N, C, R, 2), mag.reshape(*lead, N, C, R))
 
 
-def _lift_stencils(sten_c, R: int, B: int, k1: int, k0=None):
+def _lift_stencils(sten_c, R: int, B: int, k1: int, k0=None,
+                   f32: bool = False):
     """A chunk of panels' lift stencils: the hats (R, cb, TBt, TS), s1 =
     hats ⊗ fwxp_k1 (R, cb, TBt, TS, 2) and sm = hats·|fwxp_k0| (the
     magnitude stencil rsten·|wxp|).  Compressed panels (k0 None) rebuild
     the hats from r and fwxp_k1 = wxp·e^{i(k1−B)θ} from the phasor, with
     |wxp| as |fwxp_k0|; dense panels (R+2K planes) read them from their
-    planes."""
+    planes.  The factors come in the chunk's dtype, each op rounded to it:
+    a bf16 block-panel table forms them in bf16, as the JAX package's panel
+    lift does (``fieldconv_tpu/ops/trans_field.py::
+    trans_field_panel_contrib`` casts nothing); ``f32`` casts the chunk on
+    read first, as its compact lift does (``_compact_lift_stencils``).  The
+    products s1 and sm are formed in f32 (exact for bf16 factors), as XLA
+    forms them where they feed the f32 contractions and sums.  Returns
+    (s1, sm) in f32."""
+    if f32:
+        sten_c = sten_c.float()
     if k0 is None:
         hats = _hats_from_r(sten_c[:, 0], R)               # (R, cb, TB, TS)
         pr, pi = sten_c[:, 1], sten_c[:, 2]
@@ -215,33 +232,113 @@ def _lift_stencils(sten_c, R: int, B: int, k1: int, k0=None):
         f1 = sten_c[:, R + 2 * k1:R + 2 * k1 + 2].movedim(1, -1)
         wr, wi = sten_c[:, R + 2 * k0], sten_c[:, R + 2 * k0 + 1]
     wmag = torch.sqrt(wr * wr + wi * wi)
-    return hats[..., None] * f1, hats * wmag
+    hats = hats.float()
+    return hats[..., None] * f1.float(), hats * wmag.float()
 
 
-def _lift_sums(rows, sten, tgt, nb_out: int, C: int, R: int, B: int,
-               k1: int, panel_chunk: int, k0=None):
+def _runs(keys, n_keys: int, max_items: int):
+    """The runs of a sorted key row ``keys`` (P,) (each key in [0,
+    n_keys)), cut into chunks of whole runs of at most ``max_items`` items
+    (a longer run alone).  Per chunk (k0, k1, i0, i1, idx): keys [k0, k1)
+    own items [i0, i1), and idx (k1 − k0, L) (on keys' device) lists each
+    key's items as offsets from i0 in order, padded with i1 − i0, so that a
+    sum over idx's second axis adds each key's items in a fixed order, with
+    no scatter (one host copy of ``keys``: the lifts build it once per
+    table, :func:`_table_runs`)."""
+    off = np.searchsorted(keys.cpu().numpy(), np.arange(n_keys + 1))
+    chunks, k0 = [], 0
+    while k0 < n_keys:
+        k1 = k0 + 1
+        while k1 < n_keys and off[k1 + 1] - off[k0] <= max_items:
+            k1 += 1
+        i0, i1 = int(off[k0]), int(off[k1])
+        lengths = off[k0 + 1:k1 + 1] - off[k0:k1]
+        pos = np.arange(max(1, int(lengths.max())))
+        idx = np.where(pos < lengths[:, None],
+                       (off[k0:k1] - i0)[:, None] + pos, i1 - i0)
+        chunks.append((k0, k1, i0, i1, torch.from_numpy(idx).to(keys.device)))
+        k0 = k1
+    return chunks
+
+
+def _table_runs(table, row: str, n_keys: int, max_items: int):
+    """:func:`_runs` of one of a panel table's sorted key rows, ``row``
+    "tgt" (meta row 0: panels by target block, PanelTable and
+    CompactPanelTable) or "src" (meta_s row 2: a PanelTable's panels by
+    source block).  The runs depend on the table alone, so they are built
+    on first use and kept on the table object (outside its fields, so a
+    ``dataclasses.replace`` copy such as ``to`` or ``cast_panel_sten``
+    builds its own): the lift then makes no host round trip per call."""
+    cache = vars(table).setdefault("_lift_runs", {})
+    key = (row, n_keys, max_items)
+    if key not in cache:
+        keys = table.meta[0] if row == "tgt" else table.meta_s[2]
+        cache[key] = _runs(keys, n_keys, max_items)
+    return cache[key]
+
+
+def _run_sums(vals, idx):
+    """vals (n, ...) summed per key of a chunk of _runs: (k1 − k0, ...),
+    each key's items added in a fixed order (padding adds zeros).  A bf16
+    tensor is added item by item in its own dtype, each add rounded, as
+    the JAX package's segment_sum adds it."""
+    pad = vals.new_zeros(1, *vals.shape[1:])
+    runs = torch.cat([vals, pad])[idx]                 # (nk, L, ...)
+    if vals.dtype == torch.float32:
+        return runs.sum(1)
+    acc = runs[:, 0]
+    for j in range(1, runs.shape[1]):
+        acc = acc + runs[:, j]
+    return acc
+
+
+def _fixed_sum(s, dim: int):
+    """f32 ``s`` summed over ``dim`` by pairwise halving: elementwise adds,
+    so the same order and the same result on every device.  A bf16 lift
+    rounds its stencil row sums to bf16 once (the JAX package's jnp.sum
+    upcasts them the same way); they then agree bitwise between the CPU and
+    the card, where a rounding boundary would otherwise move a sum by a
+    whole bf16 ulp."""
+    while s.shape[dim] > 1:
+        n = s.shape[dim]
+        if n % 2:
+            s = torch.cat([s, torch.zeros_like(s.narrow(dim, 0, 1))], dim)
+            n += 1
+        s = s.narrow(dim, 0, n // 2) + s.narrow(dim, n // 2, n // 2)
+    return s.squeeze(dim)
+
+
+def _lift_sums(rows, sten, runs, nb_out: int, C: int, R: int, B: int,
+               k1: int, k0=None, f32: bool = False):
     """The lift's source sums over compressed panels sten (P, 5, TBt, TS)
-    (or dense ones, (P, R+2K, TBt, TS), with k0 set) of target blocks tgt
-    (P,), each panel against its source rows
-    ``rows(lo, hi)`` ((hi − lo, TS, C), one per column): per panel a (TBt,
-    C, R, 2) partial of the angular sum s1·x, a (TBt, R, 2) one of s1's
-    row sums and a (TBt, C, R) one of the magnitude sum sm·x, each summed
-    per target block.  Returns (seg (nb_out, TBt, C, R, 2), ssum_seg
-    (nb_out, TBt, R, 2), mag (nb_out, TBt, C, R))."""
+    (or dense ones, (P, R+2K, TBt, TS), with k0 set) whose target-block
+    runs are ``runs`` (:func:`_runs` of the sorted target row over nb_out
+    blocks), each panel against its source rows ``rows(lo, hi)``
+    ((hi − lo, TS, C), one per column): per panel a (TBt, C, R, 2) partial
+    of the angular sum s1·x, a (TBt, R, 2) one of s1's row sums and a
+    (TBt, C, R) one of the magnitude sum sm·x, each summed per target block
+    in panel order, one chunk of ``runs`` at a time (no scatter, so the
+    sums repeat bitwise on a card).  The stencil factors as
+    :func:`_lift_stencils` forms them (``f32``: cast on read); s1's row
+    sums stay in the table's dtype, as in the JAX package
+    (:func:`_fixed_sum`, then each target's panels added as
+    :func:`_run_sums` adds them).  Returns (seg (nb_out, TBt, C, R, 2),
+    ssum_seg (nb_out, TBt, R, 2), mag (nb_out, TBt, C, R))."""
     TB = sten.shape[2]
-    seg = sten.new_zeros(nb_out, TB, C, R, 2)
-    ssum_seg = sten.new_zeros(nb_out, TB, R, 2)
-    mag = sten.new_zeros(nb_out, TB, C, R)
-    for lo in range(0, sten.shape[0], panel_chunk):
-        tgt_c = tgt[lo:lo + panel_chunk]
-        s1, sm = _lift_stencils(sten[lo:lo + panel_chunk], R, B, k1, k0)
-        xs = rows(lo, lo + panel_chunk)                    # (cb, TS, C)
+    f32_out = dict(dtype=torch.float32, device=sten.device)
+    sdt = torch.float32 if f32 else sten.dtype     # the factors' dtype
+    seg = torch.zeros(nb_out, TB, C, R, 2, **f32_out)
+    mag = torch.zeros(nb_out, TB, C, R, **f32_out)
+    ssum_seg = torch.zeros(nb_out, TB, R, 2, dtype=sdt, device=sten.device)
+    for b0, b1, lo, hi, idx in runs:
+        s1, sm = _lift_stencils(sten[lo:hi], R, B, k1, k0, f32)
+        xs = rows(lo, hi)                                  # (cb, TS, C)
         part = torch.einsum("rptsj,psc->ptcrj", s1, xs)
-        ssum = torch.sum(s1, dim=3).permute(1, 2, 0, 3)    # (cb, TB, R, 2)
+        ssum = _fixed_sum(s1, 3).to(sdt).permute(1, 2, 0, 3)  # (cb, TB, R, 2)
         magp = torch.einsum("rpts,psc->ptcr", sm, xs)
-        seg = seg.index_add(0, tgt_c, part)
-        ssum_seg = ssum_seg.index_add(0, tgt_c, ssum)
-        mag = mag.index_add(0, tgt_c, magp)
+        seg[b0:b1] = _run_sums(part, idx)
+        ssum_seg[b0:b1] = _run_sums(ssum, idx)
+        mag[b0:b1] = _run_sums(magp, idx)
     return seg, ssum_seg, mag
 
 
@@ -251,21 +348,63 @@ def _lift_angular(seg, ssum_seg, xb):
     return -(seg - xb[..., None, None] * ssum_seg[:, :, None])
 
 
+class _PanelLiftAggFn(torch.autograd.Function):
+    """The panel lift's source sums (:func:`_lift_sums` over a PanelTable's
+    source blocks) with a hand-written backward, so that both directions
+    sum in a fixed order (index_add and the backward of an advanced-index
+    gather accumulate in an order that varies between runs on a card).
+    Forward: each target block's panels in meta order.  Backward: d_xs =
+    s1ᵀ·d_part + smᵀ·d_magp per panel, summed per source block in the
+    table's by-source order ``meta_s``.  The stencil sums ``ssum_seg`` take
+    no gradient, and neither does the table.  Serves compressed and dense
+    tables, of one mesh or a batch; ``statics`` ends with the table's runs
+    by target and by source (:func:`_table_runs`)."""
+
+    @staticmethod
+    def forward(ctx, xb, sten, meta, meta_s, statics):
+        R, B, k1, k0, runs, _ = statics
+        ctx.save_for_backward(sten, meta_s)
+        ctx.statics = statics
+        src = meta[1].long()
+        out = _lift_sums(lambda lo, hi: xb[src[lo:hi]], sten, runs,
+                         xb.shape[0], xb.shape[2], R, B, k1, k0)
+        ctx.mark_non_differentiable(out[1])
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_seg, d_ssum, d_mag):
+        sten, meta_s = ctx.saved_tensors
+        R, B, k1, k0, _, runs_s = ctx.statics
+        nb, TB, C = d_seg.shape[:3]
+        pid, tgt = meta_s[0].long(), meta_s[1].long()
+        dx = d_seg.new_zeros(nb, TB, C)
+        for s0, s1_, lo, hi, idx in runs_s:
+            s1, sm = _lift_stencils(sten[pid[lo:hi]], R, B, k1, k0)
+            t = tgt[lo:hi]
+            d_xs = (torch.einsum("rptsj,ptcrj->psc", s1, d_seg[t])
+                    + torch.einsum("rpts,ptcr->psc", sm, d_mag[t]))
+            dx[s0:s1_] = _run_sums(d_xs, idx)
+        return dx, None, None, None, None
+
+
 class _CompactLiftAggFn(torch.autograd.Function):
     """The compact lift's source sums (:func:`_lift_sums` over a
     CompactPanelTable's gathered columns) with a hand-written backward: the
     counterpart of the JAX package's ``_compact_lift_agg`` custom VJP.
     Its backward is :func:`_compact_lift_agg_bwd`; the stencil sums
-    ``ssum_seg`` take no gradient, and neither does the table."""
+    ``ssum_seg`` take no gradient, and neither does the table.  ``runs``
+    are the table's runs by target (:func:`_table_runs`)."""
 
     @staticmethod
-    def forward(ctx, x, sten, meta, src_idx, fold_order, fold_ptr, statics):
+    def forward(ctx, x, sten, meta, src_idx, fold_order, fold_ptr, runs,
+                statics):
         R, B, k1, pc, TB = statics
         ctx.save_for_backward(sten, meta, src_idx, fold_order, fold_ptr)
         ctx.statics, ctx.rows = statics, x.shape[0]
         idx = src_idx.long()
-        out = _lift_sums(lambda lo, hi: x[idx[lo:hi]], sten, meta[0].long(),
-                         x.shape[0] // TB, x.shape[1], R, B, k1, pc)
+        out = _lift_sums(lambda lo, hi: x[idx[lo:hi]], sten, runs,
+                         x.shape[0] // TB, x.shape[1], R, B, k1, f32=True)
         ctx.mark_non_differentiable(out[1])
         return out
 
@@ -274,7 +413,7 @@ class _CompactLiftAggFn(torch.autograd.Function):
     def backward(ctx, d_seg, d_ssum, d_mag):
         dx = _compact_lift_agg_bwd(d_seg, d_mag, *ctx.saved_tensors,
                                    ctx.statics, ctx.rows)
-        return dx, None, None, None, None, None, None
+        return dx, None, None, None, None, None, None, None
 
 
 def _compact_lift_agg_bwd(d_seg, d_mag, sten, meta, src_idx, fold_order,
@@ -291,7 +430,7 @@ def _compact_lift_agg_bwd(d_seg, d_mag, sten, meta, src_idx, fold_order,
     C = d_seg.shape[2]
     d_xs = d_seg.new_empty(P, TS, C)
     for lo in range(0, P, pc):
-        s1, sm = _lift_stencils(sten[lo:lo + pc], R, B, k1)
+        s1, sm = _lift_stencils(sten[lo:lo + pc], R, B, k1, f32=True)
         tgt_c = tgt[lo:lo + pc]
         d_xs[lo:lo + pc] = (
             torch.einsum("rptsj,ptcrj->psc", s1, d_seg[tgt_c])
@@ -300,22 +439,28 @@ def _compact_lift_agg_bwd(d_seg, d_mag, sten, meta, src_idx, fold_order,
                         fold_ptr, rows)
 
 
-def trans_field(x, table, zonal_ang, zonal_mag, phase, ftype,
-                lift_cols=(0, 1), d_chunk: int = 128, comp=None):
-    """TransField lift.  A CompressedBandedTable ``comp`` routes the
-    aggregation to the gather-free banded path, a PanelTable to the
-    panel-CSR path, a CompactPanelTable to the compacted-column path; None
-    uses the padded-CSR gather path."""
+def lift_contribs(x, table, lift_cols=(0, 1), d_chunk: int = 128,
+                  comp=None):
+    """The lift's (contribAng, contribMag) over the layout ``comp`` names:
+    a CompressedBandedTable routes the aggregation to the gather-free
+    banded path, a PanelTable to the panel-CSR path, a CompactPanelTable to
+    the compacted-column path; None uses the padded-CSR gather path."""
     if isinstance(comp, CompressedBandedTable):
-        ang, mag = trans_field_banded_contrib(x, comp, lift_cols=lift_cols)
-    elif isinstance(comp, PanelTable):
-        ang, mag = trans_field_panel_contrib(x, comp, lift_cols=lift_cols)
-    elif isinstance(comp, CompactPanelTable):
-        ang, mag = trans_field_compact_contrib(x, comp, lift_cols=lift_cols)
-    elif comp is not None:
+        return trans_field_banded_contrib(x, comp, lift_cols=lift_cols)
+    if isinstance(comp, PanelTable):
+        return trans_field_panel_contrib(x, comp, lift_cols=lift_cols)
+    if isinstance(comp, CompactPanelTable):
+        return trans_field_compact_contrib(x, comp, lift_cols=lift_cols)
+    if comp is not None:
         raise NotImplementedError(
             f"the lift over {type(comp).__name__} is not ported")
-    else:
-        ang, mag = trans_field_contrib(x, table, lift_cols=lift_cols,
-                                       d_chunk=d_chunk)
+    return trans_field_contrib(x, table, lift_cols=lift_cols,
+                               d_chunk=d_chunk)
+
+
+def trans_field(x, table, zonal_ang, zonal_mag, phase, ftype,
+                lift_cols=(0, 1), d_chunk: int = 128, comp=None):
+    """TransField lift: :func:`lift_contribs` over the layout ``comp``
+    names, then :func:`trans_field_weight`."""
+    ang, mag = lift_contribs(x, table, lift_cols, d_chunk, comp)
     return trans_field_weight(ang, mag, zonal_ang, zonal_mag, phase, ftype)

@@ -367,9 +367,10 @@ class PanelTable:
     panels are sorted by target block, so each target block owns one
     contiguous run of them.
 
-      sten: (P, planes, TB, TB) float32 with planes = R+2K (dense: radial
-        weights then fwxp_k re/im) or 5 (compressed: r, e^{iθ} re/im,
-        wxp re/im, with R_SENTINEL in r and 0 in wxp at empty slots).
+      sten: (P, planes, TB, TB) float32 (or bfloat16, cast_panel_sten)
+        with planes = R+2K (dense: radial weights then fwxp_k re/im) or 5
+        (compressed: r, e^{iθ} re/im, wxp re/im, with R_SENTINEL in r and
+        0 in wxp at empty slots).
       meta: (4, P) int32 rows (tgt, src, first_t, last_t), sorted by
         (tgt, src).
       meta_s: (4, P_s) int32 rows (pid, tgt, src, first_s + 2·last_s), the
@@ -595,6 +596,18 @@ def concat_panel_tables(panels) -> PanelTable:
         n_mesh=len(panels))
 
 
+def cast_panel_sten(panel, dtype=torch.bfloat16):
+    """The table with its panel stencil stored at a narrower dtype (default
+    bfloat16; the JAX package's ``cast_panel_sten``): half the stencil
+    bytes that K5, K6, K2 and K7 stream and hold (each reads its planes
+    back to f32, ops/band_conv.py::_panel_pairs, ops/echo_panel.py::
+    _panel_tensors; the kernels through csrc/sten_load.cuh).  Takes a
+    PanelTable (compressed or dense) or a CompactPanelTable and casts only
+    ``sten``; ``to``, ``concat_panel_tables`` and
+    ``concat_compact_panel_tables`` keep the dtype."""
+    return dataclasses.replace(panel, sten=panel.sten.to(dtype))
+
+
 @dataclasses.dataclass
 class CompactPanelTable:
     """Compacted panel-CSR: dense TS-wide panels of gathered sources.
@@ -606,7 +619,7 @@ class CompactPanelTable:
 
       sten: (P, 5, TB, TS) compressed planes (r, e^{iθ} re/im, wxp re/im),
         R_SENTINEL in the r plane at empty slots (PanelTable's compressed
-        format).
+        format), float32 or bfloat16 (cast_panel_sten).
       meta: (4, P) int32 rows (tgt_block, panel_id, first_t, last_t),
         panels sorted by target block; every block owns >= 1 panel.
       src_idx: (P, TS) int32 source row per column; dead columns point at

@@ -886,3 +886,214 @@ def test_k8_kernel_on_shuffled_lists_on_card(B, R, C, O2):
     _need_card()
     tab = random_block_sparse(np.random.default_rng(C), 2, 10, 6, R, B, 128)
     _k8_check(tab.to("cuda"), C, O2, seed=C)
+
+
+# --- bf16 panel stencils (cast_panel_sten): K5, K6, K2, K7 ---------------------
+
+BF16_CONV_SHAPES = pytest.mark.parametrize("C,O2,B,R", [(16, 24, 1, 3),
+                                                        (48, 96, 2, 6)])
+
+
+def _bf16(table):
+    from fieldconv_tpu_torch.precomp.banded import cast_panel_sten
+
+    out = cast_panel_sten(table)
+    assert out.sten.dtype == torch.bfloat16
+    return out
+
+
+def _held(got, want, label):
+    """Each of ``got`` within 1e-4 of its plain version's scale (f32 sums
+    in another order over the same bf16 values, read exactly as f32)."""
+    for a, b in zip(got, want):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * b.abs().max().item(), (label, err)
+
+
+@pytest.mark.cuda
+@BF16_CONV_SHAPES
+def test_k5_bf16_kernel_matches_plain_on_card(C, O2, B, R):
+    """K5 forward and backward on a bf16 compressed panel table against
+    their plain versions on the card (which cast each chunk to f32 on
+    read): within 1e-4 of each output's scale, and bitwise repeatable."""
+    _need_card()
+    rng = np.random.default_rng(C + R + 5)
+    tb = 32
+    table = sphere_record(rng, 1500, 4).table(B, R, n_multiple=tb)
+    panel = _bf16(build_panel_table(table, tb=tb, compressed=True)).to("cuda")
+    assert panel.sten.dtype == torch.bfloat16
+    M = (2 * B + 1) * 2 * C
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    g = torch.randn(panel.n_pad, M, device="cuda", generator=gen)
+    wmat = torch.randn(R, M, O2, device="cuda", generator=gen) / (R * M) ** .5
+    dy = torch.randn(panel.n_pad, O2, device="cuda", generator=gen)
+    args = (g, wmat, panel.sten, panel.meta, tb, R, B, True)
+    before = dict(kernels.launches)
+    y = tbc.band_panel_fwd(*args)
+    bargs = (dy, g, wmat, panel.sten, panel.meta, panel.meta_s, tb, R, B,
+             True)
+    dg, dw = tbc.band_panel_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert kernels.launches["band_panel_fwd"] == before.get(
+        "band_panel_fwd", 0) + 1
+    assert kernels.launches["band_panel_bwd"] == before.get(
+        "band_panel_bwd", 0) + 1
+    _held((y,), (tbc.band_panel_fwd_reference(*args),), "K5")
+    _held((dg, dw), tbc.band_panel_bwd_reference(
+        dy, g, wmat, panel.sten, panel.meta_s, tb, R, B, True), "K5 bwd")
+    assert torch.equal(y, tbc.band_panel_fwd(*args))
+    dg2, dw2 = tbc.band_panel_bwd(*bargs)
+    assert torch.equal(dg, dg2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+@BF16_CONV_SHAPES
+def test_k6_bf16_kernel_matches_plain_on_card(C, O2, B, R):
+    """K6 forward and backward (TBt 32) on a bf16 compact table against
+    their plain versions and the plain fold on the card: within 1e-4 of
+    each output's scale, and bitwise repeatable."""
+    _need_card()
+    rng = np.random.default_rng(C + R + 6)
+    comp = _bf16(_compact_table(rng, B, R, 32, 128))
+    M = (2 * B + 1) * 2 * C
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    g = torch.randn(comp.n_pad, M, device="cuda", generator=gen)
+    wmat = torch.randn(R, M, O2, device="cuda", generator=gen) / (R * M) ** .5
+    dy = torch.randn(comp.n_pad, O2, device="cuda", generator=gen)
+    args = (g, wmat, comp.sten, comp.meta, comp.src_idx, 32, R, B)
+    bargs = (dy, g, wmat, comp.sten, comp.meta, comp.src_idx,
+             comp.fold_order, comp.fold_ptr, 32, R, B)
+    y = tbc.band_compact_fwd(*args)
+    dg, dw = tbc.band_compact_bwd(*bargs)
+    torch.cuda.synchronize()
+    _held((y,), (tbc.band_compact_fwd_reference(*args),), "K6")
+    dgg, want_w = tbc.band_compact_bwd_reference(*bargs[:6], 32, R, B)
+    _held((dg, dw), (tcf.compact_fold_reference(dgg, comp.src_idx,
+                                                 comp.n_pad), want_w),
+          "K6 bwd")
+    assert torch.equal(y, tbc.band_compact_fwd(*args))
+    dg2, dw2 = tbc.band_compact_bwd(*bargs)
+    assert torch.equal(dg, dg2) and torch.equal(dw, dw2)
+
+
+def _echo_bf16_check(fwd, fwd_ref, bwd, bwd_ref, x, nb_shape):
+    """An ECHO kernel pair on bf16 stencils: the forward against its plain
+    version, the backward for a contiguous and a cells-minor cotangent,
+    each within 1e-4 of its scale and bitwise repeatable."""
+    got = fwd()
+    torch.cuda.synchronize()
+    _held((got,), (fwd_ref(),), "forward")
+    assert torch.equal(got, fwd())
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dg = torch.randn(got.shape, device="cuda", generator=gen)
+    want = bwd_ref(dg)
+    for cot in (dg, dg.permute(0, 3, 2, 1).contiguous().permute(0, 3, 2, 1)):
+        dx = bwd(cot)
+        torch.cuda.synchronize()
+        _held((dx,), (want,), "backward")
+        assert torch.equal(dx, bwd(cot))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bins,C", [(2, 12), (3, 48)])
+def test_k2_bf16_kernel_matches_plain_on_card(n_bins, C):
+    """K2 forward and backward on a bf16 panel table of two meshes against
+    their plain versions on the card (both form p from the same f32
+    values): within 1e-4 of the scale, bitwise repeatable."""
+    _need_card()
+    rng = np.random.default_rng(C + n_bins + 2)
+    panel, x = _k2_panel(rng, C, 2)
+    panel = _bf16(panel)
+    nb = x.shape[0] // panel.tb
+    before = dict(kernels.launches)
+    _echo_bf16_check(
+        lambda: tep.echo_panel_grid(x, panel.sten, panel.meta, n_bins, nb),
+        lambda: tep.echo_panel_grid_reference(x, panel.sten, panel.meta,
+                                              n_bins, nb),
+        lambda dg: tep.echo_panel_grid_bwd(dg, x, panel.sten, panel.meta_s,
+                                           n_bins, nb),
+        lambda dg: tep.echo_panel_grid_bwd_reference(
+            dg, x, panel.sten, panel.meta_s, n_bins, nb), x, nb)
+    assert kernels.launches["echo_panel_fwd"] > before.get(
+        "echo_panel_fwd", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bins,C", [(2, 12), (3, 48)])
+def test_k7_bf16_kernel_matches_plain_on_card(n_bins, C):
+    """K7 forward and backward (with the fold) on a bf16 compact table
+    (TBt 32) against their plain versions on the card: within 1e-4 of the
+    scale, bitwise repeatable."""
+    _need_card()
+    rng = np.random.default_rng(C + n_bins + 7)
+    comp = _bf16(_compact_table(rng, 1, 3, 32, 128))
+    x = rng.normal(size=(comp.n_pad, C, 2)).astype(np.float32)
+    x[rng.random(comp.n_pad) < 0.2] = 0.0
+    x = torch.from_numpy(x).cuda()
+    args = (x, comp.sten, comp.meta, comp.src_idx, n_bins, comp.n_pad // 32)
+    bargs = (x, comp.sten, comp.meta, comp.src_idx, comp.fold_order,
+             comp.fold_ptr, n_bins)
+    _echo_bf16_check(
+        lambda: tep.echo_compact_grid(*args),
+        lambda: tep.echo_compact_grid_reference(*args),
+        lambda dg: tep.echo_compact_grid_bwd(dg, *bargs),
+        lambda dg: tcf.compact_fold_reference(
+            tep.echo_compact_grid_bwd_reference(dg, *args[:5]).reshape(
+                -1, 2 * C), comp.src_idx, comp.n_pad).reshape(x.shape),
+        x, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("echo_impl", ["panel", "compact"])
+def test_predictor_logits_bf16_card_matches_cpu(echo_impl):
+    """Predictor.logits of a correspondence net on the pure-panel layout
+    whose tables were cast to bf16 (block panels for K5, and K2 or the
+    compact table for K7) against the same Predictor on the CPU on the same
+    cast tables: within rtol 1e-3 / atol 1e-4, exact launches."""
+    _need_card()
+    from fieldconv_tpu_torch.deploy import Predictor
+    from fieldconv_tpu_torch.scripts.train_100k import cast_batch
+
+    rng = np.random.default_rng(4)
+    config = dataclasses.replace(PRESETS["correspondence"], nf=8, n_des=8,
+                                 layout="panel", echo_impl=echo_impl)
+    recs = [sphere_record(rng, 1500, 5)]
+    net = build_model(config, 5, torch.Generator().manual_seed(0),
+                      device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = Predictor(net, config, banded_tb=128, device=dev)
+        batch = cast_batch(p.make_batches(recs)[0])
+        before = dict(kernels.launches)
+        out[dev] = p.logits(batch).cpu()
+        grew = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+                if v != before.get(k, 0)}
+        echo = "echo_compact_fwd" if echo_impl == "compact" else \
+            "echo_panel_fwd"
+        assert grew == ({} if dev == "cpu" else {
+            "band_panel_fwd": 17, echo: 1}), grew
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_pure_panel_loss_gradient_repeats_on_card():
+    """The pure-panel route's loss gradient (K5, K2 and the panel lift,
+    whose sums run in a fixed order each way) is bitwise equal across two
+    runs on the card."""
+    _need_card()
+    rng = np.random.default_rng(2)
+    config = dataclasses.replace(PRESETS["correspondence"], nf=8, n_des=4,
+                                 layout="panel")
+    recs = [_record(rng, 200, 16, 40, 0.05, labels=rng.integers(0, 6, 200))]
+    net = build_model(config, 6, torch.Generator().manual_seed(0),
+                      device="cuda")
+    aug = tuple(None if a is None else a.cuda() for a in draw_rotate_scale(
+        torch.Generator().manual_seed(1), 1, 45.0, None))
+    batch = make_batches(recs, config, 1, 32, device="cuda")[0]
+    mask = torch.from_numpy((np.random.default_rng(3).random(
+        (1, batch.pos.shape[1], 256)) < 0.5).astype(np.float32)).cuda()
+    runs = [torch.autograd.grad(make_loss_fn(net, config, 6)(
+        batch, aug=aug, dropout_mask=mask), list(net.parameters()))
+        for _ in range(2)]
+    for (name, _), a, b in zip(net.named_parameters(), *runs):
+        assert torch.equal(a, b), name

@@ -160,7 +160,7 @@ def test_k5_on_cuda_tensors_needs_the_kernel(monkeypatch):
     through _BandPanelFn, whose forward reaches K5's entry and whose
     backward reaches the entry of K5's backward; a (K, R) that no kernel
     instantiation takes (K=3 with R=6) raises before either entry; a bf16
-    stencil is refused on either device."""
+    stencil (cast_panel_sten) reaches both entries too."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks its absence")
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -175,11 +175,6 @@ def test_k5_on_cuda_tensors_needs_the_kernel(monkeypatch):
         raise Entered
 
     before = dict(kernels.launches)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tbc.band_panel_fwd(torch.zeros(16, 24), torch.zeros(3, 24, 6),
-                           torch.zeros(2, 5, 8, 8, dtype=torch.bfloat16),
-                           torch.zeros(4, 2, dtype=torch.int32), 8, 3, 1,
-                           True)
     with FakeTensorMode():
         g = torch.zeros(16, 24, device="cuda")
         w = torch.zeros(3, 24, 6, device="cuda")
@@ -194,6 +189,9 @@ def test_k5_on_cuda_tensors_needs_the_kernel(monkeypatch):
         monkeypatch.setattr(tbc, "_k5_entry", entry)
         with pytest.raises(Entered):
             tbc.band_panel_fwd(g, w, *args)
+        sten16 = sten.to(torch.bfloat16)
+        with pytest.raises(Entered):
+            tbc.band_panel_fwd(g, w, sten16, *args[1:])
         # the autograd Function, on a context standing in for autograd's
         # (autograd cannot record a graph over fake CUDA tensors in a build
         # without CUDA)
@@ -206,12 +204,14 @@ def test_k5_on_cuda_tensors_needs_the_kernel(monkeypatch):
                                     args=(8, 3, 1, True))
         with pytest.raises(Entered):
             tbc._BandPanelFn.backward(ctx, dy)
+        with pytest.raises(Entered):
+            tbc.band_panel_bwd(dy, g, w, sten16, meta, meta, 8, 3, 1, True)
         w6 = torch.zeros(6, 24, 6, device="cuda")
         with pytest.raises(NotImplementedError, match="presets' shapes"):
             tbc.band_panel_fwd(g, w6, sten, meta, 8, 6, 1, True)
         with pytest.raises(NotImplementedError, match="presets' shapes"):
             tbc.band_panel_bwd(dy, g, w6, sten, meta, meta, 8, 6, 1, True)
-    assert entered == [True, True, True]
+    assert entered == [True] * 5
     assert kernels.launches == before
 
 

@@ -183,13 +183,15 @@ def test_artifact_store_reads_jax_files(rng, tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, import without JAX or
-    the JAX package (the pytest process itself has JAX loaded)."""
+    """Every module of the port (the scripts under fieldconv_tpu_torch/
+    scripts/ included), and chip_smoke.py, import without JAX or the JAX
+    package (the pytest process itself has JAX loaded)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import fieldconv_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
+        "assert 'fieldconv_tpu_torch.scripts.train_100k' in mods, mods\n"
         "for m in mods + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
