@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port (fieldconv_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py            # from the repository root
+    python3 chip_smoke.py --graph-parallel   # phase 7h alone, every card
 
 Phases, any failure exits non-zero:
   1. build every CUDA kernel from csrc/ (one nvcc per source, all at once)
@@ -203,6 +204,37 @@ checks hold):
   8. also times the cast request and a train_100k step on the f32 and on
      the cast tables.
 
+Graph-parallel training (parallel/; K9, the halo conv; each phase's checks
+hold):
+  2d. K9 each way against its plain version (1e-4 of each output's scale,
+     the backward bitwise against a second call) on the dense bands of the
+     segmentation batch (C=48, O2=96) and of the 8192-sample record (C=32,
+     O2=64), each split into 2 and into 4 shards whose halo rows are sliced
+     from the global g on the card: every launch of the serial path and of
+     the overlapped one (interior, head, tail), K9's contrib each way on
+     the serial launches, and the shards joined (y, dG with the halo
+     cotangents returned, dW summed) against K1 on the global table (1e-5
+     of scale; whether bitwise is printed); shard 0 of each 2-way split
+     timed beside its plain version and its bound;
+  7h. graph-parallel training over torch.distributed ranks spawned on the
+     card (parallel/distributed.py::spawn; gloo, each halo through host
+     memory, unless every rank has a card of its own: then NCCL), 3
+     make_gp_train_step steps each from the weights of a single-process
+     make_train_step run on the card of the same batch and augmentation:
+     the SEGMENTATION preset at full width with the banded ECHO on the
+     seg_n2048_b4 serving batch over (n_data, n_graph) = (1, 2) (8 blocks a
+     shard: the overlapped path), and the CLASSIFICATION preset with the
+     banded lift on the SHREC11-sized batch padded to 768 rows over (2, 2)
+     (3 blocks a shard, nh 2: the serial path), then five unfused convs
+     over each rank's shard (K9's contrib each way).  Losses within 2e-4
+     relative of the single-process run's, the step-1 gradients within
+     route_check's bars (the segmentation preset's widened by 7e's rounding
+     spread), every rank's parameters bitwise equal after every step, the
+     exact K9 launches, the convs' exchanged bytes equal to
+     parallel/comm_model.py::conv_halo_bytes for the rank's neighbours;
+     step times on the host clock, labelled with the ranks, cards and
+     backend (not a scaling figure).
+
 The CPU's side of every first-epoch check of 6-7d (fit(device="cpu"))
 runs in one worker process, started with the records and stopped with the
 script, beside the card's phases.
@@ -265,7 +297,8 @@ from fieldconv_tpu_torch.ops.band_conv import (_hats_from_r, _panel_pairs,
                                                band_sparse_bwd_reference,
                                                band_sparse_fwd,
                                                band_sparse_reference,
-                                               field_conv_banded)
+                                               field_conv_banded,
+                                               rotated_source_tensor_kmajor)
 from fieldconv_tpu_torch.ops.compact_fold import (compact_fold,
                                                   compact_fold_reference)
 from fieldconv_tpu_torch.ops.echo_panel import (echo_compact_grid,
@@ -276,12 +309,20 @@ from fieldconv_tpu_torch.ops.echo_panel import (echo_compact_grid,
                                                 echo_panel_grid_bwd,
                                                 echo_panel_grid_bwd_reference,
                                                 echo_panel_grid_reference)
+from fieldconv_tpu_torch.ops.field_conv import (apply_filters,
+                                                filter_coefficients)
 from fieldconv_tpu_torch.precomp.banded import (build_block_sparse_banded,
                                                 build_compact_panel_table,
                                                 build_compressed_banded,
                                                 build_panel_table,
                                                 cast_panel_sten,
                                                 stack_block_sparse_tables)
+from fieldconv_tpu_torch.parallel import comm_model, halo
+from fieldconv_tpu_torch.parallel.distributed import make_layout, spawn
+from fieldconv_tpu_torch.parallel.gp import (gp_batch, make_gp_train_step,
+                                             make_gp_value_and_grad,
+                                             place_gp_batch)
+from fieldconv_tpu_torch.parallel.sharding import replicate
 from fieldconv_tpu_torch.scripts import train_100k
 from fieldconv_tpu_torch.ops.trans_field import (_compact_lift_agg_bwd,
                                                  _lift_sums, _runs,
@@ -338,6 +379,18 @@ K4_K1_ATOL, K4_K1_GRAD = 2e-5, (3e-4, 1e-3)
 # same products, summed in another order where a block's list is not its
 # window's order)
 K8_RTOL_SCALE = 1e-4
+# K9 (the halo conv) against its plain version as K1: each output to 1e-4
+# of its scale, the backward bitwise against a second call.  The shards
+# joined against K1 on the global table: each shard reads the same window
+# values as K1 and sums them in K1's order, but a shard's boundary rows
+# take dG from up to three launches added in turn, and dW sums over
+# shards: 1e-5 of scale (f32 rounding of a few additions)
+K9_RTOL_SCALE, K9_JOIN_RTOL = 1e-4, 1e-5
+# graph-parallel fits: steps of make_gp_train_step, and their losses
+# against the single-process make_train_step on the card (the sums of the
+# pool, the loss and dW taken over ranks in another order, then one or two
+# Adam updates: LOSS_ATOL_STEP1's rounding, relative)
+GP_STEPS, GP_LOSS_RTOL = 3, 2e-4
 # the pure-panel request at the repo's north-star size (BASELINE.json
 # configs[4]: a correspondence mesh of 163,842 vertices, scripts/
 # train_100k.py), under layout="auto"
@@ -402,11 +455,13 @@ CONVS_PER_PASS = {"shrec11_b8": 5, "seg_n2048_b4": 9, "corr_n5120_b1": 17,
                   "seg_n2048_b4_compact": 9,
                   f"corr_n{N_LARGE}_b1_compact": 17,
                   f"corr_n{N_LARGE}_b1_allcompact": 17,
-                  "seg_n2048_b4_bech": 9, "corr_n5120_b1_bech": 17}
+                  "seg_n2048_b4_bech": 9, "corr_n5120_b1_bech": 17,
+                  "seg_n2048_b4_gp1x2": 9, "shrec11_b8_gp2x2": 5}
 # the kernels' short names in the printed lines
 SHORT = {"band_fused": "K1", "echo_panel": "K2", "band_panel": "K5",
          "band_compact": "K6", "echo_compact": "K7", "band_cfused": "K4",
-         "band_contrib": "K3", "band_sparse": "K8"}
+         "band_contrib": "K3", "band_sparse": "K8", "halo_fused": "K9",
+         "halo_contrib": "K9 contrib"}
 # the fit at N_LARGE: the CORRESPONDENCE preset's 60 epochs cut to 3 (one
 # record, so 3 steps); nothing else is cut
 LARGE_EPOCHS = 3
@@ -474,11 +529,12 @@ def time_cuda(fn, iters, reps=5, warmup=2):
 def request_breakdown(fn, top=6):
     """One call of fn() under torch.profiler: the device time of each
     kernel name, their sum, and that sum's share of the call's wall time
-    (which the profiler itself inflates)."""
+    (which the profiler itself inflates).  The trace holds the device's
+    activity only: the host's operator events (tens of thousands a training
+    step) took seconds a call to aggregate."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -498,9 +554,11 @@ def kernel_name(key):
     return m.group(1) if m else key
 
 
-def time_host(fn, reps=5):
-    """Median wall ms of fn() (which must end in a device sync)."""
-    fn()
+def time_host(fn, reps=5, warmup=True):
+    """Median wall ms of fn() (which must end in a device sync), after a
+    warm-up call unless the caller's path has just run (warmup=False)."""
+    if warmup:
+        fn()
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -941,7 +999,7 @@ def k5_time(row, g, wmat, panel):
     args = _k5_args(g, wmat, panel)
     row["ms"] = time_cuda(lambda: band_panel_fwd(*args), iters=10)
     row["plain_ms"] = time_cuda(lambda: band_panel_fwd_reference(*args),
-                                iters=1, reps=3)
+                                iters=1, reps=1, warmup=1)
     row.update(k5_bound(g, wmat, panel))
 
 
@@ -971,7 +1029,7 @@ def k5_bwd_time(row, g, wmat, dy, panel):
     row["plain_ms"] = time_cuda(
         lambda: band_panel_bwd_reference(dy, g, wmat, panel.sten,
                                          panel.meta_s, *args[6:]),
-        iters=1, reps=3)
+        iters=1, reps=1, warmup=1)
     row.update(k5_bwd_bound(g, wmat, dy, panel))
 
 
@@ -1030,7 +1088,7 @@ def k6_time(row, g, wmat, comp):
     args = _k6_args(g, wmat, comp)
     row["ms"] = time_cuda(lambda: band_compact_fwd(*args), iters=10)
     row["plain_ms"] = time_cuda(lambda: band_compact_fwd_reference(*args),
-                                iters=1, reps=3)
+                                iters=1, reps=1, warmup=1)
     row.update(k6_bound(g, wmat, comp))
 
 
@@ -1154,7 +1212,7 @@ def k6_bwd_time(row, g, wmat, dy, comp):
     args = _k6_bwd_args(g, wmat, dy, comp)
     row["ms"] = time_cuda(lambda: band_compact_bwd(*args), iters=5)
     row["plain_ms"] = time_cuda(lambda: k6_bwd_plain(dy, g, wmat, comp),
-                                iters=1, reps=3)
+                                iters=1, reps=1, warmup=1)
     row.update(k6_bwd_bound(g, wmat, dy, comp))
 
 
@@ -1779,8 +1837,10 @@ def time_request(k, p, rs_, bs_, what, card, large=False):
     predict (the forward over placed tables and the output copy), then one
     predict under the profiler (wall, device busy share, top kernels).  A
     large request (N_LARGE) also times Predictor.logits alone and reads the
-    peak device memory of one request beside what was allocated before it."""
-    reps = 2 if large else 5
+    peak device memory of one request beside what was allocated before it.
+    A large request (2.0-2.8 s) is timed once, with no warm-up call: its
+    path ran in the serving phases."""
+    reps, warm = (1, False) if large else (3, True)
     if large:
         def logits_synced():
             p.logits(bs_[0])
@@ -1789,13 +1849,14 @@ def time_request(k, p, rs_, bs_, what, card, large=False):
         torch.cuda.synchronize()
         base_gb = torch.cuda.memory_allocated() / 1e9
         torch.cuda.reset_peak_memory_stats()
-        ms = time_host(logits_synced, reps=reps)
+        ms = time_host(logits_synced, reps=reps, warmup=warm)
         print(f"request {k}: Predictor.logits {ms:.3f} ms on the placed "
               f"batch (ending in a sync, the logits left on the card), "
               f"peak device memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
               f"({base_gb:.2f} GB allocated before it), on {card}")
-    ms = time_host(lambda: p.predict(rs_, batches=bs_), reps=reps)
+    ms = time_host(lambda: p.predict(rs_, batches=bs_), reps=reps,
+                   warmup=warm)
     print(f"request {k}: {ms:.3f} ms per request (forward over placed "
           f"tables, {what}) on {card}")
     wall, busy, kern = request_breakdown(
@@ -2391,9 +2452,9 @@ def large_bf16_request(k, p_conv, p_compact, batch16, batch16_a, batch32):
 
 
 def time_t100k(what, batch, seed, card):
-    """A train_100k step on ``batch`` timed: the host clock (2 steps, each
-    ending in a sync, after a warm-up step), then one under the profiler
-    (wall, device busy share, top kernels)."""
+    """A train_100k step on ``batch`` timed: the host clock (1 step, ending
+    in a sync; 7g ran the path), then one under the profiler (wall, device
+    busy share, top kernels)."""
     net = train_100k.build_net(seed, batch.pos.device)
     step = train_100k.make_step(net, batch, seed)
 
@@ -2401,7 +2462,7 @@ def time_t100k(what, batch, seed, card):
         step()
         torch.cuda.synchronize()
 
-    ms = time_host(synced, reps=2)
+    ms = time_host(synced, reps=1, warmup=False)
     print(f"train step {what}: {ms:.3f} ms per step (host clock, ending in "
           f"a sync) on {card}")
     wall, busy, kern = request_breakdown(synced, top=12)
@@ -2432,16 +2493,475 @@ def conv_fwd_bwd(banded, dev, gen, C=32, B=2, R=6, n_convs=5,
     return run
 
 
+# --- K9 against its plain version, and graph-parallel training ----------------
+
+def k9_shards(g, sten, S, nh):
+    """The S shards of a global g (n_mesh, N, M) and its dense stencil: per
+    shard its rows, its stencil blocks and its left and right halo rows,
+    sliced from g on the card (zeros at the ends of the ring)."""
+    n, hw = g.shape[1] // S, nh * TB
+    nb = n // TB
+    zero = g.new_zeros(g.shape[0], hw, g.shape[2])
+    return [(g[:, d * n:(d + 1) * n].contiguous(),
+             sten[:, d * nb:(d + 1) * nb].contiguous(),
+             g[:, d * n - hw:d * n].contiguous() if d else zero,
+             g[:, (d + 1) * n:(d + 1) * n + hw].contiguous()
+             if d < S - 1 else zero)
+            for d in range(S)]
+
+
+def k9_launches(rows, left, right, nb, nh):
+    """(what, source array, blk_off, lo, hi) of each K9 launch over a
+    shard: the serial one, and where nb > 2·nh the overlapped path's
+    interior, head and tail."""
+    hw = nh * TB
+    out = [("serial", torch.cat([left, rows, right], 1), 0, 0, nb)]
+    if halo.overlaps(nb, nh):
+        out += [("interior", rows, -nh, nh, nb - nh),
+                ("head", torch.cat([left, rows[:, :2 * hw]], 1), 0, 0, nh),
+                ("tail", torch.cat([rows[:, -2 * hw:], right], 1), nh - nb,
+                 nb - nh, nb)]
+    return out
+
+
+def k9_bound(src, sten, wmat, lo, hi, bwd=False):
+    """Least time for one K9 call over target blocks lo..hi−1, counted as
+    k1_bound (forward) or k1_bwd_bound (bwd) count K1's: bytes (the range's
+    stencil, its source array, whose rows its windows read, the range's
+    local targets and the halo rows, and W read once; y, or dg and dW,
+    written once) over HBM rate, and the f32 operations this data needs
+    over the f32 rate."""
+    n_mesh, n_src, M = src.shape
+    R, _, O2 = wmat.shape
+    st = sten[:, lo:hi]
+    K = (st.shape[2] - R) // 2
+    nnz, occupied = _stencil_counts(st, R)
+    targets = n_mesh * (hi - lo) * TB
+    filt = 2 * targets * R * M * O2
+    flops = _stencil_ops(nnz, occupied, K, M // (2 * K)) + filt
+    nbytes = 4 * (st.numel() + src.numel() + wmat.numel() + targets * O2)
+    if bwd:
+        flops += _stencil_ops(nnz, occupied, K, M // (2 * K),
+                              transposed=True) + filt
+        nbytes += 4 * (src.numel() + wmat.numel())
+    return _bound(nbytes, flops)
+
+
+def k9_contrib_bound(src, sten, R, lo, hi, bwd=False):
+    """Least time for one K9 contrib call (as k3_bound / k3_bwd_bound):
+    the range's stencil, and the source array and contrib (bwd: the
+    contrib cotangent and dG of the source array), each once."""
+    n_mesh, n_src, M = src.shape
+    st = sten[:, lo:hi]
+    K = (st.shape[2] - R) // 2
+    nnz, occupied = _stencil_counts(st, R)
+    nbytes = 4 * (st.numel() + src.numel()
+                  + n_mesh * (hi - lo) * TB * R * M)
+    return _bound(nbytes, _stencil_ops(nnz, occupied, K, M // (2 * K),
+                                       transposed=bwd))
+
+
+def k9_check(label, g, sten, wmat, nh, S, gen, timed):
+    """K9 over the S shards of a global table on the card.  Every launch a
+    shard makes (serial; overlapped interior, head and tail) against its
+    plain version each way, and K9's contrib each way on the serial
+    launches: each output within K9_RTOL_SCALE of its scale, and a second
+    call bitwise equal (every output row has one writer).  Then the
+    shards joined, serial and overlapped (halo.shard_conv_fwd /
+    shard_conv_bwd, the halo cotangents returned by hand), against K1 on
+    the global table: y and dG within K9_JOIN_RTOL of scale, dW summed over
+    shards too; whether bitwise is printed.  Shard 0's launches are timed
+    (CUDA events) where ``timed`` names them; returns the timed rows
+    (forward, backward, contrib, contrib backward)."""
+    n_mesh, N, M = g.shape
+    R, _, O2 = wmat.shape
+    K = (sten.shape[2] - R) // 2
+    worst = Counter()
+    rows = ([], [], [], [])
+
+    def hold(kind, got, want):
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        check(torch.isfinite(got).all().item(), f"{kind} {label}: non-finite")
+        check(err <= K9_RTOL_SCALE * scale,
+              f"{kind} {label}: max abs err {err} > {K9_RTOL_SCALE} x {scale}")
+        worst[kind] = max(worst[kind], err / scale)
+        return err
+
+    shards = k9_shards(g, sten, S, nh)
+    for d, (rows_d, st, left, right) in enumerate(shards):
+        nb = st.shape[1]
+        for what, src, off, lo, hi in k9_launches(rows_d, left, right, nb,
+                                                  nh):
+            a = (TB, nh, off, lo, hi)
+            fwd = lambda: halo.halo_fused_fwd(src, st, wmat, *a)
+            y = fwd()[:, lo * TB:hi * TB]
+            err = hold("K9", y, halo.halo_fused_fwd_reference(src, st, wmat,
+                                                              *a))
+            check(torch.equal(y, fwd()[:, lo * TB:hi * TB]),
+                  f"K9 {label} {what}: two calls differ")
+            dy = torch.randn(n_mesh, (hi - lo) * TB, O2, device=g.device,
+                             generator=gen)
+            bwd = lambda: halo.halo_fused_bwd(dy, src, st, wmat, *a)
+            dg, dw = bwd()
+            want_dg, want_dw = halo.halo_fused_bwd_reference(dy, src, st,
+                                                             wmat, *a)
+            errb = max(hold("K9 bwd", dg, want_dg), hold("K9 bwd", dw,
+                                                          want_dw))
+            dg2, dw2 = bwd()
+            check(torch.equal(dg, dg2) and torch.equal(dw, dw2),
+                  f"K9 bwd {label} {what}: two calls differ")
+            shape = dict(shape=f"{label}, {S} shards, shard 0 {what}",
+                         n_mesh=n_mesh, n_src=src.shape[1], M=M, O2=O2,
+                         blocks=hi - lo)
+            if d == 0 and what in timed:
+                row = dict(shape, max_abs_err=err)
+                row["ms"] = time_cuda(fwd, iters=20)
+                row["plain_ms"] = time_cuda(
+                    lambda: halo.halo_fused_fwd_reference(src, st, wmat, *a),
+                    iters=2, reps=3)
+                row.update(k9_bound(src, st, wmat, lo, hi))
+                rows[0].append(row)
+                row = dict(shape, max_abs_err=errb)
+                row["ms"] = time_cuda(bwd, iters=10)
+                row["plain_ms"] = time_cuda(
+                    lambda: halo.halo_fused_bwd_reference(dy, src, st, wmat,
+                                                          *a),
+                    iters=2, reps=3)
+                row.update(k9_bound(src, st, wmat, lo, hi, bwd=True))
+                rows[1].append(row)
+            if what != "serial":
+                continue
+            ca = (TB, nh, R, K, off, lo, hi)
+            cfwd = lambda: halo.halo_contrib_fwd(src, st, *ca)
+            out = cfwd()
+            errc = hold("K9 contrib", out,
+                        halo.halo_contrib_reference(src, st, *ca))
+            dout = torch.randn(out.shape, device=g.device, generator=gen)
+            ba = (TB, nh, R, K, src.shape[1], off, lo, hi)
+            cbwd = lambda: halo.halo_contrib_bwd(dout, st, *ba)
+            dgc = cbwd()
+            errcb = hold("K9 contrib bwd", dgc,
+                         halo.halo_contrib_bwd_reference(dout, st, *ba))
+            check(torch.equal(dgc, cbwd()),
+                  f"K9 contrib bwd {label}: two calls differ")
+            if d == 0 and what in timed:
+                for i, (run, plain, err_, bwd_) in enumerate((
+                        (cfwd, lambda: halo.halo_contrib_reference(src, st,
+                                                                   *ca),
+                         errc, False),
+                        (cbwd, lambda: halo.halo_contrib_bwd_reference(
+                            dout, st, *ba), errcb, True))):
+                    row = dict(shape, max_abs_err=err_)
+                    row["ms"] = time_cuda(run, iters=20)
+                    row["plain_ms"] = time_cuda(plain, iters=2, reps=3)
+                    row.update(k9_contrib_bound(src, st, R, lo, hi, bwd_))
+                    rows[2 + i].append(row)
+    # the shards joined, against K1 on the global table
+    dy = torch.randn(n_mesh, N, O2, device=g.device, generator=gen)
+    k1_y = band_fused_fwd(g, sten, wmat, TB, nh)
+    k1_dg, k1_dw = band_fused_bwd(dy, g, sten, wmat, TB, nh)
+    hw, n = nh * TB, N // S
+    joined = []
+    for overlap in (False, True):
+        ys, srcs, sent = [], [], {}
+        for rows_d, st, left, right in shards:
+            y_d, src = halo.shard_conv_fwd(
+                rows_d, wmat, st, TB, nh, lambda l=left, r=right: (l, r),
+                overlap and halo.overlaps(st.shape[1], nh))
+            ys.append(y_d)
+            srcs.append(src)
+        dgs, dw = [], 0
+        for d, (_, st, _, _) in enumerate(shards):
+            def send(d_left, d_right, d=d):
+                sent[d] = (d_left, d_right)
+                return lambda: (torch.zeros_like(d_left),
+                                torch.zeros_like(d_right))
+            dg_d, dw_d = halo.shard_conv_bwd(
+                dy[:, d * n:(d + 1) * n].contiguous(), srcs[d], wmat, st, TB,
+                nh, send)
+            dgs.append(dg_d)
+            dw = dw + dw_d
+        for d in range(S):
+            if d > 0:
+                dgs[d - 1][:, -hw:] += sent[d][0]
+            if d < S - 1:
+                dgs[d + 1][:, :hw] += sent[d][1]
+        got = (torch.cat(ys, 1), torch.cat(dgs, 1), dw)
+        rel = []
+        for name, a, b in zip(("y", "dg", "dw"), got, (k1_y, k1_dg, k1_dw)):
+            err = (a - b).abs().max().item()
+            scale = b.abs().max().item()
+            check(err <= K9_JOIN_RTOL * scale,
+                  f"K9 {label} {S} shards joined (overlap {overlap}): "
+                  f"{name} {err} > {K9_JOIN_RTOL} x {scale} from K1's")
+            rel.append(f"{name} {err / scale:.2e}"
+                       + (" (bitwise)" if torch.equal(a, b) else ""))
+        joined.append(f"{'overlapped' if overlap else 'serial'}: "
+                      + ", ".join(rel))
+    print(f"K9 {label}, {S} shards (nb {sten.shape[1] // S} a shard, nh "
+          f"{nh}): every launch against its plain version, largest error "
+          + ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst.items()))
+          + f" of scale (tolerance {K9_RTOL_SCALE}); backwards bitwise "
+          "across two calls; the shards joined against K1 on the global "
+          f"table (tolerance {K9_JOIN_RTOL}): " + "; ".join(joined))
+    return rows
+
+
+def gp_rank(rank, world, n_data, n_graph, cfg, n_classes, weights, gpb,
+            augs, unfused):
+    """One rank of a graph-parallel fit on the card (its own where NCCL
+    runs), in its own process (spawn; it loads the kernel libraries the
+    parent built): the net of
+    ``cfg`` on the rank's graph axis holding ``weights`` (then replicated
+    from rank 0), the loss and gradients of make_gp_value_and_grad with
+    the first step's augmentation (uncounted), then one make_gp_train_step
+    step per entry of ``augs`` (the whole batch's augmentation of that
+    step), counted, each timed on the host clock, with the parameters after
+    it; with ``unfused``, then five unfused 32→32 convs forward and
+    backward over the rank's stencil shard (K9's contrib each way),
+    counted apart."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    layout = make_layout(n_data, n_graph)
+    net = build_model(cfg, n_classes, device=dev, graph=layout.graph)
+    net.load_state_dict(weights)
+    replicate(net, layout)
+    local = place_gp_batch(gpb, layout, dev)
+
+    def on(aug):
+        return tuple(None if a is None else a.to(dev) for a in aug)
+
+    loss1, grads1 = make_gp_value_and_grad(net, cfg, n_classes, layout)(
+        local, aug=on(augs[0]))
+    opt = make_optimizer(cfg, net.parameters())
+    step = make_gp_train_step(net, cfg, n_classes, opt, layout)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    halo.wire_bytes.clear()
+    losses, params, ms = [], [], []
+    for aug in augs:
+        t0 = time.perf_counter()
+        loss = step(local, aug=on(aug))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        params.append(torch.cat([p.detach().reshape(-1)
+                                 for p in net.parameters()]))
+    out = dict(loss1=loss1.item(), grads1=list(grads1), losses=losses,
+               params=params, ms=ms, launches=dict(kernels.launches),
+               wire_bytes=dict(halo.wire_bytes))
+    if unfused:
+        _, banded, _ = local.tables()
+        gen = torch.Generator(device=dev).manual_seed(rank)
+        x = torch.randn(*local.pos.shape[:2], 32, 2, device=dev,
+                        generator=gen).requires_grad_()
+        B, R = cfg.band_limit, cfg.n_rings
+        shapes = ((32, 32, R), (32, 32, R, B, 2), (32, 32, B + 1))
+        filters = [[(0.2 * torch.randn(sh, device=dev, generator=gen))
+                    .requires_grad_() for sh in shapes] for _ in range(5)]
+        kernels.reset_launches()
+        g = rotated_source_tensor_kmajor(x, B)
+        ys = [apply_filters(halo.halo_contrib(g, banded, layout.graph),
+                            filter_coefficients(*f, 1, banded.band_limit))
+              for f in filters]
+        torch.autograd.backward(ys, [torch.ones_like(ys[0])] * 5)
+        torch.cuda.synchronize()
+        check(torch.isfinite(x.grad).all().item(), "unfused convs: dx")
+        out["unfused_launches"] = dict(kernels.launches)
+    return out
+
+
+def gp_fit(k, cfg, n_classes, net, batch, n_data, n_graph, seed, spread,
+           card, unfused=False):
+    """A graph-parallel fit on the card: GP_STEPS make_gp_train_step steps
+    over (n_data, n_graph) ranks (gp_rank), as processes sharing the cards
+    over gloo unless every rank has a card of its own (then NCCL), from
+    ``net``'s weights, against a single-process run of make_train_step on
+    the same placed ``batch`` with the same augmentation (step 1: the draw
+    route_check makes).  Holds the losses within GP_LOSS_RTOL, the step-1
+    gradients within grad_bar (``spread``: each gradient's rounding spread
+    relative to its scale, from route_check), every rank's parameters
+    bitwise equal after every step, the exact K9 launches, and the conv
+    exchanges' bytes against comm_model.conv_halo_bytes.  Returns the
+    launches summed over the ranks (and the unfused convs' apart)."""
+    dev = batch.pos.device
+    B, N = batch.pos.shape[:2]
+    gen = torch.Generator().manual_seed(seed + 3)
+    augs = [draw_rotate_scale(gen, B, cfg.random_rotate_deg,
+                              cfg.random_scale) for _ in range(GP_STEPS)]
+
+    def on(aug):
+        return tuple(None if a is None else a.to(dev) for a in aug)
+
+    ref = build_model(cfg, n_classes, device=dev)
+    ref.load_state_dict(net.state_dict())
+    names, params = zip(*ref.named_parameters())
+    loss1 = make_loss_fn(ref, cfg, n_classes)(batch, aug=on(augs[0]))
+    grads1 = [g.cpu() for g in torch.autograd.grad(loss1, params)]
+    opt = make_optimizer(cfg, ref.parameters())
+    step = make_train_step(ref, cfg, n_classes, opt)
+    single = [step(batch, aug=on(a)).item() for a in augs]
+    world = n_data * n_graph
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    nh, n_local = batch.banded.nh, N // n_graph
+    nb_local = n_local // TB
+    overlap = halo.overlaps(nb_local, nh)
+    what = (f"{world} rank(s) on {torch.cuda.device_count()} card(s) over "
+            f"{backend}")
+    print(f"train {k} graph-parallel: (n_data, n_graph) = ({n_data}, "
+          f"{n_graph}), {what} (backend chosen: {backend}, since "
+          f"{torch.cuda.device_count()} card(s) for {world} ranks); "
+          f"{B // n_data} mesh(es) a rank, {n_local} rows ({nb_local} "
+          f"blocks) a shard, nh {nh}: the "
+          f"{'overlapped' if overlap else 'serial'} halo path")
+    check(not any(kernels._stale(n) for n in kernels.sources()),
+          "a kernel library is older than its source: the ranks would build")
+    t0 = time.perf_counter()
+    out = spawn(gp_rank, world, args=(
+        n_data, n_graph, cfg, n_classes,
+        {n: v.detach().cpu() for n, v in net.state_dict().items()},
+        gp_batch(batch.to("cpu")), augs, unfused), backend=backend)
+    spawn_s = time.perf_counter() - t0
+    for s in range(GP_STEPS):
+        for r, o in enumerate(out):
+            check(abs(o["losses"][s] - single[s]) <= GP_LOSS_RTOL
+                  * abs(single[s]),
+                  f"{k} graph-parallel step {s + 1}, rank {r}: loss "
+                  f"{o['losses'][s]}, single-process {single[s]}")
+            check(np.array_equal(o["params"][s], out[0]["params"][s]),
+                  f"{k} graph-parallel step {s + 1}: rank {r}'s parameters "
+                  "differ from rank 0's")
+    got = [torch.from_numpy(g) for g in out[0]["grads1"]]
+    check(all(np.array_equal(a, b) for o in out
+              for a, b in zip(o["grads1"], out[0]["grads1"])),
+          f"{k} graph-parallel: the ranks' step-1 gradients differ")
+    hold_grads(f"{k} graph-parallel step 1", names, got, grads1,
+               [spread.get(n, 0.0) * max(g.abs().max().item(), 1e-30)
+                for n, g in zip(names, grads1)],
+               f"{what}: loss {out[0]['loss1']:.6f}, single-process "
+               f"{loss1.item():.6f}")
+    launches = Counter()
+    for o in out:
+        launches.update(o["launches"])
+    per = GP_STEPS * world * CONVS_PER_PASS[k] * (3 if overlap else 1)
+    want = {"halo_fused_fwd": per, "halo_fused_bwd": per}
+    check(dict(launches) == want,
+          f"{k} graph-parallel: {GP_STEPS} steps on {world} ranks launched "
+          f"{dict(launches)}, want {want}")
+    model = comm_model.conv_halo_bytes(nh, TB, cfg.band_limit, cfg.nf)
+    per_conv = model["fwd_ppermute"] * (B // n_data)
+    for r, o in enumerate(out):
+        g_rank = r % n_graph
+        sides = (g_rank > 0) + (g_rank < n_graph - 1)
+        sent = o["wire_bytes"].get("conv", 0) / GP_STEPS
+        want_b = CONVS_PER_PASS[k] * per_conv * sides / 2
+        check(sent == want_b and o["wire_bytes"].get("conv return", 0)
+              == sent * GP_STEPS,
+              f"{k} graph-parallel rank {r}: the convs' exchanges sent "
+              f"{sent} bytes a step, conv_halo_bytes gives {want_b}")
+    r_ms = [statistics.median(o["ms"][1:]) for o in out]
+    p_diff = np.abs(out[0]["params"][-1] - torch.cat(
+        [p.detach().reshape(-1) for p in ref.parameters()]).cpu().numpy()
+    ).max()
+    print(f"train {k} graph-parallel: {GP_STEPS} make_gp_train_step steps, "
+          f"losses {[round(v, 6) for v in out[0]['losses']]} (single-process "
+          f"make_train_step {[round(v, 6) for v in single]}, within "
+          f"{GP_LOSS_RTOL} relative); parameters bitwise equal on every rank"
+          f" after every step, {p_diff:.3e} from the single-process run's "
+          f"after step {GP_STEPS}; launches {dict(launches)}; step "
+          f"{', '.join(f'{m:.1f}' for m in r_ms)} ms a rank (host clock, "
+          f"median of steps 2-{GP_STEPS}; {what}: not a scaling figure); "
+          f"{spawn_s:.1f} s with the ranks' start; the convs' halo exchange "
+          f"sent {out[0]['wire_bytes'].get('conv', 0) / GP_STEPS:.0f} bytes "
+          f"a step on rank 0 ({CONVS_PER_PASS[k]} convs x "
+          f"comm_model.conv_halo_bytes {model['fwd_ppermute']} B a mesh for "
+          f"a rank with two neighbours x {B // n_data} meshes, halved for "
+          f"one), the lift's and ECHO's "
+          f"{out[0]['wire_bytes'].get('rows', 0) / GP_STEPS:.0f}; on {card}")
+    unfused_launches = Counter()
+    for o in out:
+        unfused_launches.update(o.get("unfused_launches", {}))
+    if unfused:
+        want = {"halo_contrib_fwd": 5 * world, "halo_contrib_bwd": 5 * world}
+        check(dict(unfused_launches) == want,
+              f"{k} graph-parallel unfused convs launched "
+              f"{dict(unfused_launches)}, want {want}")
+        print(f"train {k} graph-parallel: five unfused convs over each "
+              f"rank's shard launched {dict(unfused_launches)}")
+    return dict(launches), dict(unfused_launches)
+
+
+def gp_phase(config, net, small, seg_cfg, seg_net, seg_batch, seg_spread,
+             dev, seed, card):
+    """Phase 7h: gp_fit of the segmentation batch ``seg_batch`` (weights
+    of ``seg_net``; ``seg_spread`` its route_check rounding spread) over
+    (1, 2), then of the SHREC11-sized records ``small`` with the banded
+    lift, padded to a multiple of 2·TB rows, over (2, 2), with the five
+    unfused convs.  Returns the launches of the fits' steps and of the
+    unfused convs, summed over their ranks."""
+    gp_cfg = dataclasses.replace(config, lift_impl="banded")
+    n_gp, d_gp = shared_bucket(small, n_multiple=2 * TB)
+    gp_cls = make_batches(small, gp_cfg, 8, TB, n_gp, d_gp, device=dev)[0]
+    check(gp_cls.comp is not None and gp_cls.pos.shape[1] == n_gp,
+          "shrec11_b8_gp2x2: not a banded batch of the padded size")
+    train, _ = gp_fit("seg_n2048_b4_gp1x2", seg_cfg, 8, seg_net, seg_batch,
+                      1, 2, seed, seg_spread, card)
+    got, unfused = gp_fit("shrec11_b8_gp2x2", gp_cfg, N_CLASSES, net, gp_cls,
+                          2, 2, seed, {}, card, unfused=True)
+    return dict(Counter(train) + Counter(got)), unfused
+
+
+def graph_parallel_only(args) -> int:
+    """--graph-parallel: phase 7h alone on the machine's cards (NCCL where
+    every rank has a card of its own), its segmentation spread from 7e's
+    route check of the same batch, and the kernels' launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"card: {card}; {torch.cuda.device_count()} card(s)")
+    kernels.build_all()
+    rng = np.random.default_rng(args.seed)
+    config = PRESETS["classification"]
+    small = shrec_records(rng, config.epsilon)
+    seg_cfg = dataclasses.replace(PRESETS["segmentation"], echo_impl="banded")
+    recs = echo_records(rng, 2048, 4, seg_cfg.epsilon, 8, "seg")
+    seg_net = build_model(seg_cfg, 8, device=dev,
+                          generator=torch.Generator().manual_seed(
+                              args.seed + 10))
+    batch = make_batches(recs, seg_cfg, 4, TB, device=dev)[0]
+    cpu_b = make_batches(recs, seg_cfg, 4, TB, device="cpu")[0]
+    _, _, _, rel = route_check("seg_n2048_b4_bech", seg_cfg, 8,
+                               seg_net.state_dict(), batch, cpu_b, dev,
+                               args.seed)
+    net = build_model(config, N_CLASSES, device=dev,
+                      generator=torch.Generator().manual_seed(args.seed))
+    train, unfused = gp_phase(config, net, small, seg_cfg, seg_net, batch,
+                              rel, dev, args.seed, card)
+    print(json.dumps({"train_graph_parallel": train,
+                      "unfused_graph_parallel": unfused}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 # --- main ------------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--graph-parallel", action="store_true",
+                    help="run phase 7h alone, on every card of the machine "
+                    "(NCCL where each rank has a card)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if args.graph_parallel:
+        return graph_parallel_only(args)
     # one worker process for the CPU's reference fits; on the way out the
     # jobs not started are dropped and the worker stops
     pool = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
@@ -2863,7 +3383,32 @@ def phases(args, pool) -> int:
     print_times("K8", k8_rows[:6], card)
     print_times("K8 bwd", k8b_rows[:6], card)
 
-    stamp("K1, K3, K4 and K8 checked")
+    # 2d. K9 (the halo conv of graph-parallel training, fused and contrib,
+    # each way) against its plain version, on the dense bands of the
+    # segmentation batch (C=48, O2=96) and of n8192 (C=32, O2=64), each
+    # split into 2 and into 4 shards whose halo rows are sliced from the
+    # global g on the card: every launch of the serial and overlapped paths
+    # both ways, the contrib both ways, and the shards joined against K1 on
+    # the global table; shard 0 of each 2-way split timed
+    k9_rows, k9b_rows, k9c_rows, k9cb_rows = [], [], [], []
+    for label, bt, C_, O2 in (
+            ("seg_n2048_b4", echo_batches["seg_n2048_b4"][0].banded, 48, 96),
+            ("n8192", b8192.banded, 32, 64)):
+        g, wmat = k1_inputs(bt.sten_band, bt.n_rings, C_, O2, gen)
+        for S in (2, 4):
+            got = k9_check(f"{label} C={C_} O2={O2}", g, bt.sten_band, wmat,
+                           bt.nh, S, gen,
+                           ("serial", "interior") if S == 2 else ())
+            for acc, rs_ in zip((k9_rows, k9b_rows, k9c_rows, k9cb_rows),
+                                got):
+                acc.extend(rs_)
+        del g, wmat
+    for what, rs_ in (("K9", k9_rows), ("K9 bwd", k9b_rows),
+                      ("K9 contrib", k9c_rows),
+                      ("K9 contrib bwd", k9cb_rows)):
+        print_times(what, rs_, card)
+
+    stamp("K1, K3, K4, K8 and K9 checked")
     # 3. K2 against its plain version on the records' own panels
     k2_rows, k2_timed = [], []
     for key, C_ in (("seg_n2048_b4", 48), ("corr_n5120_b1", 12)):
@@ -2952,7 +3497,9 @@ def phases(args, pool) -> int:
         x = k2_inputs(ct, C_, gen)
         k7_rows.append(k7_check(f"{label} C={C_} n_bins={n_bins}", x, ct,
                                 n_bins))
-        k7_time(k7_rows[-1], x, ct, n_bins)
+        # the plain version takes seconds a call at 163k
+        k7_time(k7_rows[-1], x, ct, n_bins,
+                plain=(1, 0) if ct is comp_big else (3, 2))
     del g, wmat, x
 
     # 3e. K6's and K7's backwards and the compact fold against their plain
@@ -3279,12 +3826,12 @@ def phases(args, pool) -> int:
     # every gradient on paths A and B against the CPU's on the same batch
     # (uncounted), then one make_train_step step with the compressed table
     # as the conv table, counted: 9 / 17 K4 each way, nothing else
-    cb_trained, cb_train = {}, Counter()
+    cb_trained, cb_train, bech_rel = {}, Counter(), {}
     for k, cfg in bech_cfg.items():
         n_classes = echo_classes[bech_of[k]]
         cpu_b = make_batches(bech_recs[k], cfg, len(bech_recs[k]), TB,
                              device="cpu")[0]
-        net_, opt_, kw, _ = route_check(
+        net_, opt_, kw, bech_rel[k] = route_check(
             k, cfg, n_classes, echo_nets[bech_of[k]].state_dict(),
             bech_batches[k][0], cpu_b, dev, args.seed)
         step = make_train_step(net_, cfg, n_classes, opt_)
@@ -3306,6 +3853,14 @@ def phases(args, pool) -> int:
     train_launches["train_cbanded"] = dict(cb_train)
 
     stamp("path B trained")
+    # 7h. graph-parallel training (parallel/gp.py; every conv through K9),
+    # as the module docstring sets out
+    gp_train, gp_unfused = gp_phase(
+        config, net, small, bech_cfg["seg_n2048_b4_bech"],
+        echo_nets["seg_n2048_b4"], bech_batches["seg_n2048_b4_bech"][0],
+        bech_rel["seg_n2048_b4_bech"], dev, args.seed, card)
+    train_launches["train_graph_parallel"] = gp_train
+    stamp("graph-parallel trained")
     # 7f. path D training: on each preset's serving batch the loss and every
     # gradient of paths A (K1 convs) and D (K8 convs) against the CPU's
     # (uncounted), then one make_train_step step on path D, counted (9 / 17
@@ -3479,14 +4034,23 @@ def phases(args, pool) -> int:
     large_steps = {big: panel_batches[big][0], big_c: batch_c,
                    big_a: batch_a}
 
+    # the serving batch of each training shape below N_LARGE (the shapes of
+    # the fit's batches): its steps are timed there, no table built again
+    step_batches = {"shrec11_b8": batches["shrec11_b8"][0],
+                    "corr_n5120_b1_panel":
+                        panel_batches["corr_n5120_b1_panel"][0],
+                    **{k: b[0] for k, b in echo_batches.items()},
+                    **{k: compact_batches[k][0] for k in compact_keys},
+                    **{k: b[0] for k, b in bech_batches.items()}}
+
     def time_step(k, tnet, topt, cbanded=False, batch=None, conv=None):
         """Time one training step of the fitted ``tnet`` at training shape
-        ``k`` (with ``cbanded``, on path B's batch: the compressed table as
-        the conv table; given ``batch``, on that batch, whose conv kernel is
-        ``conv``): host clock, the profiler's breakdown and, at N_LARGE, the
-        peak device memory and (block panels, all-compact) a remat_blocks
-        step."""
-        cfg, n_classes, recs_ = fits[k]
+        ``k`` on the serving batch of that shape (with ``cbanded``, on path
+        B's batch: the compressed table as the conv table; given ``batch``,
+        on that batch, whose conv kernel is ``conv``): host clock, the
+        profiler's breakdown and, at N_LARGE, the peak device memory and
+        (block panels, all-compact) a remat_blocks step."""
+        cfg, n_classes, _ = fits[k]
         large = k in large_steps
         n_convs = CONVS_PER_PASS[k]
         if batch is not None:
@@ -3494,14 +4058,11 @@ def phases(args, pool) -> int:
             k = f"{k}_bsp"
         elif large:
             tbatch = large_steps[k]
+        elif cbanded:
+            tbatch = cb_batches[k][0]
+            k = f"{bech_of[k]}_cbanded"
         else:
-            bs = TRAIN_FIT[k][1]
-            n_pad, d_slots = shared_bucket(recs_)
-            tbatch = make_batches(recs_[:bs], cfg, bs, TB, n_pad, d_slots,
-                                  device=dev)[0]
-            if cbanded:
-                tbatch = as_cbanded([tbatch])[0]
-                k = f"{bech_of[k]}_cbanded"
+            tbatch = step_batches[k]
         step = make_train_step(tnet, cfg, n_classes, topt)
         # the augmentation, and the correspondence net's dropout masks
         step_gen = torch.Generator().manual_seed(args.seed + 3)
@@ -3515,9 +4076,10 @@ def phases(args, pool) -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base_gb = torch.cuda.memory_allocated() / 1e9
-        # the banded ECHO's steps take ~0.5 s on the host clock
-        ms = time_host(train_step, reps=2 if large else 3 if cfg.echo_impl ==
-                       "banded" else 5)
+        # a large step takes 0.7-2.3 s on the host clock (timed once, no
+        # warm-up: the fit just ran its path), the banded ECHO's ~0.6 s
+        ms = time_host(train_step, reps=1 if large or cfg.echo_impl ==
+                       "banded" else 3, warmup=not large)
         print(f"train step {k}: {ms:.3f} ms per step (host clock, ending in "
               f"a sync; {what} launches) on {card}")
         if large:
@@ -3662,7 +4224,8 @@ def phases(args, pool) -> int:
              "convs_block_sparse": convs_launches, **train_launches,
              "serve_bf16": bf16_launches,
              "serve_163k_bf16": large_bf16_launches,
-             "train_100k_bf16": t100k_launches}
+             "train_100k_bf16": t100k_launches,
+             "unfused_graph_parallel": gp_unfused}
     # the paths whose panel stencils are bf16, and the kernels that read
     # one: such a kernel's launches there count under its bf16 entry
     bf16_paths = ("serve_bf16", "serve_163k_bf16", "train_100k_bf16")
@@ -3727,6 +4290,16 @@ def phases(args, pool) -> int:
         entry("band_sparse_bwd", "fieldconv_tpu_torch/csrc/band_sparse_bwd.cu",
               "fieldconv_tpu/ops/pallas/band_conv.py:881 and :1012",
               k8b_rows),
+        entry("halo_fused_fwd", "fieldconv_tpu_torch/csrc/halo_fused_fwd.cu",
+              "fieldconv_tpu/parallel/halo.py:192 and :283", k9_rows),
+        entry("halo_fused_bwd", "fieldconv_tpu_torch/csrc/halo_fused_bwd.cu",
+              "fieldconv_tpu/parallel/halo.py:225 and :312", k9b_rows),
+        entry("halo_contrib_fwd",
+              "fieldconv_tpu_torch/csrc/halo_contrib_fwd.cu",
+              "fieldconv_tpu/parallel/halo.py:61", k9c_rows),
+        entry("halo_contrib_bwd",
+              "fieldconv_tpu_torch/csrc/halo_contrib_bwd.cu",
+              "fieldconv_tpu/parallel/halo.py:80", k9cb_rows),
         entry("compact_fold", "fieldconv_tpu_torch/csrc/compact_fold.cuh",
               "the XLA segment_sums at fieldconv_tpu/ops/pallas/band_conv.py"
               ":2118, fieldconv_tpu/ops/pallas/echo_panel.py:378 and "

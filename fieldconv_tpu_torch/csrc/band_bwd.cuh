@@ -2,9 +2,12 @@
 // (band_fused_bwd.cu, dense stencil), K4's backward (band_cfused_bwd.cu,
 // compressed stencil), K8's backward (band_sparse_bwd.cu, block-sparse
 // stencil: pass 1 walks each block's NJ source blocks, pass 5 the panels
-// that read each source block through the table's inverse index) and K3
+// that read each source block through the table's inverse index), K3
 // (band_contrib_fwd.cu: pass 1 alone, in the JAX kernel's layout;
-// band_contrib_bwd.cu: pass 5 alone, fed with K3's cotangent).  See
+// band_contrib_bwd.cu: pass 5 alone, fed with K3's cotangent) and K9
+// (halo_fused_bwd.cu, halo_contrib_fwd.cu, halo_contrib_bwd.cu: the same
+// passes, HALO, over a range of a shard's target blocks and its
+// halo-extended rows, pass 5 writing every row of that array).  See
 // band_fused_bwd.cu for what they compute and their design.
 // A compressed stencil is staged as its 5 planes and expanded once per
 // (target, slot) into hats and factors in shared memory (band_window.cuh
@@ -38,27 +41,33 @@ __host__ __device__ constexpr int dc_stride() { return 2 * KMAX * RMAX; }
 // (K3's forward, (nb·R·TB, M)).
 
 // SPARSE: nh is NJ and nbr the meshes' (n_mesh, nb, NJ) source blocks.
-template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false>
+// HALO: the blocks hr.lo .. hr.hi − 1 over g of hr.n_src rows a mesh,
+// contrib holding the (hr.hi − hr.lo)·TB targets of the range a mesh.
+template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false,
+          bool HALO = false>
 __global__ void __launch_bounds__(kThreads, 2)
 bwd_contrib_kernel(const float* __restrict__ g,
                    const float* __restrict__ sten,
                    float* __restrict__ contrib, int N, int C, int K, int R,
                    int TB, int nh, int T, int ts, int rs, panel::Knots kn,
-                   const int* __restrict__ nbr)
+                   const int* __restrict__ nbr, HaloRange hr)
 {
     const int M = 2 * K * C;
     const int P = COMPRESSED ? 5 : R + 2 * K;   // stencil planes
     const int Wp = (SPARSE ? nh : 2 * nh + 1) * TB;
     const int nb = N / TB;
     const int tiles = (TB + T - 1) / T;
-    const int blk = blockIdx.x / tiles;
+    const int lo = HALO ? hr.lo : 0;
+    const int nr = HALO ? hr.hi - hr.lo : nb;  // blocks of the launch
+    const int n_src = HALO ? hr.n_src : N;     // rows of g a mesh
+    const int blk = lo + blockIdx.x / tiles;
     const int t0 = (blockIdx.x % tiles) * T;
     const int nt = min(T, TB - t0);
     const int m = blockIdx.y;
     const int tid = threadIdx.x;
 
     extern __shared__ __align__(16) float smem[];
-    const float* gm = g + (size_t)m * N * M;
+    const float* gm = g + (size_t)m * n_src * M;
     const float* sb = sten + ((size_t)m * nb + blk) * (size_t)P * TB * Wp;
 
     const int item = tid;                  // (t, c) = (item / C, item % C)
@@ -68,12 +77,13 @@ bwd_contrib_kernel(const float* __restrict__ g,
 
     float are[KMAX][RMAX], aim[KMAX][RMAX];
     window_contrib<KMAX, RMAX, COMPRESSED, SPARSE>(
-        are, aim, smem, gm, sb, N, C, K, R, TB, nh, T, t0, nt, blk, active,
-        it, ic, kn, SPARSE ? nbr + ((size_t)m * nb + blk) * nh : nullptr);
+        are, aim, smem, gm, sb, n_src, C, K, R, TB, nh, T, t0, nt,
+        HALO ? blk + hr.blk_off + nh : blk, active, it, ic, kn,
+        SPARSE ? nbr + ((size_t)m * nb + blk) * nh : nullptr);
 
     // coalesced over c
     if (active) {
-        float* cr = contrib + ((size_t)m * nb + blk) * TB * R * M
+        float* cr = contrib + ((size_t)m * nr + blk - lo) * TB * R * M
             + (size_t)(t0 + it) * ts;
 #pragma unroll
         for (int k = 0; k < KMAX; ++k)
@@ -159,22 +169,32 @@ bwd_dc_kernel(const float* __restrict__ dy, const float* __restrict__ wmat,
 //
 // The target blocks b whose window reads source block sblk, and the panel
 // j of b's window it is: the dense window's b = sblk − nh .. sblk + nh
-// (inside [0, nb)), j = sblk − b + nh; SPARSE (nh is NJ): the entries
-// b·NJ + j of inv_bj[inv_ptr[m·nb + sblk] .. inv_ptr[m·nb + sblk + 1]), in
-// that (ascending) order.
+// (inside [0, nb)), j = sblk − b + nh; HALO: b = sblk − blk_off − 2nh ..
+// sblk − blk_off inside [lo, hi), j = sblk − b − blk_off, over the n_src /
+// TB blocks of the source array (every one written, zero where no window
+// reads it); SPARSE (nh is NJ): the entries b·NJ + j of
+// inv_bj[inv_ptr[m·nb + sblk] .. inv_ptr[m·nb + sblk + 1]), in that
+// (ascending) order.  dc holds the launch's targets: (hi − lo)·TB rows a
+// mesh under HALO, N otherwise.
 
-template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false>
+template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false,
+          bool HALO = false>
 __global__ void __launch_bounds__(kThreads)
 bwd_dg_kernel(const float* __restrict__ dc, const float* __restrict__ sten,
               float* __restrict__ dg, int N, int C, int K, int R, int TB,
               int nh, int G, int TC, panel::Knots kn,
-              const int* __restrict__ inv_ptr, const int* __restrict__ inv_bj)
+              const int* __restrict__ inv_ptr, const int* __restrict__ inv_bj,
+              HaloRange hr)
 {
     const int M = 2 * K * C;
     const int P = R + 2 * K;               // expanded planes
     const int PS = COMPRESSED ? 5 : P;     // stencil planes
     const int Wp = (SPARSE ? nh : 2 * nh + 1) * TB;
     const int nb = N / TB;
+    const int lo = HALO ? hr.lo : 0;
+    const int hi = HALO ? hr.hi : nb;
+    const int off = HALO ? hr.blk_off : -nh;   // window start − target block
+    const int n_src = HALO ? hr.n_src : N;     // rows of dg a mesh
     const int TS = G * kRowsPerThread;     // source rows per CTA
     const int tiles = (TB + TS - 1) / TS;
     const int sblk = blockIdx.x / tiles;
@@ -191,7 +211,7 @@ bwd_dg_kernel(const float* __restrict__ dc, const float* __restrict__ sten,
     extern __shared__ __align__(16) float smem[];
     const int stage_floats = TC * CQ + TC * PS * TS;
     float* sx = smem + 2 * stage_floats;   // COMPRESSED: the expanded step
-    const float* dcm = dc + (size_t)m * N * CQ;
+    const float* dcm = dc + (size_t)m * (hi - lo) * TB * CQ;
 
     float gre[kRowsPerThread][KMAX], gim[kRowsPerThread][KMAX];
 #pragma unroll
@@ -208,8 +228,8 @@ bwd_dg_kernel(const float* __restrict__ dc, const float* __restrict__ sten,
         b_lo = 0;
         n_panels = __ldg(inv_ptr + (size_t)m * nb + sblk + 1) - e0;
     } else {
-        b_lo = max(0, sblk - nh);
-        n_panels = min(nb - 1, sblk + nh) - b_lo + 1;
+        b_lo = max(lo, sblk - off - 2 * nh);
+        n_panels = max(0, min(hi - 1, sblk - off) - b_lo + 1);
     }
     const int tchunks = (TB + TC - 1) / TC;
     const int n_steps = n_panels * tchunks;
@@ -223,11 +243,11 @@ bwd_dg_kernel(const float* __restrict__ dc, const float* __restrict__ sten,
             j = e - b * nh;
         } else {
             b = b_lo + si / tchunks;
-            j = sblk - b + nh;
+            j = sblk - b - off;
         }
         const int tc0 = (si % tchunks) * TC;
         const int ntc = min(TC, TB - tc0);
-        const float* drow = dcm + ((size_t)b * TB + tc0) * CQ;
+        const float* drow = dcm + ((size_t)(b - lo) * TB + tc0) * CQ;
         for (int i = tid; i < TC * CQ / 4; i += kThreads) {
             const bool ok = i * 4 < ntc * CQ;
             band::copy_async<16>(ds + i * 4, ok ? drow + i * 4 : dcm, ok);
@@ -326,7 +346,8 @@ bwd_dg_kernel(const float* __restrict__ dc, const float* __restrict__ sten,
         for (int i = 0; i < kRowsPerThread; ++i) {
             const int sl = rg * kRowsPerThread + i;
             if (sl < ns) {
-                float* o = dg + ((size_t)m * N + (size_t)sblk * TB + s0 + sl) * M;
+                float* o = dg
+                    + ((size_t)m * n_src + (size_t)sblk * TB + s0 + sl) * M;
 #pragma unroll
                 for (int k = 0; k < KMAX; ++k)
                     if (k < K) {
@@ -407,65 +428,82 @@ inline cudaError_t make_plan(int n_mesh, int N, int C, int K, int R, int O2,
     return cudaSuccess;
 }
 
+// Targets a mesh of a launch: the range's under HALO, else every one.
+template <bool HALO>
+inline int launch_targets(int N, int TB, const HaloRange& hr)
+{
+    return HALO ? (hr.hi - hr.lo) * TB : N;
+}
+
 // Pass 1 alone: contrib of every target into `out` with strides (ts, rs).
-// SPARSE: nh is NJ and nbr the (n_mesh, nb, NJ) source blocks.
-template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false>
+// SPARSE: nh is NJ and nbr the (n_mesh, nb, NJ) source blocks; HALO: the
+// targets of hr's range over its source array.
+template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false,
+          bool HALO = false>
 cudaError_t launch_contrib(const float* g, const float* sten, float* out,
                            int n_mesh, int N, int C, int K, int R, int TB,
                            int nh, int ts, int rs, const Plan& pl,
-                           cudaStream_t stream, const int* nbr = nullptr)
+                           cudaStream_t stream, const int* nbr = nullptr,
+                           HaloRange hr = HaloRange{})
 {
-    auto k1 = bwd_contrib_kernel<KMAX, RMAX, COMPRESSED, SPARSE>;
+    auto k1 = bwd_contrib_kernel<KMAX, RMAX, COMPRESSED, SPARSE, HALO>;
     const panel::Knots kn = COMPRESSED ? panel::ring_knots(R) : panel::Knots{};
     cudaError_t err = cudaFuncSetAttribute(
         k1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem1);
     if (err != cudaSuccess) return err;
-    k1<<<dim3((N / TB) * ((TB + pl.T - 1) / pl.T), n_mesh), kThreads,
+    const int blocks = launch_targets<HALO>(N, TB, hr) / TB;
+    k1<<<dim3(blocks * ((TB + pl.T - 1) / pl.T), n_mesh), kThreads,
          pl.smem1, stream>>>(g, sten, out, N, C, K, R, TB, nh, pl.T, ts, rs,
-                             kn, nbr);
+                             kn, nbr, hr);
     return cudaGetLastError();
 }
 
 // Pass 5 alone: dG gathered by source from dc in the channel-major layout.
-// SPARSE: nh is NJ, and (inv_ptr, inv_bj) the table's inverse index.
-template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false>
+// SPARSE: nh is NJ, and (inv_ptr, inv_bj) the table's inverse index; HALO:
+// every row of hr's source array, from the range's targets.
+template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false,
+          bool HALO = false>
 cudaError_t launch_dg(const float* dc, const float* sten, float* dg,
                       int n_mesh, int N, int C, int K, int R, int TB, int nh,
                       const Plan& pl, cudaStream_t stream,
                       const int* inv_ptr = nullptr,
-                      const int* inv_bj = nullptr)
+                      const int* inv_bj = nullptr, HaloRange hr = HaloRange{})
 {
-    auto k4 = bwd_dg_kernel<KMAX, RMAX, COMPRESSED, SPARSE>;
+    auto k4 = bwd_dg_kernel<KMAX, RMAX, COMPRESSED, SPARSE, HALO>;
     const panel::Knots kn = COMPRESSED ? panel::ring_knots(R) : panel::Knots{};
     cudaError_t err = cudaFuncSetAttribute(
         k4, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem4);
     if (err != cudaSuccess) return err;
     const int TS = pl.G * kRowsPerThread;
-    k4<<<dim3((N / TB) * ((TB + TS - 1) / TS), n_mesh), kThreads, pl.smem4,
+    const int blocks = (HALO ? hr.n_src : N) / TB;
+    k4<<<dim3(blocks * ((TB + TS - 1) / TS), n_mesh), kThreads, pl.smem4,
          stream>>>(dc, sten, dg, N, C, K, R, TB, nh, pl.G, pl.TC, kn, inv_ptr,
-                   inv_bj);
+                   inv_bj, hr);
     return cudaGetLastError();
 }
 
-// The five passes of K1's (dense), K4's (COMPRESSED) or K8's (SPARSE: nh
-// is NJ; nbr, inv_ptr and inv_bj the table's) backward.
-template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false>
+// The five passes of K1's (dense), K4's (COMPRESSED), K8's (SPARSE: nh is
+// NJ; nbr, inv_ptr and inv_bj the table's) or K9's (HALO: dy holds the
+// range's targets, dg every row of its source array) backward.
+template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false,
+          bool HALO = false>
 int launch_fused_bwd(const float* dy, const float* g, const float* sten,
                      const float* wmat, float* dg, float* dw, float* scratch,
                      int n_mesh, int N, int C, int K, int R, int TB, int nh,
                      int O2, const Plan& pl, cudaStream_t stream,
-                     const int* nbr = nullptr, const int* inv_ptr = nullptr,
-                     const int* inv_bj = nullptr)
+                     const int* nbr, const int* inv_ptr, const int* inv_bj,
+                     HaloRange hr)
 {
     float* contrib = scratch;
     float* dc = scratch + pl.dc_at;
     float* part = scratch + pl.part_at;
-    const int rows = n_mesh * N;
+    const int rows = n_mesh * launch_targets<HALO>(N, TB, hr);
     const int M = 2 * K * C;
     const int RM = R * M;
 
-    cudaError_t err = launch_contrib<KMAX, RMAX, COMPRESSED, SPARSE>(
-        g, sten, contrib, n_mesh, N, C, K, R, TB, nh, RM, M, pl, stream, nbr);
+    cudaError_t err = launch_contrib<KMAX, RMAX, COMPRESSED, SPARSE, HALO>(
+        g, sten, contrib, n_mesh, N, C, K, R, TB, nh, RM, M, pl, stream, nbr,
+        hr);
     if (err != cudaSuccess) return (int)err;
 
     const int CQ = C * pl.QS;
@@ -479,51 +517,173 @@ int launch_fused_bwd(const float* dy, const float* g, const float* sten,
                     DwSlices{pl.slices, pl.slice_rows}, stream);
     if (err != cudaSuccess) return (int)err;
 
-    return (int)launch_dg<KMAX, RMAX, COMPRESSED, SPARSE>(
+    return (int)launch_dg<KMAX, RMAX, COMPRESSED, SPARSE, HALO>(
         dc, sten, dg, n_mesh, N, C, K, R, TB, nh, pl, stream, inv_ptr,
-        inv_bj);
+        inv_bj, hr);
 }
 
 // Floats of the scratch buffer fused_bwd needs for these sizes (0 for
-// sizes it does not take).
+// sizes it does not take); HALO: for hr's range.
+template <bool HALO = false>
 inline long long fused_bwd_scratch_floats(int n_mesh, int N, int C, int K,
                                           int R, int TB, int nh, int O2,
-                                          bool compressed)
+                                          bool compressed,
+                                          HaloRange hr = HaloRange{})
 {
     Plan pl;
     if (!shapes_supported(n_mesh, N, C, K, R, TB, nh, O2)
         || (compressed && R > panel::kMaxRings)
-        || make_plan(n_mesh, N, C, K, R, O2, compressed, &pl) != cudaSuccess)
+        || (HALO && !halo_supported(N, TB, hr))
+        || make_plan(n_mesh, launch_targets<HALO>(N, TB, hr), C, K, R, O2,
+                     compressed, &pl) != cudaSuccess)
         return 0;
     return (long long)pl.floats;
 }
 
-// Launches K1's (dense), K4's (COMPRESSED) or K8's (SPARSE: nh is NJ; nbr,
-// inv_ptr and inv_bj the table's) backward on `stream` and returns
-// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for shapes
-// it does not take (as the forward's, plus shared memory for one target of
-// dc rows).  scratch holds fused_bwd_scratch_floats floats.
-template <bool COMPRESSED, bool SPARSE = false>
+// Launches K1's (dense), K4's (COMPRESSED), K8's (SPARSE: nh is NJ; nbr,
+// inv_ptr and inv_bj the table's) or K9's (HALO: hr's range) backward on
+// `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for shapes it does not take (as the forward's,
+// plus shared memory for one target of dc rows).  scratch holds
+// fused_bwd_scratch_floats floats.
+template <bool COMPRESSED, bool SPARSE = false, bool HALO = false>
 int fused_bwd(const float* dy, const float* g, const float* sten,
               const float* wmat, float* dg, float* dw, float* scratch,
               int n_mesh, int N, int C, int K, int R, int TB, int nh, int O2,
               cudaStream_t stream, const int* nbr = nullptr,
-              const int* inv_ptr = nullptr, const int* inv_bj = nullptr)
+              const int* inv_ptr = nullptr, const int* inv_bj = nullptr,
+              HaloRange hr = HaloRange{})
 {
     if (!shapes_supported(n_mesh, N, C, K, R, TB, nh, O2)
-        || (COMPRESSED && R > panel::kMaxRings))
+        || (COMPRESSED && R > panel::kMaxRings)
+        || (HALO && !halo_supported(N, TB, hr)))
         return (int)cudaErrorInvalidValue;
     Plan pl;
-    const cudaError_t err = make_plan(n_mesh, N, C, K, R, O2, COMPRESSED,
-                                      &pl);
+    const cudaError_t err = make_plan(n_mesh, launch_targets<HALO>(N, TB, hr),
+                                      C, K, R, O2, COMPRESSED, &pl);
     if (err != cudaSuccess) return (int)err;
     if (K <= 3)
-        return launch_fused_bwd<3, 8, COMPRESSED, SPARSE>(
+        return launch_fused_bwd<3, 8, COMPRESSED, SPARSE, HALO>(
             dy, g, sten, wmat, dg, dw, scratch, n_mesh, N, C, K, R, TB, nh,
-            O2, pl, stream, nbr, inv_ptr, inv_bj);
-    return launch_fused_bwd<5, 6, COMPRESSED, SPARSE>(
+            O2, pl, stream, nbr, inv_ptr, inv_bj, hr);
+    return launch_fused_bwd<5, 6, COMPRESSED, SPARSE, HALO>(
         dy, g, sten, wmat, dg, dw, scratch, n_mesh, N, C, K, R, TB, nh, O2,
-        pl, stream, nbr, inv_ptr, inv_bj);
+        pl, stream, nbr, inv_ptr, inv_bj, hr);
+}
+
+// --- the unfused contrib (K3, and K9's contrib, HALO) --------------------------
+
+// K3's forward layout: contrib rows (b·R + r)·TB + t of each mesh, ts = M,
+// rs = TB·M (pass 1 alone).  out holds n_mesh·targets·R·M floats, targets
+// the launch's.
+template <bool HALO = false>
+int contrib_fwd(const float* g, const float* sten, float* out, int n_mesh,
+                int N, int C, int K, int R, int TB, int nh,
+                cudaStream_t stream, HaloRange hr = HaloRange{})
+{
+    if (!shapes_supported(n_mesh, N, C, K, R, TB, nh, 1)
+        || (HALO && !halo_supported(N, TB, hr)))
+        return (int)cudaErrorInvalidValue;
+    Plan pl;
+    cudaError_t err = make_plan(n_mesh, launch_targets<HALO>(N, TB, hr), C,
+                                K, R, 0, false, &pl);
+    if (err != cudaSuccess) return (int)err;
+    const int M = 2 * K * C;
+    err = K <= 3
+        ? launch_contrib<3, 8, false, false, HALO>(
+              g, sten, out, n_mesh, N, C, K, R, TB, nh, M, TB * M, pl, stream,
+              nullptr, hr)
+        : launch_contrib<5, 6, false, false, HALO>(
+              g, sten, out, n_mesh, N, C, K, R, TB, nh, M, TB * M, pl, stream,
+              nullptr, hr);
+    return (int)err;
+}
+
+// dc[row, c·QS + (k·RMAX + r)·2 + p] = dout[m, (b·R + r)·TB + t, k·2C + p·C + c]
+// for row = (m·nb + b)·TB + t of the cotangent's own blocks (nb of them
+// a mesh); entries with k ≥ K or r ≥ R hold zero.
+template <int KMAX, int RMAX>
+__global__ void __launch_bounds__(kThreads)
+dc_from_contrib_kernel(const float* __restrict__ dout, float* __restrict__ dc,
+                       int C, int K, int R, int TB)
+{
+    constexpr int QS = dc_stride<KMAX, RMAX>();
+    extern __shared__ __align__(16) float srow[];        // [R][M]
+    const int M = 2 * K * C;
+    const size_t row = blockIdx.x;
+    const size_t mb = row / TB;            // m·nb + b
+    const int t = (int)(row % TB);
+    const int tid = threadIdx.x;
+    for (int i = tid; i < R * M; i += kThreads) {
+        const int r = i / M, j = i - r * M;
+        srow[i] = dout[((mb * R + r) * TB + t) * M + j];
+    }
+    __syncthreads();
+    float* out = dc + row * C * QS;
+    for (int o = tid; o < C * QS; o += kThreads) {
+        const int c = o / QS, q = o - c * QS;
+        const int k = q / (2 * RMAX), r = (q / 2) % RMAX, p = q % 2;
+        out[o] = (k < K && r < R) ? srow[r * M + k * 2 * C + p * C + c] : 0.f;
+    }
+}
+
+template <int KMAX, int RMAX, bool HALO>
+int launch_contrib_bwd(const float* dout, const float* sten, float* dg,
+                       float* dc, int n_mesh, int N, int C, int K, int R,
+                       int TB, int nh, const Plan& pl, cudaStream_t stream,
+                       HaloRange hr)
+{
+    auto relayout = dc_from_contrib_kernel<KMAX, RMAX>;
+    const size_t smem = (size_t)R * 2 * K * C * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        relayout, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned rows = (unsigned)n_mesh * launch_targets<HALO>(N, TB, hr);
+    relayout<<<rows, kThreads, smem, stream>>>(dout, dc, C, K, R, TB);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    return (int)launch_dg<KMAX, RMAX, false, false, HALO>(
+        dc, sten, dg, n_mesh, N, C, K, R, TB, nh, pl, stream, nullptr,
+        nullptr, hr);
+}
+
+// Floats of the scratch buffer contrib_bwd needs (0 for sizes it does not
+// take).
+template <bool HALO = false>
+inline long long contrib_bwd_scratch_floats(int n_mesh, int N, int C, int K,
+                                            int R, int TB, int nh,
+                                            HaloRange hr = HaloRange{})
+{
+    Plan pl;
+    if (!shapes_supported(n_mesh, N, C, K, R, TB, nh, 1)
+        || (HALO && !halo_supported(N, TB, hr))
+        || make_plan(n_mesh, launch_targets<HALO>(N, TB, hr), C, K, R, 0,
+                     false, &pl) != cudaSuccess)
+        return 0;
+    return (long long)pl.floats;
+}
+
+// K3's backward (HALO: K9's contrib backward): the cotangent dout in K3's
+// forward layout put back into pass 5's channel-major dc (scratch: the
+// caller's contrib_bwd_scratch_floats floats), then pass 5.
+template <bool HALO = false>
+int contrib_bwd(const float* dout, const float* sten, float* dg,
+                float* scratch, int n_mesh, int N, int C, int K, int R,
+                int TB, int nh, cudaStream_t stream,
+                HaloRange hr = HaloRange{})
+{
+    if (!shapes_supported(n_mesh, N, C, K, R, TB, nh, 1)
+        || (HALO && !halo_supported(N, TB, hr)))
+        return (int)cudaErrorInvalidValue;
+    Plan pl;
+    const cudaError_t err = make_plan(
+        n_mesh, launch_targets<HALO>(N, TB, hr), C, K, R, 0, false, &pl);
+    if (err != cudaSuccess) return (int)err;
+    if (K <= 3)
+        return launch_contrib_bwd<3, 8, HALO>(dout, sten, dg, scratch, n_mesh,
+                                              N, C, K, R, TB, nh, pl, stream,
+                                              hr);
+    return launch_contrib_bwd<5, 6, HALO>(dout, sten, dg, scratch, n_mesh, N,
+                                          C, K, R, TB, nh, pl, stream, hr);
 }
 
 }  // namespace band

@@ -15,7 +15,8 @@
 // onto g's rows (n_mesh, N, M); window slots whose source row lies outside
 // [0, N) take no gradient.
 //
-// Design.  Two kernels on the stream.  The first puts dout back into the
+// Design.  Two kernels on the stream (band_bwd.cuh, contrib_bwd, which K9's
+// contrib backward shares).  The first puts dout back into the
 // channel-major layout K1 backward's pass 5 reads ([row][c][k][r][re|im]
 // with compile-time strides, zeros in the padding): a CTA per target row
 // stages the row's R·M values of dout in shared memory and writes its dc
@@ -32,67 +33,13 @@
 
 #include "band_bwd.cuh"
 
-namespace {
-
-using band::kThreads;
-
-// dc[row, c·QS + (k·RMAX + r)·2 + p] = dout[m, (b·R + r)·TB + t, k·2C + p·C + c]
-// for row = m·N + b·TB + t; entries with k ≥ K or r ≥ R hold zero.
-template <int KMAX, int RMAX>
-__global__ void __launch_bounds__(kThreads)
-dc_from_contrib_kernel(const float* __restrict__ dout, float* __restrict__ dc,
-                       int C, int K, int R, int TB)
-{
-    constexpr int QS = band::dc_stride<KMAX, RMAX>();
-    extern __shared__ __align__(16) float srow[];        // [R][M]
-    const int M = 2 * K * C;
-    const size_t row = blockIdx.x;
-    const size_t mb = row / TB;            // m·nb + b
-    const int t = (int)(row % TB);
-    const int tid = threadIdx.x;
-    for (int i = tid; i < R * M; i += kThreads) {
-        const int r = i / M, j = i - r * M;
-        srow[i] = dout[((mb * R + r) * TB + t) * M + j];
-    }
-    __syncthreads();
-    float* out = dc + row * C * QS;
-    for (int o = tid; o < C * QS; o += kThreads) {
-        const int c = o / QS, q = o - c * QS;
-        const int k = q / (2 * RMAX), r = (q / 2) % RMAX, p = q % 2;
-        out[o] = (k < K && r < R) ? srow[r * M + k * 2 * C + p * C + c] : 0.f;
-    }
-}
-
-template <int KMAX, int RMAX>
-int launch(const float* dout, const float* sten, float* dg, float* dc,
-           int n_mesh, int N, int C, int K, int R, int TB, int nh,
-           const band::Plan& pl, cudaStream_t stream)
-{
-    auto relayout = dc_from_contrib_kernel<KMAX, RMAX>;
-    const size_t smem = (size_t)R * 2 * K * C * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        relayout, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    relayout<<<(unsigned)n_mesh * N, kThreads, smem, stream>>>(dout, dc, C, K,
-                                                               R, TB);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    return (int)band::launch_dg<KMAX, RMAX, false>(dc, sten, dg, n_mesh, N, C,
-                                                   K, R, TB, nh, pl, stream);
-}
-
-}  // namespace
-
 // Floats of the scratch buffer band_contrib_bwd needs for these sizes (0
 // for sizes it does not take).
 extern "C" long long band_contrib_bwd_scratch_floats(int n_mesh, int N, int C,
                                                      int K, int R, int TB,
                                                      int nh)
 {
-    band::Plan pl;
-    if (!band::shapes_supported(n_mesh, N, C, K, R, TB, nh, 1)
-        || band::make_plan(n_mesh, N, C, K, R, 0, false, &pl) != cudaSuccess)
-        return 0;
-    return (long long)pl.floats;
+    return band::contrib_bwd_scratch_floats(n_mesh, N, C, K, R, TB, nh);
 }
 
 // Launches the two kernels on `stream` and returns cudaGetLastError() (0 on
@@ -104,16 +51,6 @@ extern "C" int band_contrib_bwd(const float* dout, const float* sten,
                                 int C, int K, int R, int TB, int nh,
                                 void* stream)
 {
-    if (!band::shapes_supported(n_mesh, N, C, K, R, TB, nh, 1))
-        return (int)cudaErrorInvalidValue;
-    band::Plan pl;
-    const cudaError_t err = band::make_plan(n_mesh, N, C, K, R, 0, false,
-                                            &pl);
-    if (err != cudaSuccess) return (int)err;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (K <= 3)
-        return launch<3, 8>(dout, sten, dg, scratch, n_mesh, N, C, K, R, TB,
-                            nh, pl, s);
-    return launch<5, 6>(dout, sten, dg, scratch, n_mesh, N, C, K, R, TB, nh,
-                        pl, s);
+    return band::contrib_bwd(dout, sten, dg, scratch, n_mesh, N, C, K, R, TB,
+                             nh, (cudaStream_t)stream);
 }

@@ -35,17 +35,6 @@ extern "C" int band_contrib_fwd(const float* g, const float* sten, float* out,
                                 int n_mesh, int N, int C, int K, int R,
                                 int TB, int nh, void* stream)
 {
-    if (!band::shapes_supported(n_mesh, N, C, K, R, TB, nh, 1))
-        return (int)cudaErrorInvalidValue;
-    band::Plan pl;
-    cudaError_t err = band::make_plan(n_mesh, N, C, K, R, 0, false, &pl);
-    if (err != cudaSuccess) return (int)err;
-    const int M = 2 * K * C;
-    cudaStream_t s = (cudaStream_t)stream;
-    err = K <= 3
-        ? band::launch_contrib<3, 8, false>(g, sten, out, n_mesh, N, C, K, R,
-                                            TB, nh, M, TB * M, pl, s)
-        : band::launch_contrib<5, 6, false>(g, sten, out, n_mesh, N, C, K, R,
-                                            TB, nh, M, TB * M, pl, s);
-    return (int)err;
+    return band::contrib_fwd(g, sten, out, n_mesh, N, C, K, R, TB, nh,
+                             (cudaStream_t)stream);
 }

@@ -47,8 +47,21 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src,
     __pipeline_memcpy_async(dst, src, kBytes, valid ? 0 : kBytes);
 }
 
-// The source row of slot w: row0 + w in the dense window; in the
-// block-sparse one (SPARSE) row w % TB of source block nbr_b[w / TB].
+// A launch over a halo-extended source array (K9, HALO; the halo kernels
+// of halo_fused_fwd.cu and its siblings): target blocks [lo, hi) of the
+// stencil's nb = N / TB are launched; block b's window starts at source
+// block b + blk_off of g, which holds n_src rows per mesh (a shard's rows
+// with its neighbours' nh·TB halo rows on each side, blk_off = 0, or a
+// piece of them); the launch's contrib, dc and dy rows are its (hi − lo)·TB
+// targets per mesh.  The dense window is n_src = N, blk_off = −nh, lo = 0,
+// hi = nb.
+struct HaloRange {
+    int n_src, blk_off, lo, hi;
+};
+
+// The source row of slot w: row0 + w in the dense window (and in the
+// halo-extended one, whose row0 is (b + blk_off)·TB); in the block-sparse
+// one (SPARSE) row w % TB of source block nbr_b[w / TB].
 template <bool SPARSE>
 __device__ __forceinline__ long source_row(long row0, const int* nbr_b,
                                            int w, int TB)
@@ -125,8 +138,10 @@ __device__ __forceinline__ bool expand_slot(float* xp, const float* sp,
 }
 
 // Every thread of the CTA must call this (it synchronises); inactive
-// threads keep zero sums.  gm: mesh m's g (N, M); sb: block blk's stencil
-// (P = R+2K planes, or 5 when COMPRESSED, × TB × W'); SPARSE: nh is NJ and
+// threads keep zero sums.  gm: mesh m's g (N, M), whose rows from
+// (blk − nh)·TB on make the window (a HALO caller passes its source
+// array's n_src as N and blk + blk_off + nh as blk); sb: the target
+// block's stencil (P = R+2K planes, or 5 when COMPRESSED, × TB × W'); SPARSE: nh is NJ and
 // nbr_b block blk's NJ source blocks; smem:
 // window_stage_floats(M, R+2K, T, COMPRESSED) floats, free again on
 // return; kn: the ring knots (COMPRESSED only).  The window streams
@@ -252,6 +267,14 @@ inline bool shapes_supported(int n_mesh, int N, int C, int K, int R, int TB,
     return !(n_mesh < 1 || N < 1 || C < 1 || C > kThreads || K < 1 || K > 5
              || R < 1 || R > (K <= 3 ? 8 : 6) || TB < 1 || N % TB != 0
              || nh < 0 || O2 < 1 || n_mesh > 65535);
+}
+
+// A HALO launch's range: n_src a positive multiple of TB, 0 ≤ lo < hi ≤
+// N / TB.
+inline bool halo_supported(int N, int TB, const HaloRange& hr)
+{
+    return hr.n_src >= TB && hr.n_src % TB == 0 && hr.lo >= 0
+        && hr.lo < hr.hi && hr.hi <= N / TB;
 }
 
 inline cudaError_t smem_limit(int* limit)

@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from ..nn.modules import FCResNetBlock, FieldConv, LiftBlock
+from ..parallel.distributed import Axis, AllReduceSum
 from ..precomp.edge_table import EdgeTable
 from ..utils import complexops as co
 from ..utils.device import resolve_device
@@ -31,6 +32,12 @@ class ClassificationNet(nn.Module):
     of a batch of unequal sizes is divided by mesh 0's count, as in the JAX
     package (ROADMAP Queue 3).
 
+    graph: the graph axis of graph-parallel training: the vertex rows are
+    this rank's shard, the tables its shards (BandedTable ``banded``,
+    CompressedBandedTable ``comp``), ``table.n_valid`` the GLOBAL count
+    (parallel/gp.py::VertexMeta), and the pool's sum is all-reduced over
+    the axis (its backward sums the cotangents, JAX's psum).
+
     Parameters are drawn from ``generator`` and then moved to ``device``.
     """
 
@@ -39,17 +46,19 @@ class ClassificationNet(nn.Module):
                  legacy_lift_slice: bool = True, d_chunk: int = 128,
                  lift_impl: str = "auto",
                  generator: Optional[torch.Generator] = None,
-                 device="cuda"):
+                 device="cuda", graph: Optional[Axis] = None):
         super().__init__()
         device = resolve_device(device)
         self.n_classes = n_classes
         self.band_limit = band_limit
         self.legacy_lift_slice = legacy_lift_slice
         self.lift_impl = lift_impl
+        self.graph = graph
         kw = dict(band_limit=band_limit, n_rings=n_rings, ftype=ftype,
-                  d_chunk=d_chunk, generator=generator)
+                  d_chunk=d_chunk, generator=generator, graph=graph)
         self.lift = LiftBlock(3, nf, n_rings=n_rings, ftype=ftype,
-                              d_chunk=d_chunk, generator=generator)
+                              d_chunk=d_chunk, generator=generator,
+                              graph=graph)
         self.resnet1 = FCResNetBlock(nf, nf, **kw)
         self.resnet2 = FCResNetBlock(nf, nf, **kw)
         self.conv_out = FieldConv(nf, n_classes, **kw)
@@ -67,5 +76,8 @@ class ClassificationNet(nn.Module):
         x = self.conv_out(x, table, banded)
 
         mags = co.soft_abs(x) * table.vmask[..., :, None]
-        pooled = torch.sum(mags, dim=-2, keepdim=True) / table.n_valid
+        summed = torch.sum(mags, dim=-2, keepdim=True)
+        if self.graph is not None:
+            summed = AllReduceSum.apply(summed, self.graph)
+        pooled = summed / table.n_valid
         return pooled + self.bias

@@ -13,6 +13,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..nn.modules import (ECHOBlock, FCResNetBlock, LiftBlock, Linear,
                           TangentPerceptron)
+from ..parallel.distributed import Axis
 from ..precomp.edge_table import EdgeTable
 from ..utils.device import resolve_device
 
@@ -32,7 +33,9 @@ class CorrespondenceNet(nn.Module):
     dominate device memory.  return_features: return the 256-wide features
     that enter lin2 (after dropout) instead of the logits, for a caller
     that applies the 4999-way head row-chunked ((N, 4999) logits are 3.3
-    GB at 163,842 vertices).  Neither changes the parameters.
+    GB at 163,842 vertices).  Neither changes the parameters.  graph: the
+    graph axis of graph-parallel training (the ops over this rank's shard;
+    a keep mask passed in is this rank's rows, parallel/gp.py).
     """
 
     def __init__(self, n_classes: int = 4999, nf: int = 32, n_des: int = 12,
@@ -41,16 +44,17 @@ class CorrespondenceNet(nn.Module):
                  lift_impl: str = "auto", echo_impl: str = "auto",
                  remat_blocks: bool = False, return_features: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 device="cuda"):
+                 device="cuda", graph: Optional[Axis] = None):
         super().__init__()
         device = resolve_device(device)
         self.band_limit, self.lift_impl, self.p = band_limit, lift_impl, dropout
         self.remat_blocks, self.return_features = remat_blocks, return_features
         kw = dict(band_limit=band_limit, n_rings=n_rings, ftype=ftype,
-                  d_chunk=d_chunk, generator=generator)
+                  d_chunk=d_chunk, generator=generator, graph=graph)
         g = dict(generator=generator)
         self.lift = LiftBlock(3, 16, n_rings=n_rings, ftype=ftype,
-                              d_chunk=d_chunk, generator=generator)
+                              d_chunk=d_chunk, generator=generator,
+                              graph=graph)
         self.resnet1 = FCResNetBlock(16, nf, **kw)
         self.resnet2 = FCResNetBlock(nf, nf, **kw)
         self.res1 = TangentPerceptron(16, nf, **g)

@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from ..nn.modules import ECHOBlock, FCResNetBlock, LiftBlock
+from ..parallel.distributed import Axis
 from ..precomp.edge_table import EdgeTable
 from ..utils.device import resolve_device
 
@@ -20,8 +21,9 @@ class SegmentationNet(nn.Module):
 
     lift_impl: "auto" (the block-table lift when a CompressedBandedTable
     or PanelTable is passed) or "gather".  echo_impl: the ECHO routing of
-    nn.modules.ECHO.  Parameters are drawn from ``generator`` and then
-    moved to ``device``.
+    nn.modules.ECHO.  graph: the graph axis of graph-parallel training
+    (the ops over this rank's shard, parallel/gp.py).  Parameters are
+    drawn from ``generator`` and then moved to ``device``.
     """
 
     def __init__(self, n_classes: int = 8, nf: int = 48, n_des: int = 48,
@@ -29,14 +31,15 @@ class SegmentationNet(nn.Module):
                  ftype: int = 1, d_chunk: int = 128, lift_impl: str = "auto",
                  echo_impl: str = "auto",
                  generator: Optional[torch.Generator] = None,
-                 device="cuda"):
+                 device="cuda", graph: Optional[Axis] = None):
         super().__init__()
         device = resolve_device(device)
         self.band_limit, self.lift_impl = band_limit, lift_impl
         kw = dict(band_limit=band_limit, n_rings=n_rings, ftype=ftype,
-                  d_chunk=d_chunk, generator=generator)
+                  d_chunk=d_chunk, generator=generator, graph=graph)
         self.lift = LiftBlock(3, nf, n_rings=n_rings, ftype=ftype,
-                              d_chunk=d_chunk, generator=generator)
+                              d_chunk=d_chunk, generator=generator,
+                              graph=graph)
         for i in range(1, 5):
             setattr(self, f"resnet{i}", FCResNetBlock(nf, nf, **kw))
         self.echo = ECHOBlock(nf, n_classes, n_des=n_des, n_bins=n_bins,

@@ -22,10 +22,23 @@ from ..ops import field_conv as fc_ops
 from ..ops import tangent as tangent_ops
 from ..ops import trans_field as tf_ops
 from ..ops.echo_panel import echo_panel_fused
-from ..precomp.banded import CompactPanelTable, PanelTable
+from ..parallel.distributed import Axis
+from ..parallel.halo import exchange_halos, halo_field_conv
+from ..precomp.banded import (CompactPanelTable, CompressedBandedTable,
+                              PanelTable)
 from ..precomp.edge_table import EdgeTable
 from ..utils import complexops as co
 from .init import torch_linear_bias, torch_linear_weight, xavier_uniform
+
+
+def _banded_shard(what, comp):
+    """Raise unless ``comp`` is the CompressedBandedTable shard a
+    graph-parallel lift or ECHO runs over."""
+    if not isinstance(comp, CompressedBandedTable):
+        raise NotImplementedError(
+            f"graph-parallel {what} takes a CompressedBandedTable shard, got "
+            f"{type(comp).__name__}: the panel-sharded path (PanelShards, "
+            "CompactShards) is ROADMAP Queue 1 item 8")
 
 
 class FieldConv(nn.Module):
@@ -34,15 +47,23 @@ class FieldConv(nn.Module):
     BlockSparseTable to the block-sparse conv K8, a PanelTable to the panel
     conv K5, a CompactPanelTable to the compact conv K6
     (ops/band_conv.py::field_conv_banded); otherwise the padded-CSR gather
-    path runs."""
+    path runs.
+
+    graph: the graph axis of graph-parallel training
+    (parallel/distributed.py::Axis).  x then holds this rank's vertex rows
+    and ``banded`` must be the BandedTable shard of them: the conv runs
+    through K9 with the halo exchange (parallel/halo.py::halo_field_conv).
+    """
 
     def __init__(self, in_channels: int, out_channels: int,
                  band_limit: int = 1, n_rings: int = 6, ftype: int = 1,
                  d_chunk: int = 128,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 graph: Optional[Axis] = None):
         super().__init__()
         O, I, R, B = out_channels, in_channels, n_rings, band_limit
         self.band_limit, self.ftype, self.d_chunk = B, ftype, d_chunk
+        self.graph = graph
         self.phase_shape = (O, I, B + 1)
         if ftype in (0, 1):
             self.zonal = nn.Parameter(xavier_uniform((O, I, R), generator))
@@ -61,6 +82,10 @@ class FieldConv(nn.Module):
 
     def forward(self, x, table: EdgeTable, banded=None):
         phase = self._phase(x)
+        if self.graph is not None:
+            g = band_ops.rotated_source_tensor_kmajor(x, self.band_limit)
+            return halo_field_conv(g, banded, self.zonal, self.spherical,
+                                   phase, self.ftype, self.graph)
         if banded is not None:
             return band_ops.field_conv_banded(
                 x, banded, self.zonal, self.spherical, phase, self.ftype)
@@ -70,14 +95,17 @@ class FieldConv(nn.Module):
 
 class TransField(nn.Module):
     """Learned gradient lift.  A CompressedBandedTable, PanelTable or
-    CompactPanelTable ``comp`` runs the aggregation over its layout."""
+    CompactPanelTable ``comp`` runs the aggregation over its layout.  With
+    ``graph`` (graph-parallel), ``comp`` must be the CompressedBandedTable
+    shard of x's rows, windowed with the ring neighbours' halo rows."""
 
     def __init__(self, in_channels: int, out_channels: int, n_rings: int = 6,
                  ftype: int = 1, d_chunk: int = 128,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 graph: Optional[Axis] = None):
         super().__init__()
         O, I, R = out_channels, in_channels, n_rings
-        self.ftype, self.d_chunk = ftype, d_chunk
+        self.ftype, self.d_chunk, self.graph = ftype, d_chunk, graph
         self.zonalAng = nn.Parameter(xavier_uniform((O, I, R), generator))
         self.zonalMag = nn.Parameter(xavier_uniform((O, I, R), generator))
         if ftype == 1:
@@ -88,9 +116,13 @@ class TransField(nn.Module):
                 comp=None):
         phase = (self.phase if self.ftype == 1 else
                  torch.zeros(self.phase_shape, dtype=x.dtype, device=x.device))
+        halo = None
+        if self.graph is not None:
+            _banded_shard("TransField", comp)
+            halo = exchange_halos(x, comp.nh * comp.tb, self.graph)
         return tf_ops.trans_field(
             x, table, self.zonalAng, self.zonalMag, phase, self.ftype,
-            lift_cols=lift_cols, d_chunk=self.d_chunk, comp=comp)
+            lift_cols=lift_cols, d_chunk=self.d_chunk, comp=comp, halo=halo)
 
 
 class TangentLin(nn.Module):
@@ -134,10 +166,11 @@ class LiftBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, n_rings: int = 6,
                  ftype: int = 1, d_chunk: int = 128,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 graph: Optional[Axis] = None):
         super().__init__()
         self.field = TransField(in_channels, out_channels, n_rings, ftype,
-                                d_chunk, generator=generator)
+                                d_chunk, generator=generator, graph=graph)
         self.nonlin = TangentNonLin(out_channels)
 
     def forward(self, x, table: EdgeTable, lift_cols: Tuple[int, int],
@@ -182,15 +215,24 @@ class ECHO(nn.Module):
     through K7 (ops/echo_panel.py).  A CompressedBandedTable with impl
     "auto", or impl "banded", takes the gather-free banded ECHO
     (ops/echo.py::echo_banded).  Otherwise the one-hot gather route over the
-    EdgeTable runs.
+    EdgeTable runs.  With ``graph`` (graph-parallel) ``comp`` must be the
+    CompressedBandedTable shard of x's rows: the banded ECHO over them and
+    the ring neighbours' halo rows.
     """
 
     def __init__(self, n_bins: int = 2, d_chunk: int = 128,
-                 impl: str = "auto"):
+                 impl: str = "auto", graph: Optional[Axis] = None):
         super().__init__()
         self.n_bins, self.d_chunk, self.impl = n_bins, d_chunk, impl
+        self.graph = graph
 
     def forward(self, x, table: EdgeTable, comp=None):
+        if self.graph is not None:
+            _banded_shard("ECHO", comp)
+            lead, (N, C) = x.shape[:-3], x.shape[-3:-1]
+            halo = exchange_halos(x.reshape(*lead, N, 2 * C),
+                                  comp.nh * comp.tb, self.graph)
+            return echo_ops.echo_banded(x, comp, self.n_bins, halo=halo)
         if isinstance(comp, (PanelTable, CompactPanelTable)):
             return echo_panel_fused(x, comp, self.n_bins)
         use_banded = (comp is not None) if self.impl == "auto" \
@@ -211,13 +253,15 @@ class ECHOBlock(nn.Module):
                  n_des: Optional[int] = None, n_bins: int = 3,
                  band_limit: int = 1, n_rings: int = 6, ftype: int = 1,
                  d_chunk: int = 128, echo_impl: str = "auto",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 graph: Optional[Axis] = None):
         super().__init__()
         n_des = in_channels if n_des is None else n_des
         self.conv = FieldConv(in_channels, n_des, band_limit, n_rings, ftype,
-                              d_chunk, generator=generator)
+                              d_chunk, generator=generator, graph=graph)
         self.nonlin = TangentNonLin(n_des, param_width=in_channels)
-        self.echo = ECHO(n_bins, d_chunk=d_chunk, impl=echo_impl)
+        self.echo = ECHO(n_bins, d_chunk=d_chunk, impl=echo_impl,
+                         graph=graph)
         mid = n_des * echo_ops.hist_dim(n_bins)
         self.lin1 = Linear(mid, 128, generator=generator)
         self.lin2 = Linear(128, 64, generator=generator)
@@ -240,12 +284,13 @@ class FCResNetBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  band_limit: int = 1, n_rings: int = 6, ftype: int = 1,
                  frontload: bool = False, d_chunk: int = 128,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 graph: Optional[Axis] = None):
         super().__init__()
         iC1, oC2 = in_channels, out_channels
         oC1 = iC2 = in_channels if frontload else out_channels
         kw = dict(band_limit=band_limit, n_rings=n_rings, ftype=ftype,
-                  d_chunk=d_chunk, generator=generator)
+                  d_chunk=d_chunk, generator=generator, graph=graph)
         self.conv1 = FieldConv(iC1, oC1, **kw)
         self.nonlin1 = TangentNonLin(oC1)
         self.conv2 = FieldConv(iC2, oC2, **kw)

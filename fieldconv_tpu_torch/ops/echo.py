@@ -171,18 +171,18 @@ def echo_banded(x, comp: CompressedBandedTable, n_bins: int,
     blocks per step (1 if it does not divide the blocks).  Each step's
     (block_chunk, TB, W', C, w) one-hot and weight tensors are freed after
     it; under autograd the step is checkpointed and recomputed in the
-    backward, so only its inputs are kept.  halo (graph-parallel shards)
-    is not ported.  Returns (..., N, C, dS)."""
-    if halo is not None:
-        raise NotImplementedError(
-            "echo_banded's halo= (graph-parallel shards) is not ported yet: "
-            "ROADMAP Queue 1 item 8")
+    backward, so only its inputs are kept.  halo: optional (left, right)
+    rows (..., nh·TB, 2C) of a graph-parallel shard's ring neighbours (x's
+    rows flattened to 2C columns, parallel/halo.py::exchange_halos) in
+    place of the zero padding; the unit directions and the origin mask
+    are formed on the windowed rows, as in the JAX package.  Returns (...,
+    N, C, dS)."""
     sten = comp.sten_band
     nb, _, TB, Wp = sten.shape[-4:]
     lead, (N, C) = x.shape[:-3], x.shape[-3:-1]
     fold = fold_matrix(n_bins, x.device)
 
-    xs = window_blocks(x.reshape(*lead, N, 2 * C), TB, comp.nh)
+    xs = window_blocks(x.reshape(*lead, N, 2 * C), TB, comp.nh, halo)
     xs = xs.reshape(-1, Wp, C, 2)                          # (L·nb, W', C, 2)
     us = cconj(soft_unit(xs))
     nz = torch.logical_not(is_origin(xs))

@@ -88,7 +88,7 @@ def _phasor_power(pr, pi, f: int):
 
 
 def trans_field_banded_contrib(x, comp: CompressedBandedTable,
-                               lift_cols=(0, 1)):
+                               lift_cols=(0, 1), halo=None):
     """Gather-free TransField aggregation over the banded slot layout.
 
     Same math as :func:`trans_field_contrib` with the ``x[src]`` gather
@@ -99,8 +99,11 @@ def trans_field_banded_contrib(x, comp: CompressedBandedTable,
     path's softAbs(rsten⊗fwxp) only on slots whose magnitude is below
     EPS=1e-7.
 
-    x: (..., N, C) real scalars, N == comp.n_pad; comp.sten_band carries
-    the same leading mesh axes.
+    x: (..., N, C) real scalars, N == comp.n_pad (a graph-parallel
+    shard's rows and its stencil shard); comp.sten_band carries the same
+    leading mesh axes.  halo: optional (left, right) rows (..., nh·TB, C)
+    of the ring neighbours in place of the zero padding
+    (precomp/banded.py::window_blocks; parallel/halo.py::exchange_halos).
     Returns contribAng (..., N, C, R, 2), contribMag (..., N, C, R).
     """
     sten = comp.sten_band                          # (..., nb, 5, TB, W')
@@ -109,7 +112,7 @@ def trans_field_banded_contrib(x, comp: CompressedBandedTable,
     N, C = x.shape[-2:]
     lead = x.shape[:-2]
 
-    xs = window_blocks(x, TB, nh)                  # (..., nb, W', C)
+    xs = window_blocks(x, TB, nh, halo)            # (..., nb, W', C)
 
     rv = sten[..., 0, :, :]                        # (..., nb, TB, W')
     hats = _hats_from_r(rv, R)                     # (R, ..., nb, TB, W')
@@ -440,13 +443,19 @@ def _compact_lift_agg_bwd(d_seg, d_mag, sten, meta, src_idx, fold_order,
 
 
 def lift_contribs(x, table, lift_cols=(0, 1), d_chunk: int = 128,
-                  comp=None):
+                  comp=None, halo=None):
     """The lift's (contribAng, contribMag) over the layout ``comp`` names:
     a CompressedBandedTable routes the aggregation to the gather-free
-    banded path, a PanelTable to the panel-CSR path, a CompactPanelTable to
-    the compacted-column path; None uses the padded-CSR gather path."""
+    banded path (with ``halo``, a graph-parallel shard's), a PanelTable to
+    the panel-CSR path, a CompactPanelTable to the compacted-column path;
+    None uses the padded-CSR gather path."""
     if isinstance(comp, CompressedBandedTable):
-        return trans_field_banded_contrib(x, comp, lift_cols=lift_cols)
+        return trans_field_banded_contrib(x, comp, lift_cols=lift_cols,
+                                          halo=halo)
+    if halo is not None:
+        raise NotImplementedError(
+            "a graph-parallel lift takes a CompressedBandedTable shard; the "
+            "panel-sharded path is ROADMAP Queue 1 item 8")
     if isinstance(comp, PanelTable):
         return trans_field_panel_contrib(x, comp, lift_cols=lift_cols)
     if isinstance(comp, CompactPanelTable):
@@ -459,8 +468,8 @@ def lift_contribs(x, table, lift_cols=(0, 1), d_chunk: int = 128,
 
 
 def trans_field(x, table, zonal_ang, zonal_mag, phase, ftype,
-                lift_cols=(0, 1), d_chunk: int = 128, comp=None):
+                lift_cols=(0, 1), d_chunk: int = 128, comp=None, halo=None):
     """TransField lift: :func:`lift_contribs` over the layout ``comp``
-    names, then :func:`trans_field_weight`."""
-    ang, mag = lift_contribs(x, table, lift_cols, d_chunk, comp)
+    names (and ``halo``), then :func:`trans_field_weight`."""
+    ang, mag = lift_contribs(x, table, lift_cols, d_chunk, comp, halo)
     return trans_field_weight(ang, mag, zonal_ang, zonal_mag, phase, ftype)

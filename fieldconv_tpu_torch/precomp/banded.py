@@ -791,7 +791,8 @@ def concat_compact_panel_tables(tables) -> CompactPanelTable:
         n_mesh=len(tables))
 
 
-def window_blocks(a: torch.Tensor, tb: int, nh: int) -> torch.Tensor:
+def window_blocks(a: torch.Tensor, tb: int, nh: int,
+                  halo=None) -> torch.Tensor:
     """Window a per-vertex tensor by block shifts: the banded-layout
     replacement for the ``x[src]`` gather.
 
@@ -799,9 +800,16 @@ def window_blocks(a: torch.Tensor, tb: int, nh: int) -> torch.Tensor:
     win[..., b, j·tb + s, :] = a[..., (b − nh + j)·tb + s, :] for j in
     0..2nh, zero where that row lies outside [0, N) (out-of-range slots
     carry zero stencil).
+
+    halo: optional (left, right) rows (..., nh·tb, F) that take the zero
+    padding's place: a graph-parallel shard's ring neighbours' boundary
+    rows (parallel/halo.py::exchange_halos), zeros at the ends of the ring.
     """
     Wp = (2 * nh + 1) * tb
-    ap = F.pad(a, (0, 0, nh * tb, nh * tb))          # (..., N + 2nh·tb, F)
+    if halo is None:
+        ap = F.pad(a, (0, 0, nh * tb, nh * tb))      # (..., N + 2nh·tb, F)
+    else:
+        ap = torch.cat([halo[0], a, halo[1]], dim=-2)
     return ap.unfold(-2, Wp, tb).transpose(-1, -2)
 
 

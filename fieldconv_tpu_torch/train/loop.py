@@ -36,10 +36,15 @@ from .trainer import (draw_dropout_mask, draw_rotate_scale, make_optimizer,
 
 def build_model(config: ExperimentConfig, n_classes: int,
                 generator: Optional[torch.Generator] = None,
-                device="cuda"):
+                device="cuda", graph=None):
+    """The task's net.  graph: the graph axis
+    (parallel/distributed.py::Axis) of graph-parallel training
+    (parallel/gp.py), whose ops run over this rank's shards; the
+    parameters are those of the single-process net."""
     kw = dict(band_limit=config.band_limit, n_rings=config.n_rings,
               ftype=config.ftype, d_chunk=config.d_chunk,
-              lift_impl=config.lift_impl, generator=generator, device=device)
+              lift_impl=config.lift_impl, generator=generator, device=device,
+              graph=graph)
     if config.task == "classification":
         return ClassificationNet(n_classes=n_classes, nf=config.nf, **kw)
     if config.task == "segmentation":

@@ -292,9 +292,15 @@ def draw_dropout_mask(generator: torch.Generator, net, batch: MeshBatch):
     probability 1 − net.p, drawn from ``generator`` on its device.  The
     correspondence step feeds it to the net (``dropout_mask=``) instead of
     letting nn.Dropout draw from the global RNG."""
-    shape = (*batch.pos.shape[:2], net.lin1.weight.shape[0])
+    return keep_mask(generator, (*batch.pos.shape[:2],
+                                 net.lin1.weight.shape[0]), net.p)
+
+
+def keep_mask(generator: torch.Generator, shape, p: float):
+    """A float32 keep mask of ``shape``: each entry 1 with probability 1 −
+    p, drawn from ``generator`` on its device."""
     u = torch.rand(shape, generator=generator, device=generator.device)
-    return (u < 1.0 - net.p).to(torch.float32)
+    return (u < 1.0 - p).to(torch.float32)
 
 
 # --- optimizer ----------------------------------------------------------------

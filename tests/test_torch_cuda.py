@@ -1097,3 +1097,74 @@ def test_pure_panel_loss_gradient_repeats_on_card():
         for _ in range(2)]
     for (name, _), a, b in zip(net.named_parameters(), *runs):
         assert torch.equal(a, b), name
+
+
+def _k9_ranges(nb, nh):
+    """K9's launches over a shard of nb blocks: (what, blk_off, lo, hi,
+    source blocks) of the serial path, and of the overlapped one's
+    interior, head and tail where nb > 2·nh."""
+    out = [("serial", 0, 0, nb, nb + 2 * nh)]
+    if nb > 2 * nh:
+        out += [("interior", -nh, nh, nb - nh, nb),
+                ("head", 0, 0, nh, 3 * nh),
+                ("tail", nh - nb, nb - nh, nb, 3 * nh)]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,O,R,B,tb,nh,n_mesh,nb", [
+    (3, 5, 2, 1, 8, 1, 1, 4),
+    (4, 30, 6, 2, 8, 2, 3, 3),
+    (48, 48, 6, 2, 16, 1, 2, 4),
+    (32, 32, 3, 1, 16, 2, 1, 5),
+])
+def test_k9_kernels_match_plain_on_card(C, O, R, B, tb, nh, n_mesh, nb):
+    """K9 (parallel/halo.py) each way over every range a shard launches,
+    serial and overlapped, against its plain version on the card (1e-4 of
+    each output's scale): the forward writes only its range's rows of y,
+    the backward gives dG of every source row and dW, bitwise equal across
+    two calls; the contrib each way over the serial range the same way."""
+    from fieldconv_tpu_torch.parallel import halo
+
+    _need_card()
+    K = 2 * B + 1
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dev = torch.device("cuda")
+    sten = torch.randn(n_mesh, nb, R + 2 * K, tb, (2 * nh + 1) * tb,
+                       device=dev, generator=gen)
+    wmat = torch.randn(R, K * 2 * C, 2 * O, device=dev, generator=gen)
+
+    def close(got, want):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), err
+
+    for what, off, lo, hi, n_src in _k9_ranges(nb, nh):
+        g = torch.randn(n_mesh, n_src * tb, K * 2 * C, device=dev,
+                        generator=gen)
+        dy = torch.randn(n_mesh, (hi - lo) * tb, 2 * O, device=dev,
+                         generator=gen)
+        args = (tb, nh, off, lo, hi)
+        before = dict(kernels.launches)
+        y = halo.halo_fused_fwd(g, sten, wmat, *args)
+        dg, dw = halo.halo_fused_bwd(dy, g, sten, wmat, *args)
+        torch.cuda.synchronize()
+        for name in ("halo_fused_fwd", "halo_fused_bwd"):
+            assert kernels.launches[name] == before.get(name, 0) + 1, what
+        close(y[:, lo * tb:hi * tb],
+              halo.halo_fused_fwd_reference(g, sten, wmat, *args))
+        assert not y[:, :lo * tb].any() and not y[:, hi * tb:].any(), what
+        want_dg, want_dw = halo.halo_fused_bwd_reference(dy, g, sten, wmat,
+                                                         *args)
+        close(dg, want_dg)
+        close(dw, want_dw)
+        again = halo.halo_fused_bwd(dy, g, sten, wmat, *args)
+        assert torch.equal(dg, again[0]) and torch.equal(dw, again[1]), what
+        if what == "serial":
+            cargs = (tb, nh, R, K, off, lo, hi)
+            out = halo.halo_contrib_fwd(g, sten, *cargs)
+            close(out, halo.halo_contrib_reference(g, sten, *cargs))
+            dout = torch.randn(out.shape, device=dev, generator=gen)
+            bargs = (tb, nh, R, K, g.shape[1], off, lo, hi)
+            dgc = halo.halo_contrib_bwd(dout, sten, *bargs)
+            close(dgc, halo.halo_contrib_bwd_reference(dout, sten, *bargs))
+            assert torch.equal(dgc, halo.halo_contrib_bwd(dout, sten, *bargs))
