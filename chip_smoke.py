@@ -25,12 +25,13 @@ Phases, any failure exits non-zero:
      widths (C=16/32, O2=24/32/64, K=3, R=3) and at the segmentation
      width (C=48, O2=96, K=5, R=6), on the segmentation records' table
      forced onto the panel layout at that width, and on
-     the 5120-sample record's table with dense planes and with chunk=4;
+     the 5120-sample record's table with dense planes, with chunk=4 and
+     read with n_rings=6 (the MATCHING preset's K=3, R=6);
   3c. hold K5's backward (dg and dw) against its plain version and bitwise
      against a second call: on the 163,842-sample table at the four
      correspondence widths, on the forced segmentation table at C=48,
-     O2=96, K=5, R=6, and on the 5120-sample tables with dense planes and
-     with chunk=4;
+     O2=96, K=5, R=6, and on the 5120-sample tables with dense planes,
+     with chunk=4 and read with n_rings=6;
   3d. hold K6's forward (compact conv) and K7's forward (compact ECHO)
      against their plain versions and bitwise against a second call, and
      time them: K6 on the 163,842-sample CompactPanelTable (TBt 32, TS 128)
@@ -66,7 +67,7 @@ Phases, any failure exits non-zero:
   5b. serve the CORRESPONDENCE preset on the pure-panel layout (every op
      over one compressed PanelTable, the convs through K5) with the
      correspondence net's weights: the 5120-sample record forced there
-     (layout="panel"), held against the same Predictor on the CPU, and one
+     (layout="panel"), held against the CPU, and one
      mesh of 163,842 samples (a Fibonacci sphere of area 1 in kd_order,
      ε-ball graph with ε = sqrt(64/(πN)), the size of scripts/
      train_100k.py) that layout="auto" sends there by itself: logits
@@ -235,9 +236,19 @@ hold):
      step times on the host clock, labelled with the ranks, cards and
      backend (not a scaling figure).
 
-The CPU's side of every first-epoch check of 6-7d (fit(device="cpu"))
-runs in one worker process, started with the records and stopped with the
-script, beside the card's phases.
+The CPU is the script's bottleneck (8 cores of the host; the plain
+versions are slow there), so it computes each CPU reference once and
+beside the card's phases:
+  - the kernels build (one nvcc per source) in a thread while the records
+    and tables are built;
+  - the CPU's side of the first-epoch checks of 6-7d (fit(device="cpu"),
+    one per preset: the fit of every route of a preset is held against
+    its preset's, on the same records, batch size and seed) and of the
+    route checks of 7e and 7f (route_cpu) runs in two worker processes,
+    started with the records and stopped with the script;
+  - every serving route of an ECHO preset at 5-5f is held against one CPU
+    run of that preset on its own route (the bf16 tables against their
+    own).
 
 Records are synthetic, built with numpy from --seed by
 fieldconv_tpu_torch/data/synthetic.py, in the manner of
@@ -261,7 +272,7 @@ import sys
 import tempfile
 import time
 from collections import Counter
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -465,10 +476,12 @@ SHORT = {"band_fused": "K1", "echo_panel": "K2", "band_panel": "K5",
 # the fit at N_LARGE: the CORRESPONDENCE preset's 60 epochs cut to 3 (one
 # record, so 3 steps); nothing else is cut
 LARGE_EPOCHS = 3
-# torch threads of the worker that runs the CPU's reference fits beside the
-# card's phases (the machine has 8 cores; the main process keeps the rest
-# until the worker's last result is read)
-CPU_THREADS = 6
+# the worker processes that run the CPU's side of the training checks
+# beside the card's phases, and the torch threads of each (the machine has
+# 8 cores; the main process keeps the rest until the workers' last result
+# is read)
+CPU_WORKERS = 2
+CPU_THREADS = 3
 
 
 def check(cond, msg):
@@ -998,8 +1011,9 @@ def k5_check(label, g, wmat, panel):
 def k5_time(row, g, wmat, panel):
     args = _k5_args(g, wmat, panel)
     row["ms"] = time_cuda(lambda: band_panel_fwd(*args), iters=10)
+    # the plain version ran in its check (k5_check): no warm-up call
     row["plain_ms"] = time_cuda(lambda: band_panel_fwd_reference(*args),
-                                iters=1, reps=1, warmup=1)
+                                iters=1, reps=1, warmup=0)
     row.update(k5_bound(g, wmat, panel))
 
 
@@ -1026,10 +1040,11 @@ def k5_bwd_check(label, g, wmat, dy, panel):
 def k5_bwd_time(row, g, wmat, dy, panel):
     args = _k5_bwd_args(g, wmat, dy, panel)
     row["ms"] = time_cuda(lambda: band_panel_bwd(*args), iters=5)
+    # the plain version ran in its check (k5_bwd_check): no warm-up call
     row["plain_ms"] = time_cuda(
         lambda: band_panel_bwd_reference(dy, g, wmat, panel.sten,
                                          panel.meta_s, *args[6:]),
-        iters=1, reps=1, warmup=1)
+        iters=1, reps=1, warmup=0)
     row.update(k5_bwd_bound(g, wmat, dy, panel))
 
 
@@ -1791,17 +1806,24 @@ def as_cbanded(batches):
     return [dataclasses.replace(b, banded=b.comp) for b in batches]
 
 
-def match_cpu(k, p, recs, served, cpu_net, alt=None):
-    """The card's outputs ``served`` of Predictor ``p`` against the same
-    Predictor on the CPU (plain versions; with ``alt``, on the batches it
-    makes of the CPU's: path B's or path D's): logits within LOGIT_RTOL /
-    LOGIT_ATOL, labels / maps equal wherever the CPU's top-two logit gap
-    exceeds LABEL_GAP."""
-    key = "labels" if p.config.task == "segmentation" else "map"
+def cpu_predict(p, recs, cpu_net, alt=None):
+    """The outputs on ``recs`` of Predictor ``p`` on the CPU, holding
+    ``cpu_net`` (plain versions; with ``alt``, on the batches it makes of
+    the CPU's)."""
     cpu_p = Predictor(cpu_net, p.config, batch_size=p.batch_size,
                       banded_tb=TB, device="cpu")
-    cpu = cpu_p.predict(recs, batches=alt(cpu_p.make_batches(recs))
-                        if alt else None)
+    return cpu_p.predict(recs, batches=alt(cpu_p.make_batches(recs))
+                         if alt else None)
+
+
+def match_cpu(k, p, recs, served, cpu, ref=None):
+    """The card's outputs ``served`` of Predictor ``p`` against ``cpu``,
+    cpu_predict's of the same Predictor or, given ``ref``, of the
+    Predictor of that shape (the same preset, weights and records on the
+    preset's own route: every route computes the same function): logits
+    within LOGIT_RTOL / LOGIT_ATOL, labels / maps equal wherever the CPU's
+    top-two logit gap exceeds LABEL_GAP."""
+    key = "labels" if p.config.task == "segmentation" else "map"
     n_close = n_all = 0
     diff = 0.0
     for a, b, r in zip(served, cpu, recs):
@@ -1818,7 +1840,8 @@ def match_cpu(k, p, recs, served, cpu_net, alt=None):
         n_close += int((~clear).sum())
         n_all += len(clear)
         diff = max(diff, float(np.abs(a["logits"] - b["logits"]).max()))
-    print(f"serve {k}: {key} match the CPU run at every vertex whose "
+    print(f"serve {k}: {key} match the CPU run"
+          f"{f' of {ref}' if ref else ''} at every vertex whose "
           f"top-two logit gap exceeds {LABEL_GAP} ({n_close} of {n_all} "
           f"vertices fall below it); max logit diff {diff:.3e} (rtol "
           f"{LOGIT_RTOL}, atol {LOGIT_ATOL})")
@@ -1963,12 +1986,14 @@ def cpu_first_epoch(cfg, train, n_classes, bs, seed):
         return read_losses(log), time.perf_counter() - t0
 
 
-def fit_phase(k, cfg, n_classes, recs, dev, seed, tmp, cpu_job):
+def fit_phase(k, cfg, n_classes, recs, dev, seed, tmp, cpu_job, ref):
     """fit_counted for TRAIN_EPOCHS epochs, checkpointing every epoch, and
-    the first epoch of the same fit on the CPU (``cpu_job``, the future of
-    cpu_first_epoch), at training shape ``k``: ``recs`` holds the train
-    records then the test records (TRAIN_FIT[k]).  The first epoch's losses
-    must match the CPU's.  Returns the card run's net and optimizer."""
+    the first epoch of the same preset's fit on the CPU (``cpu_job``, the
+    future of cpu_first_epoch at shape ``ref``: the same records, batch
+    size and seed on the preset's own route), at training shape ``k``:
+    ``recs`` holds the train records then the test records (TRAIN_FIT[k]).
+    The first epoch's losses must match the CPU's.  Returns the card run's
+    net and optimizer."""
     n_train, bs, _ = TRAIN_FIT[k]
     train, test = recs[:n_train], recs[n_train:]
     ck = dataclasses.replace(cfg, epochs=TRAIN_EPOCHS, checkpoint_every=1,
@@ -1979,7 +2004,9 @@ def fit_phase(k, cfg, n_classes, recs, dev, seed, tmp, cpu_job):
     latest = CheckpointManager(ck.checkpoint_dir).latest_step()
     check(latest == steps, f"{k}: latest checkpoint {latest}, want {steps}")
 
+    t0 = time.perf_counter()
     cpu, cpu_s = cpu_job.result()
+    wait_s = time.perf_counter() - t0
     diffs = [abs(a - b) for a, b in zip(losses, cpu)]
     check(len(cpu) == steps // TRAIN_EPOCHS, f"{k}: cpu losses {cpu}")
     check(diffs[0] <= LOSS_ATOL_STEP1
@@ -1991,9 +2018,10 @@ def fit_phase(k, cfg, n_classes, recs, dev, seed, tmp, cpu_job):
           f"({fit_s:.1f} s with table builds and the test pass), losses "
           f"{losses}, launches {grew}, checkpoint at step {latest}; {what} "
           f"{metric:.4f} (random labels)")
-    print(f"train {k}: the first {len(cpu)} losses match the CPU fit ({cpu}, "
-          f"{cpu_s:.1f} s): |diff| {diffs} (step 1 within {LOSS_ATOL_STEP1}, "
-          f"later within {LOSS_ATOL_LATER})")
+    print(f"train {k}: the first {len(cpu)} losses match the CPU fit of "
+          f"{ref} ({cpu}, {cpu_s:.1f} s, waited for {wait_s:.1f} s): |diff| "
+          f"{diffs} (step 1 within {LOSS_ATOL_STEP1}, later within "
+          f"{LOSS_ATOL_LATER})")
     return net, opt
 
 
@@ -2054,51 +2082,109 @@ def grad_bar(own, spread):
     return max(K1_RTOL_SCALE * own, GRAD_SPREAD * spread)
 
 
-def route_check(k, cfg, n_classes, weights, batch, cpu_batch, dev, seed,
-                alt=as_cbanded, name="B", conv="K4", spread_alts=()):
+def route_grads(net, cfg, n_classes, batch, kw):
+    """The loss of ``net`` on ``batch`` (keywords ``kw``), every
+    parameter's gradient (on the CPU) and the lift's (call arguments,
+    output gradient)."""
+    cap = {}
+    hook = net.lift.field.register_forward_hook(
+        lambda mod, args, o: cap.update(args=args, out=o))
+    loss = make_loss_fn(net, cfg, n_classes)(batch, **kw)
+    hook.remove()
+    grads = torch.autograd.grad(loss, list(net.parameters()) + [cap["out"]])
+    return loss.item(), [g.cpu() for g in grads[:-1]], (cap["args"],
+                                                         grads[-1])
+
+
+def cpu_weights(net):
+    """``net``'s state as numpy arrays, which cross to a worker process by
+    value."""
+    return {n: v.detach().cpu().numpy() for n, v in net.state_dict().items()}
+
+
+def as_tensors(arrays):
+    return {n: torch.from_numpy(a) for n, a in arrays.items()}
+
+
+def route_cpu(cfg, n_classes, weights, recs, seed, alt=as_cbanded, name="B",
+              spread_alts=()):
+    """route_check's CPU side, which chip_smoke runs in a worker process
+    beside the card's phases: the batch of ``recs`` built on the CPU, the
+    augmentation and (correspondence) dropout mask drawn, and a net of
+    ``cfg`` holding ``weights`` (cpu_weights'): its loss and every gradient
+    on path A and on path ``name`` (the batch ``alt`` makes), the lift's
+    terms on path A (lift_terms, and the lift output's gradient), and each
+    gradient's rounding spread: the largest difference of path A's from
+    path ``name``'s and from each route ``spread_alts`` make.  Returns a
+    dict of numpy arrays and numbers."""
+    torch.set_num_threads(CPU_THREADS)
+    batch = make_batches(recs, cfg, len(recs), TB, device="cpu")[0]
+    gen = torch.Generator().manual_seed(seed + 3)
+    aug = draw_rotate_scale(gen, batch.pos.shape[0], cfg.random_rotate_deg,
+                            cfg.random_scale)
+    net = build_model(cfg, n_classes, device="cpu")
+    net.load_state_dict(as_tensors(weights))
+    mask = (draw_dropout_mask(gen, net, batch)
+            if cfg.task == "correspondence" else None)
+    kw = dict(aug=aug, dropout_mask=mask)
+    out = {path: route_grads(net, cfg, n_classes, b, kw)
+           for path, b in (("A", batch), (name, alt([batch])[0]))}
+    others = [out[name][1]]
+    for make in spread_alts:
+        loss = make_loss_fn(net, cfg, n_classes)(make([batch])[0], **kw)
+        others.append(torch.autograd.grad(loss, list(net.parameters())))
+    spread = [max((a - o[i]).abs().max().item() for o in others)
+              for i, a in enumerate(out["A"][1])]
+    lift_args, lift_gout = out["A"][2]
+    return dict(aug=tuple(None if a is None else a.numpy() for a in aug),
+                mask=None if mask is None else mask.numpy(),
+                loss={p: o[0] for p, o in out.items()},
+                grads={p: [g.numpy() for g in o[1]] for p, o in out.items()},
+                lift=tuple(t.numpy() for t in (*lift_terms(lift_args),
+                                               lift_gout)),
+                spread=spread)
+
+
+def route_check(k, cfg, n_classes, weights, batch, cpu, dev, alt=as_cbanded,
+                name="B", conv="K4"):
     """A route's gradient check at shape ``k``: a net of ``cfg`` holding
-    ``weights``, its loss and every parameter's gradient on the card
-    against the same net on the CPU, with the same augmentation and dropout
-    mask, on ``batch`` / ``cpu_batch`` (path A: their own conv tables, K1)
-    and on the batches ``alt`` makes of them (path ``name``, every conv
-    through ``conv``: path B's compressed table, K4, or path D's
-    block-sparse one, K8).  Each loss within LOSS_ATOL_STEP1; each gradient
-    within grad_bar of its CPU route's, whose spread is the CPU's path A
-    against its path ``name`` and against each route ``spread_alts`` make
-    of the CPU's batch (the largest); the lift's zonalMag against the
-    CPU's plus lift_flip_term's sign term (the subgradient of |M| at the
-    entries where the card's M and the CPU's differ in sign), once M is
-    held to rounding (FLIP_GAP_REL, MAX_FLIPS).
+    ``weights`` (cpu_weights'), its loss and every parameter's gradient on
+    the card against the same net's on the CPU (``cpu``: route_cpu's
+    result for the same records, weights, seed, ``alt`` and ``name``, or
+    its future), with the same augmentation and dropout mask, on ``batch``
+    (path A: its own conv table, K1) and on the batch ``alt`` makes of it
+    (path ``name``, every conv through ``conv``: path B's compressed
+    table, K4, or path D's block-sparse one, K8).  Each loss within
+    LOSS_ATOL_STEP1; each gradient within grad_bar of its CPU route's,
+    given route_cpu's spread; the lift's zonalMag against the CPU's plus
+    lift_flip_term's sign term (the subgradient of |M| at the entries where
+    the card's M and the CPU's differ in sign), once M is held to rounding
+    (FLIP_GAP_REL, MAX_FLIPS).
     Returns the card's net on path ``name``, a fresh optimizer of it, the
     step's inputs ({dev: the aug and dropout_mask keywords, "cpu_loss": the
     CPU's loss on path ``name``}) and each parameter's rounding spread
     relative to its own scale (the CPU's two routes and the card's path A
     against the CPU's: the larger)."""
-    gen = torch.Generator().manual_seed(seed + 3)
-    aug = draw_rotate_scale(gen, batch.pos.shape[0], cfg.random_rotate_deg,
-                            cfg.random_scale)
-    nets, out, kw, mask, lifts = {}, {}, {}, None, {}
-    for d, b in (("cpu", cpu_batch), (dev, batch)):
-        nets[d] = build_model(cfg, n_classes, device=d)
-        nets[d].load_state_dict({n: v.to(d) for n, v in weights.items()})
-        if cfg.task == "correspondence" and mask is None:
-            mask = draw_dropout_mask(gen, nets[d], b)
-        kw[d] = dict(aug=tuple(None if a is None else a.to(d) for a in aug),
-                     dropout_mask=None if mask is None else mask.to(d))
-        for path, b_ in (("A", b), (name, alt([b])[0])):
-            cap = {}
-            hook = nets[d].lift.field.register_forward_hook(
-                lambda mod, args, o: cap.update(args=args, out=o))
-            loss = make_loss_fn(nets[d], cfg, n_classes)(b_, **kw[d])
-            hook.remove()
-            params = list(nets[d].parameters())
-            grads = torch.autograd.grad(loss, params + [cap["out"]])
-            if path == "A":
-                lifts[d] = (cap["args"], grads[-1])
-            out[d, path] = (loss.item(), [g.cpu() for g in grads[:-1]])
-    names = [n for n, _ in nets["cpu"].named_parameters()]
+    t0 = time.perf_counter()
+    if not isinstance(cpu, dict):
+        cpu = cpu.result()
+    wait_s = time.perf_counter() - t0
+    cpu = dict(cpu, grads={p: [torch.from_numpy(g) for g in gs]
+                           for p, gs in cpu["grads"].items()},
+               lift=tuple(torch.from_numpy(a) for a in cpu["lift"]))
+    cpu_net = build_model(cfg, n_classes, device="cpu")
+    cpu_net.load_state_dict(as_tensors(weights))
+    net = build_model(cfg, n_classes, device=dev)
+    net.load_state_dict(as_tensors(weights))
+    kw = {dev: dict(aug=tuple(None if a is None else torch.from_numpy(a).to(
+                        dev) for a in cpu["aug"]),
+                    dropout_mask=None if cpu["mask"] is None
+                    else torch.from_numpy(cpu["mask"]).to(dev))}
+    out = {path: route_grads(net, cfg, n_classes, b_, kw[dev])
+           for path, b_ in (("A", batch), (name, alt([batch])[0]))}
+    names = [n for n, _ in cpu_net.named_parameters()]
     flip, n_flips, m_gap, m_flip, m_max = lift_flip_term(
-        nets["cpu"].lift.field, lifts["cpu"], lifts[dev])
+        cpu_net.lift.field, cpu["lift"], out["A"][2][0])
     check(m_gap <= FLIP_GAP_REL * m_max and m_flip <= FLIP_GAP_REL * m_max
           and n_flips <= MAX_FLIPS,
           f"{k}: the lift's M on the card is {m_gap:.3e} from the CPU's "
@@ -2106,69 +2192,64 @@ def route_check(k, cfg, n_classes, weights, batch, cpu_batch, dev, seed,
           f"largest |M| among them {m_flip:.3e}: more than rounding "
           f"(FLIP_GAP_REL {FLIP_GAP_REL}, MAX_FLIPS {MAX_FLIPS})")
     adjust = {"lift.field.zonalMag": flip}
-    others = [out["cpu", name][1]]
-    for make in spread_alts:
-        loss = make_loss_fn(nets["cpu"], cfg, n_classes)(
-            make([cpu_batch])[0], **kw["cpu"])
-        others.append(torch.autograd.grad(loss,
-                                          list(nets["cpu"].parameters())))
-    spread = [max((a - o[i]).abs().max().item() for o in others)
-              for i, a in enumerate(out["cpu", "A"][1])]
+    spread = cpu["spread"]
     own = {n: max(b.abs().max().item(), 1e-30)
-           for n, b in zip(names, out["cpu", "A"][1])}
+           for n, b in zip(names, cpu["grads"]["A"])}
     print(f"train {k}: the lift's magnitude sums M (card against CPU within "
           f"{m_gap:.3e}, {m_gap / m_max:.3e} of max|M| {m_max:.3e}) differ "
           f"in sign at {n_flips} entries (|M| <= {m_flip:.3e}); their "
           f"subgradient moves the CPU's zonalMag gradient by "
           f"{flip.abs().max().item() / own['lift.field.zonalMag']:.3e} of "
-          "its scale (the sign term, added to the CPU's before it is held)")
+          "its scale (the sign term, added to the CPU's before it is held; "
+          f"the CPU's side waited for {wait_s:.1f} s)")
     for path in ("A", name):
-        dloss = abs(out[dev, path][0] - out["cpu", path][0])
+        dloss = abs(out[path][0] - cpu["loss"][path])
         check(dloss <= LOSS_ATOL_STEP1,
-              f"{k} path {path}: loss {out[dev, path][0]} on the card, "
-              f"{out['cpu', path][0]} on the CPU")
-        hold_grads(f"{k} path {path}", names, out[dev, path][1],
-                   out["cpu", path][1], spread,
+              f"{k} path {path}: loss {out[path][0]} on the card, "
+              f"{cpu['loss'][path]} on the CPU")
+        hold_grads(f"{k} path {path}", names, out[path][1],
+                   cpu["grads"][path], spread,
                    f"every conv through {'K1' if path == 'A' else conv}: "
-                   f"loss {out[dev, path][0]:.6f} on the card, |diff| "
+                   f"loss {out[path][0]:.6f} on the card, |diff| "
                    f"{dloss:.3e} from the CPU's (within {LOSS_ATOL_STEP1})",
                    adjust=adjust)
-    kw["cpu_loss"] = out["cpu", name][0]
+    kw["cpu_loss"] = cpu["loss"][name]
     # each gradient's rounding spread relative to its scale: the CPU's two
     # routes, and the card's path A against the CPU's (sign term added)
     rel = {n: max(s_, (a - b - adjust.get(n, 0.0)).abs().max().item())
-           / own[n] for n, s_, a, b in zip(names, spread, out[dev, "A"][1],
-                                           out["cpu", "A"][1])}
-    net = nets[dev]
+           / own[n] for n, s_, a, b in zip(names, spread, out["A"][1],
+                                           cpu["grads"]["A"])}
     return net, make_optimizer(cfg, net.parameters()), kw, rel
 
 
-def lift_flip_term(field, cpu_lift, dev_lift):
+def lift_terms(args):
+    """The lift's (contribAng, contribMag) recomputed from its call
+    arguments ``args``, as the lift forms them."""
+    x, table, cols, comp = args
+    with torch.no_grad():
+        return lift_contribs(x.detach(), table, cols, comp=comp)
+
+
+def lift_flip_term(field, cpu_terms, dev_args):
     """The lift's rho = |M| (M = Σ_r contribMag·zonalMag, ops/trans_field.py
     ::trans_field_weight) takes subgradient +1 at M ≥ 0 and −1 below, so an
     entry whose M lies within rounding of 0 and differs in sign between two
     devices moves zonalMag's gradient by 2·dρ·contribMag, though ρ is the
-    same.  ``field``: the CPU net's TransField; ``cpu_lift`` /
-    ``dev_lift``: (the TransField's call arguments, its output's gradient)
-    on each device.  Recomputes M on each device as the lift forms it and
+    same.  ``field``: the CPU net's TransField; ``cpu_terms``: the CPU's
+    (contribAng, contribMag, the TransField output's gradient);
+    ``dev_args``: the TransField's call arguments on the card.  Recomputes M on each device as the lift forms it and
     returns (the CPU's zonalMag gradient with the card's signs minus the
     same with its own, the entries whose signs differ, max |M_card −
     M_CPU|, the largest |M| of either device at those entries, max
     |M_CPU|); the caller holds the last three to rounding (FLIP_GAP_REL,
     MAX_FLIPS) before it adds the term."""
-    def contribs(args):
-        x, table, cols, comp = args
-        with torch.no_grad():
-            return lift_contribs(x.detach(), table, cols, comp=comp)
-
     def m_of(mag, zm):
         return torch.einsum("...ncr,ocr->...noc", mag, zm)
 
-    (cargs, gout), (dargs, _) = cpu_lift, dev_lift
-    ang, mag = contribs(cargs)
-    zm_dev = dargs[0].new_tensor(field.zonalMag.detach().numpy())
+    ang, mag, gout = cpu_terms
+    zm_dev = dev_args[0].new_tensor(field.zonalMag.detach().numpy())
     m_cpu = m_of(mag, field.zonalMag.detach())
-    m_dev = m_of(contribs(dargs)[1], zm_dev).cpu()
+    m_dev = m_of(lift_terms(dev_args)[1], zm_dev).cpu()
     signs = [torch.where(m < 0, -1.0, 1.0) for m in (m_cpu, m_dev)]
     A = torch.einsum("...ncrp,ocr->...nocp", ang, field.zonalAng.detach())
     phi = soft_angle(A)
@@ -2930,10 +3011,10 @@ def graph_parallel_only(args) -> int:
                           generator=torch.Generator().manual_seed(
                               args.seed + 10))
     batch = make_batches(recs, seg_cfg, 4, TB, device=dev)[0]
-    cpu_b = make_batches(recs, seg_cfg, 4, TB, device="cpu")[0]
-    _, _, _, rel = route_check("seg_n2048_b4_bech", seg_cfg, 8,
-                               seg_net.state_dict(), batch, cpu_b, dev,
-                               args.seed)
+    weights = cpu_weights(seg_net)
+    _, _, _, rel = route_check(
+        "seg_n2048_b4_bech", seg_cfg, 8, weights, batch,
+        route_cpu(seg_cfg, 8, weights, recs, args.seed), dev)
     net = build_model(config, N_CLASSES, device=dev,
                       generator=torch.Generator().manual_seed(args.seed))
     train, unfused = gp_phase(config, net, small, seg_cfg, seg_net, batch,
@@ -2962,9 +3043,10 @@ def main(argv=None) -> int:
         return 1
     if args.graph_parallel:
         return graph_parallel_only(args)
-    # one worker process for the CPU's reference fits; on the way out the
-    # jobs not started are dropped and the worker stops
-    pool = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
+    # the worker processes for the CPU's side of the training checks; on
+    # the way out the jobs not started are dropped and the workers stop
+    pool = ProcessPoolExecutor(CPU_WORKERS,
+                               mp_context=mp.get_context("spawn"))
     try:
         return phases(args, pool)
     finally:
@@ -2972,8 +3054,8 @@ def main(argv=None) -> int:
 
 
 def phases(args, pool) -> int:
-    """The phases of the module docstring; ``pool`` runs the CPU's
-    reference fits."""
+    """The phases of the module docstring; ``pool`` runs the CPU's side
+    of the training checks."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -2985,18 +3067,12 @@ def phases(args, pool) -> int:
     card = card_line()
     print(f"card: {card}")
 
-    # 1. build
-    t0 = time.perf_counter()
-    kernels.build_all()
-    print(f"built {sorted(kernels.build_logs) or 'nothing (up to date)'} in "
-          f"{time.perf_counter() - t0:.1f} s")
-    for name, log in kernels.build_logs.items():
-        tag = ""
-        for line in log.splitlines():
-            if "Compiling entry function" in line:
-                tag = " (bf16 stencil)" if "nv_bfloat16" in line else ""
-            if "registers" in line or "spill" in line:
-                print(f"  nvcc {name}{tag}: {line.strip()}")
+    # 1. build, in a thread beside the records and the tables (nothing
+    # launches a kernel before the build is read below)
+    t_build = time.perf_counter()
+    builder = ThreadPoolExecutor(1)
+    build = builder.submit(
+        lambda: (kernels.build_all(), time.perf_counter() - t_build)[1])
 
     rng = np.random.default_rng(args.seed)
     config = PRESETS["classification"]
@@ -3044,7 +3120,24 @@ def phases(args, pool) -> int:
         k: echo_records(rng, n, sum(TRAIN_FIT[k][::2]), echo_cfg[k].epsilon,
                         echo_classes[k], f"{k}_train")
         for k, n in (("seg_n2048_b4", 2048), ("corr_n5120_b1", 5120))}
+    # the CPU's side of the checks of phases 6-7f, in the worker processes
+    # beside the card's phases, in the order the phases need them: the
+    # first epoch of each preset's fit (every route's fit of that preset
+    # is held against it) ...
+    ref_fits = {"shrec11_b8": (config, N_CLASSES, train_recs + test_recs)}
+    ref_fits.update((k, (echo_cfg[k], echo_classes[k], echo_train_recs[k]))
+                    for k in echo_cfg)
+    cpu_jobs = {k: pool.submit(cpu_first_epoch, cfg_,
+                               recs_[:TRAIN_FIT[k][0]], n_cls,
+                               TRAIN_FIT[k][1], args.seed)
+                for k, (cfg_, n_cls, recs_) in ref_fits.items()}
+    # the ECHO presets with echo_impl="banded" (phases 5d-5e, 7d-7e)
+    bech_cfg = {f"{k}_bech": dataclasses.replace(cfg, echo_impl="banded")
+                for k, cfg in echo_cfg.items()}
+    bech_of = {k: k[:-len("_bech")] for k in bech_cfg}   # the mixed route's
+    bech_recs = {k: echo_recs[bech_of[k]] for k in bech_cfg}
     echo_nets, echo_cpu_nets, echo_serve, echo_batches = {}, {}, {}, {}
+    route_weights = {}
     for i, (k, cfg) in enumerate(echo_cfg.items()):
         echo_nets[k] = build_model(
             cfg, echo_classes[k],
@@ -3056,6 +3149,7 @@ def phases(args, pool) -> int:
         echo_serve[k] = Predictor(echo_nets[k], cfg,
                                   batch_size=len(echo_recs[k]), banded_tb=TB,
                                   device=dev)
+        route_weights[k] = cpu_weights(echo_nets[k])
         t0 = time.perf_counter()
         echo_batches[k] = echo_serve[k].make_batches(echo_recs[k])
         torch.cuda.synchronize()
@@ -3069,6 +3163,20 @@ def phases(args, pool) -> int:
               f"{b.panel.n_panels} panels, "
               f"{int(b.table.mask.sum().item())} edges; tables built on the "
               f"host and placed in {build_s:.3f} s")
+    # ... then the CPU's side of the route checks on the serving batches:
+    # paths A and B with the banded ECHO (7e), paths A and D (7f)
+    route_jobs = {}
+    for k, cfg in bech_cfg.items():
+        route_jobs[k, "B"] = pool.submit(
+            route_cpu, cfg, echo_classes[bech_of[k]],
+            route_weights[bech_of[k]], bech_recs[k], args.seed)
+    for k, cfg in echo_cfg.items():
+        route_jobs[k, "D"] = pool.submit(
+            route_cpu, cfg, echo_classes[k], route_weights[k], echo_recs[k],
+            args.seed, alt=as_block_sparse, name="D",
+            spread_alts=(as_compressed,))
+    torch.set_num_threads(max(1, (os.cpu_count() or 8)
+                              - CPU_WORKERS * CPU_THREADS))
 
     # the pure-panel layout (correspondence weights of the mixed route):
     # the 5120-sample record forced onto it, and one mesh of N_LARGE
@@ -3184,10 +3292,6 @@ def phases(args, pool) -> int:
     # K1 convs, and the banded ECHO and lift over the batch's
     # CompressedBandedTable; path B: the same batch with that table as the
     # conv table too (every conv through K4)
-    bech_cfg = {f"{k}_bech": dataclasses.replace(cfg, echo_impl="banded")
-                for k, cfg in echo_cfg.items()}
-    bech_of = {k: k[:-len("_bech")] for k in bech_cfg}   # the mixed route's
-    bech_recs = {k: echo_recs[bech_of[k]] for k in bech_cfg}
     bech_serve, bech_batches, cb_batches = {}, {}, {}
     for k, cfg in bech_cfg.items():
         bech_serve[k] = Predictor(echo_nets[bech_of[k]], cfg,
@@ -3233,14 +3337,30 @@ def phases(args, pool) -> int:
                    echo_train_recs[bech_of[k]][:sum(TRAIN_FIT[k][::2])])
     fits[big_c] = (compact_cfg[big_c], N_CORR_CLASSES, panel_recs[big])
     fits[big_a] = (compact_cfg[big_a], N_CORR_CLASSES, panel_recs[big])
-    # the first epoch of every fit_phase fit on the CPU, in the worker
-    # process, in the order the training phases need them, beside the
-    # card's phases
-    cpu_jobs = {k: pool.submit(cpu_first_epoch, fits[k][0],
-                               fits[k][2][:TRAIN_FIT[k][0]], fits[k][1],
-                               TRAIN_FIT[k][1], args.seed)
-                for k in fits if k in TRAIN_FIT}
-    torch.set_num_threads(max(1, (os.cpu_count() or 8) - CPU_THREADS))
+    # the CPU fit each fit_phase fit is held against: its preset's, on the
+    # same training records with the same batch size (the routes' own CPU
+    # fits agreed to 1e-6 in earlier runs)
+    ref_of = {k: "seg_n2048_b4" if k.startswith("seg") else
+              "corr_n5120_b1" if k.startswith("corr") else k
+              for k in TRAIN_FIT}
+    for k, ref in ref_of.items():
+        n_train = TRAIN_FIT[k][0]
+        check(TRAIN_FIT[k][:2] == TRAIN_FIT[ref][:2]
+              and fits[k][1] == ref_fits[ref][1]
+              and all(a is b for a, b in zip(fits[k][2][:n_train],
+                                             ref_fits[ref][2][:n_train])),
+              f"{k}: not the training records of {ref}'s CPU fit")
+    build_s = build.result()
+    builder.shutdown()
+    print(f"built {sorted(kernels.build_logs) or 'nothing (up to date)'} in "
+          f"{build_s:.1f} s, beside the records and tables")
+    for name, log in kernels.build_logs.items():
+        tag = ""
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                tag = " (bf16 stencil)" if "nv_bfloat16" in line else ""
+            if "registers" in line or "spill" in line:
+                print(f"  nvcc {name}{tag}: {line.strip()}")
     stamp("tables built")
     # 2. K1 forward and backward against their plain versions at the
     # shapes serving and training give them
@@ -3435,7 +3555,8 @@ def phases(args, pool) -> int:
     # of the correspondence net's 17 convs and at the segmentation width
     # (C=48, O2=96, K=5, R=6), on a segmentation table forced onto the
     # panel layout at that width, and on the 5120-sample
-    # table with dense planes and with chunk=4
+    # table with dense planes, with chunk=4 and read with n_rings=6 (K=3,
+    # R=6)
     k5_rows, k5_timed = [], []
     # the compressed planes do not depend on K or R: the 163k table at the
     # segmentation width is the same stencil read with K=5, R=6
@@ -3455,8 +3576,8 @@ def phases(args, pool) -> int:
     # 3c. K5's backward against its plain version: on the 163k table at
     # the correspondence net's four widths, on the segmentation table
     # forced onto the panel layout at the segmentation width, and (below,
-    # with the forward) on the 5120-sample table with dense planes and
-    # with chunk=4
+    # with the forward) on the 5120-sample table with dense planes, with
+    # chunk=4 and read with n_rings=6
     k5b_rows, k5b_timed = [], []
     for label, pt, C_, O2 in (
             (big, bigp, 32, 64), (big, bigp, 16, 64), (big, bigp, 32, 32),
@@ -3466,10 +3587,14 @@ def phases(args, pool) -> int:
         k5b_rows.append(k5_bwd_check(f"{label} C={C_} O2={O2}", g, wmat, dy,
                                      pt))
         k5b_timed.append((k5b_rows[-1], g, wmat, dy, pt))
+    # the compressed planes do not depend on R: the 5120-sample table read
+    # with n_rings=6 is the MATCHING preset's shape (K = 3, R = 6)
     corr_table = echo_recs["corr_n5120_b1"][0].table(1, 3)
-    for label, kw in (("dense planes", dict(compressed=False)),
-                      ("chunk=4", dict(compressed=True, chunk=4))):
+    for label, kw, rings in (("dense planes", dict(compressed=False), 3),
+                             ("chunk=4", dict(compressed=True, chunk=4), 3),
+                             ("n_rings=6", dict(compressed=True), 6)):
         pt = build_panel_table(corr_table, tb=TB, **kw).to(dev)
+        pt = dataclasses.replace(pt, n_rings=rings)
         g, wmat = k5_inputs(pt, 32, 64, gen)
         label = f"corr_n5120_b1 {label} C=32 O2=64"
         k5_rows.append(k5_check(label, g, wmat, pt))
@@ -3630,8 +3755,12 @@ def phases(args, pool) -> int:
         echo_serve, echo_recs, echo_batches,
         {k: {"band_fused_fwd": CONVS_PER_PASS[k], "echo_panel_fwd": 1}
          for k in echo_serve})
+    # the CPU's outputs of each ECHO preset on its own route: every route
+    # of that preset below is held against them
+    cpu_ref = {k: cpu_predict(p, echo_recs[k], echo_cpu_nets[k])
+               for k, p in echo_serve.items()}
     for k, p in echo_serve.items():
-        match_cpu(k, p, echo_recs[k], served[k], echo_cpu_nets[k])
+        match_cpu(k, p, echo_recs[k], served[k], cpu_ref[k])
 
     # 5b. pure-panel serving: the slice-5 path, counted.  Each request
     # launches K5 17 times and K2 once, K1 never.  The forced-panel request
@@ -3643,7 +3772,7 @@ def phases(args, pool) -> int:
              "echo_panel_fwd": 1} for k in panel_serve})
     small_k = "corr_n5120_b1_panel"
     match_cpu(small_k, panel_serve[small_k], panel_recs[small_k],
-              served[small_k], echo_cpu_nets["corr_n5120_b1"])
+              served[small_k], cpu_ref["corr_n5120_b1"], "corr_n5120_b1")
     out = served[big][0]
     check(out["logits"].shape == (N_LARGE, N_CORR_CLASSES)
           and out["map"].shape == (N_LARGE,)
@@ -3671,8 +3800,8 @@ def phases(args, pool) -> int:
             print(f"serve {k}: logits {out['logits'].shape} finite, map in "
                   f"[{out['map'].min()}, {out['map'].max()}]")
         else:
-            match_cpu(k, p, compact_recs[k], served[k], echo_cpu_nets[
-                "seg_n2048_b4" if k.startswith("seg") else "corr_n5120_b1"])
+            ref = "seg_n2048_b4" if k.startswith("seg") else "corr_n5120_b1"
+            match_cpu(k, p, compact_recs[k], served[k], cpu_ref[ref], ref)
     print(f"serve compact: launches {compact_launches} for the "
           f"{len(compact_serve)} compact requests")
     del out, served, b0
@@ -3696,8 +3825,9 @@ def phases(args, pool) -> int:
          "corr_n5120_b1_panel_compact_bf16": {"band_panel_fwd": 17,
                                               "echo_compact_fwd": 1}})
     for k, p in bf16_serve.items():
-        match_cpu(k, p, bf16_recs[k], served[k],
-                  echo_cpu_nets["corr_n5120_b1"], alt=cast_batches)
+        match_cpu(k, p, bf16_recs[k], served[k], cpu_predict(
+            p, bf16_recs[k], echo_cpu_nets["corr_n5120_b1"],
+            alt=cast_batches))
     del served
     # 5d. path A: the banded ECHO over the batch's compressed table with K1
     # convs, counted (9 / 17 K1 a request and nothing else: the banded ECHO
@@ -3706,7 +3836,8 @@ def phases(args, pool) -> int:
         bech_serve, bech_recs, bech_batches,
         {k: {"band_fused_fwd": CONVS_PER_PASS[k]} for k in bech_serve})
     for k, p in bech_serve.items():
-        match_cpu(k, p, bech_recs[k], served[k], echo_cpu_nets[bech_of[k]])
+        match_cpu(k, p, bech_recs[k], served[k], cpu_ref[bech_of[k]],
+                  bech_of[k])
     # 5e. path B: the same batches with the compressed table as the conv
     # table, counted (9 / 17 K4 a request, no K1), against the CPU
     cb_launches, served = serve_counted(
@@ -3714,7 +3845,7 @@ def phases(args, pool) -> int:
         {k: {"band_cfused_fwd": CONVS_PER_PASS[k]} for k in bech_serve})
     for k, p in bech_serve.items():
         match_cpu(f"{k} path B", p, bech_recs[k], served[k],
-                  echo_cpu_nets[bech_of[k]], alt=as_cbanded)
+                  cpu_ref[bech_of[k]], bech_of[k])
     del served
 
     # 5f. path D: each batch's block-sparse table as the conv table (every
@@ -3753,7 +3884,7 @@ def phases(args, pool) -> int:
          for k in bsp_serve})
     for k in echo_serve:
         match_cpu(f"{k} path D", bsp_serve[k], bsp_recs[k], served[k],
-                  echo_cpu_nets[k], alt=as_block_sparse)
+                  cpu_ref[k], k)
     out = served[big][0]
     check(out["logits"].shape == (N_LARGE, N_CORR_CLASSES)
           and np.isfinite(out["logits"]).all(),
@@ -3792,7 +3923,7 @@ def phases(args, pool) -> int:
                                         panel_batches[big][0])
                               if k == big else
                               fit_phase(k, *fits[k], dev, args.seed, tmp,
-                                        cpu_jobs[k]))
+                                        cpu_jobs[ref_of[k]], ref_of[k]))
             train_launches[path] = dict(kernels.launches)
 
         # 7c. training on the compact route: the slice-8 path, counted.  The
@@ -3806,7 +3937,7 @@ def phases(args, pool) -> int:
         kernels.reset_launches()
         for k in compact_keys:
             trained[k] = fit_phase(k, *fits[k], dev, args.seed, tmp,
-                                   cpu_jobs[k])
+                                   cpu_jobs[ref_of[k]], ref_of[k])
         trained[big_c] = step_counted(big_c, *fits[big_c][:2], batch_c, dev,
                                       args.seed)
         train_launches["train_compact"] = dict(kernels.launches)
@@ -3817,10 +3948,9 @@ def phases(args, pool) -> int:
         kernels.reset_launches()
         for k in bech_cfg:
             trained[k] = fit_phase(k, *fits[k], dev, args.seed, tmp,
-                                   cpu_jobs[k])
+                                   cpu_jobs[ref_of[k]], ref_of[k])
         train_launches["train_banded_echo"] = dict(kernels.launches)
 
-    torch.set_num_threads(os.cpu_count() or 8)   # the worker is done
     stamp("trained")
     # 7e. path B training: on each preset's serving batch, the loss and
     # every gradient on paths A and B against the CPU's on the same batch
@@ -3829,11 +3959,9 @@ def phases(args, pool) -> int:
     cb_trained, cb_train, bech_rel = {}, Counter(), {}
     for k, cfg in bech_cfg.items():
         n_classes = echo_classes[bech_of[k]]
-        cpu_b = make_batches(bech_recs[k], cfg, len(bech_recs[k]), TB,
-                             device="cpu")[0]
         net_, opt_, kw, bech_rel[k] = route_check(
-            k, cfg, n_classes, echo_nets[bech_of[k]].state_dict(),
-            bech_batches[k][0], cpu_b, dev, args.seed)
+            k, cfg, n_classes, route_weights[bech_of[k]],
+            bech_batches[k][0], route_jobs[k, "B"], dev)
         step = make_train_step(net_, cfg, n_classes, opt_)
         kernels.reset_launches()
         loss = step(cb_batches[k][0], **kw[dev])
@@ -3849,7 +3977,6 @@ def phases(args, pool) -> int:
               f"{loss.item():.6f} (CPU {kw['cpu_loss']:.6f}), launches {grew}")
         cb_train.update(grew)
         cb_trained[k] = (net_, opt_)
-        del cpu_b
     train_launches["train_cbanded"] = dict(cb_train)
 
     stamp("path B trained")
@@ -3869,12 +3996,10 @@ def phases(args, pool) -> int:
     bsp_trained, bsp_train, rel_spread = {}, Counter(), {}
     for k, cfg in echo_cfg.items():
         n_classes = echo_classes[k]
-        cpu_b = make_batches(echo_recs[k], cfg, len(echo_recs[k]), TB,
-                             device="cpu")[0]
         net_, opt_, kw, rel_spread[k] = route_check(
-            k, cfg, n_classes, echo_nets[k].state_dict(), echo_batches[k][0],
-            cpu_b, dev, args.seed, alt=as_block_sparse, name="D", conv="K8",
-            spread_alts=(as_compressed,))
+            k, cfg, n_classes, route_weights[k], echo_batches[k][0],
+            route_jobs[k, "D"], dev, alt=as_block_sparse, name="D",
+            conv="K8")
         step = make_train_step(net_, cfg, n_classes, opt_)
         kernels.reset_launches()
         loss = step(bsp_batches[k][0], **kw[dev])
@@ -3892,7 +4017,7 @@ def phases(args, pool) -> int:
               f"{loss.item():.6f} (CPU {kw['cpu_loss']:.6f}), launches {grew}")
         bsp_train.update(grew)
         bsp_trained[k] = (net_, opt_)
-        del cpu_b
+    torch.set_num_threads(os.cpu_count() or 8)   # the workers are done
     bsp_trained[big], grew = large_block_sparse_steps(
         big, corr_cfg, echo_nets["corr_n5120_b1"].state_dict(),
         panel_batches[big][0], bsp_batches[big][0], batch_a,

@@ -33,25 +33,32 @@
 // (band_panel_bwd_scratch_floats):
 //
 //   1. contrib of every target row, rematerialised exactly as the forward
-//      forms it (panel_walk.cuh over meta, the target order; only g, W and
-//      the stencil are kept from the forward, as in JAX), written to
-//      scratch as (rows, R·M) (panel_bwd.cuh, shared with K6's backward);
+//      forms it (panel_pipe.cuh's contrib_kernel over meta, the target
+//      order; only g, W and the stencil are kept from the forward, as in
+//      JAX), written to scratch as (rows, R·M);
 //   2. dW = Σ_rows contribᵀ·dy: per-slice partials and a combine in slice
 //      order (dw_rows.cuh, K1's backward passes 3-4);
 //   3. dc = dy·Wᵀ, a tiled product written over contrib, same layout
-//      (panel_bwd.cuh);
-//   4. dG by source: a CTA owns a tile of T = min(8, 256 / C) source rows
-//      of one source block, one thread per (source, channel) with its K
-//      complex dG sums in registers, and walks the block's run of meta_s
-//      (bounds by binary search on its src row).  Per panel it stages the
-//      r plane's (or the hat planes') columns of its sources through shared
-//      memory, whole rows of 32-byte sectors, then one warp per source
-//      column compacts the occupied target slots of that column once for
-//      all channels (hats, f_k from the other planes only where occupied,
-//      target slot).  Each thread walks its column's list: per slot it
-//      forms u_k = Σ_r hats_r·dc[t, r, k] from its channel of the target's
-//      dc row (coalesced across the channels of a warp) and adds f_k ⊛ u_k.
-//      dG is written once per row.
+//      (panel_bwd.cuh, shared with K6's backward);
+//   4. dG by source: panel_pipe.cuh's walk over meta_s, warp-specialized.
+//      A CTA owns a tile of up to 32 sources of one source block (4 a
+//      thread at C = 32), one consumer thread per (source, channel) with
+//      its K complex dG sums in registers, and four producer warps that
+//      stage, per panel, the tile's columns of the r plane, then in passes
+//      the dc rows of the target rows any of its sources needs (a bulk copy
+//      a row: each read once per tile and panel) and the occupied slots'
+//      coefficients.  Per slot a consumer forms u_k = Σ_r hats_r·dc[t, r, k]
+//      over the rings whose hat is nonzero (at most two: the hats are
+//      triangles on the knots; skipping the others is exact) and adds
+//      f_k ⊛ u_k.  dG is written once per row.
+//
+// dc = dy·Wᵀ was kept as its own pass: forming dc rows inside pass 4 would
+// redo dy·Wᵀ for every tile that stages a target row, several times the
+// pass's products.  Dropped on the way here, each measured slower on an
+// H100: pass 4 with every thread building and consuming in turn (about a
+// quarter slower at 163,842 samples), three or four CTAs an SM (spills),
+// 16-source tiles, and slots carrying their two rings' index and weights
+// instead of the hats (a longer dependent chain per slot).
 //
 // What bounds it.  The function needs the r plane (or the hat planes)
 // whole and the other planes only in the 32-byte sectors that hold an
@@ -59,159 +66,84 @@
 // the occupied-slot work of contrib and of dG and 2·rows·R·M·O2 each for
 // dc and dW (chip_smoke.py::k5_bwd_bound counts both from the run's
 // table).  This version also writes and reads back contrib and dc (0.38 GB
-// each at 163,968 rows, C = 32, K = 3, R = 3), reads the stencil twice
-// (once per order), and per occupied slot and channel gathers 2·K·R floats
-// of dc through L2 (K times R the forward's gather of g); tensor cores, TMA
-// and fusing the passes are left to later work.
+// each at 163,968 rows, C = 32, K = 3, R = 3) and reads the stencil twice
+// (once per order); its walks stay bound by the latency of their per-panel
+// steps, not by bytes or operations.
+//
+// Registers and spills (-Xptxas -v, sm_90a): contrib_kernel as in
+// band_panel_fwd.cu; bwd_dg_kernel <K, R, sources a thread> 80 registers
+// (two CTAs of 384 threads an SM), <·,·,1> no spills, <·,·,2> and <·,·,4>
+// 40 to 56 bytes of spill stores; bwd_dw_partial_kernel 95 and 80,
+// bwd_dc_kernel 48, none.
 
 #include "dw_rows.cuh"
 #include "panel_bwd.cuh"
-#include "panel_walk.cuh"
+#include "panel_pipe.cuh"
 
 #include <algorithm>
 #include <cstddef>
 
 namespace {
 
-using panel::bwd_contrib_kernel;
-using panel::kMaxThreads;
 using panel::Knots;
+using pipe::Plan;
 
-// --- pass 4: dG gathered by source ----------------------------------------------------
-
-// Compacts target slot t = t0 + lane of source column c (source slot s) of
-// panel sp into the column's list; every lane of the warp calls it with
-// its own t.  slab holds the column's whole planes: [q][TB][T].
-template <int RMAX, typename ST>
-__device__ __forceinline__ int compact_column(
-    float* ct, int* st, int base, const float* slab,
-    const ST* __restrict__ sp, int t, int s, int c, size_t plane, int TB,
-    int T, int R, int K, int compressed, const Knots& kn)
+// By source (pass 4): 32 sources a tile, up to 4 a thread (K complex sums
+// each).
+constexpr pipe::Inst kDgInst = {32, 4};
+// its threads: the consumers' and the producers' (panel_pipe.cuh::walk,
+// warp-specialized)
+inline int dg_threads(const Plan& p)
 {
-    float h[RMAX];
-    const float rv = (compressed && t < TB) ? slab[t * T + c] : 0.f;
-#pragma unroll
-    for (int r = 0; r < RMAX; ++r) {
-        float v = 0.f;
-        if (r < R && t < TB)
-            v = compressed ? panel::hat(rv, r, kn)
-                           : slab[((size_t)r * TB + t) * T + c];
-        h[r] = v;
-    }
-    return panel::append_slot<RMAX, false, ST>(ct, st, base, h, sp,
-                                               (size_t)t * TB + s, t, plane,
-                                               R, K, compressed);
+    return p.nthr + 32 * pipe::kProducerWarps;
 }
 
-// One occupied slot of a thread's source: its channel of the target row dr
-// of dc, u_k = Σ_r hats_r · dc[r, k], and dG_k += f_k ⊛ u_k.
-template <int KMAX, int RMAX>
-__device__ __forceinline__ void dg_slot(
-    float (&gre)[KMAX], float (&gim)[KMAX], const float* __restrict__ dr,
-    const float* cf, int C, int K, int R, int M)
-{
-    float hs[RMAX];
-#pragma unroll
-    for (int r = 0; r < RMAX; ++r) hs[r] = r < R ? cf[r] : 0.f;
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-        if (k < K) {
-            float ur = 0.f, ui = 0.f;
-#pragma unroll
-            for (int r = 0; r < RMAX; ++r) {
-                if (r < R) {
-                    const float* d = dr + r * M + k * 2 * C;
-                    ur = fmaf(hs[r], __ldg(d), ur);
-                    ui = fmaf(hs[r], __ldg(d + C), ui);
-                }
-            }
-            const float fr = cf[R + 2 * k];
-            const float fi = cf[R + 2 * k + 1];
-            gre[k] = fmaf(fr, ur, fmaf(fi, ui, gre[k]));
-            gim[k] = fmaf(fr, ui, fmaf(-fi, ur, gim[k]));
-        }
-    }
-}
+// --- pass 4: dG by source ----------------------------------------------------------------
 
-template <int KMAX, int RMAX, int MINB, typename ST>
-__global__ void __launch_bounds__(kMaxThreads, MINB)
-bwd_dg_kernel(const float* __restrict__ dc,
-              const ST* __restrict__ sten,
-              const int* __restrict__ meta_s,
-              float* __restrict__ dg,
-              int Ps, int C, int K, int R, int TB, int compressed,
-              int nb_out, int T, Knots kn)
+template <int KMAX, int RMAX, int MT, typename ST>
+__global__ void __launch_bounds__(
+    pipe::kThreads + 32 * pipe::kProducerWarps, 2)
+bwd_dg_kernel(const float* __restrict__ dc, const ST* __restrict__ sten,
+              const int* __restrict__ meta_s, float* __restrict__ dg,
+              int Ps, int C, int K, int R, int TB, int compressed, int nb_out,
+              Plan pl, Knots kn)
 {
     const int M = 2 * K * C;
-    const int RM = R * M;
-    const int NC = R + 2 * K;                // coefficients per occupied slot
-    const int planes = compressed ? 5 : NC;
-    const int whole = compressed ? 1 : R;    // planes staged for every slot
-    const int tiles = (TB + T - 1) / T;
+    const int tiles = (TB + pl.T - 1) / pl.T;
     const int blk = blockIdx.x / tiles;      // source block
-    const int s0 = (blockIdx.x % tiles) * T;
-    const int ns = min(T, TB - s0);
+    const int l0 = (blockIdx.x % tiles) * pl.T;
+    const int nt = min(pl.T, TB - l0);
     const int tid = threadIdx.x;
-    const int nthr = blockDim.x;             // a multiple of 32
-    const bool active = tid < ns * C;
-    const int is = active ? tid / C : 0;     // (source, channel) of a thread
+    const bool active = tid < pl.NQ * C;
+    const int qi = active ? tid / C : 0;     // (source group, channel)
     const int ic = active ? tid % C : 0;
 
-    extern __shared__ __align__(16) float smem[];
-    float* slab = smem;                                      // [whole][TB][T]
-    float* coef = slab + (size_t)whole * TB * T;             // [T][TB][NC]
-    int* tidx = reinterpret_cast<int*>(coef + (size_t)T * TB * NC);  // [T][TB]
-    int* cnt = tidx + T * TB;                                // [T]
-
-    float gre[KMAX], gim[KMAX];
+    extern __shared__ __align__(16) unsigned char smem[];
+    float gre[MT][KMAX], gim[MT][KMAX];
 #pragma unroll
-    for (int k = 0; k < KMAX; ++k) { gre[k] = 0.f; gim[k] = 0.f; }
-
-    const int* src_row = meta_s + 2 * (size_t)Ps;
-    const int p_lo = panel::lower_bound(src_row, Ps, blk);
-    const int p_hi = panel::lower_bound(src_row, Ps, blk + 1);
-    const size_t plane = (size_t)TB * TB;
-    const int warp = tid >> 5, lane = tid & 31, nwarps = nthr >> 5;
-
-    for (int p = p_lo; p < p_hi; ++p) {
-        const int pid = __ldg(meta_s + p);
-        const int tgt = __ldg(meta_s + Ps + p);
-        const ST* sp = sten + (size_t)pid * planes * plane;
-        __syncthreads();                     // the last panel's lists are read
-        for (int i = tid; i < whole * TB * ns; i += nthr) {
-            const int sl = i % ns, qt = i / ns;          // qt = q·TB + t
-            slab[(size_t)qt * T + sl] =
-                load_sten(sp, (size_t)qt * TB + s0 + sl);
-        }
-        __syncthreads();
-        for (int c = warp; c < ns; c += nwarps) {
-            float* ct = coef + (size_t)c * TB * NC;
-            int* st = tidx + c * TB;
-            int base = 0;
-            for (int t0 = 0; t0 < TB; t0 += 32)
-                base = compact_column<RMAX, ST>(ct, st, base, slab, sp,
-                                                t0 + lane, s0 + c, c, plane,
-                                                TB, T, R, K, compressed, kn);
-            if (lane == 0) cnt[c] = base;
-        }
-        __syncthreads();
-        if (!active || tgt < 0 || tgt >= nb_out) continue;
-        const int n = cnt[is];
-        const float* cf = coef + (size_t)is * TB * NC;
-        const int* ti = tidx + is * TB;
-        const float* db = dc + (size_t)tgt * TB * RM + ic;
-        for (int j = 0; j < n; ++j)
-            dg_slot<KMAX, RMAX>(gre, gim, db + (size_t)ti[j] * RM,
-                                cf + j * NC, C, K, R, M);
-    }
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int k = 0; k < KMAX; ++k) { gre[m][k] = 0.f; gim[m][k] = 0.f; }
+    pipe::walk<true, true, RMAX, ST>(
+        smem, pl, sten, meta_s, Ps, dc, nb_out, TB, R, K, compressed, blk,
+        l0, nt, kn, [&](int b) {
+            pipe::consume_dg<KMAX, RMAX, MT, ST>(gre, gim, smem, pl, b, C, K,
+                                                 R, TB, compressed, l0, nt,
+                                                 active, qi, ic);
+        });
     if (!active) return;
-    float* o = dg + ((size_t)blk * TB + s0 + is) * M;
 #pragma unroll
-    for (int k = 0; k < KMAX; ++k)
-        if (k < K) {
-            o[k * 2 * C + ic] = gre[k];
-            o[k * 2 * C + C + ic] = gim[k];
-        }
+    for (int m = 0; m < MT; ++m) {
+        const int l = qi + pl.NQ * m;
+        if (l >= nt) continue;
+        float* o = dg + ((size_t)blk * TB + l0 + l) * M;
+#pragma unroll
+        for (int k = 0; k < KMAX; ++k)
+            if (k < K) {
+                o[k * 2 * C + ic] = gre[m][k];
+                o[k * 2 * C + C + ic] = gim[m][k];
+            }
+    }
 }
 
 // --- launch ------------------------------------------------------------------------
@@ -221,22 +153,25 @@ size_t round4(size_t n) { return (n + 3) / 4 * 4; }
 // How one call is cut up, and where its scratch lies in the buffer the
 // caller owns (floats, 16-byte aligned): contrib, then dc over it, and the
 // dW partials after it.
-struct Plan {
-    int T, nthr;
+struct CallPlan {
+    Plan p1, p4;
     band::DwSlices dws;
-    size_t smem1, smem4, part_at, floats;
+    size_t part_at, floats;
 };
 
 bool shapes_supported(int nb_out, int nb_g, int C, int K, int R, int TB,
                       int O2, int compressed)
 {
-    return nb_out >= 1 && nb_g >= 1 && C >= 1 && C <= kMaxThreads && K >= 1
-        && K % 2 == 1 && K <= 5 && R >= (compressed ? 2 : 1)
-        && R <= (K <= 3 ? 3 : 6) && TB >= 1 && O2 >= 1;
+    return nb_out >= 1 && nb_g >= 1 && C >= 1 && C <= pipe::kThreads
+        && K >= 1 && K % 2 == 1 && K <= 5 && R >= (compressed ? 2 : 1)
+        && R <= 6 && TB >= 1 && TB <= pipe::kMaxTB && O2 >= 1;
 }
 
+// The scratch alone needs no pointers (band_panel_bwd_scratch_floats); a
+// launch also plans both walks (g, scratch and sten given).
 cudaError_t make_plan(int nb_out, int C, int K, int R, int TB, int O2,
-                      int compressed, Plan* pl)
+                      int compressed, int elem, const void* g,
+                      const void* scratch, const void* sten, CallPlan* pl)
 {
     int dev = 0, limit = 0, sms = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -247,43 +182,41 @@ cudaError_t make_plan(int nb_out, int C, int K, int R, int TB, int O2,
         err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                      dev);
     if (err != cudaSuccess) return err;
-    pl->T = std::min(panel::kTile, std::max(1, kMaxThreads / C));
-    pl->nthr = panel::threads_for(pl->T, C);
-    const size_t lists = panel::list_floats(K, R, TB, pl->T);
-    pl->smem1 = lists * sizeof(float);
-    pl->smem4 = (lists + (size_t)(compressed ? 1 : R) * TB * pl->T)
-        * sizeof(float);
-    if (pl->smem4 > (size_t)limit) return cudaErrorInvalidValue;
     const long long rows = (long long)nb_out * TB;
     const int RM = R * 2 * K * C;
     pl->dws = band::dw_slices(rows, RM, O2, sms);
     pl->part_at = round4((size_t)rows * RM);
     pl->floats = pl->part_at + (size_t)pl->dws.slices * RM * O2;
-    return cudaSuccess;
+    // each walk's tile, or a narrower one where its slabs (a dense
+    // stencil's R planes) leave no room
+    if (!pipe::contrib_plan(C, K, R, TB, compressed, elem, g, sten, limit,
+                            &pl->p1))
+        return cudaErrorInvalidValue;
+    bool fits = false;
+    for (int mt = kDgInst.mt_max; mt >= 1 && !fits; mt /= 2)
+        fits = pipe::tile_plan(1, C, K, R, TB, compressed, elem,
+                               kDgInst.t_target, mt, RM, scratch, sten,
+                               &pl->p4)
+            && pipe::fit_plan(&pl->p4, TB, elem, limit);
+    return fits ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int KMAX, int RMAX, int MINB, typename ST>
+template <int KMAX, int RMAX, int MT4, typename ST>
 int launch(const float* dy, const float* g, const float* wmat,
            const ST* sten, const int* meta, const int* meta_s, float* dg,
            float* dw, float* scratch, int P, int Ps, int nb_out, int nb_g,
            int C, int K, int R, int TB, int O2, int compressed,
-           const Plan& pl, cudaStream_t stream)
+           const CallPlan& pl, cudaStream_t stream)
 {
-    const Knots kn = compressed ? panel::ring_knots(R) : Knots{};
     const int rows = nb_out * TB;
     const int RM = R * 2 * K * C;
-    const int tiles = (TB + pl.T - 1) / pl.T;
     float* contrib = scratch;                // then dc, same layout
     float* part = scratch + pl.part_at;
 
-    auto k1 = bwd_contrib_kernel<KMAX, RMAX, MINB, false, ST>;
-    cudaError_t err = cudaFuncSetAttribute(
-        k1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem1);
+    cudaError_t err = pipe::launch_contrib(g, sten, meta, contrib, P, nb_out,
+                                           C, K, R, TB, compressed, nb_g,
+                                           pl.p1, stream);
     if (err != cudaSuccess) return (int)err;
-    k1<<<(unsigned)((long)nb_out * tiles), pl.nthr, pl.smem1, stream>>>(
-        g, sten, meta, contrib, P, C, K, R, TB, compressed, nb_g, pl.T, kn,
-        nullptr, TB);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
     err = band::launch_dw(contrib, dy, part, dw, rows, RM, O2, pl.dws,
                           stream);
@@ -292,32 +225,54 @@ int launch(const float* dy, const float* g, const float* wmat,
     err = panel::launch_dc(dy, wmat, contrib, rows, RM, O2, stream);
     if (err != cudaSuccess) return (int)err;
 
-    auto k4 = bwd_dg_kernel<KMAX, RMAX, MINB, ST>;
-    err = cudaFuncSetAttribute(
-        k4, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem4);
+    auto k4 = bwd_dg_kernel<KMAX, RMAX, MT4, ST>;
+    err = pipe::set_smem(k4, pl.p4);
     if (err != cudaSuccess) return (int)err;
-    k4<<<(unsigned)((long)nb_g * tiles), pl.nthr, pl.smem4, stream>>>(
-        contrib, sten, meta_s, dg, Ps, C, K, R, TB, compressed, nb_out, pl.T,
+    const Knots kn = compressed ? panel::ring_knots(R) : Knots{};
+    const long g4 = (long)nb_g * ((TB + pl.p4.T - 1) / pl.p4.T);
+    k4<<<(unsigned)g4, dg_threads(pl.p4), pl.p4.bytes, stream>>>(
+        contrib, sten, meta_s, dg, Ps, C, K, R, TB, compressed, nb_out, pl.p4,
         kn);
     return (int)cudaGetLastError();
 }
 
-// The instantiation for (K, R): K ≤ 3 with R ≤ 3, or K = 5 with R ≤ 6.
+// The instantiation for (K, R) and pass 4's sources a thread.
+template <int KMAX, int RMAX, typename ST>
+int launch_mt(const float* dy, const float* g, const float* wmat,
+              const ST* st, const int* meta, const int* meta_s, float* dg,
+              float* dw, float* scratch, int P, int Ps, int nb_out, int nb_g,
+              int C, int K, int R, int TB, int O2, int compressed,
+              const CallPlan& pl, cudaStream_t s)
+{
+#define K5_BWD(MT4)                                                           \
+    return launch<KMAX, RMAX, MT4, ST>(dy, g, wmat, st, meta, meta_s, dg, dw, \
+                                       scratch, P, Ps, nb_out, nb_g, C, K, R, \
+                                       TB, O2, compressed, pl, s)
+    if (pl.p4.MT == 4) K5_BWD(4);
+    if (pl.p4.MT == 2) K5_BWD(2);
+    K5_BWD(1);
+#undef K5_BWD
+}
+
 template <typename ST>
 int launch_for(const float* dy, const float* g, const float* wmat,
                const void* sten, const int* meta, const int* meta_s,
                float* dg, float* dw, float* scratch, int P, int Ps,
                int nb_out, int nb_g, int C, int K, int R, int TB, int O2,
-               int compressed, const Plan& pl, cudaStream_t s)
+               int compressed, const CallPlan& pl, cudaStream_t s)
 {
     const ST* st = static_cast<const ST*>(sten);
+    if (K <= 3 && R <= 3)
+        return launch_mt<3, 3, ST>(dy, g, wmat, st, meta, meta_s, dg, dw,
+                                   scratch, P, Ps, nb_out, nb_g, C, K, R, TB,
+                                   O2, compressed, pl, s);
     if (K <= 3)
-        return launch<3, 3, 5>(dy, g, wmat, st, meta, meta_s, dg, dw,
+        return launch_mt<3, 6, ST>(dy, g, wmat, st, meta, meta_s, dg, dw,
+                                   scratch, P, Ps, nb_out, nb_g, C, K, R, TB,
+                                   O2, compressed, pl, s);
+    return launch_mt<5, 6, ST>(dy, g, wmat, st, meta, meta_s, dg, dw,
                                scratch, P, Ps, nb_out, nb_g, C, K, R, TB, O2,
                                compressed, pl, s);
-    return launch<5, 6, 2>(dy, g, wmat, st, meta, meta_s, dg, dw, scratch, P,
-                           Ps, nb_out, nb_g, C, K, R, TB, O2, compressed, pl,
-                           s);
 }
 
 }  // namespace
@@ -329,19 +284,20 @@ extern "C" long long band_panel_bwd_scratch_floats(int nb_out, int nb_g,
                                                    int TB, int O2,
                                                    int compressed)
 {
-    Plan pl;
+    CallPlan pl;
     if (!shapes_supported(nb_out, nb_g, C, K, R, TB, O2, compressed)
-        || make_plan(nb_out, C, K, R, TB, O2, compressed, &pl) != cudaSuccess)
+        || make_plan(nb_out, C, K, R, TB, O2, compressed, 4, nullptr,
+                     nullptr, nullptr, &pl) != cudaSuccess)
         return 0;
     return (long long)pl.floats;
 }
 
 // Launches the four passes (five kernels) on `stream` and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for shapes
-// they do not take (those of the forward: K odd ≤ 5, R ≤ 3 with K ≤ 3 or
-// R ≤ 6 with K = 5, R ≥ 2 when compressed, C ≤ 256; or lists above the
-// shared memory a CTA can have).  dy: (nb_out·TB, O2); g, dg: (nb_g·TB, M);
-// meta (4, P) by target, meta_s (4, Ps) by source; scratch holds
+// they do not take (those of the forward: K odd ≤ 5, R ≤ 6, R ≥ 2 when
+// compressed, C ≤ 256, TB ≤ 128; or walks above the shared memory a CTA
+// can have).  dy: (nb_out·TB, O2); g, dg: (nb_g·TB, M); meta (4, P) by
+// target, meta_s (4, Ps) by source; scratch holds
 // band_panel_bwd_scratch_floats floats, owned by the caller; sten float32,
 // or bfloat16 when sten_bf16 is set.
 extern "C" int band_panel_bwd(const float* dy, const float* g,
@@ -355,8 +311,9 @@ extern "C" int band_panel_bwd(const float* dy, const float* g,
     if (P < 1 || Ps < 1
         || !shapes_supported(nb_out, nb_g, C, K, R, TB, O2, compressed))
         return (int)cudaErrorInvalidValue;
-    Plan pl;
+    CallPlan pl;
     const cudaError_t err = make_plan(nb_out, C, K, R, TB, O2, compressed,
+                                      sten_bf16 ? 2 : 4, g, scratch, sten,
                                       &pl);
     if (err != cudaSuccess) return (int)err;
     cudaStream_t s = (cudaStream_t)stream;

@@ -25,138 +25,180 @@
 // and at the end of the block's run y[b·TB + t, o] = Σ_r Σ_j contrib[b, r, t,
 // j]·W[r, j, o].  Chunked tables (chunk > 1) only add all-zero panels to a
 // target's run, so the one kernel serves both pallas_calls.  A target block
-// with no panel gets zeros (build_panel_table gives every block one).
+// with no panel gets zeros.
 //
-// Design.  The TPU kernel keeps a block's contrib (R·TB × M, 295 KB at the
-// correspondence widths) in VMEM across its panels and applies W at the
-// last one.  That does not fit a CTA's shared memory, so here a CTA owns a
-// tile of T = min(8, 256 / C) targets of one block, one thread per (target,
-// channel) with its K·R complex sums in registers (K1's forward design,
-// band_fused_fwd.cu), and walks the block's contiguous run of panels, whose
-// bounds it finds by binary search in meta's tgt row.  The pure-panel table
-// of a large mesh is ~4% occupied (10.7M edges in 16,941·128² slots at
-// 163,842 vertices), so per panel one warp per target row compacts the
-// row's occupied slots (any radial hat nonzero: skipping the others is
-// exact) into shared memory, once for all channels: the R hats, the K
-// complex f_k and the source slot.  Only the r plane (or the hat planes) is
-// read for every slot; the other planes only where a slot is occupied.  Each
-// thread then walks its target's list, reads its channel of the source row
-// of g (coalesced across the channels of a warp, through L2) and accumulates
-// 2K·(3 + 2R) flops per slot.  The filter contraction then reads the tile's
-// contrib from shared memory against W, as K1's does.  Each output has one
-// writer and every sum a fixed order, so two calls agree bitwise (no
-// atomics).  The hats and the phasor powers are formed with uncontracted,
-// correctly rounded operations in the plain version's order.  The panel
-// walk and the filter stage live in panel_walk.cuh: K5's backward
-// (band_panel_bwd.cu) rematerialises contrib with the walk, and K6's
-// forward (band_compact_fwd.cu) runs both over gathered columns.
+// Design.  Two kernels.  (1) contrib of every target row by the pipelined
+// panel walk of panel_pipe.cuh, written to a scratch buffer the caller
+// owns (rows, R·M): a CTA owns a tile of targets of one block (16 at
+// C = 32, K = 3, R = 3, two a thread; 32 at C = 16; 5 at the segmentation
+// width C = 48, K = 5, R = 6), walks the block's run with the next panels'
+// r rows arriving by bulk copy, and per panel stages each source row of g
+// that any of its targets needs once (a bulk copy a row), then the
+// coefficients of the occupied slots (hats from the staged r, the other
+// planes copied at those slots only), and sums in registers.  (2) The
+// filter, y = contrib · W, a tiled product that reads W once per 128 rows
+// (filter_kernel below).  Every output has one writer and every sum a
+// fixed order (panels in run order, sources ascending, j ascending): no
+// atomics, two calls agree bitwise.  The hats and phasor powers are formed
+// with uncontracted, correctly rounded operations in the plain version's
+// order.
 //
-// What bounds it.  The function needs the r plane (or the hat planes) whole
-// and the other planes only in the 32-byte sectors that hold an occupied
-// slot, plus g, W and y once; its operations are the occupied-slot work
-// and the filter contraction.  chip_smoke.py::k5_bound counts both from
-// the run's table: bytes bound it at the correspondence widths, operations
-// at the segmentation width.  The kernel reads what the function needs;
-// its own cost beyond that is the dependent gather of g per slot (one L2
-// round trip per slot and thread), the per-panel compaction behind two
-// barriers, and W, read from L2 once per tile of targets.  It makes no use
-// of tensor cores.
+// The first version of this kernel (a CTA of 8 targets, one warp
+// compacting each target row per panel behind two barriers, g gathered
+// from L2 once per slot and target, the filter in the CTA) was latency
+// bound on that chain.  Dropped on the way here, each measured slower on
+// an H100: the filter kept in the CTA (W streamed from L2 per tile of
+// targets, even through shared memory: it dominated at K = 5, R = 6), 4
+// targets a thread (spills at 128 registers), 512 threads and one CTA an
+// SM, three pass buffers, and the walk warp-specialized for this
+// direction (its consumers spill at 85 registers).
+//
+// What bounds it.  The function needs the r plane (or the hat planes)
+// whole and the other planes only in the 32-byte sectors that hold an
+// occupied slot, plus g, W and y once; its operations are the occupied-slot
+// work and 2·N·R·M·O2 for the filter (chip_smoke.py::k5_bound counts both
+// from the run's table).  This version also writes and reads back contrib
+// (0.38 GB at 163,968 rows, C = 32, K = 3, R = 3), and the walk stays bound
+// by the latency of its per-panel steps (masks, numbering, staging), not by
+// bytes or operations.
+//
+// Registers and spills (-Xptxas -v, sm_90a, two CTAs of 256 threads an
+// SM): contrib_kernel <K, R, targets a thread> <3,3,2> and <3,3,1> 128
+// registers, no spills; <3,6,2> 128, 12 bytes of spill stores (f32) and 40
+// (bf16); <3,6,1> 123, none; <5,6,1> 128, none; filter_kernel 127, none,
+// 25.5 KB of static shared memory.  The walk's dynamic shared memory is
+// planned per call within 113 KB (panel_pipe.cuh::fit_plan).
 
-#include "panel_walk.cuh"
+#include "panel_pipe.cuh"
 
-#include <algorithm>
 #include <cstddef>
 
 namespace {
 
-using panel::kMaxThreads;
-using panel::kTile;
-using panel::Knots;
+// The filter: y[row, o] = Σ_j contrib[row, j]·W[j, o], W viewed as (R·M,
+// O2).  A CTA owns 128 rows × 64 columns, each thread 8 × 4 of them,
+// summed over j in order; tiles of contrib (transposed) and W through
+// shared memory, two of each in turn.
 
-// MINB: CTAs per SM the register budget is cut for.  Two instantiations
-// serve the presets: K = 3, R = 3 (correspondence) and K = 5, R = 6
-// (segmentation, classification).  The kernel is bound by the latency of
-// its loads, so at the correspondence widths (18 complex sums a thread) it
-// takes 5 CTAs of 48 registers; an unrolled slot or compaction loop, with
-// fewer CTAs or spills, measured slower at 163,842 samples.
-template <int KMAX, int RMAX, int MINB, typename ST>
-__global__ void __launch_bounds__(kMaxThreads, MINB)
-band_panel_fwd_kernel(const float* __restrict__ g,
-                      const float* __restrict__ wmat,
-                      const ST* __restrict__ sten,
-                      const int* __restrict__ meta,
-                      float* __restrict__ y,
-                      int P, int C, int K, int R, int TB, int O2,
-                      int compressed, int nb_g, int T, Knots kn)
+constexpr int kFiltRows = 128;
+constexpr int kFiltCols = 64;
+constexpr int kFiltDepth = 16;
+
+__global__ void __launch_bounds__(256)
+filter_kernel(const float* __restrict__ contrib,
+              const float* __restrict__ wmat, float* __restrict__ y,
+              int rows, int RM, int O2)
 {
-    const int tiles = (TB + T - 1) / T;
-    const int blk = blockIdx.x / tiles;
-    const int t0 = (blockIdx.x % tiles) * T;
-    const int nt = min(T, TB - t0);
+    // two tiles of each in turn: the next one's loads are in flight (in
+    // registers) while this one's products are summed
+    __shared__ __align__(16) float as[2][kFiltDepth][kFiltRows + 4];
+    __shared__ __align__(16) float bs[2][kFiltDepth][kFiltCols + 4];
+    const int r0 = blockIdx.x * kFiltRows, o0 = blockIdx.y * kFiltCols;
     const int tid = threadIdx.x;
-    const bool active = tid < nt * C;
-    const int it = active ? tid / C : 0;     // (target, channel) of a thread
-    const int ic = active ? tid % C : 0;
-
-    extern __shared__ __align__(16) float smem[];
-    float are[KMAX][RMAX], aim[KMAX][RMAX];
-    panel::panel_contrib<KMAX, RMAX, false, ST>(
-        are, aim, smem, g, sten, meta, P, C, K, R, TB, compressed, nb_g, T,
-        blk, t0, nt, active, it, ic, kn);
-
-    panel::filter_tile<KMAX, RMAX>(are, aim, smem, wmat, y, blk, TB, t0, C,
-                                   K, R, O2, T, nt, active, it, ic);
+    const int ty = tid / 16, tx = tid % 16;
+    constexpr int NA = kFiltRows * kFiltDepth / 256;   // loads a thread
+    constexpr int NB = kFiltCols * kFiltDepth / 256;
+    float ra[NA], rb[NB];
+    auto load = [&](int j0) {
+#pragma unroll
+        for (int q = 0; q < NA; ++q) {
+            const int u = tid + 256 * q;
+            const int i = u / kFiltDepth, j = u % kFiltDepth;
+            ra[q] = r0 + i < rows && j0 + j < RM
+                ? __ldg(contrib + (size_t)(r0 + i) * RM + j0 + j) : 0.f;
+        }
+#pragma unroll
+        for (int q = 0; q < NB; ++q) {
+            const int u = tid + 256 * q;
+            const int j = u / kFiltCols, o = u % kFiltCols;
+            rb[q] = j0 + j < RM && o0 + o < O2
+                ? __ldg(wmat + (size_t)(j0 + j) * O2 + o0 + o) : 0.f;
+        }
+    };
+    auto store = [&](int t) {
+#pragma unroll
+        for (int q = 0; q < NA; ++q) {
+            const int u = tid + 256 * q;
+            as[t][u % kFiltDepth][u / kFiltDepth] = ra[q];
+        }
+#pragma unroll
+        for (int q = 0; q < NB; ++q) {
+            const int u = tid + 256 * q;
+            bs[t][u / kFiltCols][u % kFiltCols] = rb[q];
+        }
+    };
+    float acc[8][4] = {};
+    load(0);
+    store(0);
+    __syncthreads();
+    const int nt = (RM + kFiltDepth - 1) / kFiltDepth;
+    for (int t = 0; t < nt; ++t) {
+        if (t + 1 < nt) load((t + 1) * kFiltDepth);
+        const int c = t & 1;
+#pragma unroll
+        for (int j = 0; j < kFiltDepth; ++j) {
+            const float4 a0 = *reinterpret_cast<const float4*>(&as[c][j][ty * 8]);
+            const float4 a1 = *reinterpret_cast<const float4*>(&as[c][j][ty * 8 + 4]);
+            const float4 bv4 = *reinterpret_cast<const float4*>(&bs[c][j][tx * 4]);
+            const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+            const float bv[4] = {bv4.x, bv4.y, bv4.z, bv4.w};
+#pragma unroll
+            for (int x = 0; x < 8; ++x)
+#pragma unroll
+                for (int z = 0; z < 4; ++z)
+                    acc[x][z] = fmaf(av[x], bv[z], acc[x][z]);
+        }
+        if (t + 1 < nt) store(c ^ 1);    // the other buffer: read a step ago
+        __syncthreads();
+    }
+#pragma unroll
+    for (int x = 0; x < 8; ++x) {
+        const int row = r0 + ty * 8 + x;
+        if (row >= rows) continue;
+#pragma unroll
+        for (int z = 0; z < 4; ++z) {
+            const int o = o0 + tx * 4 + z;
+            if (o < O2) y[(size_t)row * O2 + o] = acc[x][z];
+        }
+    }
 }
 
-template <int KMAX, int RMAX, int MINB, typename ST>
-int launch(const float* g, const float* wmat, const ST* sten,
-           const int* meta, float* y, int P, int nb_out, int C, int K, int R,
-           int TB, int O2, int compressed, int nb_g, int T, int nthr,
-           size_t smem, const Knots& kn, cudaStream_t stream)
+// Launches the filter on `stream`: y (rows, O2) = contrib (rows, RM) · W.
+cudaError_t launch_filter(const float* contrib, const float* wmat, float* y,
+                          int rows, int RM, int O2, cudaStream_t stream)
 {
-    auto kernel = band_panel_fwd_kernel<KMAX, RMAX, MINB, ST>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const long grid = (long)nb_out * ((TB + T - 1) / T);
-    kernel<<<(unsigned)grid, nthr, smem, stream>>>(
-        g, wmat, sten, meta, y, P, C, K, R, TB, O2, compressed, nb_g, T, kn);
-    return (int)cudaGetLastError();
-}
-
-// The instantiation for (K, R): K ≤ 3 with R ≤ 3, or K = 5 with R ≤ 6.
-template <typename ST>
-int launch_for(const float* g, const float* wmat, const void* sten,
-               const int* meta, float* y, int P, int nb_out, int C, int K,
-               int R, int TB, int O2, int compressed, int nb_g, int T,
-               int nthr, size_t smem, const Knots& kn, cudaStream_t s)
-{
-    const ST* st = static_cast<const ST*>(sten);
-    if (K <= 3)
-        return launch<3, 3, 5>(g, wmat, st, meta, y, P, nb_out, C, K, R, TB,
-                               O2, compressed, nb_g, T, nthr, smem, kn, s);
-    return launch<5, 6, 2>(g, wmat, st, meta, y, P, nb_out, C, K, R, TB, O2,
-                           compressed, nb_g, T, nthr, smem, kn, s);
+    filter_kernel<<<dim3((rows + kFiltRows - 1) / kFiltRows,
+                         (O2 + kFiltCols - 1) / kFiltCols), 256, 0,
+                    stream>>>(contrib, wmat, y, rows, RM, O2);
+    return cudaGetLastError();
 }
 
 }  // namespace
 
+// Floats of the scratch buffer band_panel_fwd needs (contrib of every
+// target row).
+extern "C" long long band_panel_fwd_scratch_floats(int nb_out, int C, int K,
+                                                   int R, int TB)
+{
+    return (long long)nb_out * TB * R * 2 * K * C;
+}
+
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for shapes the kernel does not take (K even or
-// > 5, i.e. band limit > 2; R > 3 with K ≤ 3, or R > 6 with K = 5: the
-// presets' shapes are K = 3, R = 3 and K = 5, R = 6; R < 2 with compressed
-// planes; C > 256; lists or the filter stage above the shared memory a CTA
-// can have).  y: (nb_out·TB, O2); g: (nb_g·TB, M); sten float32, or
-// bfloat16 when sten_bf16 is set.
+// > 5, i.e. band limit > 2; R > 6; R < 2 with compressed planes; C > 256;
+// TB > 128; a walk above the shared memory a CTA can have).  y: (nb_out·
+// TB, O2); g: (nb_g·TB, M); scratch holds band_panel_fwd_scratch_floats
+// floats, owned by the caller; sten float32, or bfloat16 when sten_bf16 is
+// set.
 extern "C" int band_panel_fwd(const float* g, const float* wmat,
                               const void* sten, const int* meta, float* y,
-                              int P, int nb_out, int C, int K, int R, int TB,
-                              int O2, int compressed, int nb_g, int sten_bf16,
-                              void* stream)
+                              float* scratch, int P, int nb_out, int C, int K,
+                              int R, int TB, int O2, int compressed, int nb_g,
+                              int sten_bf16, void* stream)
 {
-    if (P < 1 || nb_out < 1 || nb_g < 1 || C < 1 || C > kMaxThreads
+    if (P < 1 || nb_out < 1 || nb_g < 1 || C < 1 || C > pipe::kThreads
         || K < 1 || K % 2 == 0 || K > 5 || R < (compressed ? 2 : 1)
-        || R > (K <= 3 ? 3 : 6) || TB < 1 || O2 < 1)
+        || R > 6 || TB < 1 || TB > pipe::kMaxTB || O2 < 1)
         return (int)cudaErrorInvalidValue;
     int dev = 0, limit = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -164,16 +206,19 @@ extern "C" int band_panel_fwd(const float* g, const float* wmat,
     err = cudaDeviceGetAttribute(
         &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return (int)err;
-    const int T = std::min(kTile, std::max(1, kMaxThreads / C));
-    const int nthr = panel::threads_for(T, C);
-    const size_t smem = panel::fwd_smem_bytes(C, K, R, TB, O2, T, nthr);
-    if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
-    const Knots kn = compressed ? panel::ring_knots(R) : Knots{};
+    pipe::Plan pl;
+    if (!pipe::contrib_plan(C, K, R, TB, compressed, sten_bf16 ? 2 : 4, g,
+                            sten, limit, &pl))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    if (sten_bf16)
-        return launch_for<__nv_bfloat16>(g, wmat, sten, meta, y, P, nb_out,
-                                         C, K, R, TB, O2, compressed, nb_g, T,
-                                         nthr, smem, kn, s);
-    return launch_for<float>(g, wmat, sten, meta, y, P, nb_out, C, K, R, TB,
-                             O2, compressed, nb_g, T, nthr, smem, kn, s);
+    err = sten_bf16
+        ? pipe::launch_contrib(g, static_cast<const __nv_bfloat16*>(sten),
+                               meta, scratch, P, nb_out, C, K, R, TB,
+                               compressed, nb_g, pl, s)
+        : pipe::launch_contrib(g, static_cast<const float*>(sten), meta,
+                               scratch, P, nb_out, C, K, R, TB, compressed,
+                               nb_g, pl, s);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_filter(scratch, wmat, y, nb_out * TB, R * 2 * K * C,
+                              O2, s);
 }

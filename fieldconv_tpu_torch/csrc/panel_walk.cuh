@@ -1,10 +1,12 @@
-// The panel walk shared by K5's forward (band_panel_fwd.cu) and backward
-// (band_panel_bwd.cu) and K6's forward (band_compact_fwd.cu): the per-slot
-// coefficients of a panel stencil, their compaction into lists of occupied
-// slots, the forward's contrib accumulation over a target block's run of
-// panels, and the forward's filter stage.  K4 (band_window.cuh, band_bwd.cuh)
-// rebuilds its compressed slots with the same ring_knots, hat and
-// phasor_powers.
+// The panel walk of K6's forward (band_compact_fwd.cu, GATHER) and of the
+// contrib pass of K6's backward (panel_bwd.cuh): the per-slot coefficients
+// of a panel stencil, their compaction into lists of occupied slots, the
+// contrib accumulation over a target block's run of panels, and the
+// forward's filter stage.  K4 (band_window.cuh, band_bwd.cuh) rebuilds its
+// compressed slots with ring_knots, hat and phasor_powers; K5 (since its
+// redesign, panel_pipe.cuh) uses only Knots, ring_knots, hat and
+// lower_bound from here, so the non-GATHER paths below are K5's former
+// walk and serve no kernel now.
 //
 // A panel stencil (P, planes, TB, TS) holds rows the target slot t and
 // columns the source slot s.  K5's panels are square (TS = TB) and column s

@@ -439,11 +439,16 @@ def band_panel_fwd_reference(g, wmat, sten, meta, tb: int, n_rings: int,
 
 @functools.cache
 def _k5_entry():
-    fn = kernels.library("band_panel_fwd").band_panel_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+    """(kernel entry, floats of scratch it needs for given sizes)."""
+    lib = kernels.library("band_panel_fwd")
+    fn = lib.band_panel_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    size = lib.band_panel_fwd_scratch_floats
+    size.argtypes = [ctypes.c_int] * 5
+    size.restype = ctypes.c_longlong
+    return fn, size
 
 
 STEN_DTYPES = (torch.float32, torch.bfloat16)
@@ -455,12 +460,13 @@ def _is_bf16(sten) -> int:
 
 
 def _k5_check(name, g, wmat, sten, meta, tb, n_rings, band_limit,
-              compressed, n_out, *more, ts=None):
+              compressed, n_out, *more, ts=None, r_max_k3=3):
     """Raise unless the shapes agree and g, wmat (float32), sten (float32
     or bfloat16), meta (int32) and the named extra tensors are contiguous
-    on g's device, and unless one of the kernel's two instantiations takes
-    (K, R).  Panels are (tb, ts) slots, ts = tb by default (K6's are
-    rectangular)."""
+    on g's device, and unless one of the kernel's instantiations takes
+    (K, R): K ≤ 3 with R ≤ r_max_k3 (3 for K6; K5 takes the MATCHING
+    preset's R = 6 too) and K = 5 with R ≤ 6.  Panels are (tb, ts) slots,
+    ts = tb by default (K6's are rectangular)."""
     N, M = g.shape
     R, K = n_rings, 2 * band_limit + 1
     planes = 5 if compressed else R + 2 * K
@@ -484,23 +490,28 @@ def _k5_check(name, g, wmat, sten, meta, tb, n_rings, band_limit,
             raise ValueError(f"{name} needs contiguous {dtype} {label} on "
                              f"{g.device}, got {t.dtype} on {t.device} "
                              f"(contiguous={t.is_contiguous()})")
-    if R > (3 if K <= 3 else 6) or K > 5:
+    if R > (r_max_k3 if K <= 3 else 6) or K > 5:
         raise NotImplementedError(
-            f"{name}'s kernel takes K ≤ 3 with R ≤ 3 and K = 5 with R ≤ 6 "
-            f"(the presets' shapes), got K={K}, R={R}")
+            f"{name}'s kernel takes K ≤ 3 with R ≤ {r_max_k3} and K = 5 "
+            f"with R ≤ 6 (the presets' shapes), got K={K}, R={R}")
 
 
 def _band_panel_fwd_cuda(g, wmat, sten, meta, tb, n_rings, band_limit,
                          compressed, n_out):
     _k5_check("band_panel_fwd", g, wmat, sten, meta, tb, n_rings,
-              band_limit, compressed, n_out)
+              band_limit, compressed, n_out, r_max_k3=6)
     O2 = wmat.shape[-1]
     K = 2 * band_limit + 1
-    fn = _k5_entry()
+    C = g.shape[1] // (2 * K)
+    fn, scratch_floats = _k5_entry()
     y = torch.empty((n_out, O2), dtype=torch.float32, device=g.device)
+    # contrib of every target row, which the filter then contracts with W
+    scratch = torch.empty(
+        (max(1, scratch_floats(n_out // tb, C, K, n_rings, tb)),),
+        dtype=torch.float32, device=g.device)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = fn(g.data_ptr(), wmat.data_ptr(), sten.data_ptr(), meta.data_ptr(),
-             y.data_ptr(), sten.shape[0], n_out // tb, g.shape[1] // (2 * K),
+             y.data_ptr(), scratch.data_ptr(), sten.shape[0], n_out // tb, C,
              K, n_rings, tb, O2, int(compressed), g.shape[0] // tb,
              _is_bf16(sten), stream)
     if err != 0:
@@ -615,7 +626,7 @@ def _band_panel_bwd_cuda(dy, g, wmat, sten, meta, meta_s, tb, n_rings,
     n_out, O2 = dy.shape
     _k5_check("band_panel_bwd", g, wmat, sten, meta, tb, n_rings,
               band_limit, compressed, n_out, ("dy", dy, torch.float32),
-              ("meta_s", meta_s, torch.int32))
+              ("meta_s", meta_s, torch.int32), r_max_k3=6)
     if meta_s.dim() != 2 or meta_s.shape[0] != 4 or O2 != wmat.shape[-1]:
         raise ValueError(f"band_panel_bwd: meta_s {tuple(meta_s.shape)}, "
                          f"dy {tuple(dy.shape)}, wmat {tuple(wmat.shape)}")

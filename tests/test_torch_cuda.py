@@ -496,6 +496,113 @@ def test_k5_bwd_kernel_matches_plain_on_card(C, O2, B, R, compressed, chunk):
     assert torch.equal(dg, dg2) and torch.equal(dw, dw2)
 
 
+def _k5_edge_table(case, B, R, compressed, chunk, tb=32):
+    """A kd-ordered sphere's panel table (CPU tensors) for one edge case
+    of K5's pipelined walk: "one panel" keeps only the edges within a
+    block, so that every run is one panel; "no panel" drops the panels of
+    target block 1 and of source block 2, so that y's rows of block 1 and
+    dg's rows of block 2 are zeros; otherwise the table as built (~13
+    panels a run, more than the walk's slab stages)."""
+    rng = np.random.default_rng(11)
+    rec = sphere_record(rng, 1500, 4)
+    if case == "one panel":
+        e = rec.supp_edges
+        keep = e[:, 0] // tb == e[:, 1] // tb
+        rec = dataclasses.replace(rec, supp_edges=e[keep],
+                                  log_mag=rec.log_mag[keep],
+                                  log_ang=rec.log_ang[keep], xp=rec.xp[keep])
+    panel = build_panel_table(rec.table(B, R, n_multiple=tb), tb=tb,
+                              compressed=compressed, chunk=chunk)
+    if case == "no panel":
+        meta, meta_s = panel.meta, panel.meta_s
+        keep = (meta[0] != 1) & (meta[1] != 2)
+        new_id = torch.cumsum(keep.int(), 0) - 1
+        keep_s = keep[meta_s[0].long()]
+        meta_s = meta_s[:, keep_s].clone()
+        meta_s[0] = new_id[meta_s[0].long()].int()
+        panel = dataclasses.replace(panel, sten=panel.sten[keep].contiguous(),
+                                    meta=meta[:, keep].contiguous(),
+                                    meta_s=meta_s.contiguous())
+    return panel
+
+
+# K5's walk (csrc/panel_pipe.cuh): runs of one panel, runs longer than its
+# slab stages, target and source blocks with no panel, a chunked table's
+# all-zero panels, tiles that overhang TB (C=48 at K=3: 20 targets a tile;
+# C=48 at K=5: 5; by source 20), C=16 and C=48, K=3 with R=6, bf16
+# stencils and dense planes; an odd C (rows of g copied 8 bytes at a time)
+# and bf16 panels of 4 × 4 slots (rows too short for bulk copies: the slab
+# copied by plain loads)
+K5_EDGE_CASES = pytest.mark.parametrize(
+    "case,C,O2,B,R,compressed,chunk,bf16,tb", [
+        ("one panel", 32, 64, 1, 3, True, 1, False, 32),
+        ("one panel", 48, 96, 2, 6, True, 1, True, 32),
+        ("long runs", 16, 64, 1, 3, True, 1, False, 32),
+        ("long runs", 48, 96, 1, 3, True, 1, False, 32),
+        ("long runs", 32, 64, 1, 6, True, 1, False, 32),
+        ("long runs", 32, 64, 1, 6, True, 1, True, 32),
+        ("long runs", 32, 64, 1, 6, False, 1, False, 32),
+        ("long runs", 48, 96, 2, 6, False, 1, False, 32),
+        ("long runs", 3, 10, 1, 2, True, 1, False, 32),
+        ("long runs", 16, 24, 1, 3, True, 1, True, 4),
+        ("no panel", 32, 64, 1, 3, True, 1, False, 32),
+        ("no panel", 48, 96, 2, 6, True, 1, False, 32),
+        ("chunk=4", 32, 64, 1, 3, True, 4, False, 32),
+        ("chunk=4", 16, 24, 1, 3, True, 4, True, 32),
+    ])
+
+
+@pytest.mark.cuda
+@K5_EDGE_CASES
+def test_k5_walk_edge_cases_on_card(case, C, O2, B, R, compressed, chunk,
+                                    bf16, tb):
+    """K5's forward and backward on each edge case of the pipelined walk
+    against their plain versions on the card: each output within 1e-4 of
+    its scale (f32 sums in another order), a second call bitwise equal,
+    and one launch of each counted per call."""
+    _need_card()
+    panel = _k5_edge_table(case, B, R, compressed, chunk, tb)
+    if bf16:
+        panel = _bf16(panel)
+    panel = panel.to("cuda")
+    tb = panel.tb
+    runs = torch.bincount(panel.meta[0].long(), minlength=panel.n_pad // tb)
+    if case == "one panel":
+        assert int(runs.max()) == 1
+    if case == "long runs":
+        assert int(runs.max()) > 3
+    if case == "no panel":
+        assert int(runs[1]) == 0
+        assert not bool((panel.meta_s[2] == 2).any())
+    M = (2 * B + 1) * 2 * C
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    g = torch.randn(panel.n_pad, M, device="cuda", generator=gen)
+    wmat = torch.randn(R, M, O2, device="cuda", generator=gen) / (R * M) ** .5
+    dy = torch.randn(panel.n_pad, O2, device="cuda", generator=gen)
+    args = (g, wmat, panel.sten, panel.meta, tb, R, B, compressed)
+    bargs = (dy, g, wmat, panel.sten, panel.meta, panel.meta_s, tb, R, B,
+             compressed)
+    before = dict(kernels.launches)
+    y = tbc.band_panel_fwd(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["band_panel_fwd"] == before.get(
+        "band_panel_fwd", 0) + 1
+    dg, dw = tbc.band_panel_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert kernels.launches["band_panel_bwd"] == before.get(
+        "band_panel_bwd", 0) + 1
+    _held((y,), (tbc.band_panel_fwd_reference(*args),), f"K5 {case}")
+    _held((dg, dw), tbc.band_panel_bwd_reference(
+        dy, g, wmat, panel.sten, panel.meta_s, tb, R, B, compressed),
+        f"K5 bwd {case}")
+    if case == "no panel":
+        assert not bool(y[tb:2 * tb].any())
+        assert not bool(dg[2 * tb:3 * tb].any())
+    assert torch.equal(y, tbc.band_panel_fwd(*args))
+    dg2, dw2 = tbc.band_panel_bwd(*bargs)
+    assert torch.equal(dg, dg2) and torch.equal(dw, dw2)
+
+
 @pytest.mark.cuda
 def test_k5_gradient_on_card_matches_cpu():
     """A field_conv_banded backward over a PanelTable on the card goes

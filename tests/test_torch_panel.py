@@ -124,6 +124,24 @@ def test_k5_plain_matches_pallas(rng, compressed, chunk):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **K5_TOL)
 
 
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_k5_plain_matches_pallas_matching_rings(rng, chunk):
+    """The MATCHING preset's shape (K = 3, R = 6), which the port's K5 now
+    takes: band_panel_fwd_reference against the Pallas _band_panel_fwd_impl
+    interpreted, on a compressed table (its planes do not depend on R)
+    read with 6 rings, unchunked and chunked."""
+    _, jt, jp = _panel_setup(rng, compressed=True, chunk=chunk)
+    tp = tbanded.build_panel_table(_port_table(jt), tb=TB, compressed=True,
+                                   chunk=chunk)
+    g, w = _k5_inputs(rng, jt, R=6)
+    want = jbc._band_panel_fwd_impl(jnp.asarray(g), jnp.asarray(w), jp.sten,
+                                    jp.meta, TB, 6, 1, True, "f32", None,
+                                    chunk)
+    got = tbc.band_panel_fwd(torch.from_numpy(g), torch.from_numpy(w),
+                             tp.sten, tp.meta, TB, 6, 1, True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **K5_TOL)
+
+
 @pytest.mark.parametrize("compressed", [True, False])
 def test_field_conv_panel_matches_jax(rng, compressed):
     """FieldConv over a PanelTable joining two meshes, the port's weights
@@ -158,8 +176,9 @@ def test_k5_on_cuda_tensors_needs_the_kernel(monkeypatch):
     kernels' entry points, whose build fails here for want of nvcc
     (patched, the entries record the calls); a gradient request goes
     through _BandPanelFn, whose forward reaches K5's entry and whose
-    backward reaches the entry of K5's backward; a (K, R) that no kernel
-    instantiation takes (K=3 with R=6) raises before either entry; a bf16
+    backward reaches the entry of K5's backward; K=3 with R=6 reaches both;
+    a (K, R) that no kernel instantiation takes (K=7) raises before either
+    entry; a bf16
     stencil (cast_panel_sten) reaches both entries too."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks its absence")
@@ -206,12 +225,20 @@ def test_k5_on_cuda_tensors_needs_the_kernel(monkeypatch):
             tbc._BandPanelFn.backward(ctx, dy)
         with pytest.raises(Entered):
             tbc.band_panel_bwd(dy, g, w, sten16, meta, meta, 8, 3, 1, True)
+        # K = 3 with R = 6 (the MATCHING preset's shape) reaches both
+        # entries; K = 7 (band limit 3) raises before either
         w6 = torch.zeros(6, 24, 6, device="cuda")
-        with pytest.raises(NotImplementedError, match="presets' shapes"):
+        with pytest.raises(Entered):
             tbc.band_panel_fwd(g, w6, sten, meta, 8, 6, 1, True)
-        with pytest.raises(NotImplementedError, match="presets' shapes"):
+        with pytest.raises(Entered):
             tbc.band_panel_bwd(dy, g, w6, sten, meta, meta, 8, 6, 1, True)
-    assert entered == [True] * 5
+        g7 = torch.zeros(16, 28, device="cuda")
+        w7 = torch.zeros(3, 28, 6, device="cuda")
+        with pytest.raises(NotImplementedError, match="presets' shapes"):
+            tbc.band_panel_fwd(g7, w7, sten, meta, 8, 3, 3, True)
+        with pytest.raises(NotImplementedError, match="presets' shapes"):
+            tbc.band_panel_bwd(dy, g7, w7, sten, meta, meta, 8, 3, 3, True)
+    assert entered == [True] * 7
     assert kernels.launches == before
 
 
