@@ -35,15 +35,17 @@ Phases, any failure exits non-zero:
   3d. hold K6's forward (compact conv) and K7's forward (compact ECHO)
      against their plain versions and bitwise against a second call, and
      time them: K6 on the 163,842-sample CompactPanelTable (TBt 32, TS 128)
-     at the correspondence net's four widths and on the segmentation
-     records' compact table (TBt 128) at C=48, O2=96, K=5, R=6; K7 on the
-     163,842-sample table at C=12, n_bins 2 and on the segmentation table
-     at C=48, n_bins 3;
+     at the correspondence net's four widths, on the segmentation
+     records' compact table (TBt 128) at C=48, O2=96, K=5, R=6, and on the
+     5120-sample all-compact table read with n_rings=6 (K=3, R=6); K7 on
+     the 163,842-sample table at C=12, n_bins 2 and on the segmentation
+     table at C=48, n_bins 3;
   3e. hold K6's backward (dg after the fold, and dw) against its plain
      version and the plain fold and bitwise against a second call, on the
-     163,842-sample compact table at the four correspondence widths and on
+     163,842-sample compact table at the four correspondence widths, on
      the segmentation records' compact table at TBt 32 (C=48, O2=96, K=5,
-     R=6); K7's backward the same way on the 163,842-sample table (C=12,
+     R=6) and on the 5120-sample all-compact table read with n_rings=6;
+     K7's backward the same way on the 163,842-sample table (C=12,
      n_bins 2) and on the segmentation batch's mixed-route table (TBt 128,
      C=48, n_bins 3), for a contiguous and a cells-minor cotangent; the
      compact lift's backward (the fold alone) against autograd of its
@@ -117,7 +119,9 @@ Phases, any failure exits non-zero:
      163,842-sample request and the rest of 7c (its launches counted into
      7c's): fit all-compact on the 163,842-sample record for 3 steps,
      testing on 5c's batch of the same record (17 K6 + 1 K7 per step),
-     and time its step as above, with a remat_blocks step;
+     and time its step as above, with a remat_blocks step; the profiles
+     of that request and step list K6's kernels by pass (contrib, filter,
+     dW, dc, dG, fold);
   9. print the kernels line, the card line and the result line.
 
 The compressed banded layout (each phase's checks hold):
@@ -539,12 +543,14 @@ def time_cuda(fn, iters, reps=5, warmup=2):
     return statistics.median(times)
 
 
-def request_breakdown(fn, top=6):
+def request_breakdown(fn, top=6, passes=()):
     """One call of fn() under torch.profiler: the device time of each
     kernel name, their sum, and that sum's share of the call's wall time
     (which the profiler itself inflates).  The trace holds the device's
     activity only: the host's operator events (tens of thousands a training
-    step) took seconds a call to aggregate."""
+    step) took seconds a call to aggregate.  With ``passes`` (kernel
+    function names) also {name: (device ms, launches)} of those kernels,
+    whether in the top ones or not."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -557,7 +563,32 @@ def request_breakdown(fn, top=6):
                    and e.self_device_time_total > 0), reverse=True)
     busy = sum(k[0] for k in kern)
     check(busy > 0, "the profiler saw no device time")
-    return wall_ms, busy, kern[:top]
+    if not passes:
+        return wall_ms, busy, kern[:top]
+    by = {}
+    for t, key, count in kern:
+        name = kernel_name(key)
+        if name in passes:
+            ms, n = by.get(name, (0.0, 0))
+            by[name] = (ms + t, n + count)
+    return wall_ms, busy, kern[:top], by
+
+
+# K6's kernels by pass (the forward: contrib, filter; the backward: contrib,
+# dW, dc, dG, fold), as the profiler names them; the fold kernel also runs
+# after K7's backward and in the compact lift's VJP
+K6_PASSES = {"compact_contrib_kernel": "contrib", "filter_kernel": "filter",
+             "bwd_dw_partial_kernel": "dW", "bwd_dw_combine": "dW combine",
+             "bwd_dc_kernel": "dc", "compact_dg_kernel": "dG",
+             "compact_fold_kernel": "fold"}
+
+
+def print_passes(what, by, card):
+    """A breakdown's K6 kernels by pass (request_breakdown's ``passes``)."""
+    print(f"{what}: K6 by pass under the profiler on {card}: " + ", ".join(
+        f"{K6_PASSES[n]} {by[n][0]:.3f} ms (x{by[n][1]})"
+        for n in K6_PASSES if n in by)
+        + " (the fold's launches include K7's backward and the lift's VJP)")
 
 
 def kernel_name(key):
@@ -1855,14 +1886,15 @@ def print_times(kind, rows, card):
               f"{r['flops'] / 1e9:.2f} GFLOP needed) on {card}")
 
 
-def time_request(k, p, rs_, bs_, what, card, large=False):
+def time_request(k, p, rs_, bs_, what, card, large=False, passes=False):
     """One request shape of Predictor ``p`` timed: the host clock around
     predict (the forward over placed tables and the output copy), then one
     predict under the profiler (wall, device busy share, top kernels).  A
     large request (N_LARGE) also times Predictor.logits alone and reads the
     peak device memory of one request beside what was allocated before it.
     A large request (2.0-2.8 s) is timed once, with no warm-up call: its
-    path ran in the serving phases."""
+    path ran in the serving phases.  ``passes``: also K6's kernels by
+    pass."""
     reps, warm = (1, False) if large else (3, True)
     if large:
         def logits_synced():
@@ -1882,13 +1914,16 @@ def time_request(k, p, rs_, bs_, what, card, large=False):
                    warmup=warm)
     print(f"request {k}: {ms:.3f} ms per request (forward over placed "
           f"tables, {what}) on {card}")
-    wall, busy, kern = request_breakdown(
-        lambda: p.predict(rs_, batches=bs_), top=8 if large else 6)
+    wall, busy, kern, *by = request_breakdown(
+        lambda: p.predict(rs_, batches=bs_), top=8 if large else 6,
+        passes=K6_PASSES if passes else ())
     print(f"request {k} under the profiler: wall {wall:.3f} ms, device "
           f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%) on {card}; "
           "top kernels:")
     for t, name, count in kern:
         print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
+    if passes:
+        print_passes(f"request {k}", by[0], card)
 
 
 def read_losses(path):
@@ -3604,16 +3639,22 @@ def phases(args, pool) -> int:
 
     # 3d. K6 and K7 (the compact route's conv and ECHO) against their plain
     # versions: K6 on the 163k compact table (TBt 32) at the correspondence
-    # net's four widths and on the segmentation batch's compact table
-    # (TBt 128) at C=48, O2=96, K=5, R=6; K7 on the 163k table at C=12,
-    # n_bins 2 and on the segmentation table at C=48, n_bins 3.  Each is
-    # timed here, so that the 163k table can go before the training phases.
+    # net's four widths, on the segmentation batch's compact table (TBt
+    # 128) at C=48, O2=96, K=5, R=6, and on the 5120-sample all-compact
+    # table read with n_rings=6 (the MATCHING preset's K=3, R=6); K7 on the
+    # 163k table at C=12, n_bins 2 and on the segmentation table at C=48,
+    # n_bins 3.  Each is timed here, so that the 163k table can go before
+    # the training phases.
     seg_comp = compact_batches["seg_n2048_b4_compact"][0].compact
+    # the compressed planes do not depend on R
+    corr_a6 = dataclasses.replace(compact_batches[
+        "corr_n5120_b1_panel_allcompact"][0].compact, n_rings=6)
     k6_rows, k7_rows = [], []
     for label, ct, C_, O2 in (
             (big_c, comp_big, 32, 64), (big_c, comp_big, 16, 64),
             (big_c, comp_big, 32, 32), (big_c, comp_big, 16, 24),
-            ("seg_n2048_b4_compact", seg_comp, 48, 96)):
+            ("seg_n2048_b4_compact", seg_comp, 48, 96),
+            ("corr_n5120_b1_panel_allcompact n_rings=6", corr_a6, 32, 64)):
         g, wmat = k5_inputs(ct, C_, O2, gen)
         k6_rows.append(k6_check(f"{label} C={C_} O2={O2}", g, wmat, ct))
         k6_time(k6_rows[-1], g, wmat, ct)
@@ -3629,9 +3670,10 @@ def phases(args, pool) -> int:
 
     # 3e. K6's and K7's backwards and the compact fold against their plain
     # versions, each timed here too: K6 bwd on the 163k compact table (TBt
-    # 32) at the correspondence net's four widths and on the segmentation
+    # 32) at the correspondence net's four widths, on the segmentation
     # records' compact table at TBt 32 (forced onto the pure-panel layout
-    # with conv_impl="compact") at C=48, O2=96, K=5, R=6; K7 bwd on the 163k
+    # with conv_impl="compact") at C=48, O2=96, K=5, R=6, and on the
+    # 5120-sample all-compact table read with n_rings=6; K7 bwd on the 163k
     # table at C=12, n_bins 2 and on the segmentation batch's mixed-route
     # table (TBt 128) at C=48, n_bins 3, for both cotangent layouts; the
     # compact lift's VJP and the fold alone on the 163k table
@@ -3643,13 +3685,14 @@ def phases(args, pool) -> int:
     for label, ct, C_, O2 in (
             (big_c, comp_big, 32, 64), (big_c, comp_big, 16, 64),
             (big_c, comp_big, 32, 32), (big_c, comp_big, 16, 24),
-            ("seg_n2048_b4 compact TBt 32", seg_comp32, 48, 96)):
+            ("seg_n2048_b4 compact TBt 32", seg_comp32, 48, 96),
+            ("corr_n5120_b1_panel_allcompact n_rings=6", corr_a6, 32, 64)):
         g, wmat = k5_inputs(ct, C_, O2, gen)
         dy = torch.randn(g.shape[0], O2, device=dev, generator=gen)
         k6b_rows.append(k6_bwd_check(f"{label} C={C_} O2={O2}", g, wmat, dy,
                                      ct))
         k6_bwd_time(k6b_rows[-1], g, wmat, dy, ct)
-    del g, wmat, dy
+    del g, wmat, dy, corr_a6
     for label, ct, C_, n_bins in ((big_c, comp_big, 12, 2),
                                   ("seg_n2048_b4_compact", seg_comp, 48, 3)):
         x = k2_inputs(ct, C_, gen)
@@ -4212,13 +4255,16 @@ def phases(args, pool) -> int:
                   f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
                   f"({base_gb:.2f} GB allocated before the steps: tables, "
                   f"nets and the kernel checks' inputs) on {card}")
-        wall, busy, kern = request_breakdown(train_step,
-                                             top=12 if large else 6)
+        wall, busy, kern, *by = request_breakdown(
+            train_step, top=12 if large else 6,
+            passes=K6_PASSES if k == big_a else ())
         print(f"train step {k} under the profiler: wall {wall:.3f} ms, "
               f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%) on "
               f"{card}; top kernels:")
         for t, name, count in kern:
             print(f"    {t:8.3f} ms  x{count:<4d} {name[:90]}")
+        if by:
+            print_passes(f"train step {k}", by[0], card)
         if k in (big, big_a):
             remat_step(k, tnet, cfg, n_classes, tbatch, dev, args.seed, card)
 
@@ -4332,7 +4378,7 @@ def phases(args, pool) -> int:
     torch.cuda.empty_cache()
     time_request(big_a, compact_serve[big_a], compact_recs[big_a],
                  compact_batches[big_a], compact_what(big_a), card,
-                 large=True)
+                 large=True, passes=True)
     with tempfile.TemporaryDirectory() as tmp:
         kernels.reset_launches()
         trained[big_a] = fit_large(big_a, *fits[big_a], dev, args.seed, tmp,

@@ -7,7 +7,7 @@
 // (band_panel_bwd, band_panel_bwd_reference).
 //
 // What it computes.  With g, W, the panel stencil and its slot
-// coefficients as in the forward (band_panel_fwd.cu, panel_walk.cuh):
+// coefficients as in the forward (band_panel_fwd.cu, panel_pipe.cuh):
 // S_k = hats_r ⊙ f_k per ring, contrib the forward's sum (R·M per target
 // row), dy (nb_out·TB, O2) the output cotangent, and per panel of target
 // block t and source block s:
@@ -39,7 +39,7 @@
 //   2. dW = Σ_rows contribᵀ·dy: per-slice partials and a combine in slice
 //      order (dw_rows.cuh, K1's backward passes 3-4);
 //   3. dc = dy·Wᵀ, a tiled product written over contrib, same layout
-//      (panel_bwd.cuh, shared with K6's backward);
+//      (panel_gemm.cuh, shared with K6's backward);
 //   4. dG by source: panel_pipe.cuh's walk over meta_s, warp-specialized.
 //      A CTA owns a tile of up to 32 sources of one source block (4 a
 //      thread at C = 32), one consumer thread per (source, channel) with
@@ -77,7 +77,7 @@
 // bwd_dc_kernel 48, none.
 
 #include "dw_rows.cuh"
-#include "panel_bwd.cuh"
+#include "panel_gemm.cuh"
 #include "panel_pipe.cuh"
 
 #include <algorithm>
@@ -128,8 +128,8 @@ bwd_dg_kernel(const float* __restrict__ dc, const ST* __restrict__ sten,
         smem, pl, sten, meta_s, Ps, dc, nb_out, TB, R, K, compressed, blk,
         l0, nt, kn, [&](int b) {
             pipe::consume_dg<KMAX, RMAX, MT, ST>(gre, gim, smem, pl, b, C, K,
-                                                 R, TB, compressed, l0, nt,
-                                                 active, qi, ic);
+                                                 R, compressed, nt, active,
+                                                 qi, ic);
         });
     if (!active) return;
 #pragma unroll
@@ -189,15 +189,15 @@ cudaError_t make_plan(int nb_out, int C, int K, int R, int TB, int O2,
     pl->floats = pl->part_at + (size_t)pl->dws.slices * RM * O2;
     // each walk's tile, or a narrower one where its slabs (a dense
     // stencil's R planes) leave no room
-    if (!pipe::contrib_plan(C, K, R, TB, compressed, elem, g, sten, limit,
+    if (!pipe::contrib_plan(C, K, R, TB, TB, compressed, elem, g, sten, limit,
                             &pl->p1))
         return cudaErrorInvalidValue;
     bool fits = false;
     for (int mt = kDgInst.mt_max; mt >= 1 && !fits; mt /= 2)
-        fits = pipe::tile_plan(1, C, K, R, TB, compressed, elem,
+        fits = pipe::tile_plan(1, C, K, R, TB, TB, compressed, elem,
                                kDgInst.t_target, mt, RM, scratch, sten,
                                &pl->p4)
-            && pipe::fit_plan(&pl->p4, TB, elem, limit);
+            && pipe::fit_plan(&pl->p4, elem, limit);
     return fits ? cudaSuccess : cudaErrorInvalidValue;
 }
 

@@ -37,9 +37,9 @@
 // coefficients of the occupied slots (hats from the staged r, the other
 // planes copied at those slots only), and sums in registers.  (2) The
 // filter, y = contrib · W, a tiled product that reads W once per 128 rows
-// (filter_kernel below).  Every output has one writer and every sum a
-// fixed order (panels in run order, sources ascending, j ascending): no
-// atomics, two calls agree bitwise.  The hats and phasor powers are formed
+// (panel_gemm.cuh::filter_kernel, shared with K6).  Every output has one
+// writer and every sum a fixed order (panels in run order, sources
+// ascending, j ascending): no atomics, two calls agree bitwise.  The hats and phasor powers are formed
 // with uncontracted, correctly rounded operations in the plain version's
 // order.
 //
@@ -69,111 +69,10 @@
 // 25.5 KB of static shared memory.  The walk's dynamic shared memory is
 // planned per call within 113 KB (panel_pipe.cuh::fit_plan).
 
+#include "panel_gemm.cuh"
 #include "panel_pipe.cuh"
 
 #include <cstddef>
-
-namespace {
-
-// The filter: y[row, o] = Σ_j contrib[row, j]·W[j, o], W viewed as (R·M,
-// O2).  A CTA owns 128 rows × 64 columns, each thread 8 × 4 of them,
-// summed over j in order; tiles of contrib (transposed) and W through
-// shared memory, two of each in turn.
-
-constexpr int kFiltRows = 128;
-constexpr int kFiltCols = 64;
-constexpr int kFiltDepth = 16;
-
-__global__ void __launch_bounds__(256)
-filter_kernel(const float* __restrict__ contrib,
-              const float* __restrict__ wmat, float* __restrict__ y,
-              int rows, int RM, int O2)
-{
-    // two tiles of each in turn: the next one's loads are in flight (in
-    // registers) while this one's products are summed
-    __shared__ __align__(16) float as[2][kFiltDepth][kFiltRows + 4];
-    __shared__ __align__(16) float bs[2][kFiltDepth][kFiltCols + 4];
-    const int r0 = blockIdx.x * kFiltRows, o0 = blockIdx.y * kFiltCols;
-    const int tid = threadIdx.x;
-    const int ty = tid / 16, tx = tid % 16;
-    constexpr int NA = kFiltRows * kFiltDepth / 256;   // loads a thread
-    constexpr int NB = kFiltCols * kFiltDepth / 256;
-    float ra[NA], rb[NB];
-    auto load = [&](int j0) {
-#pragma unroll
-        for (int q = 0; q < NA; ++q) {
-            const int u = tid + 256 * q;
-            const int i = u / kFiltDepth, j = u % kFiltDepth;
-            ra[q] = r0 + i < rows && j0 + j < RM
-                ? __ldg(contrib + (size_t)(r0 + i) * RM + j0 + j) : 0.f;
-        }
-#pragma unroll
-        for (int q = 0; q < NB; ++q) {
-            const int u = tid + 256 * q;
-            const int j = u / kFiltCols, o = u % kFiltCols;
-            rb[q] = j0 + j < RM && o0 + o < O2
-                ? __ldg(wmat + (size_t)(j0 + j) * O2 + o0 + o) : 0.f;
-        }
-    };
-    auto store = [&](int t) {
-#pragma unroll
-        for (int q = 0; q < NA; ++q) {
-            const int u = tid + 256 * q;
-            as[t][u % kFiltDepth][u / kFiltDepth] = ra[q];
-        }
-#pragma unroll
-        for (int q = 0; q < NB; ++q) {
-            const int u = tid + 256 * q;
-            bs[t][u / kFiltCols][u % kFiltCols] = rb[q];
-        }
-    };
-    float acc[8][4] = {};
-    load(0);
-    store(0);
-    __syncthreads();
-    const int nt = (RM + kFiltDepth - 1) / kFiltDepth;
-    for (int t = 0; t < nt; ++t) {
-        if (t + 1 < nt) load((t + 1) * kFiltDepth);
-        const int c = t & 1;
-#pragma unroll
-        for (int j = 0; j < kFiltDepth; ++j) {
-            const float4 a0 = *reinterpret_cast<const float4*>(&as[c][j][ty * 8]);
-            const float4 a1 = *reinterpret_cast<const float4*>(&as[c][j][ty * 8 + 4]);
-            const float4 bv4 = *reinterpret_cast<const float4*>(&bs[c][j][tx * 4]);
-            const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-            const float bv[4] = {bv4.x, bv4.y, bv4.z, bv4.w};
-#pragma unroll
-            for (int x = 0; x < 8; ++x)
-#pragma unroll
-                for (int z = 0; z < 4; ++z)
-                    acc[x][z] = fmaf(av[x], bv[z], acc[x][z]);
-        }
-        if (t + 1 < nt) store(c ^ 1);    // the other buffer: read a step ago
-        __syncthreads();
-    }
-#pragma unroll
-    for (int x = 0; x < 8; ++x) {
-        const int row = r0 + ty * 8 + x;
-        if (row >= rows) continue;
-#pragma unroll
-        for (int z = 0; z < 4; ++z) {
-            const int o = o0 + tx * 4 + z;
-            if (o < O2) y[(size_t)row * O2 + o] = acc[x][z];
-        }
-    }
-}
-
-// Launches the filter on `stream`: y (rows, O2) = contrib (rows, RM) · W.
-cudaError_t launch_filter(const float* contrib, const float* wmat, float* y,
-                          int rows, int RM, int O2, cudaStream_t stream)
-{
-    filter_kernel<<<dim3((rows + kFiltRows - 1) / kFiltRows,
-                         (O2 + kFiltCols - 1) / kFiltCols), 256, 0,
-                    stream>>>(contrib, wmat, y, rows, RM, O2);
-    return cudaGetLastError();
-}
-
-}  // namespace
 
 // Floats of the scratch buffer band_panel_fwd needs (contrib of every
 // target row).
@@ -207,8 +106,8 @@ extern "C" int band_panel_fwd(const float* g, const float* wmat,
         &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return (int)err;
     pipe::Plan pl;
-    if (!pipe::contrib_plan(C, K, R, TB, compressed, sten_bf16 ? 2 : 4, g,
-                            sten, limit, &pl))
+    if (!pipe::contrib_plan(C, K, R, TB, TB, compressed, sten_bf16 ? 2 : 4,
+                            g, sten, limit, &pl))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     err = sten_bf16
@@ -219,6 +118,6 @@ extern "C" int band_panel_fwd(const float* g, const float* wmat,
                                scratch, P, nb_out, C, K, R, TB, compressed,
                                nb_g, pl, s);
     if (err != cudaSuccess) return (int)err;
-    return (int)launch_filter(scratch, wmat, y, nb_out * TB, R * 2 * K * C,
-                              O2, s);
+    return (int)panel::launch_filter(scratch, wmat, y, nb_out * TB,
+                                     R * 2 * K * C, O2, s);
 }

@@ -1,22 +1,26 @@
-// K5's pipelined panel walk (band_panel_fwd.cu, band_panel_bwd.cu): contrib
-// by target (the forward and the backward's pass 1) and dG by source (the
-// backward's pass 4).  K6 keeps the walk of panel_walk.cuh; this one shares
-// only its helpers (ring_knots, hat, lower_bound) with it.
+// The pipelined panel walk of K5 (band_panel_fwd.cu, band_panel_bwd.cu)
+// and K6 (band_compact_fwd.cu, band_compact_bwd.cu): contrib by target (the
+// forwards and the backwards' pass 1) and K5's dG by source (its
+// backward's pass 4).
 //
 // A CTA owns a tile of T ≤ 32 "local" rows of one block: targets of a
 // target block, or sources of a source block.  It walks the block's run of
-// panels (P, planes, TB, TB), rows the target slot t and columns the
+// panels (P, planes, TB, TS), rows the target slot t and columns the
 // source slot s; the "far" index u runs over the other side (source
 // columns by target, target rows by source), and a far row is the row of
-// g (by target) or of dc (by source) that u's slots read.  A slot's
-// coefficients are formed as panel_walk.cuh forms them (hats on the ring
-// knots, phasor powers uncontracted and correctly rounded, or the dense
-// planes read as they are).
+// g (by target) or of dc (by source) that u's slots read.  K5's panels are
+// square (TS = TB) and column s of a panel whose source block is b reads
+// g's row b·TB + s; K6's compact panels (GATHER, by target only) are TB ×
+// TS and column s of panel p reads g's row src_idx[p·TS + s], a row
+// outside [0, n_g) adding nothing.  A slot's coefficients are formed as
+// panel_walk.cuh forms them (hats on the ring knots, phasor powers
+// uncontracted and correctly rounded, or the dense planes read as they
+// are).
 //
 // Per panel:
 //   slab    the tile's part of the plane(s) that say which slots are
 //           occupied (r, or a dense stencil's R hat planes), whole: by
-//           target T rows of TB slots, one bulk copy (TMA) a plane; by
+//           target T rows of TS slots, one bulk copy (TMA) a plane; by
 //           source TB short rows of the tile's columns.  A ring of kStages
 //           stages on mbarriers, each refilled as soon as its panel is done.
 //   masks   for every far index u a word of the local rows whose slot
@@ -36,29 +40,34 @@
 //           cp.async of 4 bytes (a bf16 plane's element pair), one record
 //           of NIMG words read back with 128-bit loads; and each local
 //           row's word of occupied pass columns.
-//   consume a thread (local row, channel) walks its row's word in ascending
-//           far order and sums in registers.
+//   consume a thread (local row, CPT channels) walks its row's word in
+//           ascending far order and sums in registers.
 // Every sum has one order (panels in run order, far index ascending): no
 // atomics, two calls agree bitwise.
 //
 // Two modes.  Every thread builds, then consumes, with a CTA barrier a
-// pass and one pass in flight (by target: its consumers' K·R complex sums
-// leave no registers to spare).  Or warp-specialized (by source): the CTA's
-// first threads consume and kProducerWarps more warps build, publishing each
-// pass on its buffer's full mbarrier (their cp.async copies tracked by it)
-// and reusing a buffer once the consumers arrive on its empty mbarrier; no
-// barrier spans the CTA, so building overlaps consuming, and the by-source
-// slab's short rows are spread over the producers as 16-byte copies.
+// pass and one pass in flight (K5 by target: its consumers' K·R complex
+// sums leave no registers to spare at two CTAs an SM).  Or
+// warp-specialized (K5 by source, K6 by target): the CTA's first threads
+// consume and kProducerWarps more warps build, publishing each pass on its
+// buffer's full mbarrier (their cp.async copies tracked by it) and reusing
+// a buffer once the consumers arrive on its empty mbarrier; no barrier
+// spans the CTA, so building overlaps consuming, and the by-source slab's
+// short rows are spread over the producers as 16-byte copies.  K6 runs one
+// CTA an SM of kCompactThreads consumers, a whole 32-row target block a
+// tile at C = 32, two channels a consumer thread (float2 reads of g).
 
 #pragma once
 
 #include "panel_walk.cuh"
 
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace pipe {
 
@@ -70,6 +79,9 @@ constexpr int kPassBufs = 2;       // pass buffers: kPassBufs − 1 in flight
 constexpr int kMaxTB = 128;        // slots per panel side (4 mask words)
 constexpr int kMaxWords = kMaxTB / 32;
 constexpr int kProducerWarps = 4;  // warp-specialized walks: pass producers
+// K6's contrib walk is warp-specialized: kCompactThreads consumers (a whole
+// TBt-32 block a tile) and kProducerWarps producer warps, one CTA an SM
+constexpr int kCompactThreads = 512;
 // shared memory a walk aims at: two CTAs of 256 threads on an SM
 constexpr size_t kSmemBudget = 113 * 1024;
 
@@ -82,7 +94,9 @@ struct Plan {
     int W, SW, SROWS;      // slab planes, row width (elements), rows
     int NIMG;              // words of a slot's coefficients (a multiple of 4)
     int FW;                // floats of a far row
-    int MW;                // words of a union of far indices (TB bits)
+    int NU;                // far indices a panel: TS by target, TB by source
+    int MW;                // words of a union of far indices (NU bits)
+    unsigned pp;           // parity of a plane's elements (TB·TS odd)
     int bulk;              // slabs by bulk copy (rows 16-byte aligned)
     int FV;                // floats a far-row copy (4, 2 or 1); 4: rows by
                            // bulk copy, completing on the pass's mbarrier
@@ -96,7 +110,7 @@ inline unsigned align16(size_t n) { return (unsigned)((n + 15) / 16 * 16); }
 // Shared memory of the walk for a given UCAP (Plan fields other than the
 // offsets set).  Masks are kept for two panels in turn, so that a panel's
 // are written while the last one's may still be read.
-inline unsigned walk_layout(Plan* p, int TB, int elem)
+inline unsigned walk_layout(Plan* p, int elem)
 {
     size_t at = 64;
     p->slab_bytes = align16((size_t)p->W * p->SROWS * p->SW * elem);
@@ -108,7 +122,7 @@ inline unsigned walk_layout(Plan* p, int TB, int elem)
     p->off_far = (unsigned)at;
     at += align16((size_t)kPassBufs * p->UCAP * p->FW * 4);
     p->off_mask = (unsigned)at;
-    at += align16((size_t)2 * TB * 4);
+    at += align16((size_t)2 * p->NU * 4);
     p->off_pmask = (unsigned)at;                  // occupancy, bf16 parity
     at += align16((size_t)2 * kPassBufs * p->T * 4);
     p->off_done = (unsigned)at;                   // a pass buffer's end mark
@@ -116,17 +130,21 @@ inline unsigned walk_layout(Plan* p, int TB, int elem)
     return (unsigned)at;
 }
 
-// The tile of a walk: by target (bysrc = 0) or by source, C channels, at
-// most t_target local rows with at most mt_max of them a thread, far rows
-// of fw floats at far (for the width of their copies) and the stencil at
-// sten (for its bulk copies).  False for shapes it does not take.
-inline bool tile_plan(int bysrc, int C, int K, int R, int TB, int compressed,
-                      int elem, int t_target, int mt_max, int fw,
-                      const void* far, const void* sten, Plan* p)
+// The tile of a walk: by target (bysrc = 0) or by source, C channels,
+// panels of TB rows and TS columns (TS = TB by source), at most t_target
+// local rows with at most mt_max of them a thread, far rows of fw floats
+// at far (for the width of their copies) and the stencil at sten (for its
+// bulk copies).  False for shapes it does not take.
+inline bool tile_plan(int bysrc, int C, int K, int R, int TB, int TS,
+                      int compressed, int elem, int t_target, int mt_max,
+                      int fw, const void* far, const void* sten, Plan* p,
+                      int threads = kThreads)
 {
-    if (C < 1 || C > kThreads || TB < 1 || TB > kMaxTB) return false;
+    if (C < 1 || C > threads || TB < 1 || TB > kMaxTB || TS < 1
+        || TS > kMaxTB || (bysrc && TS != TB))
+        return false;
     *p = Plan{};
-    p->NQ = kThreads / C < t_target ? kThreads / C : t_target;
+    p->NQ = threads / C < t_target ? threads / C : t_target;
     p->MT = 1;
     while (p->MT * 2 <= mt_max && p->NQ * p->MT * 2 <= t_target) p->MT *= 2;
     p->T = p->NQ * p->MT;
@@ -136,11 +154,14 @@ inline bool tile_plan(int bysrc, int C, int K, int R, int TB, int compressed,
     // by source a row of the slab holds the tile's columns from the 8-slot
     // boundary at or below its first to the one above its last (or TB)
     p->SW = bysrc ? ((p->T + 14) / 8 * 8 < TB ? (p->T + 14) / 8 * 8 : TB)
-                  : TB;
+                  : TS;
     p->NIMG = ((compressed ? 4 + R : R + 2 * K) + 3) / 4 * 4;
     p->FW = fw;
-    p->MW = (TB + 31) / 32;
-    p->bulk = (TB * elem) % 16 == 0 && (uintptr_t)sten % 16 == 0;
+    p->NU = bysrc ? TB : TS;
+    p->MW = (p->NU + 31) / 32;
+    p->pp = (unsigned)(TB * TS) & 1u;
+    // a panel's rows are TS elements apart
+    p->bulk = (TS * elem) % 16 == 0 && (uintptr_t)sten % 16 == 0;
     p->FV = fw % 4 == 0 && (uintptr_t)far % 16 == 0 ? 4
           : fw % 2 == 0 && (uintptr_t)far % 8 == 0 ? 2 : 1;
     if (compressed) {                    // the outermost knots
@@ -154,13 +175,14 @@ inline bool tile_plan(int bysrc, int C, int K, int R, int TB, int compressed,
 // UCAP, the layout and the bytes of a tiled plan: the most far rows a
 // pass (≤ 32) that keep the walk within kSmemBudget; if that leaves fewer
 // than 8, within the limit.  False when nothing fits the limit.
-inline bool fit_plan(Plan* p, int TB, int elem, int limit)
+inline bool fit_plan(Plan* p, int elem, int limit,
+                     size_t budget = kSmemBudget)
 {
     for (int pass = 0; pass < 2; ++pass) {
-        const size_t cap = pass == 0 ? kSmemBudget : (size_t)limit;
+        const size_t cap = pass == 0 ? budget : (size_t)limit;
         for (int u = 32; u >= 1; --u) {
             p->UCAP = u;
-            const size_t need = walk_layout(p, TB, elem);
+            const size_t need = walk_layout(p, elem);
             if (need <= cap && (u >= 8 || pass == 1)) {
                 p->bytes = (unsigned)need;
                 return need <= (size_t)limit;
@@ -311,7 +333,8 @@ __device__ __forceinline__ void phasors(float (&fre)[KMAX], float (&fim)[KMAX],
 // fim).  slot: the slot's NIMG words (16-byte aligned), compressed [e^{iθ}
 // re, im, wxp re, im, hats, ...] or dense [hats, f_k planes, ...]; par: for
 // a bf16 stencil the half of the first raw plane's word that holds the
-// slot, pp = TB & 1 (a plane of odd TB² elements flips it plane to plane).
+// slot, pp = Plan::pp (a plane of an odd number of elements flips it plane
+// to plane).
 template <int KMAX, int RMAX, typename ST>
 __device__ __forceinline__ void slot_coefs(
     float (&h)[RMAX], float (&fre)[KMAX], float (&fim)[KMAX],
@@ -394,7 +417,9 @@ struct Run {
 
 // Walks block blk's run for the tile of nt ≤ T local rows l0.. and calls
 // consume(b) for every pass, in order, once its pass buffer b holds it.
-// Every thread of the CTA must call it.  far: (nb_far·TB, FW) floats.
+// Every thread of the CTA must call it.  far: (nb_far·TB, FW) floats; with
+// GATHER (n_far, FW) floats, pass column u of panel p reading far row
+// src_idx[p·TS + u] (nb_far is then n_far, and meta's second row unread).
 //
 // WS: warp-specialized.  The CTA's first pl.nthr threads consume and
 // kProducerWarps more warps produce: they mask, number and build passes
@@ -404,14 +429,17 @@ struct Run {
 // the buffer on its empty mbarrier.  No barrier spans the whole CTA, so
 // building overlaps consuming.  Otherwise every thread does both, in turn,
 // with a CTA barrier a pass.
-template <bool BYSRC, bool WS, int RMAX, typename ST, typename Consume>
+template <bool BYSRC, bool WS, int RMAX, typename ST, bool GATHER = false,
+          typename Consume>
 __device__ __forceinline__ void walk(
     unsigned char* smem, const Plan& pl, const ST* __restrict__ sten,
     const int* __restrict__ meta, int P, const float* __restrict__ far,
     int nb_far, int TB, int R, int K, int compressed, int blk, int l0,
-    int nt, const Knots& kn, Consume&& consume)
+    int nt, const Knots& kn, Consume&& consume,
+    const int* __restrict__ src_idx = nullptr)
 {
     static_assert(WS || !BYSRC, "the by-source walk is warp-specialized");
+    static_assert(!GATHER || !BYSRC, "a gathered walk runs by target");
     // the building group: every thread, or (WS) the producer warps
     const int ncons = WS ? pl.nthr : 0;
     const bool producer = !WS || (int)threadIdx.x >= ncons;
@@ -426,7 +454,8 @@ __device__ __forceinline__ void walk(
             __syncthreads();
     };
     const int planes = compressed ? 5 : R + 2 * K;
-    const size_t plane = (size_t)TB * TB;
+    const int NU = pl.NU;                    // far indices (columns by target)
+    const size_t plane = (size_t)TB * (BYSRC ? TB : NU);
     const int T = pl.T, UCAP = pl.UCAP, FW = pl.FW, MW = pl.MW;
     uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
     uint32_t* img = reinterpret_cast<uint32_t*>(smem + pl.off_img);
@@ -471,12 +500,12 @@ __device__ __forceinline__ void walk(
             }
             mbar_arrive_copies(bar);
         } else {
-            const unsigned bytes = (unsigned)(nt * TB * sizeof(ST));
+            const unsigned bytes = (unsigned)(nt * NU * sizeof(ST));
             if (lane == 0) mbar_expect_tx(bar, bytes * pl.W);
             __syncwarp();
             for (int q = lane; q < pl.W; q += 32)
-                bulk_copy(dst + (size_t)q * T * TB,
-                          src + q * plane + (size_t)l0 * TB, bytes, bar);
+                bulk_copy(dst + (size_t)q * T * NU,
+                          src + q * plane + (size_t)l0 * NU, bytes, bar);
         }
     };
     const float r_lo = pl.r_lo, r_hi = pl.r_hi;
@@ -495,9 +524,9 @@ __device__ __forceinline__ void walk(
     // word w of the union of far rows panel kc's tile needs (after its
     // masks' barrier; the same in every lane)
     auto union_word = [&](int kc, int w) -> uint32_t {
-        const uint32_t* mask = masks + (kc & 1) * TB;
+        const uint32_t* mask = masks + (kc & 1) * NU;
         const int u = 32 * w + lane;
-        return __ballot_sync(0xffffffffu, u < TB && mask[u] != 0);
+        return __ballot_sync(0xffffffffu, u < NU && mask[u] != 0);
     };
 
     uint64_t* pbars = bars + kStages;        // a pass buffer's: full
@@ -531,21 +560,21 @@ __device__ __forceinline__ void walk(
                 // --- the masks of the run's panel kc
                 kc = km++;
                 pid = run.pid(p_lo + kc);
-                oblk = run.other(p_lo + kc);
+                oblk = GATHER ? 0 : run.other(p_lo + kc);
                 const ST* sl = slab(kc);
-                uint32_t* mask = masks + (kc & 1) * TB;
+                uint32_t* mask = masks + (kc & 1) * NU;
                 if (pl.bulk) {
                     mbar_wait(bars + kc % kStages, (kc / kStages) & 1);
                 } else {
                     ST* dst = slab(kc);
                     const ST* src = sten + (size_t)pid * planes * plane;
-                    const int rows = BYSRC ? TB : nt, w = BYSRC ? aw : TB;
+                    const int rows = BYSRC ? TB : nt, w = BYSRC ? aw : NU;
                     for (int i = tid; i < pl.W * rows * w; i += nthr) {
                         const int c = i % w, qr = i / w;
                         const int q = qr / rows, row = qr - q * rows;
-                        dst[((size_t)q * pl.SROWS + row) * pl.SW + c] =
-                            BYSRC ? src[q * plane + (size_t)row * TB + a0 + c]
-                                  : src[q * plane + (size_t)(l0 + row) * TB + c];
+                        dst[((size_t)q * pl.SROWS + row) * pl.SW + c] = BYSRC
+                            ? src[q * plane + (size_t)row * TB + a0 + c]
+                            : src[q * plane + (size_t)(l0 + row) * NU + c];
                     }
                     group_sync();
                 }
@@ -553,10 +582,16 @@ __device__ __forceinline__ void walk(
                 // occupied (by target a thread a column, reading along it;
                 // by source a ballot a slab row)
                 if constexpr (!BYSRC) {
-                    for (int u = tid; u < TB; u += nthr) {
+                    // GATHER: a column whose far row lies outside [0,
+                    // n_far) holds no slot
+                    const int* srow =
+                        GATHER ? src_idx + (size_t)pid * NU : nullptr;
+                    for (int u = tid; u < NU; u += nthr) {
                         uint32_t m = 0;
-                        for (int l = 0; l < nt; ++l)
-                            if (occupied(sl, l, u)) m |= 1u << l;
+                        if (!GATHER
+                            || (unsigned)__ldg(srow + u) < (unsigned)nb_far)
+                            for (int l = 0; l < nt; ++l)
+                                if (occupied(sl, l, u)) m |= 1u << l;
                         mask[u] = m;
                     }
                 } else {
@@ -574,7 +609,7 @@ __device__ __forceinline__ void walk(
 #pragma unroll
                 for (int w = 0; w < kMaxWords; ++w)
                     if (w < MW) U += __popc(union_word(kc, w));
-                if (oblk < 0 || oblk >= nb_far) U = 0;
+                if (!GATHER && (oblk < 0 || oblk >= nb_far)) U = 0;
                 c0 = 0;
                 if (U == 0) {            // the slab's stage is free
                     if (kc + kStages < n) start_slab(kc + kStages);
@@ -586,7 +621,7 @@ __device__ __forceinline__ void walk(
             const int b = np % kPassBufs;
             const int nu = min(UCAP, U - c0);
             const ST* sl = slab(kc);
-            const uint32_t* mask = masks + (kc & 1) * TB;
+            const uint32_t* mask = masks + (kc & 1) * NU;
             int ul = 0;                  // far index of pass column `lane`
             {
                 int k = c0 + lane, base = 0;
@@ -631,7 +666,7 @@ __device__ __forceinline__ void walk(
                 const int first = compressed ? 1 : R;     // the first raw plane
                 auto slot_of = [&](int l, int u) {
                     return BYSRC ? (size_t)u * TB + l0 + l
-                                 : (size_t)(l0 + l) * TB + u;
+                                 : (size_t)(l0 + l) * NU + u;
                 };
                 // bf16: the half of its first raw plane's word each slot of
                 // local row 0 is in; row l's flips where slot (l, u) lies an
@@ -649,7 +684,7 @@ __device__ __forceinline__ void walk(
                     if (lane == 0) {
                         pmask[b * T + l] = m;
                         if constexpr (sizeof(ST) == 2) {
-                            const bool flip = (BYSRC ? l : l * TB) & 1;
+                            const bool flip = (BYSRC ? l : l * NU) & 1;
                             pmask[(kPassBufs + b) * T + l] = flip ? ~par0 : par0;
                         }
                     }
@@ -684,7 +719,12 @@ __device__ __forceinline__ void walk(
                              (size_t)pid * planes * plane + slot_of(l, u));
                 }
             }
-            const float* fsrc = far + (size_t)oblk * TB * FW;
+            // the far row of pass column `lane` (lane < nu)
+            int frow = 0;
+            if constexpr (GATHER)
+                frow = lane < nu ? __ldg(src_idx + (size_t)pid * NU + ul) : 0;
+            else
+                frow = oblk * TB + ul;
             float* fdst = fbuf + (size_t)b * UCAP * FW;
             if (WS && tid == 0) done[b] = 0;
             if (pl.FV == 4) {            // a bulk copy a row (warp 0)
@@ -694,15 +734,15 @@ __device__ __forceinline__ void walk(
                     __syncwarp();
                     if (lane < nu)
                         bulk_copy(fdst + (size_t)lane * FW,
-                                  fsrc + (size_t)ul * FW, (unsigned)(FW * 4),
+                                  far + (size_t)frow * FW, (unsigned)(FW * 4),
                                   pbars + b);
                 }
             } else {
                 const int FV = pl.FV, nv = FW / FV;
                 for (int pc = warp; pc < nu; pc += nwarps) {
-                    const int u = __shfl_sync(0xffffffffu, ul, pc);
+                    const int fr = __shfl_sync(0xffffffffu, frow, pc);
                     float* d = fdst + (size_t)pc * FW;
-                    const float* sp = fsrc + (size_t)u * FW;
+                    const float* sp = far + (size_t)fr * FW;
                     for (int v = lane; v < nv; v += 32) {
                         if (FV == 2) __pipeline_memcpy_async(d + 2 * v, sp + 2 * v, 8);
                         else __pipeline_memcpy_async(d + v, sp + v, 4);
@@ -764,14 +804,27 @@ __device__ __forceinline__ void walk(
 
 // --- consumers --------------------------------------------------------------------------
 
+// CPT consecutive floats at p (8-byte aligned for 2)
+template <int CPT>
+__device__ __forceinline__ void load_ch(float (&x)[CPT], const float* p)
+{
+    if constexpr (CPT == 2) {
+        const float2 v = *reinterpret_cast<const float2*>(p);
+        x[0] = v.x;
+        x[1] = v.y;
+    } else {
+        x[0] = *p;
+    }
+}
+
 // By target: contrib of each of a thread's MT targets l = qi + NQ·m over
-// pass buffer b, channel ic:
-//   are[m][k][r] + i·aim[m][k][r] += hats_r·f_k ⊗ g[row, k, ic]
-template <int KMAX, int RMAX, int MT, typename ST>
+// pass buffer b, channels ic .. ic + CPT − 1:
+//   are[m][k][r][c] + i·aim[m][k][r][c] += hats_r·f_k ⊗ g[row, k, ic + c]
+template <int KMAX, int RMAX, int MT, typename ST, int CPT = 1>
 __device__ __forceinline__ void consume_fwd(
-    float (&are)[MT][KMAX][RMAX], float (&aim)[MT][KMAX][RMAX],
+    float (&are)[MT][KMAX][RMAX][CPT], float (&aim)[MT][KMAX][RMAX][CPT],
     const unsigned char* smem, const Plan& pl, int b, int C, int K, int R,
-    int TB, int compressed, int l0, int nt, bool active, int qi, int ic)
+    int compressed, int nt, bool active, int qi, int ic)
 {
     if (!active) return;
     const int T = pl.T, UCAP = pl.UCAP, FW = pl.FW;
@@ -793,23 +846,89 @@ __device__ __forceinline__ void consume_fwd(
             float h[RMAX], fre[KMAX], fim[KMAX];
             slot_coefs<KMAX, RMAX, ST>(
                 h, fre, fim, img + (size_t)(l * UCAP + pc) * pl.NIMG,
-                (ppar >> pc) & 1u,
-                (unsigned)TB & 1, R, K, compressed);
+                (ppar >> pc) & 1u, pl.pp, R, K, compressed);
             const float* gr = fb + (size_t)pc * FW;
 #pragma unroll
             for (int k = 0; k < KMAX; ++k) {
                 if (k < K) {
-                    const float xr = gr[k * 2 * C];
-                    const float xi = gr[k * 2 * C + C];
-                    const float hr = fre[k] * xr - fim[k] * xi;
-                    const float hi = fre[k] * xi + fim[k] * xr;
+                    float xr[CPT], xi[CPT];
+                    load_ch<CPT>(xr, gr + k * 2 * C);
+                    load_ch<CPT>(xi, gr + k * 2 * C + C);
 #pragma unroll
-                    for (int r = 0; r < RMAX; ++r) {
-                        are[m][k][r] = fmaf(h[r], hr, are[m][k][r]);
-                        aim[m][k][r] = fmaf(h[r], hi, aim[m][k][r]);
+                    for (int c = 0; c < CPT; ++c) {
+                        const float hr = fre[k] * xr[c] - fim[k] * xi[c];
+                        const float hi = fre[k] * xi[c] + fim[k] * xr[c];
+#pragma unroll
+                        for (int r = 0; r < RMAX; ++r) {
+                            are[m][k][r][c] = fmaf(h[r], hr, are[m][k][r][c]);
+                            aim[m][k][r][c] = fmaf(h[r], hi, aim[m][k][r][c]);
+                        }
                     }
                 }
             }
+        }
+    }
+}
+
+// K6's consumer on a bf16 stencil: consume_fwd's sums for a thread of CPT
+// channels, f_k ⊗ g formed for every k < KMAX (zeros from K on) before any
+// is added.  The two forms compile to code of other speeds: on an H100
+// this one ran K6's contrib 0.3 ms faster on a bf16 stencil at 163,842
+// samples and 0.26 ms slower on an f32 one (C = 32, K = 3, R = 3).
+template <int KMAX, int RMAX, int MT, typename ST, int CPT>
+__device__ __forceinline__ void consume_compact(
+    float (&are)[MT][KMAX][RMAX][CPT], float (&aim)[MT][KMAX][RMAX][CPT],
+    const unsigned char* smem, const Plan& pl, int b, int C, int K, int R,
+    int nt, bool active, int qi, int ic)
+{
+    if (!active) return;
+    const int T = pl.T, UCAP = pl.UCAP, FW = pl.FW;
+    const uint32_t* img = reinterpret_cast<const uint32_t*>(smem + pl.off_img)
+        + (size_t)b * pl.img_words;
+    const float* fb = reinterpret_cast<const float*>(smem + pl.off_far)
+        + (size_t)b * UCAP * FW + ic;
+    const uint32_t* pmask =
+        reinterpret_cast<const uint32_t*>(smem + pl.off_pmask) + b * T;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+        const int l = qi + pl.NQ * m;
+        if (l >= nt) continue;
+        uint32_t bits = pmask[l];
+        const uint32_t ppar = pmask[kPassBufs * T + l];
+        while (bits) {
+            const int pc = __ffs(bits) - 1;
+            bits &= bits - 1;
+            float h[RMAX], fre[KMAX], fim[KMAX];
+            slot_coefs<KMAX, RMAX, ST>(
+                h, fre, fim, img + (size_t)(l * UCAP + pc) * pl.NIMG,
+                (ppar >> pc) & 1u, pl.pp, R, K, 1);
+            const float* gr = fb + (size_t)pc * FW;
+            float hr[KMAX][CPT], hi[KMAX][CPT];
+#pragma unroll
+            for (int k = 0; k < KMAX; ++k) {
+                float xr[CPT], xi[CPT];
+#pragma unroll
+                for (int c = 0; c < CPT; ++c) { xr[c] = 0.f; xi[c] = 0.f; }
+                if (k < K) {
+                    load_ch<CPT>(xr, gr + k * 2 * C);
+                    load_ch<CPT>(xi, gr + k * 2 * C + C);
+                }
+#pragma unroll
+                for (int c = 0; c < CPT; ++c) {
+                    hr[k][c] = fre[k] * xr[c] - fim[k] * xi[c];
+                    hi[k][c] = fre[k] * xi[c] + fim[k] * xr[c];
+                }
+            }
+#pragma unroll
+            for (int k = 0; k < KMAX; ++k)
+                if (k < K)
+#pragma unroll
+                    for (int c = 0; c < CPT; ++c)
+#pragma unroll
+                        for (int r = 0; r < RMAX; ++r) {
+                            are[m][k][r][c] = fmaf(h[r], hr[k][c], are[m][k][r][c]);
+                            aim[m][k][r][c] = fmaf(h[r], hi[k][c], aim[m][k][r][c]);
+                        }
         }
     }
 }
@@ -821,8 +940,8 @@ __device__ __forceinline__ void consume_fwd(
 template <int KMAX, int RMAX, int MT, typename ST>
 __device__ __forceinline__ void consume_dg(
     float (&gre)[MT][KMAX], float (&gim)[MT][KMAX], const unsigned char* smem,
-    const Plan& pl, int b, int C, int K, int R, int TB, int compressed,
-    int l0, int nt, bool active, int qi, int ic)
+    const Plan& pl, int b, int C, int K, int R, int compressed, int nt,
+    bool active, int qi, int ic)
 {
     if (!active) return;
     const int T = pl.T, UCAP = pl.UCAP, FW = pl.FW;
@@ -847,7 +966,7 @@ __device__ __forceinline__ void consume_dg(
             float fre[KMAX], fim[KMAX];
             float h[RMAX];
             slot_coefs<KMAX, RMAX, ST>(h, fre, fim, slot, (ppar >> pc) & 1u,
-                                       (unsigned)TB & 1, R, K, compressed);
+                                       pl.pp, R, K, compressed);
 #pragma unroll
             for (int k = 0; k < KMAX; ++k) {
                 if (k < K) {
@@ -888,13 +1007,17 @@ namespace {
 
 // contrib of every target row over its block's run of panels: one CTA per
 // tile of T targets, MT a thread, written as (rows, R·M) row-major with
-// column j = r·M + k·2C + (p·C + c) (coalesced over c).
-template <int KMAX, int RMAX, int MT, typename ST>
-__global__ void __launch_bounds__(kThreads, 2)
-contrib_kernel(const float* __restrict__ g, const ST* __restrict__ sten,
-               const int* __restrict__ meta, float* __restrict__ contrib,
-               int P, int C, int K, int R, int TB, int compressed, int nb_g,
-               Plan pl, Knots kn)
+// column j = r·M + k·2C + (p·C + c) (coalesced over c).  nb_far: source
+// blocks (K5), or with GATHER the rows of g (K6).  WS: warp-specialized
+// (the walk's producer warps after pl.nthr consumers); CPT channels a
+// consumer thread.
+template <int KMAX, int RMAX, int MT, typename ST, bool GATHER, bool WS,
+          int CPT>
+__device__ __forceinline__ void contrib_tile(
+    const float* __restrict__ g, const ST* __restrict__ sten,
+    const int* __restrict__ meta, const int* __restrict__ src_idx,
+    float* __restrict__ contrib, int P, int C, int K, int R, int TB,
+    int compressed, int nb_far, const Plan& pl, const Knots& kn)
 {
     const int M = 2 * K * C;
     const int RM = R * M;
@@ -903,25 +1026,35 @@ contrib_kernel(const float* __restrict__ g, const ST* __restrict__ sten,
     const int l0 = (blockIdx.x % tiles) * pl.T;
     const int nt = min(pl.T, TB - l0);
     const int tid = threadIdx.x;
-    const bool active = tid < pl.NQ * C;
-    const int qi = active ? tid / C : 0;     // (target group, channel)
-    const int ic = active ? tid % C : 0;
+    const int tpt = C / CPT;                 // threads a target group
+    const bool active = tid < pl.NQ * tpt;
+    const int qi = active ? tid / tpt : 0;   // (target group, channels)
+    const int ic = active ? tid % tpt * CPT : 0;
 
     extern __shared__ __align__(16) unsigned char smem[];
-    float are[MT][KMAX][RMAX], aim[MT][KMAX][RMAX];
+    float are[MT][KMAX][RMAX][CPT], aim[MT][KMAX][RMAX][CPT];
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
         for (int k = 0; k < KMAX; ++k)
 #pragma unroll
-            for (int r = 0; r < RMAX; ++r) { are[m][k][r] = 0.f; aim[m][k][r] = 0.f; }
-    walk<false, false, RMAX, ST>(
-        smem, pl, sten, meta, P, g, nb_g, TB, R, K, compressed, blk, l0, nt,
-        kn, [&](int b) {
-            consume_fwd<KMAX, RMAX, MT, ST>(are, aim, smem, pl, b, C, K, R,
-                                            TB, compressed, l0, nt, active,
-                                            qi, ic);
-        });
+            for (int r = 0; r < RMAX; ++r)
+#pragma unroll
+                for (int c = 0; c < CPT; ++c) {
+                    are[m][k][r][c] = 0.f;
+                    aim[m][k][r][c] = 0.f;
+                }
+    walk<false, WS, RMAX, ST, GATHER>(
+        smem, pl, sten, meta, P, g, nb_far, TB, R, K, compressed, blk, l0,
+        nt, kn, [&](int b) {
+            if constexpr (GATHER && sizeof(ST) == 2)
+                consume_compact<KMAX, RMAX, MT, ST, CPT>(
+                    are, aim, smem, pl, b, C, K, R, nt, active, qi, ic);
+            else
+                consume_fwd<KMAX, RMAX, MT, ST, CPT>(
+                    are, aim, smem, pl, b, C, K, R, compressed, nt, active,
+                    qi, ic);
+        }, src_idx);
     if (!active) return;
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
@@ -934,56 +1067,158 @@ contrib_kernel(const float* __restrict__ g, const ST* __restrict__ sten,
             for (int r = 0; r < RMAX; ++r)
                 if (k < K && r < R) {
                     const int j = r * M + k * 2 * C + ic;
-                    cr[j] = are[m][k][r];
-                    cr[j + C] = aim[m][k][r];
+#pragma unroll
+                    for (int c = 0; c < CPT; ++c) {
+                        cr[j + c] = are[m][k][r][c];
+                        cr[j + C + c] = aim[m][k][r][c];
+                    }
                 }
     }
 }
 
+// K5's contrib (square panels, source blocks from meta)
+template <int KMAX, int RMAX, int MT, typename ST>
+__global__ void __launch_bounds__(kThreads, 2)
+contrib_kernel(const float* __restrict__ g, const ST* __restrict__ sten,
+               const int* __restrict__ meta, float* __restrict__ contrib,
+               int P, int C, int K, int R, int TB, int compressed, int nb_g,
+               Plan pl, Knots kn)
+{
+    contrib_tile<KMAX, RMAX, MT, ST, false, false, 1>(
+        g, sten, meta, nullptr, contrib, P, C, K, R, TB, compressed, nb_g, pl,
+        kn);
+}
+
+// K6's contrib (compact panels, TB × TS, columns read through src_idx;
+// compressed planes), CPT channels a consumer thread; WS: warp-specialized,
+// one CTA an SM, else K5's two CTAs an SM
+template <int KMAX, int RMAX, int MT, typename ST, int CPT, bool WS>
+__global__ void __launch_bounds__(
+    WS ? kCompactThreads + 32 * kProducerWarps : kThreads, WS ? 1 : 2)
+compact_contrib_kernel(const float* __restrict__ g,
+                       const ST* __restrict__ sten,
+                       const int* __restrict__ meta,
+                       const int* __restrict__ src_idx,
+                       float* __restrict__ contrib, int P, int C, int K,
+                       int R, int TB, int n_g, Plan pl, Knots kn)
+{
+    contrib_tile<KMAX, RMAX, MT, ST, true, WS, CPT>(
+        g, sten, meta, src_idx, contrib, P, C, K, R, TB, 1, n_g, pl, kn);
+}
+
 }  // namespace
 
-// The plan of a contrib launch: the instantiation's tile, or a narrower
-// one where its slabs (a dense stencil's R planes) leave no room.  False
-// for shapes it does not take.
-inline bool contrib_plan(int C, int K, int R, int TB, int compressed,
+// Whether K6's contrib walk is warp-specialized: at K ≤ 3 (the
+// correspondence and matching widths, 32-target tiles); at K = 5 (the
+// segmentation width, tiles of 5 targets) K5's walk ran 3.4x faster on an
+// H100.
+inline bool compact_ws(int K) { return K <= 3; }
+
+// Channels a consumer thread of K6's warp-specialized walk sums: two
+// (float2 reads of g) on an f32 stencil of even C from 32 to 62, where a
+// tile still fills kCompactThreads with one target a thread; else one.
+// Measured on an H100 at 163,842 samples: two channels 0.1 ms faster at
+// C = 32 on f32, slower at C = 16 and on bf16.
+inline int compact_cpt(int C, int K, int elem)
+{
+    return compact_ws(K) && elem == 4 && C % 2 == 0 && C >= 32 && C < 64
+        ? 2 : 1;
+}
+
+// The plan of a contrib launch over panels of TB rows and TS columns: the
+// instantiation's tile, or a narrower one where its slabs (a dense
+// stencil's R planes) leave no room.  compact: K6's walk (where
+// compact_ws, kCompactThreads consumers of compact_cpt channels each, one
+// CTA an SM, the whole limit).  False for shapes it does not take.
+inline bool contrib_plan(int C, int K, int R, int TB, int TS, int compressed,
                          int elem, const void* g, const void* sten,
-                         int limit, Plan* p)
+                         int limit, Plan* p, bool compact = false)
 {
     const Inst in = contrib_inst(K, R);
-    for (int mt = in.mt_max; mt >= 1; mt /= 2)
-        if (tile_plan(0, C, K, R, TB, compressed, elem, in.t_target, mt,
-                      2 * K * C, g, sten, p)
-            && fit_plan(p, TB, elem, limit))
+    const bool ws = compact && compact_ws(K);
+    const int cpt = compact ? compact_cpt(C, K, elem) : 1;
+    const int tpt = C / cpt;                 // threads a target
+    // two channels a thread come with one target a thread
+    for (int mt = cpt == 2 ? 1 : in.mt_max; mt >= 1; mt /= 2)
+        if (tile_plan(0, tpt, K, R, TB, TS, compressed, elem, in.t_target,
+                      mt, 2 * K * C, g, sten, p,
+                      ws ? kCompactThreads : kThreads)
+            && fit_plan(p, elem, limit, ws ? (size_t)limit : kSmemBudget))
             return true;
     return false;
 }
 
-// Launches contrib_kernel for plan p over nb_out target blocks (the
-// instantiation for (K, R) and p.MT).
-template <typename ST>
+// K5's contrib_kernel, or (GATHER) K6's compact_contrib_kernel.
+template <int KMAX, int RMAX, int MT, typename ST, bool GATHER, int CPT,
+          bool WS>
+inline auto contrib_entry()
+{
+    if constexpr (GATHER)
+        return compact_contrib_kernel<KMAX, RMAX, MT, ST, CPT, WS>;
+    else
+        return contrib_kernel<KMAX, RMAX, MT, ST>;
+}
+
+// Launches plan p's kernel over nb_out target blocks, the instantiation for
+// (K, R) and p.MT: K5's (nb_far: source blocks), or with GATHER K6's
+// (nb_far: rows of g; columns read through src_idx, compressed planes).
+template <typename ST, bool GATHER = false>
 cudaError_t launch_contrib(const float* g, const ST* sten, const int* meta,
                            float* contrib, int P, int nb_out, int C, int K,
-                           int R, int TB, int compressed, int nb_g,
-                           const Plan& p, cudaStream_t stream)
+                           int R, int TB, int compressed, int nb_far,
+                           const Plan& p, cudaStream_t stream,
+                           const int* src_idx = nullptr)
 {
     const Knots kn = compressed ? panel::ring_knots(R) : Knots{};
     const unsigned grid = (unsigned)((long)nb_out * ((TB + p.T - 1) / p.T));
-    auto go = [&](auto kernel) {
+    // WS: the walk's producer warps after the plan's consumers
+    auto go = [&](auto kernel, bool ws) {
         cudaError_t err = set_smem(kernel, p);
         if (err != cudaSuccess) return err;
-        kernel<<<grid, p.nthr, p.bytes, stream>>>(
-            g, sten, meta, contrib, P, C, K, R, TB, compressed, nb_g, p, kn);
+        if constexpr (GATHER)
+            kernel<<<grid, p.nthr + (ws ? 32 * kProducerWarps : 0), p.bytes,
+                     stream>>>(
+                g, sten, meta, src_idx, contrib, P, C, K, R, TB, nb_far, p,
+                kn);
+        else
+            kernel<<<grid, p.nthr, p.bytes, stream>>>(
+                g, sten, meta, contrib, P, C, K, R, TB, compressed, nb_far, p,
+                kn);
         return cudaGetLastError();
     };
-    if (K <= 3 && R <= 3) {
-        if (p.MT == 2) return go(contrib_kernel<3, 3, 2, ST>);
-        return go(contrib_kernel<3, 3, 1, ST>);
-    }
-    if (K <= 3) {
-        if (p.MT == 2) return go(contrib_kernel<3, 6, 2, ST>);
-        return go(contrib_kernel<3, 6, 1, ST>);
-    }
-    return go(contrib_kernel<5, 6, 1, ST>);
+    // the instantiation for (K, R) and p.MT, of CPT channels a thread; K6
+    // warp-specialized at K ≤ 3 (compact_ws)
+    // (two channels a thread come with one target a thread: compact_cpt)
+    auto pick = [&](auto cpt) {
+        constexpr int CPT = decltype(cpt)::value;
+        if constexpr (CPT == 2) {
+            if (p.MT != 1 || K > 3) return cudaErrorInvalidValue;
+            if (R <= 3)
+                return go(contrib_entry<3, 3, 1, ST, GATHER, 2, GATHER>(),
+                          GATHER);
+            return go(contrib_entry<3, 6, 1, ST, GATHER, 2, GATHER>(), GATHER);
+        } else {
+            if (K <= 3 && R <= 3) {
+                if (p.MT == 2)
+                    return go(contrib_entry<3, 3, 2, ST, GATHER, 1, GATHER>(),
+                              GATHER);
+                return go(contrib_entry<3, 3, 1, ST, GATHER, 1, GATHER>(),
+                          GATHER);
+            }
+            if (K <= 3) {
+                if (p.MT == 2)
+                    return go(contrib_entry<3, 6, 2, ST, GATHER, 1, GATHER>(),
+                              GATHER);
+                return go(contrib_entry<3, 6, 1, ST, GATHER, 1, GATHER>(),
+                          GATHER);
+            }
+            return go(contrib_entry<5, 6, 1, ST, GATHER, 1, false>(), false);
+        }
+    };
+    if constexpr (GATHER && sizeof(ST) == 4)
+        if (compact_cpt(C, K, sizeof(ST)) == 2)
+            return pick(std::integral_constant<int, 2>{});
+    return pick(std::integral_constant<int, 1>{});
 }
 
 }  // namespace pipe

@@ -1,6 +1,8 @@
-// The stencil read of the panel kernels (K5 and K6, panel_walk.cuh,
-// panel_bwd.cuh; K2 and K7, echo_vote.cuh).  A panel stencil is stored in
-// float32 or, cast by precomp/banded.py::cast_panel_sten, in bfloat16: the
+// The stencil read of the panel kernels (K2 and K7, echo_vote.cuh; K6's
+// dG pass where it reads e^{iθ} and wxp at the occupied slots; K5's and
+// K6's walks read raw words instead, panel_pipe.cuh::raw_value).  A panel
+// stencil is stored in float32 or, cast by precomp/banded.py::
+// cast_panel_sten, in bfloat16: the
 // JAX package's panel kernels cast each plane to f32 on read
 // (ops/pallas/band_conv.py::_panel_pairs, ops/pallas/echo_panel.py::
 // _panel_tensors).  The kernels are templated on the element type ST and

@@ -460,13 +460,13 @@ def _is_bf16(sten) -> int:
 
 
 def _k5_check(name, g, wmat, sten, meta, tb, n_rings, band_limit,
-              compressed, n_out, *more, ts=None, r_max_k3=3):
+              compressed, n_out, *more, ts=None):
     """Raise unless the shapes agree and g, wmat (float32), sten (float32
     or bfloat16), meta (int32) and the named extra tensors are contiguous
     on g's device, and unless one of the kernel's instantiations takes
-    (K, R): K ≤ 3 with R ≤ r_max_k3 (3 for K6; K5 takes the MATCHING
-    preset's R = 6 too) and K = 5 with R ≤ 6.  Panels are (tb, ts) slots,
-    ts = tb by default (K6's are rectangular)."""
+    (K, R): K ≤ 5 with R ≤ 6 (K ≤ 3 with R ≤ 3 or ≤ 6, the correspondence
+    and MATCHING presets', and K = 5 with R ≤ 6).  Panels are (tb, ts)
+    slots, ts = tb by default (K6's are rectangular)."""
     N, M = g.shape
     R, K = n_rings, 2 * band_limit + 1
     planes = 5 if compressed else R + 2 * K
@@ -490,16 +490,16 @@ def _k5_check(name, g, wmat, sten, meta, tb, n_rings, band_limit,
             raise ValueError(f"{name} needs contiguous {dtype} {label} on "
                              f"{g.device}, got {t.dtype} on {t.device} "
                              f"(contiguous={t.is_contiguous()})")
-    if R > (r_max_k3 if K <= 3 else 6) or K > 5:
+    if R > 6 or K > 5:
         raise NotImplementedError(
-            f"{name}'s kernel takes K ≤ 3 with R ≤ {r_max_k3} and K = 5 "
-            f"with R ≤ 6 (the presets' shapes), got K={K}, R={R}")
+            f"{name}'s kernel takes K ≤ 5 with R ≤ 6 (the presets' shapes), "
+            f"got K={K}, R={R}")
 
 
 def _band_panel_fwd_cuda(g, wmat, sten, meta, tb, n_rings, band_limit,
                          compressed, n_out):
     _k5_check("band_panel_fwd", g, wmat, sten, meta, tb, n_rings,
-              band_limit, compressed, n_out, r_max_k3=6)
+              band_limit, compressed, n_out)
     O2 = wmat.shape[-1]
     K = 2 * band_limit + 1
     C = g.shape[1] // (2 * K)
@@ -626,7 +626,7 @@ def _band_panel_bwd_cuda(dy, g, wmat, sten, meta, meta_s, tb, n_rings,
     n_out, O2 = dy.shape
     _k5_check("band_panel_bwd", g, wmat, sten, meta, tb, n_rings,
               band_limit, compressed, n_out, ("dy", dy, torch.float32),
-              ("meta_s", meta_s, torch.int32), r_max_k3=6)
+              ("meta_s", meta_s, torch.int32))
     if meta_s.dim() != 2 or meta_s.shape[0] != 4 or O2 != wmat.shape[-1]:
         raise ValueError(f"band_panel_bwd: meta_s {tuple(meta_s.shape)}, "
                          f"dy {tuple(dy.shape)}, wmat {tuple(wmat.shape)}")
@@ -722,11 +722,16 @@ def band_compact_fwd_reference(g, wmat, sten, meta, src_idx, tbt: int,
 
 @functools.cache
 def _k6_entry():
-    fn = kernels.library("band_compact_fwd").band_compact_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+    """(kernel entry, floats of scratch it needs for given sizes)."""
+    lib = kernels.library("band_compact_fwd")
+    fn = lib.band_compact_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    size = lib.band_compact_fwd_scratch_floats
+    size.argtypes = [ctypes.c_int] * 5
+    size.restype = ctypes.c_longlong
+    return fn, size
 
 
 def _band_compact_fwd_cuda(g, wmat, sten, meta, src_idx, tbt, n_rings,
@@ -739,14 +744,24 @@ def _band_compact_fwd_cuda(g, wmat, sten, meta, src_idx, tbt, n_rings,
     if tuple(src_idx.shape) != (P, TS):
         raise ValueError(f"band_compact_fwd: src_idx {tuple(src_idx.shape)}"
                          f" for {P} panels of {TS} columns")
+    if tbt > 128 or TS > 128:
+        raise NotImplementedError(
+            f"band_compact_fwd's kernel takes panels of at most 128 × 128 "
+            f"slots, got TBt={tbt}, TS={TS}")
     O2 = wmat.shape[-1]
     K = 2 * band_limit + 1
-    fn = _k6_entry()
+    C = M // (2 * K)
+    fn, scratch_floats = _k6_entry()
     y = torch.empty((n_out, O2), dtype=torch.float32, device=g.device)
+    # contrib of every target row, which the filter then contracts with W
+    scratch = torch.empty(
+        (max(1, scratch_floats(n_out // tbt, C, K, n_rings, tbt)),),
+        dtype=torch.float32, device=g.device)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = fn(g.data_ptr(), wmat.data_ptr(), sten.data_ptr(), meta.data_ptr(),
-             src_idx.data_ptr(), y.data_ptr(), P, n_out // tbt, M // (2 * K),
-             K, n_rings, tbt, TS, O2, N, _is_bf16(sten), stream)
+             src_idx.data_ptr(), y.data_ptr(), scratch.data_ptr(), P,
+             n_out // tbt, C, K, n_rings, tbt, TS, O2, N, _is_bf16(sten),
+             stream)
     if err != 0:
         raise RuntimeError(f"band_compact_fwd launch failed: cudaError {err}")
     kernels.launches["band_compact_fwd"] += 1
@@ -835,11 +850,11 @@ def _band_compact_bwd_cuda(dy, g, wmat, sten, meta, src_idx, fold_order,
                          f"panels of {TS} columns, dy {tuple(dy.shape)}, "
                          f"wmat {tuple(wmat.shape)}, fold_ptr "
                          f"{tuple(fold_ptr.shape)} for {N} rows")
-    if tbt > 32:
+    if tbt > 32 or TS > 128:
         raise NotImplementedError(
             f"{name}'s kernel takes panels of at most 32 target rows (the "
-            f"pure-panel layout's compact convs run at TBt 32), got TBt="
-            f"{tbt}")
+            f"pure-panel layout's compact convs run at TBt 32) and 128 "
+            f"columns, got TBt={tbt}, TS={TS}")
     K = 2 * band_limit + 1
     fn, scratch_floats = _k6_bwd_entry()
     sizes = (P, n_out // tbt, M // (2 * K), K, n_rings, tbt, TS, O2)

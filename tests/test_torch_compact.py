@@ -212,10 +212,10 @@ def test_k6_k7_on_cuda_tensors_need_the_kernels(monkeypatch):
     (patched, the entries record the calls); a gradient reaches K6's and
     K7's backward entries (through each Function's backward, called on a
     stand-in context: autograd records no graph over fake CUDA tensors),
-    and the fold (the last step of the lift's backward) its own entry; a
-    (K, R) that no K6
-    instantiation takes raises, and so does a K6 backward over panels of
-    more than 32 target rows."""
+    and the fold (the last step of the lift's backward) its own entry; K =
+    3 with R = 6 (the MATCHING preset's shape) reaches both K6 entries, a
+    (K, R) that no K6 instantiation takes (K = 7) raises, and so does a K6
+    backward over panels of more than 32 target rows."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks its absence")
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -249,9 +249,13 @@ def test_k6_k7_on_cuda_tensors_need_the_kernels(monkeypatch):
         with pytest.raises(RuntimeError, match="nvcc"):
             tbc.band_compact_bwd(dy, g, w, sten, meta, idx, order, ptr, 8, 3,
                                  1)
+        g7 = torch.zeros(16, 28, device="cuda")
+        w7 = torch.zeros(3, 28, 6, device="cuda")
         with pytest.raises(NotImplementedError, match="presets' shapes"):
-            tbc.band_compact_fwd(g, torch.zeros(6, 24, 6, device="cuda"),
-                                 sten, meta, idx, 8, 6, 1)
+            tbc.band_compact_fwd(g7, w7, sten, meta, idx, 8, 3, 3)
+        with pytest.raises(NotImplementedError, match="presets' shapes"):
+            tbc.band_compact_bwd(dy, g7, w7, sten, meta, idx, order, ptr, 8,
+                                 3, 3)
         i32 = dict(dtype=torch.int32, device="cuda")
         with pytest.raises(NotImplementedError, match="at most 32"):
             tbc.band_compact_bwd(
@@ -280,7 +284,13 @@ def test_k6_k7_on_cuda_tensors_need_the_kernels(monkeypatch):
         with pytest.raises(Entered):
             tcf.compact_fold(torch.zeros(16, 3, device="cuda"), idx, order,
                              ptr, 16)
-    assert entered == [True] * 5
+        w6 = torch.zeros(6, 24, 6, device="cuda")
+        with pytest.raises(Entered):
+            tbc.band_compact_fwd(g, w6, sten, meta, idx, 8, 6, 1)
+        with pytest.raises(Entered):
+            tbc.band_compact_bwd(dy, g, w6, sten, meta, idx, order, ptr, 8,
+                                 6, 1)
+    assert entered == [True] * 7
     assert kernels.launches == before
 
 

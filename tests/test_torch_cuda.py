@@ -718,11 +718,13 @@ def _compact_table(rng, B, R, tbt, ts):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("C,O2,B,R", [(16, 24, 1, 3), (32, 64, 1, 3),
-                                      (48, 96, 2, 6)])
+                                      (32, 64, 1, 6), (48, 96, 2, 6)])
 @COMPACT_SHAPES
 def test_k6_kernel_matches_plain_on_card(C, O2, B, R, tbt, ts):
-    """K6 against its plain version on the card, at both instantiations
-    (K = 3, R = 3 and K = 5, R = 6) and both panel shapes: tolerance 1e-4
+    """K6 against its plain version on the card, at its three
+    instantiations (K = 3 with R = 3 and R = 6, the correspondence and
+    MATCHING presets' shapes, and K = 5, R = 6) and both panel shapes:
+    tolerance 1e-4
     of the output's scale (f32 sums over a target's panels and slots in
     another order).  A second call is bitwise equal (one writer per output,
     no atomics).  K6's backward (dg after the fold, and dw) the same way,
@@ -1054,7 +1056,8 @@ def test_k5_bf16_kernel_matches_plain_on_card(C, O2, B, R):
 
 
 @pytest.mark.cuda
-@BF16_CONV_SHAPES
+@pytest.mark.parametrize("C,O2,B,R", [(16, 24, 1, 3), (32, 64, 1, 6),
+                                      (48, 96, 2, 6)])
 def test_k6_bf16_kernel_matches_plain_on_card(C, O2, B, R):
     """K6 forward and backward (TBt 32) on a bf16 compact table against
     their plain versions and the plain fold on the card: within 1e-4 of
@@ -1079,6 +1082,148 @@ def test_k6_bf16_kernel_matches_plain_on_card(C, O2, B, R):
                                                  comp.n_pad), want_w),
           "K6 bwd")
     assert torch.equal(y, tbc.band_compact_fwd(*args))
+    dg2, dw2 = tbc.band_compact_bwd(*bargs)
+    assert torch.equal(dg, dg2) and torch.equal(dw, dw2)
+
+
+def _k6_edge_tables(case, B, R, tbt, ts):
+    """(the kernels' table, the plain versions' table), CPU tensors, for one
+    edge case of K6's walks, from a kd-ordered sphere's compact table:
+    "one panel" keeps only the edges within a target block, so that every
+    run is one panel; "long runs" (TS below a block's distinct sources)
+    gives runs longer than the walk's slab stages; "no panel" drops the
+    panels of target block 1, so that its rows of y are zeros (the fold
+    index rebuilt for the panels kept); "dead columns" has every dead
+    column and every 7th live one read a row outside [0, n_g) in the
+    kernels' table, and those live columns emptied (r = R_SENTINEL, out of
+    the fold index) in the plain versions' one, so that the two compute
+    the same function; otherwise the table as built."""
+    from fieldconv_tpu_torch.precomp.banded import (R_SENTINEL,
+                                                    build_compact_panel_table,
+                                                    fold_index)
+
+    rng = np.random.default_rng(13)
+    rec = sphere_record(rng, 1500, 4)
+    if case == "one panel":
+        e = rec.supp_edges
+        keep = e[:, 0] // tbt == e[:, 1] // tbt
+        rec = dataclasses.replace(rec, supp_edges=e[keep],
+                                  log_mag=rec.log_mag[keep],
+                                  log_ang=rec.log_ang[keep], xp=rec.xp[keep])
+    comp = build_compact_panel_table(rec.table(B, R, n_multiple=128),
+                                     tb=tbt, ts=ts)
+
+    def refold(table, live):
+        cols = np.flatnonzero(live.reshape(-1).numpy())
+        order, ptr = fold_index(
+            cols, table.src_idx.reshape(-1).numpy()[cols], table.n_pad)
+        return dataclasses.replace(table, fold_order=order, fold_ptr=ptr)
+
+    if case == "no panel":
+        keep = comp.meta[0] != 1
+        meta = comp.meta[:, keep].clone()
+        meta[1] = torch.arange(meta.shape[1], dtype=torch.int32)
+        comp = dataclasses.replace(
+            comp, sten=comp.sten[keep].contiguous(), meta=meta.contiguous(),
+            src_idx=comp.src_idx[keep].contiguous())
+        comp = refold(comp, (comp.sten[:, 0] != R_SENTINEL).any(1))
+    if case != "dead columns":
+        return comp, comp
+    live = (comp.sten[:, 0] != R_SENTINEL).any(1)            # (P, TS)
+    cut = torch.zeros(live.numel(), dtype=torch.bool)
+    cut[torch.nonzero(live.reshape(-1))[::7, 0]] = True
+    cut = cut.reshape(live.shape)
+    src = comp.src_idx.clone()
+    src[~live] = comp.n_pad + 5
+    src[cut] = torch.where(torch.arange(int(cut.sum())) % 2 == 0,
+                           comp.n_pad, -1).int()
+    sten = comp.sten.clone()
+    sten[:, 0].masked_fill_(cut[:, None, :], R_SENTINEL)
+    plain = refold(dataclasses.replace(comp, sten=sten), live & ~cut)
+    return dataclasses.replace(plain, sten=comp.sten, src_idx=src), plain
+
+
+# K6's walks (csrc/panel_pipe.cuh by target, band_compact_bwd.cu's dG):
+# runs of one panel and runs longer than the slab stages, a target block
+# with no panel, dead columns reading rows outside [0, n_g), TS not a
+# multiple of 32 (bf16 rows of 36 slots too short for bulk copies), TBt 16,
+# 32 and 128 (the backward takes TBt ≤ 32 and raises above), C = 3, 16, 32
+# and 48, K = 3 with R = 2, 3 and 6 and K = 5 with R = 6, f32 and bf16
+K6_EDGE_CASES = pytest.mark.parametrize("case,C,O2,B,R,tbt,ts,bf16", [
+    ("one panel", 32, 64, 1, 3, 32, 128, False),
+    ("one panel", 48, 96, 2, 6, 32, 128, True),
+    ("long runs", 16, 64, 1, 3, 32, 40, False),
+    ("long runs", 32, 64, 1, 6, 32, 40, True),
+    ("long runs", 3, 10, 1, 2, 16, 36, True),
+    ("long runs", 48, 96, 2, 6, 16, 64, False),
+    ("no panel", 32, 64, 1, 3, 32, 128, False),
+    ("no panel", 48, 96, 2, 6, 32, 128, True),
+    ("dead columns", 32, 64, 1, 3, 32, 128, False),
+    ("dead columns", 16, 24, 1, 6, 32, 100, True),
+    ("as built", 32, 64, 1, 6, 128, 128, False),
+    ("as built", 48, 96, 2, 6, 128, 128, True),
+    ("as built", 3, 10, 1, 3, 128, 40, False),
+    ("as built", 16, 24, 1, 3, 16, 128, False),
+])
+
+
+@pytest.mark.cuda
+@K6_EDGE_CASES
+def test_k6_walk_edge_cases_on_card(case, C, O2, B, R, tbt, ts, bf16):
+    """K6's forward and backward (dg after the fold, and dw) on each edge
+    case of its walks against their plain versions on the card: each
+    output within 1e-4 of its scale (f32 sums in another order), a second
+    call bitwise equal, and exactly one launch of each counted per call;
+    over panels of more than 32 target rows the backward raises."""
+    _need_card()
+    comp, plain = _k6_edge_tables(case, B, R, tbt, ts)
+    if bf16:
+        comp, plain = _bf16(comp), _bf16(plain)
+    comp, plain = comp.to("cuda"), plain.to("cuda")
+    runs = torch.bincount(comp.meta[0].long(),
+                          minlength=comp.n_pad // tbt)
+    if case == "one panel":
+        assert int(runs.max()) == 1
+    if case == "long runs":
+        assert int(runs.max()) > 3
+    if case == "no panel":
+        assert int(runs[1]) == 0
+    if case == "dead columns":
+        bad = (comp.src_idx < 0) | (comp.src_idx >= comp.n_pad)
+        assert bool((bad & (comp.sten[:, 0] < 2).any(1)).any())
+    M = (2 * B + 1) * 2 * C
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    g = torch.randn(comp.n_pad, M, device="cuda", generator=gen)
+    wmat = torch.randn(R, M, O2, device="cuda", generator=gen) / (R * M) ** .5
+    dy = torch.randn(comp.n_pad, O2, device="cuda", generator=gen)
+    args = (g, wmat, comp.sten, comp.meta, comp.src_idx, tbt, R, B)
+    before = dict(kernels.launches)
+    y = tbc.band_compact_fwd(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["band_compact_fwd"] == before.get(
+        "band_compact_fwd", 0) + 1
+    _held((y,), (tbc.band_compact_fwd_reference(
+        g, wmat, plain.sten, plain.meta, plain.src_idx, tbt, R, B),),
+        f"K6 {case}")
+    if case == "no panel":
+        assert not bool(y[tbt:2 * tbt].any())
+    assert torch.equal(y, tbc.band_compact_fwd(*args))
+    bargs = (dy, g, wmat, comp.sten, comp.meta, comp.src_idx,
+             comp.fold_order, comp.fold_ptr, tbt, R, B)
+    if tbt > 32:
+        with pytest.raises(NotImplementedError, match="at most 32"):
+            tbc.band_compact_bwd(*bargs)
+        return
+    before = dict(kernels.launches)
+    dg, dw = tbc.band_compact_bwd(*bargs)
+    torch.cuda.synchronize()
+    for name in ("band_compact_bwd", "compact_fold"):
+        assert kernels.launches[name] == before.get(name, 0) + 1, name
+    dgg, want_w = tbc.band_compact_bwd_reference(
+        dy, g, wmat, plain.sten, plain.meta, plain.src_idx, tbt, R, B)
+    _held((dg, dw), (tcf.compact_fold_reference(dgg, plain.src_idx,
+                                                 plain.n_pad), want_w),
+          f"K6 bwd {case}")
     dg2, dw2 = tbc.band_compact_bwd(*bargs)
     assert torch.equal(dg, dg2) and torch.equal(dw, dw2)
 
