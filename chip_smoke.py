@@ -6,14 +6,15 @@
 Phases, any failure exits non-zero:
   1. build every CUDA kernel from csrc/ (one nvcc per source, all at once)
      and print the card's name and power limit;
-  2. hold K1's forward and backward kernels (fused banded field conv)
-     against their plain PyTorch versions on the card: at the two
-     classification serving shapes, on the real stencils of the records
-     below, and on a dense random stencil with nh=4 that reaches past both
-     ends of g (the backward must also give bitwise-equal results on a
-     second call); the forward also at the widths the ECHO nets give it
-     (C=48/O2=96, and K=3, R=3 with C=16/32 and O2=24/32/64), and the
-     backward at those five widths (bitwise repeatable too);
+  2. hold K1's forward and backward kernels (fused banded field conv, on
+     the pipelined panel walk) against their plain PyTorch
+     versions on the card: at the two classification serving shapes, on
+     the real stencils of the records below, and on a dense random stencil
+     with nh=4 that reaches past both ends of g (each way also bitwise
+     equal on a second call); both also at the widths the ECHO nets give
+     them (C=48/O2=96, and K=3, R=3 with C=16/32 and O2=24/32/64), timed
+     in phase 8 at C=48/O2=96 and C=32/O2=64 as at the serving shapes, the
+     backward profiled by pass at n8192 and at C=48;
   3. hold K2's forward and backward (panel ECHO) against their plain
      versions on the records' own panel tables, with features of which
      ~20% of rows are zero, at n_bins 3 (C=48) and 2 (C=12, and the
@@ -109,7 +110,9 @@ Phases, any failure exits non-zero:
      ECHO (9 K1 + 1 K7), each held against the CPU fit as in 6, no K2; one
      make_train_step step on the 163,842-sample batch of 5c (17 K5 + 1 K7).
      The fold runs as the last pass of every K6 and K7 backward;
-  8. time the kernels and their plain versions, each request shape (at
+  8. time the kernels and their plain versions (K1 and, below 5 ms a
+     call, K5 also by the host's cost to enqueue a call), each request
+     shape (at
      163,842 samples also Predictor.logits alone and the peak device
      memory), a training step at each training shape (at 163,842 samples,
      on the block panels and with the compact ECHO, also the peak device
@@ -581,14 +584,23 @@ K6_PASSES = {"compact_contrib_kernel": "contrib", "filter_kernel": "filter",
              "bwd_dw_partial_kernel": "dW", "bwd_dw_combine": "dW combine",
              "bwd_dc_kernel": "dc", "compact_dg_kernel": "dG",
              "compact_fold_kernel": "fold"}
+# K1's backward by pass (csrc/band_fused_bwd.cu): the occupancy bytes, the
+# contrib walk, dW, W's rows in dc's order (K = 5), dc, and the dG walk by
+# source
+K1_BWD_PASSES = {"occ_kernel": "occupancy", "contrib_kernel": "contrib",
+                 "bwd_dw_partial_kernel": "dW", "bwd_dw_combine": "dW combine",
+                 "cm_w_kernel": "W order", "bwd_dc_kernel": "dc",
+                 "dg_kernel": "dG"}
 
 
-def print_passes(what, by, card):
-    """A breakdown's K6 kernels by pass (request_breakdown's ``passes``)."""
-    print(f"{what}: K6 by pass under the profiler on {card}: " + ", ".join(
-        f"{K6_PASSES[n]} {by[n][0]:.3f} ms (x{by[n][1]})"
-        for n in K6_PASSES if n in by)
-        + " (the fold's launches include K7's backward and the lift's VJP)")
+def print_passes(what, by, card, kind="K6", passes=K6_PASSES):
+    """A breakdown's kernels of one kind by pass (request_breakdown's
+    ``passes``)."""
+    print(f"{what}: {kind} by pass under the profiler on {card}: "
+          + ", ".join(f"{passes[n]} {by[n][0]:.3f} ms (x{by[n][1]})"
+                      for n in passes if n in by)
+          + (" (the fold's launches include K7's backward and the lift's "
+             "VJP)" if kind == "K6" else ""))
 
 
 def kernel_name(key):
@@ -608,6 +620,27 @@ def time_host(fn, reps=5, warmup=True):
         t0 = time.perf_counter()
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+# host cost a call read at kernel times below this (the small requests and
+# steps, which are host-bound; a 163k call's enqueue is not what limits it)
+HOST_US_BELOW_MS = 5.0
+
+
+def enqueue_us(fn, calls=20, reps=5):
+    """Median host µs to enqueue one call of fn, over `reps` windows of
+    `calls` calls with no sync inside a window (the device runs behind, so
+    the window reads the wrapper's and the launches' host cost)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e6 / calls)
+        torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -736,25 +769,21 @@ def check_bwd(kind, label, run, plain, tol, names):
 
 
 def k1_check(label, g, sten, wmat, tb, nh):
-    y = band_fused_fwd(g, sten, wmat, tb, nh)
-    torch.cuda.synchronize()
-    ref = band_fused_fwd_reference(g, sten, wmat, tb, nh)
-    err = (y - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    check(torch.isfinite(y).all().item(), f"K1 {label}: non-finite output")
-    check(err <= K1_RTOL_SCALE * scale,
-          f"K1 {label}: max abs err {err} > {K1_RTOL_SCALE} x {scale}")
-    row = dict(shape=label, n_mesh=g.shape[0], N=g.shape[1], M=g.shape[2],
-               nh=nh, O2=wmat.shape[2], max_abs_err=err,
-               max_rel_err=err / scale)
-    print(f"K1 {label}: max abs err {err:.3e}, rel {err / scale:.3e} "
-          f"(tolerance {K1_RTOL_SCALE} of max |y| = {scale:.3e})")
-    return row
+    """K1's forward against its plain version (K1_RTOL_SCALE of max |y|),
+    then a second call that must be bitwise equal."""
+    err, scale = check_fwd(
+        "K1", label, lambda: band_fused_fwd(g, sten, wmat, tb, nh),
+        lambda: band_fused_fwd_reference(g, sten, wmat, tb, nh),
+        K1_RTOL_SCALE)
+    return dict(shape=label, n_mesh=g.shape[0], N=g.shape[1], M=g.shape[2],
+                nh=nh, O2=wmat.shape[2], max_abs_err=err,
+                max_rel_err=err / scale)
 
 
 def k1_time(row, g, sten, wmat, tb, nh):
     row["ms"] = time_cuda(lambda: band_fused_fwd(g, sten, wmat, tb, nh),
                           iters=20)
+    row["host_us"] = enqueue_us(lambda: band_fused_fwd(g, sten, wmat, tb, nh))
     row["plain_ms"] = time_cuda(
         lambda: band_fused_fwd_reference(g, sten, wmat, tb, nh), iters=3)
     row.update(k1_bound(g, sten, wmat))
@@ -775,6 +804,8 @@ def k1_bwd_check(label, g, sten, wmat, dy, tb, nh):
 def k1_bwd_time(row, g, sten, wmat, dy, tb, nh):
     row["ms"] = time_cuda(lambda: band_fused_bwd(dy, g, sten, wmat, tb, nh),
                           iters=10)
+    row["host_us"] = enqueue_us(
+        lambda: band_fused_bwd(dy, g, sten, wmat, tb, nh), calls=10)
     row["plain_ms"] = time_cuda(
         lambda: band_fused_bwd_reference(dy, g, sten, wmat, tb, nh), iters=2)
     row.update(k1_bwd_bound(g, sten, wmat))
@@ -1042,6 +1073,8 @@ def k5_check(label, g, wmat, panel):
 def k5_time(row, g, wmat, panel):
     args = _k5_args(g, wmat, panel)
     row["ms"] = time_cuda(lambda: band_panel_fwd(*args), iters=10)
+    if row["ms"] < HOST_US_BELOW_MS:
+        row["host_us"] = enqueue_us(lambda: band_panel_fwd(*args))
     # the plain version ran in its check (k5_check): no warm-up call
     row["plain_ms"] = time_cuda(lambda: band_panel_fwd_reference(*args),
                                 iters=1, reps=1, warmup=0)
@@ -1071,6 +1104,8 @@ def k5_bwd_check(label, g, wmat, dy, panel):
 def k5_bwd_time(row, g, wmat, dy, panel):
     args = _k5_bwd_args(g, wmat, dy, panel)
     row["ms"] = time_cuda(lambda: band_panel_bwd(*args), iters=5)
+    if row["ms"] < HOST_US_BELOW_MS:
+        row["host_us"] = enqueue_us(lambda: band_panel_bwd(*args), calls=10)
     # the plain version ran in its check (k5_bwd_check): no warm-up call
     row["plain_ms"] = time_cuda(
         lambda: band_panel_bwd_reference(dy, g, wmat, panel.sten,
@@ -1883,7 +1918,9 @@ def print_times(kind, rows, card):
         print(f"{kind} {r['shape']}: kernel {r['ms']:.4f} ms/call, plain "
               f"{r['plain_ms']:.4f} ms/call, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}; {r['bytes'] / 1e6:.1f} MB, "
-              f"{r['flops'] / 1e9:.2f} GFLOP needed) on {card}")
+              f"{r['flops'] / 1e9:.2f} GFLOP needed)"
+              + (f", host {r['host_us']:.1f} us a call to enqueue"
+                 if "host_us" in r else "") + f" on {card}")
 
 
 def time_request(k, p, rs_, bs_, what, card, large=False, passes=False):
@@ -3436,6 +3473,12 @@ def phases(args, pool) -> int:
                          generator=gen)
         bwd_rows.append(k1_bwd_check(label, g, bt.sten_band, wmat, dy, TB,
                                      bt.nh))
+        # timed at the segmentation width and the correspondence one
+        # whose request and step profiles lead with K1
+        if (C_, O2) in ((48, 96), (32, 64)):
+            timed.append((rows[-1], g, bt.sten_band, wmat, TB, bt.nh))
+            bwd_timed.append((bwd_rows[-1], g, bt.sten_band, wmat, dy, TB,
+                              bt.nh))
         del g, wmat, dy
 
     # 2b. K4 (compressed banded conv) and K3 (unfused contrib), forward and
@@ -3909,13 +3952,15 @@ def phases(args, pool) -> int:
           f"{gb:.3f} GB (the block panels: "
           f"{4 * bigp.sten.numel() / 1e9:.3f} GB); built on the host from "
           f"the serving batch's EdgeTable and placed in {build_s:.1f} s")
-    for C_, O2 in ((32, 64), (16, 64), (32, 32), (16, 24)):
+    # checked at the four widths, timed at the first (each 163k timing
+    # takes ~3 s of the run; K8 serves no entry point)
+    for i, (C_, O2) in enumerate(((32, 64), (16, 64), (32, 32), (16, 24))):
         rows8 = k8_check(f"{big} C={C_} O2={O2}", bsp_big, C_, O2, gen,
-                         plain=(1, 1))
+                         plain=(1, 1) if i == 0 else None)
         k8_rows.append(rows8[0])
         k8b_rows.append(rows8[1])
-    print_times("K8", k8_rows[-4:], card)
-    print_times("K8 bwd", k8b_rows[-4:], card)
+    print_times("K8", k8_rows[-4:-3], card)
+    print_times("K8 bwd", k8b_rows[-4:-3], card)
     bsp_serve = {**echo_serve, big: panel_serve[big]}
     bsp_recs = {**echo_recs, big: panel_recs[big]}
     bsp_batches = {k: as_block_sparse(echo_batches[k]) for k in echo_serve}
@@ -4163,21 +4208,27 @@ def phases(args, pool) -> int:
               f"training step passes it) on {card}")
     for args_ in bwd_timed:
         k1_bwd_time(*args_)
-    print_times("K1", rows[:2], card)
-    for r in rows[:2]:
+    print_times("K1", [a[0] for a in timed], card)
+    for r, *_ in timed:
         print(f"K1 {r['shape']}: {r['dense_flops'] / 1e9:.2f} GFLOP dense, "
               f"slot fill {r['slot_fill']:.3f}, {r['rings_per_slot']:.2f} "
               "nonzero rings per occupied slot")
-    print_times("K1 bwd", bwd_rows[:2], card)
+    print_times("K1 bwd", [a[0] for a in bwd_timed], card)
+    # the backward by pass at n8192 and at the segmentation width
     for r, g, sten, wmat, dy, tb, nh in bwd_timed:
+        if not r["shape"].startswith(("n8192", "seg_n2048_b4")):
+            continue
+
         def bwd_synced():
             band_fused_bwd(dy, g, sten, wmat, tb, nh)
             torch.cuda.synchronize()
 
-        _, busy, kern = request_breakdown(bwd_synced, top=8)
-        r["passes_ms"] = {kernel_name(name): t for t, name, _ in kern}
-        print(f"K1 bwd {r['shape']} by pass under the profiler: "
-              f"{r['passes_ms']} (device busy {busy:.3f} ms)")
+        _, busy, _, by = request_breakdown(bwd_synced, top=8,
+                                           passes=K1_BWD_PASSES)
+        r["passes_ms"] = {K1_BWD_PASSES[n]: by[n][0] for n in by}
+        print_passes(f"K1 bwd {r['shape']}", by, card, "K1",
+                     K1_BWD_PASSES)
+        print(f"K1 bwd {r['shape']}: device busy {busy:.3f} ms")
     requests = [(k, p, recs[k], batches[k], "5 K1 launches")
                 for k, p in serve.items()]
     requests += [(k, p, echo_recs[k], echo_batches[k],

@@ -1,5 +1,4 @@
-// The passes of the banded backward shared by K1's backward
-// (band_fused_bwd.cu, dense stencil), K4's backward (band_cfused_bwd.cu,
+// The passes of the banded backward shared by K4's backward (band_cfused_bwd.cu,
 // compressed stencil), K8's backward (band_sparse_bwd.cu, block-sparse
 // stencil: pass 1 walks each block's NJ source blocks, pass 5 the panels
 // that read each source block through the table's inverse index), K3
@@ -7,8 +6,16 @@
 // band_contrib_bwd.cu: pass 5 alone, fed with K3's cotangent) and K9
 // (halo_fused_bwd.cu, halo_contrib_fwd.cu, halo_contrib_bwd.cu: the same
 // passes, HALO, over a range of a shard's target blocks and its
-// halo-extended rows, pass 5 writing every row of that array).  See
-// band_fused_bwd.cu for what they compute and their design.
+// halo-extended rows, pass 5 writing every row of that array).  They
+// compute K1's backward (band_fused_bwd.cu) on those layouts, in five
+// kernels over one scratch buffer: (1) contrib rematerialised per tile of
+// targets (band_window.cuh) into (rows, R·M); (2) dc = dy·Wᵀ written
+// channel-major, [c][k][r][re|im] with compile-time strides; (3, 4) dW by
+// slice partials and their combine in slice order (dw_rows.cuh); (5) dG
+// gathered by source, a CTA 32 source rows of one block walking the target
+// blocks whose window covers it, 4 targets at a time, their dc rows and
+// stencil columns double-buffered through shared memory by cp.async.  No
+// atomics: two calls agree bitwise.
 // A compressed stencil is staged as its 5 planes and expanded once per
 // (target, slot) into hats and factors in shared memory (band_window.cuh
 // for pass 1; the same in pass 5 per (target, source slot)).
@@ -36,7 +43,7 @@ __host__ __device__ constexpr int dc_stride() { return 2 * KMAX * RMAX; }
 //
 // contrib of target n = blk·TB + t, ring r, column j = k·2C + p·C + c lies
 // at ((m·nb + blk)·TB·R·M) + t·ts + r·rs + j: ts = R·M, rs = M lays it out
-// per target row (K1's backward, (rows, R·M)); ts = M, rs = TB·M block by
+// per target row (the fused backwards, (rows, R·M)); ts = M, rs = TB·M block by
 // block and ring by ring, as the JAX kernel _band_contrib_fwd_impl does
 // (K3's forward, (nb·R·TB, M)).
 
@@ -482,7 +489,7 @@ cudaError_t launch_dg(const float* dc, const float* sten, float* dg,
     return cudaGetLastError();
 }
 
-// The five passes of K1's (dense), K4's (COMPRESSED), K8's (SPARSE: nh is
+// The five passes of K4's (COMPRESSED), K8's (SPARSE: nh is
 // NJ; nbr, inv_ptr and inv_bj the table's) or K9's (HALO: dy holds the
 // range's targets, dg every row of its source array) backward.
 template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false,
@@ -540,7 +547,7 @@ inline long long fused_bwd_scratch_floats(int n_mesh, int N, int C, int K,
     return (long long)pl.floats;
 }
 
-// Launches K1's (dense), K4's (COMPRESSED), K8's (SPARSE: nh is NJ; nbr,
+// Launches K4's (COMPRESSED), K8's (SPARSE: nh is NJ; nbr,
 // inv_ptr and inv_bj the table's) or K9's (HALO: hr's range) backward on
 // `stream` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for shapes it does not take (as the forward's,

@@ -7,8 +7,8 @@
 // (band_fused_bwd, band_fused_bwd_reference).
 //
 // What it computes.  With contrib, G, S and W as in the forward
-// (band_fused_fwd.cu, band_window.cuh): S_k = rs ⊙ f_k per ring,
-// dy (n_mesh, N, O2) the output cotangent,
+// (band_fused_fwd.cu): S_k = rs ⊙ f_k per ring, dy (n_mesh, N, O2) the
+// output cotangent,
 //
 //   dW[r, j, o]     = Σ_m Σ_n contrib[m, n, r, j] · dy[m, n, o]    (W is shared)
 //   dc[n, r, j]     = Σ_o dy[n, o] · W[r, j, o]
@@ -23,44 +23,93 @@
 // in a revisited output block; both rely on its sequential grid.  Here the
 // blocks run in parallel, so every sum has one owner and runs in a fixed
 // order: no atomics, and two calls on the same inputs give bitwise-equal
-// outputs.  One call launches five kernels on the stream, with one scratch
-// buffer owned by the caller (band_fused_bwd_scratch_floats):
+// outputs.  One call launches six kernels on the stream (seven at K = 5),
+// with one scratch buffer owned by the caller
+// (band_fused_bwd_scratch_floats):
 //
-//   1. contrib: per tile of targets, contrib is rematerialised exactly as
-//      the forward forms it (band_window.cuh; only g, W and the stencil are
-//      kept from the forward, as in JAX) and written to scratch.
-//   2. dc = dy·Wᵀ, a tiled product (64 × 64 outputs per CTA) written
-//      channel-major, [c][k][r][re|im] with compile-time strides.
-//   3. dW partials: a CTA owns 128 rows j × 64 columns o of dW for one
-//      slice of the target rows of every mesh, with row chunks of contrib
-//      and dy double-buffered through shared memory by cp.async;
-//   4. a second kernel adds the slices' partials in slice order (3 and 4
-//      live in dw_rows.cuh, which K5's backward shares).
-//   5. dG, gathered by source: a CTA owns 32 source rows of one source
-//      block (4 rows × all channels per thread group) and walks the target
-//      blocks whose window covers it, 4 targets at a time, with those
-//      targets' dc rows and the stencil columns that land on its rows
-//      double-buffered through shared memory by cp.async.  Per (target,
-//      source) slot it skips slots without an edge, forms
-//      u_k = Σ_r rs_r·dc_{r,k} from float4 reads of its channel's dc (no
-//      branch per ring, compile-time offsets), then applies f_k once.
+//   0. the occupancy bytes of the band's slots, as the forward's
+//      (band_pipe.cuh::occ_kernel), read by both walks;
+//   1. contrib of every target row, rematerialised exactly as the forward
+//      forms it (band_pipe.cuh's walk by target; only g, W and the stencil
+//      are kept from the forward, as in JAX), written to scratch as (rows,
+//      R·M);
+//   2. dW = Σ_rows contribᵀ·dy: per-slice partials and a combine in slice
+//      order (dw_rows.cuh, K5's and K6's);
+//   3. dc = dy·Wᵀ, a tiled product (panel_gemm.cuh, K5's and K6's) written
+//      over contrib: in contrib's layout at K ≤ 3; at K = 5 with W's rows
+//      first reordered (band_pipe.cuh::cm_w_kernel) so that dc is
+//      channel-major a frequency, [k][c][r][re|im];
+//   4. dG by source (band_pipe.cuh::dg_kernel, panel_pipe.cuh's walk,
+//      warp-specialized as K5's pass 4): a CTA owns a tile of up to 32
+//      sources of one source block (and at K = 5 one frequency), one
+//      consumer thread per (source, channel) with its complex dG sums in
+//      registers, and four producer warps that walk the target blocks whose
+//      window holds the block (b = s − nh .. s + nh inside [0, nb)),
+//      staging per panel the tile's columns of the occupancy bytes, then in
+//      passes the dc rows (at K = 5 the frequency's C·12 floats of them) of
+//      the target rows any of its sources needs (a bulk copy a row: each
+//      read once per tile and panel) and the occupied slots' planes.  Per
+//      slot a consumer forms u_k = Σ_r rs_r·dc[t, r, k] (at K = 5 from
+//      float4s of two rings each, skipping a pair whose hats are both
+//      zero) and adds f_k ⊛ u_k.  dG is written once per row.
 //
 // What bounds it.  At the serving shape N=8192, TB=128, nh=1, C=O=32, K=5,
 // R=6 a call must move ~225 MB (stencil 201 MB, g, dg, dy, W, dW: 0.067 ms
 // at 3.35 TB/s) and needs ~9 GFLOP f32 (contrib ~2.4, dW 2, dc 2, dG ~2.6:
 // 0.135 ms at 67 TFLOP/s), so it is bound by operations (chip_smoke.py
 // counts both from the run's stencil).  This version also writes and reads
-// back contrib and dc (63 MB each), reads the stencil twice, and reads one
-// dc row per target from shared memory for every edge (pass 5, bound by
-// shared-memory bandwidth and instruction issue); fusing the passes and
-// moving the contractions onto tensor cores are left to later work.
-//
-// An earlier draft read dc in the contrib layout with a branch per nonzero
-// ring, and summed dW with one thread per output over all rows: its dG
-// pass was bound by integer address arithmetic and branches, not by data
-// movement, and its dW pass by load latency (PERF.md, Findings).
+// back contrib and dc (63 MB each), reads the stencil twice (once per
+// walk) and its hat planes once more (occupancy), and stages each dc row
+// once per source tile, panel and frequency; its walks stay bound by their
+// consumers' per-slot sums (with its consumers left out, dG over a
+// ring-major dc ran 0.30 of its 0.79 ms at that shape) and the latency of
+// their per-panel steps.  Measured on an H100 at that shape:
+// 1.09 ms, dG 0.51 of it, contrib 0.30, dW 0.13, dc 0.09 (chip_smoke.py;
+// PERF.md).
 
-#include "band_bwd.cuh"
+#include "band_pipe.cuh"
+#include "dw_rows.cuh"
+#include "panel_gemm.cuh"
+
+#include <cstddef>
+
+namespace {
+
+// How one call is cut up, and where its scratch lies (floats from the start
+// of the buffer the caller owns, each 16-byte aligned): contrib, then dc
+// over it where it fits (else after the rest); the dW partials; W's rows
+// in dc's order (band_pipe.cuh::cm_w_kernel, at K > 3); the occupancy
+// bytes.
+struct CallPlan {
+    bandpipe::BandGeo geo;
+    band::DwSlices dws;
+    size_t part_at, wcm_at, occ_at, dc_at, floats;
+};
+
+cudaError_t make_plan(int n_mesh, int N, int C, int K, int R, int TB, int nh,
+                      int O2, CallPlan* pl)
+{
+    int limit = 0, sms = 0;
+    const cudaError_t err = bandpipe::device_limits(&limit, &sms);
+    if (err != cudaSuccess) return err;
+    pl->geo = bandpipe::band_geo(N, TB, nh, R, K);
+    const long long rows = (long long)n_mesh * N;
+    const int RM = R * 2 * K * C;
+    pl->dws = band::dw_slices(rows, RM, O2, sms);
+    pl->part_at = bandpipe::round4((size_t)rows * RM);
+    const int DC = bandpipe::dc_cols(C, K, R);
+    pl->wcm_at = pl->part_at
+        + bandpipe::round4((size_t)pl->dws.slices * RM * O2);
+    pl->occ_at = pl->wcm_at
+        + (bandpipe::dg_by_k(K) ? bandpipe::round4((size_t)DC * O2) : 0);
+    const size_t end = pl->occ_at
+        + (bandpipe::occ_bytes(n_mesh, pl->geo) + 15) / 16 * 4;
+    pl->dc_at = DC <= RM ? 0 : end;
+    pl->floats = DC <= RM ? end : end + (size_t)rows * DC;
+    return cudaSuccess;
+}
+
+}  // namespace
 
 // Floats of the scratch buffer band_fused_bwd needs for these sizes (0 for
 // sizes it does not take).
@@ -68,21 +117,61 @@ extern "C" long long band_fused_bwd_scratch_floats(int n_mesh, int N, int C,
                                                    int K, int R, int TB,
                                                    int nh, int O2)
 {
-    return band::fused_bwd_scratch_floats(n_mesh, N, C, K, R, TB, nh, O2,
-                                          false);
+    CallPlan pl;
+    if (!bandpipe::shapes_supported(n_mesh, N, C, K, R, TB, nh, O2)
+        || make_plan(n_mesh, N, C, K, R, TB, nh, O2, &pl) != cudaSuccess)
+        return 0;
+    return (long long)pl.floats;
 }
 
-// Launches the five kernels on `stream` and returns cudaGetLastError() (0
-// on success), or cudaErrorInvalidValue for shapes they do not take (as the
-// forward's, plus shared memory for one target of dc rows).  scratch holds
-// band_fused_bwd_scratch_floats floats, owned by the caller.
+// Launches the six kernels on `stream` and returns cudaGetLastError() (0 on
+// success), or cudaErrorInvalidValue for shapes they do not take (as the
+// forward's).  scratch holds band_fused_bwd_scratch_floats floats, owned by
+// the caller.
 extern "C" int band_fused_bwd(const float* dy, const float* g,
                               const float* sten, const float* wmat,
                               float* dg, float* dw, float* scratch,
                               int n_mesh, int N, int C, int K, int R, int TB,
                               int nh, int O2, void* stream)
 {
-    return band::fused_bwd<false>(dy, g, sten, wmat, dg, dw, scratch, n_mesh,
-                                  N, C, K, R, TB, nh, O2,
-                                  (cudaStream_t)stream);
+    if (!bandpipe::shapes_supported(n_mesh, N, C, K, R, TB, nh, O2))
+        return (int)cudaErrorInvalidValue;
+    CallPlan pl;
+    cudaError_t err = make_plan(n_mesh, N, C, K, R, TB, nh, O2, &pl);
+    if (err != cudaSuccess) return (int)err;
+    int limit = 0;
+    if ((err = bandpipe::device_limits(&limit, nullptr)) != cudaSuccess)
+        return (int)err;
+    pipe::Plan p1, p4;
+    if (!bandpipe::contrib_plan(C, K, R, pl.geo, g, limit, &p1)
+        || !bandpipe::dg_plan(C, K, R, pl.geo, scratch + pl.dc_at, limit,
+                              &p4))
+        return (int)cudaErrorInvalidValue;
+    const int rows = n_mesh * N;
+    const int RM = R * 2 * K * C;
+    const int DC = bandpipe::dc_cols(C, K, R);
+    float* contrib = scratch;
+    float* dc = scratch + pl.dc_at;
+    float* part = scratch + pl.part_at;
+    unsigned char* occ = reinterpret_cast<unsigned char*>(scratch + pl.occ_at);
+    cudaStream_t s = (cudaStream_t)stream;
+
+    err = bandpipe::launch_occ(sten, occ, n_mesh, R, pl.geo, s);
+    if (err != cudaSuccess) return (int)err;
+    err = bandpipe::launch_contrib(g, sten, occ, contrib, n_mesh, C, K, R,
+                                   pl.geo, p1, s);
+    if (err != cudaSuccess) return (int)err;
+    err = band::launch_dw(contrib, dy, part, dw, rows, RM, O2, pl.dws, s);
+    if (err != cudaSuccess) return (int)err;
+    const float* wdc = wmat;                 // W's rows in dc's order
+    if (bandpipe::dg_by_k(K)) {
+        float* wcm = scratch + pl.wcm_at;
+        err = bandpipe::launch_cm_w(wmat, wcm, C, K, R, O2, s);
+        if (err != cudaSuccess) return (int)err;
+        wdc = wcm;
+    }
+    err = panel::launch_dc(dy, wdc, dc, rows, DC, O2, s);
+    if (err != cudaSuccess) return (int)err;
+    return (int)bandpipe::launch_dg(dc, sten, occ, dg, n_mesh, C, K, R,
+                                    pl.geo, p4, s);
 }

@@ -18,49 +18,128 @@
 // (n_mesh, nb, R+2K, TB, W'), G the k-major rotated-source tensor g
 // (n_mesh, N, M = K·2C) and W = filters_to_wmat (R, M, O2), 1/K included.
 // Slots whose source row s lies outside [0, N) contribute nothing; the
-// kernel never reads outside g.
+// kernel never reads outside g, nor the stencil of those slots.
 //
 // Design.  The TPU kernel keeps a whole block's contrib (R·TB × M, ~1 MB at
-// the serving shape) and all of g in VMEM.  Here one CTA owns a tile of
-// T = 256 / C targets (8 at C = 32) of one block of one mesh, and one
-// thread owns one (target, channel) item with all K·R complex accumulators
-// of that item in registers: per window slot it loads the R radial weights
-// once and, per k, forms h_k once and applies it to every ring.  The window
-// streams through shared memory in chunks of kChunk slots (the chunk's g
-// rows, zero-filled outside [0, N), and the tile's stencil planes),
-// double-buffered with cp.async so the next chunk loads while this one is
-// computed (band_window.cuh, shared with the backward in
-// band_fused_bwd.cu).  A chunk whose radial weights are all zero for the
-// tile is skipped, and so is a slot whose radial weights are all zero for
-// the thread's target (no edge there).  The filter contraction then reads the
-// tile's contrib from shared memory (the staging buffers reused) against
-// W, which is read once per CTA from L2, split over thread groups and
-// reduced through shared memory.  f32 FMA only, f32 accumulation.  The kernel lives
-// in band_fwd.cuh, which K4 (band_cfused_fwd.cu) shares.
+// the serving shape) and all of g in VMEM.  Here the band is walked as
+// panels (band_pipe.cuh): panel j of block b is its window's j-th TB × TB
+// square, reading source block b − nh + j, visited only when that block
+// exists.  Three kernels, on a scratch buffer the caller owns
+// (band_fused_fwd_scratch_floats):
+//
+//   1. occupancy: one byte a slot (any radial weight nonzero), written
+//      panel by panel with 16-byte aligned rows (band_pipe.cuh::occ_kernel);
+//   2. contrib of every target row by panel_pipe.cuh's pipelined walk: a CTA
+//      owns a tile of targets of one block (32 at C = 32, K = 3, R = 3; 8 at
+//      K = 5, R = 6, C = 32; 5 at C = 48), walks its 2nh+1 panels with the
+//      next panels' occupancy rows arriving by bulk copy (cp.async.bulk, one
+//      a stage), and per panel stages each g row that any of its targets
+//      needs once (a bulk copy a row), numbers the occupied slots so that
+//      every lane builds one (its R + 2K planes copied at that slot only, 4
+//      bytes each by cp.async from the band's strided rows), and sums in
+//      registers, reading each slot's planes back as float4s.  At K ≤ 3
+//      the walk is warp-specialized (512 consumers of two channels each,
+//      four producer warps, one CTA an SM, as K6's); at K = 5 every thread
+//      builds, then consumes (two CTAs an SM, as K5's: the K·R complex sums
+//      leave no registers for more targets);
+//   3. the filter y = contrib · W, a tiled product that reads W once per 128
+//      rows (panel_gemm.cuh, K5's and K6's), split over j into slices that
+//      fill one wave of two CTAs an SM, their partial sums added in slice
+//      order by a second kernel (64 row tiles at the serving shape would
+//      leave half the SMs idle).
+//
+// Every output has one writer and every sum a fixed order (panels in window
+// order, sources ascending, j ascending): no atomics, two calls agree
+// bitwise.  f32 FMA only, f32 sums.
 //
 // What bounds it.  At the serving shape N=8192, TB=128, nh=1, C=O=32, K=5,
 // R=6 one call moves ~214 MB (stencil 201 MB, g 10.5 MB, W 0.5 MB, y 2 MB:
-// 0.064 ms at 3.35 TB/s).  The dense window would cost ~24 GFLOP plus ~2
-// for W (0.39 ms at 67 TFLOP/s f32).  The work the data needs is 4.36
-// GFLOP: only D/W' = 1/3 of the slots hold an edge, each with two nonzero
-// radial weights; h_k is formed once per occupied slot (6C flops per k)
-// and added once per nonzero ring (4C per k), plus 2 GFLOP for W: 0.065
-// ms, so the bound is operations, barely above the bytes (counted by
-// chip_smoke.py::k1_bound from the run's stencil).  The kernel still
-// stages every slot of a non-empty chunk and re-reads the window's g rows
-// once per tile of targets; staging only occupied rows and moving the
-// contraction onto tensor cores are left to later work.
+// 0.064 ms at 3.35 TB/s).  The work the data needs is 4.36 GFLOP: only
+// D/W' = 1/3 of the slots hold an edge, each with two nonzero radial
+// weights; h_k is formed once per occupied slot (6C flops per k) and added
+// once per nonzero ring (4C per k), plus 2 GFLOP for W: 0.065 ms at 67
+// TFLOP/s f32, so the bound is operations, barely above the bytes (counted
+// by chip_smoke.py::k1_bound from the run's stencil).  This version also
+// reads the hat planes twice (occupancy, then at occupied slots), writes
+// and reads back contrib (63 MB at that shape), and its walk stays bound by
+// its consumers' per-slot sums (every ring of the instantiation, RMAX FMAs
+// a slot and k; only two hats are nonzero) and the latency of its
+// per-panel steps.  Measured on an H100 at that shape: 0.42 ms, the walk
+// 0.30 of it, the filter 0.09 (chip_smoke.py; PERF.md).
 
-#include "band_fwd.cuh"
+#include "band_pipe.cuh"
+#include "panel_gemm.cuh"
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for shapes the kernel does not take (K > 5, i.e.
-// band limit > 2; R > 8, or R > 6 with K > 3; C > 256).
+#include <cstddef>
+
+namespace {
+
+// How one call is cut up, and where the scratch's parts lie (floats from
+// its start, each 16-byte aligned): contrib (rows, R·M), the filter's
+// partial sums (slices of j), the occupancy bytes.
+struct Layout {
+    bandpipe::BandGeo geo;
+    int slices;
+    size_t part_at, occ_at, floats;
+};
+
+Layout layout(int n_mesh, int N, int C, int K, int R, int TB, int nh,
+              int O2, int sms)
+{
+    Layout l;
+    l.geo = bandpipe::band_geo(N, TB, nh, R, K);
+    const int rows = n_mesh * N, RM = R * 2 * K * C;
+    l.slices = panel::filter_slices(rows, RM, O2, sms);
+    l.part_at = bandpipe::round4((size_t)rows * RM);
+    l.occ_at = l.part_at
+        + (l.slices > 1 ? bandpipe::round4((size_t)l.slices * rows * O2)
+                        : 0);
+    l.floats = l.occ_at + (bandpipe::occ_bytes(n_mesh, l.geo) + 15) / 16 * 4;
+    return l;
+}
+
+}  // namespace
+
+// Floats of the scratch buffer band_fused_fwd needs for these sizes (0 for
+// sizes it does not take).
+extern "C" long long band_fused_fwd_scratch_floats(int n_mesh, int N, int C,
+                                                   int K, int R, int TB,
+                                                   int nh, int O2)
+{
+    int limit = 0, sms = 0;
+    if (!bandpipe::shapes_supported(n_mesh, N, C, K, R, TB, nh, O2)
+        || bandpipe::device_limits(&limit, &sms) != cudaSuccess)
+        return 0;
+    return (long long)layout(n_mesh, N, C, K, R, TB, nh, O2, sms).floats;
+}
+
+// Launches the three kernels on `stream` and returns cudaGetLastError() (0
+// on success), or cudaErrorInvalidValue for shapes they do not take (K > 5,
+// i.e. band limit > 2; R > 8, or R > 6 with K > 3; C > 256; N not a
+// multiple of TB).  scratch holds band_fused_fwd_scratch_floats floats,
+// owned by the caller.
 extern "C" int band_fused_fwd(const float* g, const float* sten,
-                              const float* wmat, float* y,
+                              const float* wmat, float* y, float* scratch,
                               int n_mesh, int N, int C, int K, int R, int TB,
                               int nh, int O2, void* stream)
 {
-    return band::fused_fwd<false>(g, sten, wmat, y, n_mesh, N, C, K, R, TB,
-                                  nh, O2, (cudaStream_t)stream);
+    if (!bandpipe::shapes_supported(n_mesh, N, C, K, R, TB, nh, O2))
+        return (int)cudaErrorInvalidValue;
+    int limit = 0, sms = 0;
+    cudaError_t err = bandpipe::device_limits(&limit, &sms);
+    if (err != cudaSuccess) return (int)err;
+    const Layout l = layout(n_mesh, N, C, K, R, TB, nh, O2, sms);
+    pipe::Plan p;
+    if (!bandpipe::contrib_plan(C, K, R, l.geo, g, limit, &p))
+        return (int)cudaErrorInvalidValue;
+    unsigned char* occ = reinterpret_cast<unsigned char*>(scratch + l.occ_at);
+    cudaStream_t s = (cudaStream_t)stream;
+    err = bandpipe::launch_occ(sten, occ, n_mesh, R, l.geo, s);
+    if (err != cudaSuccess) return (int)err;
+    err = bandpipe::launch_contrib(g, sten, occ, scratch, n_mesh, C, K, R,
+                                   l.geo, p, s);
+    if (err != cudaSuccess) return (int)err;
+    return (int)panel::launch_filter_split(scratch, wmat, y,
+                                           scratch + l.part_at, n_mesh * N,
+                                           R * 2 * K * C, O2, l.slices, s);
 }

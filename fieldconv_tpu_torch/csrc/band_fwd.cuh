@@ -1,10 +1,19 @@
-// The fused banded forward shared by K1 (band_fused_fwd.cu, dense
-// stencil), K4 (band_cfused_fwd.cu, compressed stencil), K8
-// (band_sparse_fwd.cu, block-sparse stencil) and K9 (halo_fused_fwd.cu,
-// HALO: a shard's targets over its halo-extended rows): one CTA per tile of
-// targets of one block of one mesh forms the tile's contrib over the window
-// (band_window.cuh), then applies W.  See band_fused_fwd.cu for what it
-// computes and its design.
+// The fused banded forward shared by K4 (band_cfused_fwd.cu, compressed
+// stencil), K8 (band_sparse_fwd.cu, block-sparse stencil) and K9
+// (halo_fused_fwd.cu, HALO: a shard's targets over its halo-extended rows;
+// dense stencil): one CTA per tile of targets of one block of one mesh
+// forms the tile's contrib over the window (band_window.cuh), then applies
+// W.  It computes K1's function (band_fused_fwd.cu) on those layouts.
+//
+// Design.  A CTA owns T = 256 / C targets (8 at C = 32), one thread a
+// (target, channel) item with all K·R complex sums in registers; the
+// window streams through shared memory kChunk slots at a time (the chunk's
+// g rows, zero-filled outside [0, N), and the tile's stencil planes),
+// double-buffered with cp.async; a chunk whose radial weights are all zero
+// for the tile is skipped, and so is a slot with none for the thread's
+// target.  The filter then reads the tile's contrib from shared memory
+// against W, read once per CTA from L2.  f32 FMA only; every output one
+// writer.
 
 #pragma once
 
@@ -140,7 +149,7 @@ int launch_fused_fwd(const float* g, const float* sten, const float* wmat,
     return (int)cudaGetLastError();
 }
 
-// Launches K1's (dense), K4's (COMPRESSED), K8's (SPARSE: nh is NJ, nbr
+// Launches K4's (COMPRESSED), K8's (SPARSE: nh is NJ, nbr
 // the (n_mesh, nb, NJ) source blocks) or K9's (HALO: hr's range) forward
 // on `stream`; returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for shapes it does not take (K > 5, i.e. band

@@ -124,9 +124,11 @@ bwd_dg_kernel(const float* __restrict__ dc, const ST* __restrict__ sten,
     for (int m = 0; m < MT; ++m)
 #pragma unroll
         for (int k = 0; k < KMAX; ++k) { gre[m][k] = 0.f; gim[m][k] = 0.f; }
+    pipe::MetaRun<true> run{meta_s, Ps, nb_out, TB, TB, (size_t)TB * TB,
+                            compressed ? 5 : R + 2 * K};
     pipe::walk<true, true, RMAX, ST>(
-        smem, pl, sten, meta_s, Ps, dc, nb_out, TB, R, K, compressed, blk,
-        l0, nt, kn, [&](int b) {
+        smem, pl, sten, sten, run, dc, R, K, compressed, blk, l0, nt, kn,
+        [&](int b) {
             pipe::consume_dg<KMAX, RMAX, MT, ST>(gre, gim, smem, pl, b, C, K,
                                                  R, compressed, nt, active,
                                                  qi, ic);

@@ -1,8 +1,8 @@
-// The banded-window contraction shared by K1's forward (band_fused_fwd.cu)
-// and its backward (band_fused_bwd.cu), K3 (band_contrib_fwd.cu), K4
-// (band_cfused_fwd.cu, band_cfused_bwd.cu) and K8 (band_sparse_fwd.cu,
-// band_sparse_bwd.cu): staging of the block window through shared memory
-// and the per-thread contrib accumulation.
+// The banded-window contraction shared by K3 (band_contrib_fwd.cu), K4
+// (band_cfused_fwd.cu, band_cfused_bwd.cu), K8 (band_sparse_fwd.cu,
+// band_sparse_bwd.cu) and K9 (halo_*.cu): staging of the block window
+// through shared memory and the per-thread contrib accumulation.  (K1
+// walks its band's panels instead: band_pipe.cuh.)
 //
 // For mesh m, target n = blk·TB + t0 + it of a tile of nt ≤ T targets,
 // channel ic, ring r and frequency k it forms

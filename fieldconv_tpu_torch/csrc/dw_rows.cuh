@@ -1,5 +1,6 @@
-// dW = Σ_rows contribᵀ · dy in a fixed order, shared by K1's backward
-// (band_fused_bwd.cu, passes 3-4) and K5's (band_panel_bwd.cu): contrib
+// dW = Σ_rows contribᵀ · dy in a fixed order, shared by the backwards of
+// K1 (band_fused_bwd.cu), K4, K8 and K9 (band_bwd.cuh, passes 3-4), K5
+// (band_panel_bwd.cu) and K6 (band_compact_bwd.cu): contrib
 // (rows, RM) and dy (rows, O2) row-major, dW (RM, O2).
 //
 // A CTA owns 128 rows j × 64 columns o of dW for one slice of the rows, and

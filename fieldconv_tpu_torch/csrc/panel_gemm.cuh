@@ -10,6 +10,7 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 
 namespace panel {
@@ -18,7 +19,8 @@ namespace {
 // The filter: y[row, o] = Σ_j contrib[row, j]·W[j, o], W viewed as (R·M,
 // O2).  A CTA owns 128 rows × 64 columns, each thread 8 × 4 of them,
 // summed over j in order; tiles of contrib (transposed) and W through
-// shared memory, two of each in turn.
+// shared memory, two of each in turn.  Split over j (blockIdx.z, jlen
+// each): slice z's partial sums go to y + z·rows·O2, for filter_combine.
 
 constexpr int kFiltRows = 128;
 constexpr int kFiltCols = 64;
@@ -27,13 +29,15 @@ constexpr int kFiltDepth = 16;
 __global__ void __launch_bounds__(256)
 filter_kernel(const float* __restrict__ contrib,
               const float* __restrict__ wmat, float* __restrict__ y,
-              int rows, int RM, int O2)
+              int rows, int RM, int O2, int jlen)
 {
     // two tiles of each in turn: the next one's loads are in flight (in
     // registers) while this one's products are summed
     __shared__ __align__(16) float as[2][kFiltDepth][kFiltRows + 4];
     __shared__ __align__(16) float bs[2][kFiltDepth][kFiltCols + 4];
     const int r0 = blockIdx.x * kFiltRows, o0 = blockIdx.y * kFiltCols;
+    const int jb = blockIdx.z * jlen, je = min(RM, jb + jlen);
+    y += (size_t)blockIdx.z * rows * O2;
     const int tid = threadIdx.x;
     const int ty = tid / 16, tx = tid % 16;
     constexpr int NA = kFiltRows * kFiltDepth / 256;   // loads a thread
@@ -44,14 +48,14 @@ filter_kernel(const float* __restrict__ contrib,
         for (int q = 0; q < NA; ++q) {
             const int u = tid + 256 * q;
             const int i = u / kFiltDepth, j = u % kFiltDepth;
-            ra[q] = r0 + i < rows && j0 + j < RM
+            ra[q] = r0 + i < rows && j0 + j < je
                 ? __ldg(contrib + (size_t)(r0 + i) * RM + j0 + j) : 0.f;
         }
 #pragma unroll
         for (int q = 0; q < NB; ++q) {
             const int u = tid + 256 * q;
             const int j = u / kFiltCols, o = u % kFiltCols;
-            rb[q] = j0 + j < RM && o0 + o < O2
+            rb[q] = j0 + j < je && o0 + o < O2
                 ? __ldg(wmat + (size_t)(j0 + j) * O2 + o0 + o) : 0.f;
         }
     };
@@ -68,12 +72,12 @@ filter_kernel(const float* __restrict__ contrib,
         }
     };
     float acc[8][4] = {};
-    load(0);
+    load(jb);
     store(0);
     __syncthreads();
-    const int nt = (RM + kFiltDepth - 1) / kFiltDepth;
+    const int nt = (je - jb + kFiltDepth - 1) / kFiltDepth;
     for (int t = 0; t < nt; ++t) {
-        if (t + 1 < nt) load((t + 1) * kFiltDepth);
+        if (t + 1 < nt) load(jb + (t + 1) * kFiltDepth);
         const int c = t & 1;
 #pragma unroll
         for (int j = 0; j < kFiltDepth; ++j) {
@@ -101,6 +105,18 @@ filter_kernel(const float* __restrict__ contrib,
             if (o < O2) y[(size_t)row * O2 + o] = acc[x][z];
         }
     }
+}
+
+// y[e] = Σ_z part[z·n + e] over the filter's j slices, in slice order.
+__global__ void __launch_bounds__(256)
+filter_combine(const float* __restrict__ part, float* __restrict__ y,
+               int slices, long long n)
+{
+    const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (e >= n) return;
+    float sum = 0.f;
+    for (int z = 0; z < slices; ++z) sum += part[z * n + e];
+    y[e] = sum;
 }
 
 // dc[row, j] = Σ_o dy[row, o] · W[j, o] with W viewed as (R·M, O2): a CTA
@@ -166,7 +182,39 @@ inline cudaError_t launch_filter(const float* contrib, const float* wmat,
 {
     filter_kernel<<<dim3((rows + kFiltRows - 1) / kFiltRows,
                          (O2 + kFiltCols - 1) / kFiltCols), 256, 0,
-                    stream>>>(contrib, wmat, y, rows, RM, O2);
+                    stream>>>(contrib, wmat, y, rows, RM, O2, RM);
+    return cudaGetLastError();
+}
+
+// Slices of j that give the filter at most one wave of two CTAs an SM,
+// each slice at least 128 deep (1: no split).
+inline int filter_slices(int rows, int RM, int O2, int sms)
+{
+    const long long tiles = (long long)((rows + kFiltRows - 1) / kFiltRows)
+        * ((O2 + kFiltCols - 1) / kFiltCols);
+    return (int)std::max(1LL, std::min(2LL * sms / tiles, (long long)RM / 128));
+}
+
+// The filter split over `slices` slices of j (filter_slices), summed in
+// slice order: part holds slices·rows·O2 floats (unused for one slice).
+inline cudaError_t launch_filter_split(const float* contrib,
+                                       const float* wmat, float* y,
+                                       float* part, int rows, int RM, int O2,
+                                       int slices, cudaStream_t stream)
+{
+    if (slices <= 1)
+        return launch_filter(contrib, wmat, y, rows, RM, O2, stream);
+    const int jlen = ((RM + slices - 1) / slices + kFiltDepth - 1)
+        / kFiltDepth * kFiltDepth;
+    slices = (RM + jlen - 1) / jlen;
+    filter_kernel<<<dim3((rows + kFiltRows - 1) / kFiltRows,
+                         (O2 + kFiltCols - 1) / kFiltCols, slices), 256, 0,
+                    stream>>>(contrib, wmat, part, rows, RM, O2, jlen);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const long long n = (long long)rows * O2;
+    filter_combine<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        part, y, slices, n);
     return cudaGetLastError();
 }
 

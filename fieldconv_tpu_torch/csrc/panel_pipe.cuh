@@ -1,7 +1,8 @@
-// The pipelined panel walk of K5 (band_panel_fwd.cu, band_panel_bwd.cu)
-// and K6 (band_compact_fwd.cu, band_compact_bwd.cu): contrib by target (the
-// forwards and the backwards' pass 1) and K5's dG by source (its
-// backward's pass 4).
+// The pipelined panel walk of K5 (band_panel_fwd.cu, band_panel_bwd.cu),
+// K6 (band_compact_fwd.cu, band_compact_bwd.cu) and K1 (band_fused_fwd.cu,
+// band_fused_bwd.cu, over its band's panels: band_pipe.cuh): contrib by
+// target (the forwards and the backwards' pass 1) and dG by source (K5's
+// and K1's backwards).
 //
 // A CTA owns a tile of T ≤ 32 "local" rows of one block: targets of a
 // target block, or sources of a source block.  It walks the block's run of
@@ -19,7 +20,8 @@
 //
 // Per panel:
 //   slab    the tile's part of the plane(s) that say which slots are
-//           occupied (r, or a dense stencil's R hat planes), whole: by
+//           occupied (r, a dense stencil's R hat planes, or K1's occupancy
+//           bytes, band_pipe.cuh), whole: by
 //           target T rows of TS slots, one bulk copy (TMA) a plane; by
 //           source TB short rows of the tile's columns.  A ring of kStages
 //           stages on mbarriers, each refilled as soon as its panel is done.
@@ -94,6 +96,7 @@ struct Plan {
     int W, SW, SROWS;      // slab planes, row width (elements), rows
     int NIMG;              // words of a slot's coefficients (a multiple of 4)
     int FW;                // floats of a far row
+    int FS;                // floats from one far row to the next in memory
     int NU;                // far indices a panel: TS by target, TB by source
     int MW;                // words of a union of far indices (NU bits)
     unsigned pp;           // parity of a plane's elements (TB·TS odd)
@@ -157,6 +160,7 @@ inline bool tile_plan(int bysrc, int C, int K, int R, int TB, int TS,
                   : TS;
     p->NIMG = ((compressed ? 4 + R : R + 2 * K) + 3) / 4 * 4;
     p->FW = fw;
+    p->FS = fw;
     p->NU = bysrc ? TB : TS;
     p->MW = (p->NU + 31) / 32;
     p->pp = (unsigned)(TB * TS) & 1u;
@@ -363,7 +367,7 @@ __device__ __forceinline__ void slot_coefs(
         if (K == 5) {
             if constexpr (KMAX >= 5) phasors<2, KMAX>(fre, fim, pr, pi, fr, fi);
         } else if (K == 3) {
-            phasors<1, KMAX>(fre, fim, pr, pi, fr, fi);
+            if constexpr (KMAX >= 3) phasors<1, KMAX>(fre, fim, pr, pi, fr, fi);
         } else {
             phasors<0, KMAX>(fre, fim, pr, pi, fr, fi);
         }
@@ -397,29 +401,68 @@ __device__ __forceinline__ int nth_bit(uint32_t x, int k)
 
 // --- the walk ---------------------------------------------------------------------------
 
-// The run of panels of block blk and, for each, (stencil panel, other
-// block): by target meta (4, P) rows (tgt, src, ...), sorted by tgt; by
-// source meta_s (4, P) rows (pid, tgt, src, ...), sorted by src.
+// A run: the panels of one block and where a walk finds their data.  For
+// the run's k-th panel, pid(k) and other(k) (the far block) name it; from
+// those, img (the stencil element of its plane 0, row 0, column 0), slab
+// (the same in the array the slab is copied from), far0 (the far row of
+// far index 0) and far_ok (whether the far block exists).  A panel's rows
+// lie img_rs (slab_rs) elements apart, its planes img_plane (slab_plane).
+//
+// K5's and K6's runs come from meta: by target meta (4, P) rows (tgt, src,
+// ...), sorted by tgt; by source meta_s (4, P) rows (pid, tgt, src, ...),
+// sorted by src; panel pid is `planes` planes of TB × TS slots at
+// pid·planes·plane (plane = TB·TS), its slab read from the stencil itself.
+// K1's band is arithmetic (band_pipe.cuh::BandRun).
 template <bool BYSRC>
-struct Run {
+struct MetaRun {
     const int* meta;
-    int P;
-    __device__ __forceinline__ int key_row() const { return BYSRC ? 2 : 0; }
-    __device__ __forceinline__ int pid(int p) const
+    int P, nb_far, TB, rs;     // rs: TS by target, TB by source
+    size_t plane;
+    int planes;
+    int p_lo = 0, n = 0;
+
+    __device__ __forceinline__ void init(int blk)
     {
-        return BYSRC ? __ldg(meta + p) : p;
+        const int* key = meta + (size_t)(BYSRC ? 2 : 0) * P;
+        p_lo = panel::lower_bound(key, P, blk);
+        n = panel::lower_bound(key, P, blk + 1) - p_lo;
     }
-    __device__ __forceinline__ int other(int p) const
+    __device__ __forceinline__ int pid(int k) const
     {
-        return __ldg(meta + (size_t)P + p);
+        return BYSRC ? __ldg(meta + p_lo + k) : p_lo + k;
     }
+    __device__ __forceinline__ int other(int k) const
+    {
+        return __ldg(meta + (size_t)P + p_lo + k);
+    }
+    __device__ __forceinline__ size_t img(int pid, int) const
+    {
+        return (size_t)pid * planes * plane;
+    }
+    __device__ __forceinline__ size_t slab(int pid, int o) const
+    {
+        return img(pid, o);
+    }
+    __device__ __forceinline__ int far0(int o) const { return o * TB; }
+    __device__ __forceinline__ bool far_ok(int o) const
+    {
+        return o >= 0 && o < nb_far;
+    }
+    __device__ __forceinline__ int img_rs() const { return rs; }
+    __device__ __forceinline__ int slab_rs() const { return rs; }
+    __device__ __forceinline__ size_t img_plane() const { return plane; }
+    __device__ __forceinline__ size_t slab_plane() const { return plane; }
 };
 
 // Walks block blk's run for the tile of nt ≤ T local rows l0.. and calls
 // consume(b) for every pass, in order, once its pass buffer b holds it.
-// Every thread of the CTA must call it.  far: (nb_far·TB, FW) floats; with
-// GATHER (n_far, FW) floats, pass column u of panel p reading far row
-// src_idx[p·TS + u] (nb_far is then n_far, and meta's second row unread).
+// Every thread of the CTA must call it.  far: the far rows, FW floats each
+// staged from rows pl.FS floats apart, row run.far0(other) + u for far
+// index u; with GATHER far row src_idx[pid·NU + u] (a row outside [0,
+// run.nb_far) adding nothing).  The slab is copied from slab_src: the
+// stencil itself (SL = ST), or (SL = unsigned char, OCC) an occupancy byte
+// a slot, and then a slot's image copies its R hats and the 2K f_k planes
+// from plane R + run.fk0 on.
 //
 // WS: warp-specialized.  The CTA's first pl.nthr threads consume and
 // kProducerWarps more warps produce: they mask, number and build passes
@@ -430,16 +473,18 @@ struct Run {
 // building overlaps consuming.  Otherwise every thread does both, in turn,
 // with a CTA barrier a pass.
 template <bool BYSRC, bool WS, int RMAX, typename ST, bool GATHER = false,
-          typename Consume>
+          typename SL = ST, typename Run, typename Consume>
 __device__ __forceinline__ void walk(
     unsigned char* smem, const Plan& pl, const ST* __restrict__ sten,
-    const int* __restrict__ meta, int P, const float* __restrict__ far,
-    int nb_far, int TB, int R, int K, int compressed, int blk, int l0,
-    int nt, const Knots& kn, Consume&& consume,
-    const int* __restrict__ src_idx = nullptr)
+    const SL* __restrict__ slab_src, Run& run, const float* __restrict__ far,
+    int R, int K, int compressed, int blk, int l0, int nt, const Knots& kn,
+    Consume&& consume, const int* __restrict__ src_idx = nullptr)
 {
     static_assert(WS || !BYSRC, "the by-source walk is warp-specialized");
     static_assert(!GATHER || !BYSRC, "a gathered walk runs by target");
+    constexpr bool OCC = std::is_same<SL, unsigned char>::value;
+    // by source the slab's 16-byte copies start on an AL-slot boundary
+    constexpr int AL = 16 / (int)sizeof(SL) > 8 ? 16 / (int)sizeof(SL) : 8;
     // the building group: every thread, or (WS) the producer warps
     const int ncons = WS ? pl.nthr : 0;
     const bool producer = !WS || (int)threadIdx.x >= ncons;
@@ -453,9 +498,8 @@ __device__ __forceinline__ void walk(
         else
             __syncthreads();
     };
-    const int planes = compressed ? 5 : R + 2 * K;
-    const int NU = pl.NU;                    // far indices (columns by target)
-    const size_t plane = (size_t)TB * (BYSRC ? TB : NU);
+    // far indices: columns by target, target rows by source
+    const int NU = pl.NU;
     const int T = pl.T, UCAP = pl.UCAP, FW = pl.FW, MW = pl.MW;
     uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
     uint32_t* img = reinterpret_cast<uint32_t*>(smem + pl.off_img);
@@ -463,62 +507,69 @@ __device__ __forceinline__ void walk(
     uint32_t* masks = reinterpret_cast<uint32_t*>(smem + pl.off_mask);
     uint32_t* pmask = reinterpret_cast<uint32_t*>(smem + pl.off_pmask);
     int* done = reinterpret_cast<int*>(smem + pl.off_done);
-    const Run<BYSRC> run{meta, P};
 
-    const int* key = meta + (size_t)run.key_row() * P;
-    const int p_lo = panel::lower_bound(key, P, blk);
-    const int n = panel::lower_bound(key, P, blk + 1) - p_lo;
-    // by source: the slab's first column, at or below l0 on an 8-slot
+    run.init(blk);
+    const int n = run.n;
+    // by source: the slab's first column, at or below l0 on an AL-slot
     // boundary, and its width
-    const int a0 = BYSRC ? (l0 & ~7) : 0;
-    const int aw = BYSRC ? min((l0 + nt + 7) & ~7, TB) - a0 : TB;
+    const int a0 = BYSRC ? (l0 & ~(AL - 1)) : 0;
+    const int aw = BYSRC
+        ? min((l0 + nt + AL - 1) & ~(AL - 1), run.slab_rs()) - a0 : NU;
     const int aoff = l0 - a0;
 
     auto slab = [&](int k) {
-        return reinterpret_cast<ST*>(smem + pl.off_slab
+        return reinterpret_cast<SL*>(smem + pl.off_slab
                                      + (size_t)(k % kStages) * pl.slab_bytes);
     };
     // start the slab copies of the run's k-th panel: by target a bulk copy
-    // a plane from warp 0; by source (TB short rows) 16-byte copies spread
+    // a plane from warp 0; by source (NU short rows) 16-byte copies spread
     // over the building threads, each arriving on the stage's mbarrier
     // when its own are done
     auto start_slab = [&](int k) {
         if (!pl.bulk || (!BYSRC && warp != 0)) return;
-        const int pid = run.pid(p_lo + k);
         uint64_t* bar = bars + k % kStages;
-        ST* dst = slab(k);
-        const ST* src = sten + (size_t)pid * planes * plane;
+        SL* dst = slab(k);
+        const SL* src = slab_src + run.slab(run.pid(k), run.other(k));
         if constexpr (BYSRC) {
-            constexpr int V = 16 / sizeof(ST);   // elements a copy
+            constexpr int V = 16 / sizeof(SL);   // elements a copy
             const int nv = aw / V;
-            for (int i = tid; i < pl.W * TB * nv; i += nthr) {
+            for (int i = tid; i < pl.W * NU * nv; i += nthr) {
                 const int v = i % nv, qu = i / nv;
-                const int q = qu / TB, u = qu - q * TB;
+                const int q = qu / NU, u = qu - q * NU;
                 __pipeline_memcpy_async(
-                    dst + ((size_t)q * TB + u) * pl.SW + V * v,
-                    src + q * plane + (size_t)u * TB + a0 + V * v, 16);
+                    dst + ((size_t)q * NU + u) * pl.SW + V * v,
+                    src + q * run.slab_plane() + (size_t)u * run.slab_rs()
+                        + a0 + V * v,
+                    16);
             }
             mbar_arrive_copies(bar);
         } else {
-            const unsigned bytes = (unsigned)(nt * NU * sizeof(ST));
+            const unsigned bytes = (unsigned)(nt * pl.SW * sizeof(SL));
             if (lane == 0) mbar_expect_tx(bar, bytes * pl.W);
             __syncwarp();
             for (int q = lane; q < pl.W; q += 32)
-                bulk_copy(dst + (size_t)q * T * NU,
-                          src + q * plane + (size_t)l0 * NU, bytes, bar);
+                bulk_copy(dst + (size_t)q * T * pl.SW,
+                          src + q * run.slab_plane()
+                              + (size_t)l0 * run.slab_rs(),
+                          bytes, bar);
         }
     };
     const float r_lo = pl.r_lo, r_hi = pl.r_hi;
-    auto occupied = [&](const ST* sl, int row, int c) {
-        if (compressed) {
-            const float rv = slab_value(sl[(size_t)row * pl.SW + c]);
-            return rv > r_lo && rv < r_hi;
+    auto occupied = [&](const SL* sl, int row, int c) {
+        if constexpr (OCC) {
+            return sl[(size_t)row * pl.SW + c] != 0;
+        } else {
+            if (compressed) {
+                const float rv = slab_value(sl[(size_t)row * pl.SW + c]);
+                return rv > r_lo && rv < r_hi;
+            }
+            bool occ = false;
+            for (int r = 0; r < R; ++r)
+                occ |= slab_value(
+                           sl[((size_t)r * pl.SROWS + row) * pl.SW + c])
+                    != 0.f;
+            return occ;
         }
-        bool occ = false;
-        for (int r = 0; r < R; ++r)
-            occ |= slab_value(sl[((size_t)r * pl.SROWS + row) * pl.SW + c])
-                != 0.f;
-        return occ;
     };
 
     // word w of the union of far rows panel kc's tile needs (after its
@@ -559,22 +610,24 @@ __device__ __forceinline__ void walk(
             if (!have) {
                 // --- the masks of the run's panel kc
                 kc = km++;
-                pid = run.pid(p_lo + kc);
-                oblk = GATHER ? 0 : run.other(p_lo + kc);
-                const ST* sl = slab(kc);
+                pid = run.pid(kc);
+                oblk = GATHER ? 0 : run.other(kc);
+                const SL* sl = slab(kc);
                 uint32_t* mask = masks + (kc & 1) * NU;
                 if (pl.bulk) {
                     mbar_wait(bars + kc % kStages, (kc / kStages) & 1);
                 } else {
-                    ST* dst = slab(kc);
-                    const ST* src = sten + (size_t)pid * planes * plane;
-                    const int rows = BYSRC ? TB : nt, w = BYSRC ? aw : NU;
+                    SL* dst = slab(kc);
+                    const SL* src = slab_src + run.slab(pid, oblk);
+                    const int rows = BYSRC ? NU : nt, w = BYSRC ? aw : NU;
+                    const size_t sp = run.slab_plane();
+                    const int srs = run.slab_rs();
                     for (int i = tid; i < pl.W * rows * w; i += nthr) {
                         const int c = i % w, qr = i / w;
                         const int q = qr / rows, row = qr - q * rows;
                         dst[((size_t)q * pl.SROWS + row) * pl.SW + c] = BYSRC
-                            ? src[q * plane + (size_t)row * TB + a0 + c]
-                            : src[q * plane + (size_t)(l0 + row) * NU + c];
+                            ? src[q * sp + (size_t)row * srs + a0 + c]
+                            : src[q * sp + (size_t)(l0 + row) * srs + c];
                     }
                     group_sync();
                 }
@@ -589,13 +642,14 @@ __device__ __forceinline__ void walk(
                     for (int u = tid; u < NU; u += nthr) {
                         uint32_t m = 0;
                         if (!GATHER
-                            || (unsigned)__ldg(srow + u) < (unsigned)nb_far)
+                            || (unsigned)__ldg(srow + u)
+                                < (unsigned)run.nb_far)
                             for (int l = 0; l < nt; ++l)
                                 if (occupied(sl, l, u)) m |= 1u << l;
                         mask[u] = m;
                     }
                 } else {
-                    for (int u = warp; u < TB; u += nwarps) {
+                    for (int u = warp; u < NU; u += nwarps) {
                         const unsigned m = __ballot_sync(
                             0xffffffffu,
                             lane < nt && occupied(sl, u, aoff + lane));
@@ -609,7 +663,7 @@ __device__ __forceinline__ void walk(
 #pragma unroll
                 for (int w = 0; w < kMaxWords; ++w)
                     if (w < MW) U += __popc(union_word(kc, w));
-                if (!GATHER && (oblk < 0 || oblk >= nb_far)) U = 0;
+                if (!GATHER && !run.far_ok(oblk)) U = 0;
                 c0 = 0;
                 if (U == 0) {            // the slab's stage is free
                     if (kc + kStages < n) start_slab(kc + kStages);
@@ -620,8 +674,10 @@ __device__ __forceinline__ void walk(
             // --- pass np: far rows c0 .. c0 + nu of panel kc, in order
             const int b = np % kPassBufs;
             const int nu = min(UCAP, U - c0);
-            const ST* sl = slab(kc);
+            const SL* sl = slab(kc);
             const uint32_t* mask = masks + (kc & 1) * NU;
+            const size_t ip = run.img_plane();
+            const int irs = run.img_rs();
             int ul = 0;                  // far index of pass column `lane`
             {
                 int k = c0 + lane, base = 0;
@@ -636,10 +692,18 @@ __device__ __forceinline__ void walk(
                     }
                 }
             }
-            // a slot's hats (from the slab) and raw planes (copied) into
-            // image word at
+            // a slot's hats (from the slab, or copied) and raw planes
+            // (copied) into image word at
             auto put_slot = [&](uint32_t* at, int row, int c, size_t e0) {
-                if (compressed) {
+                if constexpr (OCC) {
+                    // the hats, then planes fk0 on of the f_k (a walk over
+                    // a group of frequencies)
+                    for (int q = 0; q < R + 2 * K; ++q)
+                        __pipeline_memcpy_async(
+                            at + q,
+                            raw_word(sten, e0 + (q < R ? q : q + run.fk0) * ip),
+                            4);
+                } else if (compressed) {
                     const float rv = slab_value(sl[(size_t)row * pl.SW + c]);
 #pragma unroll
                     for (int r = 0; r < RMAX; ++r)
@@ -648,14 +712,14 @@ __device__ __forceinline__ void walk(
 #pragma unroll
                     for (int q = 0; q < 4; ++q)
                         __pipeline_memcpy_async(
-                            at + q, raw_word(sten, e0 + (1 + q) * plane), 4);
+                            at + q, raw_word(sten, e0 + (1 + q) * ip), 4);
                 } else {
                     for (int r = 0; r < R; ++r)
                         at[r] = __float_as_uint(slab_value(
                             sl[((size_t)r * pl.SROWS + row) * pl.SW + c]));
                     for (int q = 0; q < 2 * K; ++q)
                         __pipeline_memcpy_async(
-                            at + R + q, raw_word(sten, e0 + (R + q) * plane),
+                            at + R + q, raw_word(sten, e0 + (R + q) * ip),
                             4);
                 }
             };
@@ -663,18 +727,18 @@ __device__ __forceinline__ void walk(
             {
                 // the local rows whose slot in pass column `lane` is occupied
                 const uint32_t cm = lane < nu ? mask[ul] : 0u;
-                const int first = compressed ? 1 : R;     // the first raw plane
+                const int first = compressed ? 1 : OCC ? 0 : R;  // first raw plane
                 auto slot_of = [&](int l, int u) {
-                    return BYSRC ? (size_t)u * TB + l0 + l
-                                 : (size_t)(l0 + l) * NU + u;
+                    return BYSRC ? (size_t)u * irs + l0 + l
+                                 : (size_t)(l0 + l) * irs + u;
                 };
+                const size_t pbase = run.img(pid, oblk);
                 // bf16: the half of its first raw plane's word each slot of
                 // local row 0 is in; row l's flips where slot (l, u) lies an
                 // odd number of elements from (0, u)
                 unsigned par0 = 0;
                 if constexpr (sizeof(ST) == 2) {
-                    const ST* e = sten + (size_t)pid * planes * plane
-                        + slot_of(0, ul) + first * plane;
+                    const ST* e = sten + pbase + slot_of(0, ul) + first * ip;
                     par0 = __ballot_sync(
                         0xffffffffu, (reinterpret_cast<uintptr_t>(e) >> 1) & 1);
                 }
@@ -684,7 +748,7 @@ __device__ __forceinline__ void walk(
                     if (lane == 0) {
                         pmask[b * T + l] = m;
                         if constexpr (sizeof(ST) == 2) {
-                            const bool flip = (BYSRC ? l : l * NU) & 1;
+                            const bool flip = (BYSRC ? l : l * irs) & 1;
                             pmask[(kPassBufs + b) * T + l] = flip ? ~par0 : par0;
                         }
                     }
@@ -716,7 +780,7 @@ __device__ __forceinline__ void walk(
                     const int l = nth_bit(x, j - e);
                     put_slot(im + (size_t)(l * UCAP + pc) * pl.NIMG,
                              BYSRC ? u : l, BYSRC ? aoff + l : u,
-                             (size_t)pid * planes * plane + slot_of(l, u));
+                             pbase + slot_of(l, u));
                 }
             }
             // the far row of pass column `lane` (lane < nu)
@@ -724,7 +788,7 @@ __device__ __forceinline__ void walk(
             if constexpr (GATHER)
                 frow = lane < nu ? __ldg(src_idx + (size_t)pid * NU + ul) : 0;
             else
-                frow = oblk * TB + ul;
+                frow = run.far0(oblk) + ul;
             float* fdst = fbuf + (size_t)b * UCAP * FW;
             if (WS && tid == 0) done[b] = 0;
             if (pl.FV == 4) {            // a bulk copy a row (warp 0)
@@ -734,7 +798,7 @@ __device__ __forceinline__ void walk(
                     __syncwarp();
                     if (lane < nu)
                         bulk_copy(fdst + (size_t)lane * FW,
-                                  far + (size_t)frow * FW, (unsigned)(FW * 4),
+                                  far + (size_t)frow * pl.FS, (unsigned)(FW * 4),
                                   pbars + b);
                 }
             } else {
@@ -742,7 +806,7 @@ __device__ __forceinline__ void walk(
                 for (int pc = warp; pc < nu; pc += nwarps) {
                     const int fr = __shfl_sync(0xffffffffu, frow, pc);
                     float* d = fdst + (size_t)pc * FW;
-                    const float* sp = far + (size_t)fr * FW;
+                    const float* sp = far + (size_t)fr * pl.FS;
                     for (int v = lane; v < nv; v += 32) {
                         if (FV == 2) __pipeline_memcpy_async(d + 2 * v, sp + 2 * v, 8);
                         else __pipeline_memcpy_async(d + v, sp + v, 4);
@@ -1044,9 +1108,12 @@ __device__ __forceinline__ void contrib_tile(
                     are[m][k][r][c] = 0.f;
                     aim[m][k][r][c] = 0.f;
                 }
+    // panels of TB × TS slots, TS = pl.NU
+    MetaRun<false> run{meta, P, nb_far, TB, pl.NU, (size_t)TB * pl.NU,
+                       compressed ? 5 : R + 2 * K};
     walk<false, WS, RMAX, ST, GATHER>(
-        smem, pl, sten, meta, P, g, nb_far, TB, R, K, compressed, blk, l0,
-        nt, kn, [&](int b) {
+        smem, pl, sten, sten, run, g, R, K, compressed, blk, l0, nt, kn,
+        [&](int b) {
             if constexpr (GATHER && sizeof(ST) == 2)
                 consume_compact<KMAX, RMAX, MT, ST, CPT>(
                     are, aim, smem, pl, b, C, K, R, nt, active, qi, ic);

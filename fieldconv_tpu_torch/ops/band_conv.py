@@ -204,10 +204,30 @@ def band_fused_bwd_reference(dy, g, sten_band, wmat, tb: int, nh: int):
 
 @functools.cache
 def _k1_entry():
-    fn = kernels.library("band_fused_fwd").band_fused_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    """(kernel entry, floats of scratch it needs for given sizes)."""
+    lib = kernels.library("band_fused_fwd")
+    fn = lib.band_fused_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    size = lib.band_fused_fwd_scratch_floats
+    size.argtypes = [ctypes.c_int] * 8
+    size.restype = ctypes.c_longlong
+    return fn, size
+
+
+@functools.cache
+def _k1_scratch_floats(bwd: bool, device: int, *sizes) -> int:
+    """Floats of scratch K1's forward (or backward) takes at these sizes
+    (n_mesh, N, C, K, R, tb, nh, O2) on a device: asked of the kernel's
+    library once a shape, not once a call.  Raises (and so caches
+    nothing) where the library takes no such shape or cannot read the
+    device."""
+    name = "band_fused_bwd" if bwd else "band_fused_fwd"
+    floats = (_k1_bwd_entry if bwd else _k1_entry)()[1](*sizes)
+    if floats <= 0:
+        raise RuntimeError(f"{name} takes no shape {sizes} (n_mesh, N, C, "
+                           "K, R, tb, nh, O2) on this device")
+    return floats
 
 
 def _band_check(name, dims, sten_band, tb: int, nh: int, planes: int, K: int,
@@ -253,11 +273,16 @@ def _k1_check(name, g, sten_band, wmat, tb: int, nh: int, *more):
 def _band_fused_fwd_cuda(g, sten_band, wmat, tb: int, nh: int):
     _k1_check("band_fused_fwd", g, sten_band, wmat, tb, nh)
     n_mesh, N, M, R, K, C, O2 = _k1_dims(g, sten_band, wmat)
-    fn = _k1_entry()
+    fn, _ = _k1_entry()
+    sizes = (n_mesh, N, C, K, R, tb, nh, O2)
     y = torch.empty((n_mesh, N, O2), dtype=torch.float32, device=g.device)
+    # contrib of every target row, which the filter then contracts with W,
+    # and the band's occupancy bytes
+    floats = _k1_scratch_floats(False, g.device.index, *sizes)
+    scratch = torch.empty((floats,), dtype=torch.float32, device=g.device)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = fn(g.data_ptr(), sten_band.data_ptr(), wmat.data_ptr(),
-             y.data_ptr(), n_mesh, N, C, K, R, tb, nh, O2, stream)
+             y.data_ptr(), scratch.data_ptr(), *sizes, stream)
     if err != 0:
         raise RuntimeError(f"band_fused_fwd launch failed: cudaError {err}")
     kernels.launches["band_fused_fwd"] += 1
@@ -296,13 +321,15 @@ def _band_fused_bwd_cuda(dy, g, sten_band, wmat, tb: int, nh: int):
         raise ValueError(f"band_fused_bwd: dy {tuple(dy.shape)}, want "
                          f"{(n_mesh, N, O2)}")
     _k1_check("band_fused_bwd", g, sten_band, wmat, tb, nh, ("dy", dy))
-    fn, scratch_floats = _k1_bwd_entry()
+    fn, _ = _k1_bwd_entry()
     sizes = (n_mesh, N, C, K, R, tb, nh, O2)
     f32 = dict(dtype=torch.float32, device=g.device)
     dg = torch.empty((n_mesh, N, M), **f32)
     dw = torch.empty((R, M, O2), **f32)
-    # contrib and dcontrib of every target, and the dW partial sums
-    scratch = torch.empty((max(1, scratch_floats(*sizes)),), **f32)
+    # contrib, then dcontrib, of every target, the dW partial sums and the
+    # band's occupancy bytes
+    floats = _k1_scratch_floats(True, g.device.index, *sizes)
+    scratch = torch.empty((floats,), **f32)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = fn(dy.data_ptr(), g.data_ptr(), sten_band.data_ptr(),
              wmat.data_ptr(), dg.data_ptr(), dw.data_ptr(), scratch.data_ptr(),
@@ -1046,7 +1073,8 @@ def band_cfused_bwd(dy, g, wmat, sten_band, tb: int, nh: int, n_rings: int,
     f32 = dict(dtype=torch.float32, device=g.device)
     dg = torch.empty((n_mesh, N, M), **f32)
     dw = torch.empty((R, M, O2), **f32)
-    # contrib and dcontrib of every target, and the dW partial sums
+    # contrib, then dcontrib, of every target, the dW partial sums and the
+    # band's occupancy bytes
     scratch = torch.empty((max(1, scratch_floats(*sizes)),), **f32)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = fn(dy.data_ptr(), g.data_ptr(), sten_band.data_ptr(),
@@ -1278,7 +1306,8 @@ def band_sparse_bwd(dy, g, wmat, sten_band, nbr, inv_ptr, inv_bj, tb: int,
     f32 = dict(dtype=torch.float32, device=g.device)
     dg = torch.empty((n_mesh, N, M), **f32)
     dw = torch.empty(tuple(wmat.shape), **f32)
-    # contrib and dcontrib of every target, and the dW partial sums
+    # contrib, then dcontrib, of every target, the dW partial sums and the
+    # band's occupancy bytes
     scratch = torch.empty((max(1, scratch_floats(*sizes)),), **f32)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = fn(dy.data_ptr(), g.data_ptr(), sten_band.data_ptr(),

@@ -16,7 +16,8 @@ import torch
 from fieldconv_tpu_torch import kernels
 from fieldconv_tpu_torch.data.base import MeshRecord
 from fieldconv_tpu_torch.data.synthetic import (random_block_sparse,
-                                                sphere_record)
+                                                sphere_record,
+                                                synthetic_record)
 from fieldconv_tpu_torch.ops import band_conv as tbc
 from fieldconv_tpu_torch.ops import compact_fold as tcf
 from fieldconv_tpu_torch.ops import echo_panel as tep
@@ -1420,3 +1421,132 @@ def test_k9_kernels_match_plain_on_card(C, O, R, B, tb, nh, n_mesh, nb):
             dgc = halo.halo_contrib_bwd(dout, sten, *bargs)
             close(dgc, halo.halo_contrib_bwd_reference(dout, sten, *bargs))
             assert torch.equal(dgc, halo.halo_contrib_bwd(dout, sten, *bargs))
+
+
+def _rewindow(sten, tb, nh, nh2):
+    """The band stencil (…, nb, P, TB, W') of window ±nh laid out with
+    window ±nh2: zero panels added at both ends, or (nh2 < nh) the outer
+    panels cut, which must hold no slot."""
+    if nh2 >= nh:
+        pad = (nh2 - nh) * tb
+        return torch.nn.functional.pad(sten, (pad, pad))
+    cut = (nh - nh2) * tb
+    assert not sten[..., :cut].any() and not sten[..., -cut:].any()
+    return sten[..., cut:sten.shape[-1] - cut].contiguous()
+
+
+def _k1_edge_band(case, B, R, tb, nh, n_mesh, n):
+    """(n_mesh, nb, R+2K, tb, W') band stencil from the port's builder
+    (build_banded_table) for one edge case of K1's walk, each mesh a
+    synthetic record of n samples, degrees 8-16 within about nh·tb (at
+    least 16), laid
+    out at window ±nh: "no edges in a block" drops every edge to or from
+    block 1; "last panel only" keeps in block 1 one slot, in row tb − 1 of
+    its last panel; "past both ends" fills every slot whose source lies
+    outside [0, n) with random values; "within blocks" keeps the edges
+    inside a block."""
+    rng = np.random.default_rng(17)
+    gen = torch.Generator().manual_seed(5)
+    bands = []
+    for i in range(n_mesh):
+        rec = synthetic_record(rng, n, 8, 16, max(16, nh * tb - tb // 4),
+                               0.1, f"edge{i}", 0)
+        e = rec.supp_edges
+        keep = np.ones(len(e), bool)
+        if case == "no edges in a block":
+            keep = (e[:, 0] // tb != 1) & (e[:, 1] // tb != 1)
+        if case == "within blocks":
+            keep = e[:, 0] // tb == e[:, 1] // tb
+        rec = dataclasses.replace(rec, supp_edges=e[keep],
+                                  log_mag=rec.log_mag[keep],
+                                  log_ang=rec.log_ang[keep], xp=rec.xp[keep])
+        band = build_banded_table(rec.table(B, R, n_pad=n, n_multiple=tb),
+                                  tb=tb, max_nh=max(nh, 1))
+        bands.append(_rewindow(band.sten_band, tb, band.nh, nh))
+    sten = torch.stack(bands)
+    nb = n // tb
+    if case == "last panel only":
+        sten[:, 1] = 0
+        sten[:, 1, :, tb - 1, 2 * nh * tb + 5] = torch.rand(
+            n_mesh, sten.shape[2], generator=gen) + 0.5
+    if case == "past both ends":
+        for b in range(nb):
+            for j in range(2 * nh + 1):
+                if not 0 <= b - nh + j < nb:
+                    sten[:, b, ..., j * tb:(j + 1) * tb] = torch.randn(
+                        sten[:, b, ..., j * tb:(j + 1) * tb].shape,
+                        generator=gen)
+    return sten.contiguous()
+
+
+# K1's walk (csrc/band_pipe.cuh on panel_pipe.cuh): a block with no edges,
+# a tile whose one occupied slot lies in its last panel, windows past both
+# ends holding nonzero values, nh = 0 and 4, TB = 8, 48, 128 and 256 (two
+# virtual blocks of 128), R = 6 and 8 at K = 3, C = 1, 3, 48 and 256, three
+# meshes; K = 3 runs the warp-specialized walk, K = 5 the other.  Also the
+# shapes whose slots are narrower than their instantiation's: K = 5 with R
+# = 3, 4 and 5 (the contrib walk's and dG's word-by-word reads, dc laid out
+# after the rest of the scratch) and K = 1 with R = 3, 6 and 8
+K1_EDGE_CASES = pytest.mark.parametrize(
+    "case,C,O2,B,R,tb,nh,n_mesh,n", [
+        ("no edges in a block", 32, 64, 2, 6, 128, 1, 1, 512),
+        ("no edges in a block", 32, 64, 1, 3, 48, 2, 1, 288),
+        ("last panel only", 32, 64, 1, 3, 48, 2, 1, 288),
+        ("last panel only", 48, 96, 2, 6, 128, 1, 1, 512),
+        ("past both ends", 32, 64, 2, 6, 128, 1, 2, 384),
+        ("past both ends", 32, 64, 1, 3, 8, 2, 3, 64),
+        ("within blocks", 16, 24, 1, 3, 48, 0, 1, 192),
+        ("as built", 32, 64, 1, 3, 48, 4, 1, 480),
+        ("past both ends", 32, 64, 2, 6, 256, 1, 1, 1024),
+        ("as built", 3, 10, 1, 3, 256, 2, 2, 1280),
+        ("as built", 32, 64, 1, 8, 48, 1, 3, 192),
+        ("as built", 16, 24, 1, 6, 48, 1, 1, 192),
+        ("as built", 1, 4, 1, 3, 16, 1, 1, 64),
+        ("past both ends", 3, 10, 2, 6, 16, 1, 1, 64),
+        ("as built", 48, 96, 1, 3, 48, 1, 1, 192),
+        ("as built", 256, 16, 2, 6, 16, 1, 1, 64),
+        ("past both ends", 256, 16, 1, 8, 16, 1, 1, 64),
+        ("as built", 32, 64, 2, 3, 128, 1, 1, 512),
+        ("past both ends", 32, 64, 2, 4, 16, 1, 2, 64),
+        ("as built", 48, 96, 2, 5, 48, 1, 1, 192),
+        ("as built", 32, 64, 0, 3, 48, 1, 1, 192),
+        ("past both ends", 16, 24, 0, 6, 16, 2, 1, 64),
+        ("as built", 3, 10, 0, 8, 16, 1, 1, 64),
+    ])
+
+
+@pytest.mark.cuda
+@K1_EDGE_CASES
+def test_k1_walk_edge_cases_on_card(case, C, O2, B, R, tb, nh, n_mesh, n):
+    """K1's forward and backward on each edge case of its panel walk
+    against their plain versions on the card: each output within 1e-4 of
+    its scale (f32 sums in another order), a second call bitwise equal,
+    and one launch of each counted per call."""
+    _need_card()
+    sten = _k1_edge_band(case, B, R, tb, nh, n_mesh, n).to("cuda")
+    K = 2 * B + 1
+    M = K * 2 * C
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    g = torch.randn(n_mesh, n, M, device="cuda", generator=gen)
+    wmat = torch.randn(R, M, O2, device="cuda", generator=gen) / (R * M) ** .5
+    dy = torch.randn(n_mesh, n, O2, device="cuda", generator=gen)
+    before = dict(kernels.launches)
+    y = tbc.band_fused_fwd(g, sten, wmat, tb, nh)
+    torch.cuda.synchronize()
+    dg, dw = tbc.band_fused_bwd(dy, g, sten, wmat, tb, nh)
+    torch.cuda.synchronize()
+    for name in ("band_fused_fwd", "band_fused_bwd"):
+        assert kernels.launches[name] == before.get(name, 0) + 1, name
+    _held((y,), (tbc.band_fused_fwd_reference(g, sten, wmat, tb, nh),),
+          f"K1 {case}")
+    _held((dg, dw), tbc.band_fused_bwd_reference(dy, g, sten, wmat, tb, nh),
+          f"K1 bwd {case}")
+    if case == "no edges in a block":
+        assert not bool(y[:, tb:2 * tb].any())
+        assert not bool(dg[:, tb:2 * tb].any())
+    if case == "last panel only":
+        assert not bool(y[:, tb:2 * tb - 1].any())
+        assert bool(y[:, 2 * tb - 1].any())
+    assert torch.equal(y, tbc.band_fused_fwd(g, sten, wmat, tb, nh))
+    dg2, dw2 = tbc.band_fused_bwd(dy, g, sten, wmat, tb, nh)
+    assert torch.equal(dg, dg2) and torch.equal(dw, dw2)

@@ -8,6 +8,8 @@ The K1 plain version is held against the real Pallas kernel, which runs in
 interpret mode on the CPU.
 """
 
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -167,18 +169,49 @@ def test_field_conv_gather_and_tangent_lin(rng):
 
 # --- K1: plain version vs the Pallas kernel (interpret mode) ------------------
 
+# K1's cases beyond the bandwidths: "corr" the correspondence preset's
+# shape (band limit 1, 3 rings) at nh = 1; "ends" a window past both ends
+# at nh = 2 whose out-of-range slots hold nonzero values (they add
+# nothing, in either package).  bw: (bandwidth, band limit, rings, fill)
+K1_CASES = {"corr": (7, 1, 3, False), "ends": (12, 2, 6, True)}
+
+
+def k1_case(bw):
+    return K1_CASES.get(bw, (bw, 2, 6, False))
+
+
+def fill_outside(sten, tb, nh, rng):
+    """A copy of the band stencil (nb, P, TB, W') with random values in
+    every slot whose source block lies outside [0, nb)."""
+    sten = np.array(sten, np.float32)
+    nb = sten.shape[0]
+    for b in range(nb):
+        for j in range(2 * nh + 1):
+            if not 0 <= b - nh + j < nb:
+                part = sten[b, ..., j * tb:(j + 1) * tb]
+                part[...] = rng.normal(size=part.shape)
+    return sten
+
+
 @pytest.mark.parametrize("ftype,bw", [(0, 7), (1, 7), (2, 7), (0, 12),
-                                      (1, 12), (2, 12)])
+                                      (1, 12), (2, 12), (1, "corr"),
+                                      (2, "ends")])
 def test_k1_plain_matches_pallas(rng, ftype, bw):
     """field_conv_banded through the K1 plain version equals the JAX
     package's field_conv_banded, whose Pallas kernel runs interpreted;
-    bw 7 gives nh=1 and bw 12 nh=2 at tb=8."""
-    g = banded_graph(rng, n_vertices=32, tb=8, bw=bw)
+    bw 7 gives nh=1 and bw 12 nh=2 at tb=8 (K1_CASES for the others)."""
+    bw, B, R, fill = k1_case(bw)
+    g = banded_graph(rng, n_vertices=32, tb=8, bw=bw, B=B, R=R)
     jt, jb = tables_for(g)
     _, tb_, _ = _port_tables(g)
     assert tb_.nh == jb.nh == (1 if bw < 8 else 2)
+    if fill:
+        sten = fill_outside(jb.sten_band, 8, jb.nh, rng)
+        assert (sten != np.asarray(jb.sten_band)).any()
+        jb = dataclasses.replace(jb, sten_band=jnp.asarray(sten))
+        tb_ = dataclasses.replace(tb_, sten_band=_t(sten))
     x = _planar(random_field(rng, jt.n_pad, 4))
-    zr, sph, ph = _filters(rng, ftype)
+    zr, sph, ph = _filters(rng, ftype, R=R, B=B)
     want = jbc.field_conv_banded(jnp.asarray(x), jb,
                                  *map(jnp.asarray, (zr, sph, ph)), ftype)
     before = kernels.launches["band_fused_fwd"]

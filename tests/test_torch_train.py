@@ -27,6 +27,7 @@ import torch
 
 from test_band_conv import banded_graph, tables_for
 from test_deploy import _records
+from test_torch_ops import fill_outside, k1_case
 from fieldconv_tpu.nn import losses as jlosses
 from fieldconv_tpu.ops.pallas import band_conv as jbc
 from fieldconv_tpu.train import loop as jloop
@@ -68,25 +69,29 @@ def _port_banded(g, tb=8):
 
 # --- K1 backward --------------------------------------------------------------
 
-@pytest.mark.parametrize("bw", [7, 12])
+@pytest.mark.parametrize("bw", [7, 12, "corr", "ends"])
 def test_k1_bwd_plain_matches_pallas(rng, bw):
     """band_fused_bwd_reference equals the Pallas backward
     _band_megaw_bwd_impl (interpret mode) on the same inputs, g padded by
     nh blocks on the JAX side as its custom VJP pads it; bw 7 gives nh=1
-    and bw 12 nh=2 at tb=8."""
-    g = banded_graph(rng, n_vertices=32, tb=8, bw=bw)
+    and bw 12 nh=2 at tb=8 (test_torch_ops.K1_CASES for the others)."""
+    bw, B, R, fill = k1_case(bw)
+    g = banded_graph(rng, n_vertices=32, tb=8, bw=bw, B=B, R=R)
     _, jb = tables_for(g)
-    nh, tb, R, K, C, O2 = jb.nh, 8, 6, 5, 4, 6
+    nh, tb, K, C, O2 = jb.nh, 8, 2 * B + 1, 4, 6
     assert nh == (1 if bw < 8 else 2)
-    N = jb.sten_band.shape[0] * tb
+    sten = np.asarray(jb.sten_band)
+    if fill:
+        sten = fill_outside(sten, tb, nh, rng)
+    N = sten.shape[0] * tb
     gk = rng.normal(size=(N, K * 2 * C)).astype(np.float32)
     wmat = (rng.normal(size=(R, K * 2 * C, O2)) / 10).astype(np.float32)
     dy = rng.normal(size=(N, O2)).astype(np.float32)
     pad = nh * tb
     dgp, dw = jbc._band_megaw_bwd_impl(
         jnp.asarray(dy), jnp.pad(jnp.asarray(gk), ((pad, pad), (0, 0))),
-        jnp.asarray(wmat), jb.sten_band, tb, nh, R, K, "f32")
-    sten = _t(np.asarray(jb.sten_band))[None]
+        jnp.asarray(wmat), jnp.asarray(sten), tb, nh, R, K, "f32")
+    sten = _t(sten)[None]
     got_g, got_w = tbc.band_fused_bwd_reference(
         _t(dy)[None], _t(gk)[None], sten, _t(wmat), tb, nh)
     _close_to_scale(got_g[0], np.asarray(dgp)[pad:-pad])
