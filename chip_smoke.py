@@ -223,7 +223,9 @@ hold):
      the serial launches, and the shards joined (y, dG with the halo
      cotangents returned, dW summed) against K1 on the global table (1e-5
      of scale; whether bitwise is printed); shard 0 of each 2-way split
-     timed beside its plain version and its bound;
+     timed beside its plain version and its bound: its serial launch and
+     the overlapped path's interior and head launches apart, each with the
+     host's µs to enqueue a call;
   7h. graph-parallel training over torch.distributed ranks spawned on the
      card (parallel/distributed.py::spawn; gloo, each halo through host
      memory, unless every rank has a card of its own: then NCCL), 3
@@ -241,7 +243,9 @@ hold):
      exact K9 launches, the convs' exchanged bytes equal to
      parallel/comm_model.py::conv_halo_bytes for the rank's neighbours;
      step times on the host clock, labelled with the ranks, cards and
-     backend (not a scaling figure).
+     backend (not a scaling figure); one more segmentation step, rank 0's
+     under the profiler: its device busy time, K9's share of it by pass,
+     the top kernels.
 
 The CPU is the script's bottleneck (8 cores of the host; the plain
 versions are slow there), so it computes each CPU reference once and
@@ -546,14 +550,15 @@ def time_cuda(fn, iters, reps=5, warmup=2):
     return statistics.median(times)
 
 
-def request_breakdown(fn, top=6, passes=()):
+def request_breakdown(fn, top=6, passes=(), required=True):
     """One call of fn() under torch.profiler: the device time of each
     kernel name, their sum, and that sum's share of the call's wall time
     (which the profiler itself inflates).  The trace holds the device's
     activity only: the host's operator events (tens of thousands a training
     step) took seconds a call to aggregate.  With ``passes`` (kernel
     function names) also {name: (device ms, launches)} of those kernels,
-    whether in the top ones or not."""
+    whether in the top ones or not.  A trace with no device time fails the
+    run, or (``required`` false) gives None."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -565,6 +570,8 @@ def request_breakdown(fn, top=6, passes=()):
                    if str(e.device_type).endswith("CUDA")
                    and e.self_device_time_total > 0), reverse=True)
     busy = sum(k[0] for k in kern)
+    if not required and busy == 0:
+        return None
     check(busy > 0, "the profiler saw no device time")
     if not passes:
         return wall_ms, busy, kern[:top]
@@ -591,6 +598,11 @@ K1_BWD_PASSES = {"occ_kernel": "occupancy", "contrib_kernel": "contrib",
                  "bwd_dw_partial_kernel": "dW", "bwd_dw_combine": "dW combine",
                  "cm_w_kernel": "W order", "bwd_dc_kernel": "dc",
                  "dg_kernel": "dG"}
+# K9's kernels each way (the same walk's, csrc/band_call.cuh): K1's
+# backward passes and the forward's filter; no other kernel of a
+# graph-parallel segmentation step has these names
+K9_PASSES = {**K1_BWD_PASSES, "filter_kernel": "filter",
+             "filter_combine": "filter combine"}
 
 
 def print_passes(what, by, card, kind="K6", passes=K6_PASSES):
@@ -1601,11 +1613,14 @@ def k4_time(row, brow, g, wmat, sten, nh, R, B, dy):
     args = (sten, TB, nh, R, B)
     K = 2 * B + 1
     row["ms"] = time_cuda(lambda: band_cfused_fwd(g, wmat, *args), iters=20)
+    row["host_us"] = enqueue_us(lambda: band_cfused_fwd(g, wmat, *args))
     row["plain_ms"] = time_cuda(
         lambda: band_cfused_reference(g, wmat, *args), iters=2, reps=3)
     row.update(k4_bound(g, wmat, sten, K))
     brow["ms"] = time_cuda(lambda: band_cfused_bwd(dy, g, wmat, *args),
                            iters=10)
+    brow["host_us"] = enqueue_us(lambda: band_cfused_bwd(dy, g, wmat, *args),
+                                 calls=10)
     brow["plain_ms"] = time_cuda(
         lambda: band_cfused_bwd_reference(dy, g, wmat, *args), iters=1,
         reps=3)
@@ -2724,8 +2739,9 @@ def k9_check(label, g, sten, wmat, nh, S, gen, timed):
     shard_conv_bwd, the halo cotangents returned by hand), against K1 on
     the global table: y and dG within K9_JOIN_RTOL of scale, dW summed over
     shards too; whether bitwise is printed.  Shard 0's launches are timed
-    (CUDA events) where ``timed`` names them; returns the timed rows
-    (forward, backward, contrib, contrib backward)."""
+    (CUDA events, and the host's µs to enqueue a call) where ``timed``
+    names them; returns the timed rows (forward, backward, contrib,
+    contrib backward)."""
     n_mesh, N, M = g.shape
     R, _, O2 = wmat.shape
     K = (sten.shape[2] - R) // 2
@@ -2770,6 +2786,7 @@ def k9_check(label, g, sten, wmat, nh, S, gen, timed):
             if d == 0 and what in timed:
                 row = dict(shape, max_abs_err=err)
                 row["ms"] = time_cuda(fwd, iters=20)
+                row["host_us"] = enqueue_us(fwd)
                 row["plain_ms"] = time_cuda(
                     lambda: halo.halo_fused_fwd_reference(src, st, wmat, *a),
                     iters=2, reps=3)
@@ -2777,6 +2794,7 @@ def k9_check(label, g, sten, wmat, nh, S, gen, timed):
                 rows[0].append(row)
                 row = dict(shape, max_abs_err=errb)
                 row["ms"] = time_cuda(bwd, iters=10)
+                row["host_us"] = enqueue_us(bwd, calls=10)
                 row["plain_ms"] = time_cuda(
                     lambda: halo.halo_fused_bwd_reference(dy, src, st, wmat,
                                                           *a),
@@ -2862,7 +2880,7 @@ def k9_check(label, g, sten, wmat, nh, S, gen, timed):
 
 
 def gp_rank(rank, world, n_data, n_graph, cfg, n_classes, weights, gpb,
-            augs, unfused):
+            augs, unfused, profile=False):
     """One rank of a graph-parallel fit on the card (its own where NCCL
     runs), in its own process (spawn; it loads the kernel libraries the
     parent built): the net of
@@ -2871,9 +2889,11 @@ def gp_rank(rank, world, n_data, n_graph, cfg, n_classes, weights, gpb,
     the first step's augmentation (uncounted), then one make_gp_train_step
     step per entry of ``augs`` (the whole batch's augmentation of that
     step), counted, each timed on the host clock, with the parameters after
-    it; with ``unfused``, then five unfused 32→32 convs forward and
-    backward over the rank's stencil shard (K9's contrib each way),
-    counted apart."""
+    it; with ``profile``, then one more step on every rank, rank 0's under
+    torch.profiler (request_breakdown: the top kernels, and K9's by pass);
+    with ``unfused``, then five unfused 32→32 convs forward and backward
+    over the rank's stencil shard (K9's contrib each way), counted
+    apart."""
     dev = torch.device("cuda", torch.cuda.current_device())
     layout = make_layout(n_data, n_graph)
     net = build_model(cfg, n_classes, device=dev, graph=layout.graph)
@@ -2903,6 +2923,16 @@ def gp_rank(rank, world, n_data, n_graph, cfg, n_classes, weights, gpb,
     out = dict(loss1=loss1.item(), grads1=list(grads1), losses=losses,
                params=params, ms=ms, launches=dict(kernels.launches),
                wire_bytes=dict(halo.wire_bytes))
+    if profile:
+        def one_step():
+            step(local, aug=on(augs[-1]))
+            torch.cuda.synchronize()
+        if rank == 0:
+            out["profile"] = request_breakdown(one_step, top=8,
+                                               passes=K9_PASSES,
+                                               required=False)
+        else:
+            one_step()
     if unfused:
         _, banded, _ = local.tables()
         gen = torch.Generator(device=dev).manual_seed(rank)
@@ -2925,7 +2955,7 @@ def gp_rank(rank, world, n_data, n_graph, cfg, n_classes, weights, gpb,
 
 
 def gp_fit(k, cfg, n_classes, net, batch, n_data, n_graph, seed, spread,
-           card, unfused=False):
+           card, unfused=False, profile=False):
     """A graph-parallel fit on the card: GP_STEPS make_gp_train_step steps
     over (n_data, n_graph) ranks (gp_rank), as processes sharing the cards
     over gloo unless every rank has a card of its own (then NCCL), from
@@ -2935,8 +2965,10 @@ def gp_fit(k, cfg, n_classes, net, batch, n_data, n_graph, seed, spread,
     gradients within grad_bar (``spread``: each gradient's rounding spread
     relative to its scale, from route_check), every rank's parameters
     bitwise equal after every step, the exact K9 launches, and the conv
-    exchanges' bytes against comm_model.conv_halo_bytes.  Returns the
-    launches summed over the ranks (and the unfused convs' apart)."""
+    exchanges' bytes against comm_model.conv_halo_bytes.  With
+    ``profile``, prints rank 0's step under the profiler: its device busy
+    time, K9's share of it by pass, the top kernels.  Returns the launches
+    summed over the ranks (and the unfused convs' apart)."""
     dev = batch.pos.device
     B, N = batch.pos.shape[:2]
     gen = torch.Generator().manual_seed(seed + 3)
@@ -2973,7 +3005,7 @@ def gp_fit(k, cfg, n_classes, net, batch, n_data, n_graph, seed, spread,
     out = spawn(gp_rank, world, args=(
         n_data, n_graph, cfg, n_classes,
         {n: v.detach().cpu() for n, v in net.state_dict().items()},
-        gp_batch(batch.to("cpu")), augs, unfused), backend=backend)
+        gp_batch(batch.to("cpu")), augs, unfused, profile), backend=backend)
     spawn_s = time.perf_counter() - t0
     for s in range(GP_STEPS):
         for r, o in enumerate(out):
@@ -3031,6 +3063,22 @@ def gp_fit(k, cfg, n_classes, net, batch, n_data, n_graph, seed, spread,
           f"a rank with two neighbours x {B // n_data} meshes, halved for "
           f"one), the lift's and ECHO's "
           f"{out[0]['wire_bytes'].get('rows', 0) / GP_STEPS:.0f}; on {card}")
+    if profile and out[0]["profile"] is None:
+        print(f"train {k} graph-parallel: one more step, rank 0 under the "
+              "profiler: not measured (the profiler saw no device time)")
+    elif profile:
+        wall, busy, top, by = out[0]["profile"]
+        k9 = sum(ms for ms, _ in by.values())
+        print(f"train {k} graph-parallel: one more step, rank 0 under the "
+              f"profiler: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+              f"({100 * busy / wall:.1f}%); K9 {k9:.3f} ms "
+              f"({100 * k9 / busy:.1f}% of busy) by pass: "
+              + ", ".join(f"{K9_PASSES[n]} {by[n][0]:.3f} ms (x{by[n][1]})"
+                          for n in K9_PASSES if n in by)
+              + "; top kernels: "
+              + ", ".join(f"{kernel_name(key)} {t:.3f} ms (x{c})"
+                          for t, key, c in top)
+              + f" ({what}; on {card})")
     unfused_launches = Counter()
     for o in out:
         unfused_launches.update(o.get("unfused_launches", {}))
@@ -3058,7 +3106,7 @@ def gp_phase(config, net, small, seg_cfg, seg_net, seg_batch, seg_spread,
     check(gp_cls.comp is not None and gp_cls.pos.shape[1] == n_gp,
           "shrec11_b8_gp2x2: not a banded batch of the padded size")
     train, _ = gp_fit("seg_n2048_b4_gp1x2", seg_cfg, 8, seg_net, seg_batch,
-                      1, 2, seed, seg_spread, card)
+                      1, 2, seed, seg_spread, card, profile=True)
     got, unfused = gp_fit("shrec11_b8_gp2x2", gp_cfg, N_CLASSES, net, gp_cls,
                           2, 2, seed, {}, card, unfused=True)
     return dict(Counter(train) + Counter(got)), unfused
@@ -3587,7 +3635,9 @@ def phases(args, pool) -> int:
     # split into 2 and into 4 shards whose halo rows are sliced from the
     # global g on the card: every launch of the serial and overlapped paths
     # both ways, the contrib both ways, and the shards joined against K1 on
-    # the global table; shard 0 of each 2-way split timed
+    # the global table; shard 0 of each 2-way split timed: its serial
+    # launch, and the overlapped path's interior and head (nh blocks over
+    # a source array of 3nh) launches apart
     k9_rows, k9b_rows, k9c_rows, k9cb_rows = [], [], [], []
     for label, bt, C_, O2 in (
             ("seg_n2048_b4", echo_batches["seg_n2048_b4"][0].banded, 48, 96),
@@ -3596,7 +3646,7 @@ def phases(args, pool) -> int:
         for S in (2, 4):
             got = k9_check(f"{label} C={C_} O2={O2}", g, bt.sten_band, wmat,
                            bt.nh, S, gen,
-                           ("serial", "interior") if S == 2 else ())
+                           ("serial", "interior", "head") if S == 2 else ())
             for acc, rs_ in zip((k9_rows, k9b_rows, k9c_rows, k9cb_rows),
                                 got):
                 acc.extend(rs_)

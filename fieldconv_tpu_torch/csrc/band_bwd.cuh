@@ -1,11 +1,10 @@
-// The passes of the banded backward shared by K4's backward (band_cfused_bwd.cu,
-// compressed stencil), K8's backward (band_sparse_bwd.cu, block-sparse
-// stencil: pass 1 walks each block's NJ source blocks, pass 5 the panels
-// that read each source block through the table's inverse index), K3
-// (band_contrib_fwd.cu: pass 1 alone, in the JAX kernel's layout;
-// band_contrib_bwd.cu: pass 5 alone, fed with K3's cotangent) and K9
-// (halo_fused_bwd.cu, halo_contrib_fwd.cu, halo_contrib_bwd.cu: the same
-// passes, HALO, over a range of a shard's target blocks and its
+// The passes of the banded backward shared by K8's backward
+// (band_sparse_bwd.cu, block-sparse stencil: pass 1 walks each block's NJ
+// source blocks, pass 5 the panels that read each source block through the
+// table's inverse index), K3 (band_contrib_fwd.cu: pass 1 alone, in the
+// JAX kernel's layout; band_contrib_bwd.cu: pass 5 alone, fed with K3's
+// cotangent) and K9's contrib (halo_contrib_fwd.cu, halo_contrib_bwd.cu:
+// passes 1 and 5, HALO, over a range of a shard's target blocks and its
 // halo-extended rows, pass 5 writing every row of that array).  They
 // compute K1's backward (band_fused_bwd.cu) on those layouts, in five
 // kernels over one scratch buffer: (1) contrib rematerialised per tile of
@@ -16,9 +15,6 @@
 // blocks whose window covers it, 4 targets at a time, their dc rows and
 // stencil columns double-buffered through shared memory by cp.async.  No
 // atomics: two calls agree bitwise.
-// A compressed stencil is staged as its 5 planes and expanded once per
-// (target, slot) into hats and factors in shared memory (band_window.cuh
-// for pass 1; the same in pass 5 per (target, source slot)).
 
 #pragma once
 
@@ -50,17 +46,16 @@ __host__ __device__ constexpr int dc_stride() { return 2 * KMAX * RMAX; }
 // SPARSE: nh is NJ and nbr the meshes' (n_mesh, nb, NJ) source blocks.
 // HALO: the blocks hr.lo .. hr.hi − 1 over g of hr.n_src rows a mesh,
 // contrib holding the (hr.hi − hr.lo)·TB targets of the range a mesh.
-template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false,
-          bool HALO = false>
+template <int KMAX, int RMAX, bool SPARSE = false, bool HALO = false>
 __global__ void __launch_bounds__(kThreads, 2)
 bwd_contrib_kernel(const float* __restrict__ g,
                    const float* __restrict__ sten,
                    float* __restrict__ contrib, int N, int C, int K, int R,
-                   int TB, int nh, int T, int ts, int rs, panel::Knots kn,
+                   int TB, int nh, int T, int ts, int rs,
                    const int* __restrict__ nbr, HaloRange hr)
 {
     const int M = 2 * K * C;
-    const int P = COMPRESSED ? 5 : R + 2 * K;   // stencil planes
+    const int P = R + 2 * K;               // stencil planes
     const int Wp = (SPARSE ? nh : 2 * nh + 1) * TB;
     const int nb = N / TB;
     const int tiles = (TB + T - 1) / T;
@@ -83,9 +78,9 @@ bwd_contrib_kernel(const float* __restrict__ g,
     const int ic = active ? item % C : 0;
 
     float are[KMAX][RMAX], aim[KMAX][RMAX];
-    window_contrib<KMAX, RMAX, COMPRESSED, SPARSE>(
+    window_contrib<KMAX, RMAX, SPARSE>(
         are, aim, smem, gm, sb, n_src, C, K, R, TB, nh, T, t0, nt,
-        HALO ? blk + hr.blk_off + nh : blk, active, it, ic, kn,
+        HALO ? blk + hr.blk_off + nh : blk, active, it, ic,
         SPARSE ? nbr + ((size_t)m * nb + blk) * nh : nullptr);
 
     // coalesced over c
@@ -184,18 +179,15 @@ bwd_dc_kernel(const float* __restrict__ dy, const float* __restrict__ wmat,
 // (ascending) order.  dc holds the launch's targets: (hi − lo)·TB rows a
 // mesh under HALO, N otherwise.
 
-template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false,
-          bool HALO = false>
+template <int KMAX, int RMAX, bool SPARSE = false, bool HALO = false>
 __global__ void __launch_bounds__(kThreads)
 bwd_dg_kernel(const float* __restrict__ dc, const float* __restrict__ sten,
               float* __restrict__ dg, int N, int C, int K, int R, int TB,
-              int nh, int G, int TC, panel::Knots kn,
-              const int* __restrict__ inv_ptr, const int* __restrict__ inv_bj,
-              HaloRange hr)
+              int nh, int G, int TC, const int* __restrict__ inv_ptr,
+              const int* __restrict__ inv_bj, HaloRange hr)
 {
     const int M = 2 * K * C;
-    const int P = R + 2 * K;               // expanded planes
-    const int PS = COMPRESSED ? 5 : P;     // stencil planes
+    const int P = R + 2 * K;               // stencil planes
     const int Wp = (SPARSE ? nh : 2 * nh + 1) * TB;
     const int nb = N / TB;
     const int lo = HALO ? hr.lo : 0;
@@ -216,8 +208,7 @@ bwd_dg_kernel(const float* __restrict__ dc, const float* __restrict__ sten,
     static_assert(QS % 4 == 0 && RMAX % 2 == 0, "float4 reads of dc");
     const int CQ = C * QS;                 // dc row length
     extern __shared__ __align__(16) float smem[];
-    const int stage_floats = TC * CQ + TC * PS * TS;
-    float* sx = smem + 2 * stage_floats;   // COMPRESSED: the expanded step
+    const int stage_floats = TC * CQ + TC * P * TS;
     const float* dcm = dc + (size_t)m * (hi - lo) * TB * CQ;
 
     float gre[kRowsPerThread][KMAX], gim[kRowsPerThread][KMAX];
@@ -259,10 +250,10 @@ bwd_dg_kernel(const float* __restrict__ dc, const float* __restrict__ sten,
             const bool ok = i * 4 < ntc * CQ;
             band::copy_async<16>(ds + i * 4, ok ? drow + i * 4 : dcm, ok);
         }
-        const float* sbb = sten + ((size_t)m * nb + b) * (size_t)PS * TB * Wp;
-        for (int i = tid; i < TC * PS * TS; i += kThreads) {
+        const float* sbb = sten + ((size_t)m * nb + b) * (size_t)P * TB * Wp;
+        for (int i = tid; i < TC * P * TS; i += kThreads) {
             const int sl = i % TS, tp = i / TS;
-            const int p = tp % PS, t = tp / PS;
+            const int p = tp % P, t = tp / P;
             const bool ok = t < ntc && sl < ns;
             band::copy_async<4>(
                 ss + i,
@@ -281,29 +272,14 @@ bwd_dg_kernel(const float* __restrict__ dc, const float* __restrict__ sten,
             __pipeline_wait_prior(0);
         }
         const float* ds = smem + (si & 1) * stage_floats;
-        const float* ss = ds + TC * CQ;
+        const float* const ss = ds + TC * CQ;
         const int ntc = min(TC, TB - (si % tchunks) * TC);
 
+        // vote on any nonzero radial weight of the tile in this step; each
+        // thread reads back only the stencil elements its own copies wrote
         int nz = 0;
-        if constexpr (COMPRESSED) {
-            // after the barrier every copy of the step is visible; a thread
-            // per (target, source slot) expands it into sx (planes TS
-            // apart), and the barrier that publishes sx votes on any hat
-            __syncthreads();
-            for (int i = tid; i < TC * TS; i += kThreads) {
-                const int t = i / TS, sl = i - t * TS;
-                nz |= expand_slot<RMAX>(sx + t * P * TS + sl,
-                                        ss + t * 5 * TS + sl, TS,
-                                        t < ntc && sl < ns, R, K, kn);
-            }
-            ss = sx;
-        } else {
-            // vote on any nonzero radial weight of the tile in this step;
-            // each thread reads back only the stencil elements its own
-            // copies wrote
-            for (int i = tid; i < TC * P * TS; i += kThreads)
-                if ((i / TS) % P < R) nz |= ss[i] != 0.f;
-        }
+        for (int i = tid; i < TC * P * TS; i += kThreads)
+            if ((i / TS) % P < R) nz |= ss[i] != 0.f;
         if (__syncthreads_or(nz) && active) {
             for (int t = 0; t < ntc; ++t) {
                 const float* st = ss + t * P * TS;
@@ -368,20 +344,16 @@ bwd_dg_kernel(const float* __restrict__ dc, const float* __restrict__ sten,
 
 // --- launch ------------------------------------------------------------------------
 
-inline size_t contrib_smem_bytes(int C, int K, int R, int T, bool compressed)
+inline size_t contrib_smem_bytes(int C, int K, int R, int T)
 {
-    return window_stage_floats(2 * K * C, R + 2 * K, T, compressed)
-        * sizeof(float);
+    return window_stage_floats(2 * K * C, R + 2 * K, T) * sizeof(float);
 }
 
-inline size_t dg_smem_bytes(int C, int K, int R, int QS, int G, int TC,
-                            bool compressed)
+inline size_t dg_smem_bytes(int C, int K, int R, int QS, int G, int TC)
 {
     const size_t P = R + 2 * (size_t)K;
-    const size_t PS = compressed ? 5 : P;
     const size_t TS = (size_t)G * kRowsPerThread;
-    return (2 * ((size_t)TC * C * QS + (size_t)TC * PS * TS)
-            + (compressed ? (size_t)TC * P * TS : 0)) * sizeof(float);
+    return 2 * ((size_t)TC * C * QS + (size_t)TC * P * TS) * sizeof(float);
 }
 
 inline size_t round4(size_t n) { return (n + 3) / 4 * 4; }
@@ -395,7 +367,7 @@ struct Plan {
 };
 
 inline cudaError_t make_plan(int n_mesh, int N, int C, int K, int R, int O2,
-                             bool compressed, Plan* pl)
+                             Plan* pl)
 {
     int dev = 0, limit = 0, sms = 0;
     cudaError_t err = smem_limit(&limit);
@@ -406,17 +378,16 @@ inline cudaError_t make_plan(int n_mesh, int N, int C, int K, int R, int O2,
     if (err != cudaSuccess) return err;
     pl->T = std::min(kTile, kThreads / C);
     while (pl->T > 1
-           && contrib_smem_bytes(C, K, R, pl->T, compressed) > (size_t)limit)
+           && contrib_smem_bytes(C, K, R, pl->T) > (size_t)limit)
         pl->T /= 2;
-    pl->smem1 = contrib_smem_bytes(C, K, R, pl->T, compressed);
+    pl->smem1 = contrib_smem_bytes(C, K, R, pl->T);
     pl->G = std::min(kTile, kThreads / C);
     pl->QS = K <= 3 ? dc_stride<3, 8>() : dc_stride<5, 6>();
     pl->TC = 4;
     while (pl->TC > 1
-           && dg_smem_bytes(C, K, R, pl->QS, pl->G, pl->TC, compressed)
-                  > (size_t)limit)
+           && dg_smem_bytes(C, K, R, pl->QS, pl->G, pl->TC) > (size_t)limit)
         pl->TC /= 2;
-    pl->smem4 = dg_smem_bytes(C, K, R, pl->QS, pl->G, pl->TC, compressed);
+    pl->smem4 = dg_smem_bytes(C, K, R, pl->QS, pl->G, pl->TC);
     if (pl->smem1 > (size_t)limit || pl->smem4 > (size_t)limit)
         return cudaErrorInvalidValue;
     const long long rows = (long long)n_mesh * N;
@@ -445,72 +416,64 @@ inline int launch_targets(int N, int TB, const HaloRange& hr)
 // Pass 1 alone: contrib of every target into `out` with strides (ts, rs).
 // SPARSE: nh is NJ and nbr the (n_mesh, nb, NJ) source blocks; HALO: the
 // targets of hr's range over its source array.
-template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false,
-          bool HALO = false>
+template <int KMAX, int RMAX, bool SPARSE = false, bool HALO = false>
 cudaError_t launch_contrib(const float* g, const float* sten, float* out,
                            int n_mesh, int N, int C, int K, int R, int TB,
                            int nh, int ts, int rs, const Plan& pl,
                            cudaStream_t stream, const int* nbr = nullptr,
                            HaloRange hr = HaloRange{})
 {
-    auto k1 = bwd_contrib_kernel<KMAX, RMAX, COMPRESSED, SPARSE, HALO>;
-    const panel::Knots kn = COMPRESSED ? panel::ring_knots(R) : panel::Knots{};
+    auto k1 = bwd_contrib_kernel<KMAX, RMAX, SPARSE, HALO>;
     cudaError_t err = cudaFuncSetAttribute(
         k1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem1);
     if (err != cudaSuccess) return err;
     const int blocks = launch_targets<HALO>(N, TB, hr) / TB;
     k1<<<dim3(blocks * ((TB + pl.T - 1) / pl.T), n_mesh), kThreads,
          pl.smem1, stream>>>(g, sten, out, N, C, K, R, TB, nh, pl.T, ts, rs,
-                             kn, nbr, hr);
+                             nbr, hr);
     return cudaGetLastError();
 }
 
 // Pass 5 alone: dG gathered by source from dc in the channel-major layout.
 // SPARSE: nh is NJ, and (inv_ptr, inv_bj) the table's inverse index; HALO:
 // every row of hr's source array, from the range's targets.
-template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false,
-          bool HALO = false>
+template <int KMAX, int RMAX, bool SPARSE = false, bool HALO = false>
 cudaError_t launch_dg(const float* dc, const float* sten, float* dg,
                       int n_mesh, int N, int C, int K, int R, int TB, int nh,
                       const Plan& pl, cudaStream_t stream,
                       const int* inv_ptr = nullptr,
                       const int* inv_bj = nullptr, HaloRange hr = HaloRange{})
 {
-    auto k4 = bwd_dg_kernel<KMAX, RMAX, COMPRESSED, SPARSE, HALO>;
-    const panel::Knots kn = COMPRESSED ? panel::ring_knots(R) : panel::Knots{};
+    auto k4 = bwd_dg_kernel<KMAX, RMAX, SPARSE, HALO>;
     cudaError_t err = cudaFuncSetAttribute(
         k4, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem4);
     if (err != cudaSuccess) return err;
     const int TS = pl.G * kRowsPerThread;
     const int blocks = (HALO ? hr.n_src : N) / TB;
     k4<<<dim3(blocks * ((TB + TS - 1) / TS), n_mesh), kThreads, pl.smem4,
-         stream>>>(dc, sten, dg, N, C, K, R, TB, nh, pl.G, pl.TC, kn, inv_ptr,
+         stream>>>(dc, sten, dg, N, C, K, R, TB, nh, pl.G, pl.TC, inv_ptr,
                    inv_bj, hr);
     return cudaGetLastError();
 }
 
-// The five passes of K4's (COMPRESSED), K8's (SPARSE: nh is
-// NJ; nbr, inv_ptr and inv_bj the table's) or K9's (HALO: dy holds the
-// range's targets, dg every row of its source array) backward.
-template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false,
-          bool HALO = false>
+// The five passes of K8's backward (nh is NJ; nbr, inv_ptr and inv_bj the
+// table's).
+template <int KMAX, int RMAX>
 int launch_fused_bwd(const float* dy, const float* g, const float* sten,
                      const float* wmat, float* dg, float* dw, float* scratch,
                      int n_mesh, int N, int C, int K, int R, int TB, int nh,
                      int O2, const Plan& pl, cudaStream_t stream,
-                     const int* nbr, const int* inv_ptr, const int* inv_bj,
-                     HaloRange hr)
+                     const int* nbr, const int* inv_ptr, const int* inv_bj)
 {
     float* contrib = scratch;
     float* dc = scratch + pl.dc_at;
     float* part = scratch + pl.part_at;
-    const int rows = n_mesh * launch_targets<HALO>(N, TB, hr);
+    const int rows = n_mesh * N;
     const int M = 2 * K * C;
     const int RM = R * M;
 
-    cudaError_t err = launch_contrib<KMAX, RMAX, COMPRESSED, SPARSE, HALO>(
-        g, sten, contrib, n_mesh, N, C, K, R, TB, nh, RM, M, pl, stream, nbr,
-        hr);
+    cudaError_t err = launch_contrib<KMAX, RMAX, true>(
+        g, sten, contrib, n_mesh, N, C, K, R, TB, nh, RM, M, pl, stream, nbr);
     if (err != cudaSuccess) return (int)err;
 
     const int CQ = C * pl.QS;
@@ -524,58 +487,46 @@ int launch_fused_bwd(const float* dy, const float* g, const float* sten,
                     DwSlices{pl.slices, pl.slice_rows}, stream);
     if (err != cudaSuccess) return (int)err;
 
-    return (int)launch_dg<KMAX, RMAX, COMPRESSED, SPARSE, HALO>(
-        dc, sten, dg, n_mesh, N, C, K, R, TB, nh, pl, stream, inv_ptr,
-        inv_bj, hr);
+    return (int)launch_dg<KMAX, RMAX, true>(dc, sten, dg, n_mesh, N, C, K, R,
+                                            TB, nh, pl, stream, inv_ptr,
+                                            inv_bj);
 }
 
 // Floats of the scratch buffer fused_bwd needs for these sizes (0 for
-// sizes it does not take); HALO: for hr's range.
-template <bool HALO = false>
+// sizes it does not take).
 inline long long fused_bwd_scratch_floats(int n_mesh, int N, int C, int K,
-                                          int R, int TB, int nh, int O2,
-                                          bool compressed,
-                                          HaloRange hr = HaloRange{})
+                                          int R, int TB, int nh, int O2)
 {
     Plan pl;
     if (!shapes_supported(n_mesh, N, C, K, R, TB, nh, O2)
-        || (compressed && R > panel::kMaxRings)
-        || (HALO && !halo_supported(N, TB, hr))
-        || make_plan(n_mesh, launch_targets<HALO>(N, TB, hr), C, K, R, O2,
-                     compressed, &pl) != cudaSuccess)
+        || make_plan(n_mesh, N, C, K, R, O2, &pl) != cudaSuccess)
         return 0;
     return (long long)pl.floats;
 }
 
-// Launches K4's (COMPRESSED), K8's (SPARSE: nh is NJ; nbr,
-// inv_ptr and inv_bj the table's) or K9's (HALO: hr's range) backward on
+// Launches K8's backward (nh is NJ; nbr, inv_ptr and inv_bj the table's) on
 // `stream` and returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for shapes it does not take (as the forward's,
-// plus shared memory for one target of dc rows).  scratch holds
-// fused_bwd_scratch_floats floats.
-template <bool COMPRESSED, bool SPARSE = false, bool HALO = false>
-int fused_bwd(const float* dy, const float* g, const float* sten,
-              const float* wmat, float* dg, float* dw, float* scratch,
-              int n_mesh, int N, int C, int K, int R, int TB, int nh, int O2,
-              cudaStream_t stream, const int* nbr = nullptr,
-              const int* inv_ptr = nullptr, const int* inv_bj = nullptr,
-              HaloRange hr = HaloRange{})
+// cudaErrorInvalidValue for shapes it does not take (K > 5; R > 8, or R >
+// 6 with K > 3; C > 256; shared memory for one target of dc rows).
+// scratch holds fused_bwd_scratch_floats floats.
+inline int fused_bwd(const float* dy, const float* g, const float* sten,
+                     const float* wmat, float* dg, float* dw, float* scratch,
+                     int n_mesh, int N, int C, int K, int R, int TB, int nh,
+                     int O2, cudaStream_t stream, const int* nbr,
+                     const int* inv_ptr, const int* inv_bj)
 {
-    if (!shapes_supported(n_mesh, N, C, K, R, TB, nh, O2)
-        || (COMPRESSED && R > panel::kMaxRings)
-        || (HALO && !halo_supported(N, TB, hr)))
+    if (!shapes_supported(n_mesh, N, C, K, R, TB, nh, O2))
         return (int)cudaErrorInvalidValue;
     Plan pl;
-    const cudaError_t err = make_plan(n_mesh, launch_targets<HALO>(N, TB, hr),
-                                      C, K, R, O2, COMPRESSED, &pl);
+    const cudaError_t err = make_plan(n_mesh, N, C, K, R, O2, &pl);
     if (err != cudaSuccess) return (int)err;
     if (K <= 3)
-        return launch_fused_bwd<3, 8, COMPRESSED, SPARSE, HALO>(
-            dy, g, sten, wmat, dg, dw, scratch, n_mesh, N, C, K, R, TB, nh,
-            O2, pl, stream, nbr, inv_ptr, inv_bj, hr);
-    return launch_fused_bwd<5, 6, COMPRESSED, SPARSE, HALO>(
-        dy, g, sten, wmat, dg, dw, scratch, n_mesh, N, C, K, R, TB, nh, O2,
-        pl, stream, nbr, inv_ptr, inv_bj, hr);
+        return launch_fused_bwd<3, 8>(dy, g, sten, wmat, dg, dw, scratch,
+                                      n_mesh, N, C, K, R, TB, nh, O2, pl,
+                                      stream, nbr, inv_ptr, inv_bj);
+    return launch_fused_bwd<5, 6>(dy, g, sten, wmat, dg, dw, scratch, n_mesh,
+                                  N, C, K, R, TB, nh, O2, pl, stream, nbr,
+                                  inv_ptr, inv_bj);
 }
 
 // --- the unfused contrib (K3, and K9's contrib, HALO) --------------------------
@@ -593,14 +544,14 @@ int contrib_fwd(const float* g, const float* sten, float* out, int n_mesh,
         return (int)cudaErrorInvalidValue;
     Plan pl;
     cudaError_t err = make_plan(n_mesh, launch_targets<HALO>(N, TB, hr), C,
-                                K, R, 0, false, &pl);
+                                K, R, 0, &pl);
     if (err != cudaSuccess) return (int)err;
     const int M = 2 * K * C;
     err = K <= 3
-        ? launch_contrib<3, 8, false, false, HALO>(
+        ? launch_contrib<3, 8, false, HALO>(
               g, sten, out, n_mesh, N, C, K, R, TB, nh, M, TB * M, pl, stream,
               nullptr, hr)
-        : launch_contrib<5, 6, false, false, HALO>(
+        : launch_contrib<5, 6, false, HALO>(
               g, sten, out, n_mesh, N, C, K, R, TB, nh, M, TB * M, pl, stream,
               nullptr, hr);
     return (int)err;
@@ -648,7 +599,7 @@ int launch_contrib_bwd(const float* dout, const float* sten, float* dg,
     const unsigned rows = (unsigned)n_mesh * launch_targets<HALO>(N, TB, hr);
     relayout<<<rows, kThreads, smem, stream>>>(dout, dc, C, K, R, TB);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    return (int)launch_dg<KMAX, RMAX, false, false, HALO>(
+    return (int)launch_dg<KMAX, RMAX, false, HALO>(
         dc, sten, dg, n_mesh, N, C, K, R, TB, nh, pl, stream, nullptr,
         nullptr, hr);
 }
@@ -664,7 +615,7 @@ inline long long contrib_bwd_scratch_floats(int n_mesh, int N, int C, int K,
     if (!shapes_supported(n_mesh, N, C, K, R, TB, nh, 1)
         || (HALO && !halo_supported(N, TB, hr))
         || make_plan(n_mesh, launch_targets<HALO>(N, TB, hr), C, K, R, 0,
-                     false, &pl) != cudaSuccess)
+                     &pl) != cudaSuccess)
         return 0;
     return (long long)pl.floats;
 }
@@ -683,7 +634,7 @@ int contrib_bwd(const float* dout, const float* sten, float* dg,
         return (int)cudaErrorInvalidValue;
     Plan pl;
     const cudaError_t err = make_plan(
-        n_mesh, launch_targets<HALO>(N, TB, hr), C, K, R, 0, false, &pl);
+        n_mesh, launch_targets<HALO>(N, TB, hr), C, K, R, 0, &pl);
     if (err != cudaSuccess) return (int)err;
     if (K <= 3)
         return launch_contrib_bwd<3, 8, HALO>(dout, sten, dg, scratch, n_mesh,

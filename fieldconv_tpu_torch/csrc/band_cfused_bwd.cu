@@ -11,43 +11,47 @@
 // with the slot's hats and phasor powers rebuilt as in K4's forward
 // (band_cfused_fwd.cu).
 //
-// Design.  K1's five passes (band_bwd.cuh), no atomics, every sum in a
-// fixed order, so two calls give bitwise-equal outputs: (1) contrib is
-// rematerialised by the forward's window walk, (2) dc = dy·Wᵀ, (3-4) dW as
-// slice partials and their combine (dw_rows.cuh), (5) dG gathered by
-// source block.  Passes 1 and 5 stage the 5 compressed planes and expand
-// each (target, slot) once into R hats and K factors in shared memory
-// (panel_walk.cuh's hat and phasor_powers, correctly rounded in the plain
-// version's order), which the channel threads then read as K1's read the
-// dense planes.  One caller-owned scratch buffer
-// (band_cfused_bwd_scratch_floats) holds contrib, dc and the dW partials.
+// Design.  K1's backward pipeline (band_fused_bwd.cu) on the compressed
+// planes, as K4's forward (band_cfused_fwd.cu): the occupancy bytes from
+// r, contrib rematerialised by the forward's walk, dW (dw_rows.cuh), dc =
+// dy·Wᵀ (panel_gemm.cuh; channel-major a frequency at K = 5), then dG by
+// source (band_pipe.cuh::dg_kernel): each landed pass's slots expanded
+// once into K1's dense image by the consumer warps (expand_pass; at K = 5,
+// where a CTA covers one frequency k, f_k alone, by |k − B| products in
+// phasors' order), then K1's consumers.  No atomics, every sum in a fixed
+// order: two calls give bitwise-equal outputs.  One caller-owned scratch
+// buffer (band_cfused_bwd_scratch_floats; band_call.cuh) holds contrib,
+// dc, the dW partials, W's rows in dc's order and the occupancy bytes.
 //
 // What bounds it.  As K1's backward, it is bound by operations (contrib,
-// dc, dW and dG each ~2 GFLOP at the serving shapes); the stencil it reads
-// twice is 5 planes instead of R + 2K, and each staged slot costs the R
-// hats and 2B complex products once more per pass.
+// dc, dW and dG each ~2 GFLOP at the serving shapes); both walks read the
+// compressed planes at occupied slots only (chip_smoke.py::k4_bwd_bound).
 
-#include "band_bwd.cuh"
+#include "band_call.cuh"
 
 extern "C" long long band_cfused_bwd_scratch_floats(int n_mesh, int N, int C,
                                                     int K, int R, int TB,
                                                     int nh, int O2)
 {
-    return band::fused_bwd_scratch_floats(n_mesh, N, C, K, R, TB, nh, O2,
-                                          true);
+    if (!bandpipe::shapes_supported(n_mesh, N, C, K, R, TB, nh, O2, true))
+        return 0;
+    return bandcall::bwd_scratch_floats(
+        n_mesh, C, K, R, O2, bandpipe::band_geo(N, TB, nh, 5));
 }
 
-// Launches the five kernels on `stream` and returns cudaGetLastError() (0
-// on success), or cudaErrorInvalidValue for shapes they do not take (K > 5;
-// R > 6; C > 256).  scratch holds band_cfused_bwd_scratch_floats floats,
-// owned by the caller.
+// Launches the six kernels (seven at K = 5) on `stream` and returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for shapes
+// they do not take (K > 5; R > 6; C > 256).  scratch holds
+// band_cfused_bwd_scratch_floats floats, owned by the caller.
 extern "C" int band_cfused_bwd(const float* dy, const float* g,
                                const float* sten, const float* wmat,
                                float* dg, float* dw, float* scratch,
                                int n_mesh, int N, int C, int K, int R, int TB,
                                int nh, int O2, void* stream)
 {
-    return band::fused_bwd<true>(dy, g, sten, wmat, dg, dw, scratch, n_mesh,
-                                 N, C, K, R, TB, nh, O2,
-                                 (cudaStream_t)stream);
+    if (!bandpipe::shapes_supported(n_mesh, N, C, K, R, TB, nh, O2, true))
+        return (int)cudaErrorInvalidValue;
+    return bandcall::fused_bwd<true>(
+        dy, g, sten, wmat, dg, dw, scratch, n_mesh, C, K, R, O2,
+        bandpipe::band_geo(N, TB, nh, 5), (cudaStream_t)stream);
 }

@@ -23,8 +23,8 @@
 // in a revisited output block; both rely on its sequential grid.  Here the
 // blocks run in parallel, so every sum has one owner and runs in a fixed
 // order: no atomics, and two calls on the same inputs give bitwise-equal
-// outputs.  One call launches six kernels on the stream (seven at K = 5),
-// with one scratch buffer owned by the caller
+// outputs.  One call launches six kernels on the stream (seven at K = 5;
+// band_call.cuh), with one scratch buffer owned by the caller
 // (band_fused_bwd_scratch_floats):
 //
 //   0. the occupancy bytes of the band's slots, as the forward's
@@ -67,49 +67,7 @@
 // 1.09 ms, dG 0.51 of it, contrib 0.30, dW 0.13, dc 0.09 (chip_smoke.py;
 // PERF.md).
 
-#include "band_pipe.cuh"
-#include "dw_rows.cuh"
-#include "panel_gemm.cuh"
-
-#include <cstddef>
-
-namespace {
-
-// How one call is cut up, and where its scratch lies (floats from the start
-// of the buffer the caller owns, each 16-byte aligned): contrib, then dc
-// over it where it fits (else after the rest); the dW partials; W's rows
-// in dc's order (band_pipe.cuh::cm_w_kernel, at K > 3); the occupancy
-// bytes.
-struct CallPlan {
-    bandpipe::BandGeo geo;
-    band::DwSlices dws;
-    size_t part_at, wcm_at, occ_at, dc_at, floats;
-};
-
-cudaError_t make_plan(int n_mesh, int N, int C, int K, int R, int TB, int nh,
-                      int O2, CallPlan* pl)
-{
-    int limit = 0, sms = 0;
-    const cudaError_t err = bandpipe::device_limits(&limit, &sms);
-    if (err != cudaSuccess) return err;
-    pl->geo = bandpipe::band_geo(N, TB, nh, R, K);
-    const long long rows = (long long)n_mesh * N;
-    const int RM = R * 2 * K * C;
-    pl->dws = band::dw_slices(rows, RM, O2, sms);
-    pl->part_at = bandpipe::round4((size_t)rows * RM);
-    const int DC = bandpipe::dc_cols(C, K, R);
-    pl->wcm_at = pl->part_at
-        + bandpipe::round4((size_t)pl->dws.slices * RM * O2);
-    pl->occ_at = pl->wcm_at
-        + (bandpipe::dg_by_k(K) ? bandpipe::round4((size_t)DC * O2) : 0);
-    const size_t end = pl->occ_at
-        + (bandpipe::occ_bytes(n_mesh, pl->geo) + 15) / 16 * 4;
-    pl->dc_at = DC <= RM ? 0 : end;
-    pl->floats = DC <= RM ? end : end + (size_t)rows * DC;
-    return cudaSuccess;
-}
-
-}  // namespace
+#include "band_call.cuh"
 
 // Floats of the scratch buffer band_fused_bwd needs for these sizes (0 for
 // sizes it does not take).
@@ -117,11 +75,10 @@ extern "C" long long band_fused_bwd_scratch_floats(int n_mesh, int N, int C,
                                                    int K, int R, int TB,
                                                    int nh, int O2)
 {
-    CallPlan pl;
-    if (!bandpipe::shapes_supported(n_mesh, N, C, K, R, TB, nh, O2)
-        || make_plan(n_mesh, N, C, K, R, TB, nh, O2, &pl) != cudaSuccess)
+    if (!bandpipe::shapes_supported(n_mesh, N, C, K, R, TB, nh, O2))
         return 0;
-    return (long long)pl.floats;
+    return bandcall::bwd_scratch_floats(
+        n_mesh, C, K, R, O2, bandpipe::band_geo(N, TB, nh, R + 2 * K));
 }
 
 // Launches the six kernels on `stream` and returns cudaGetLastError() (0 on
@@ -136,42 +93,7 @@ extern "C" int band_fused_bwd(const float* dy, const float* g,
 {
     if (!bandpipe::shapes_supported(n_mesh, N, C, K, R, TB, nh, O2))
         return (int)cudaErrorInvalidValue;
-    CallPlan pl;
-    cudaError_t err = make_plan(n_mesh, N, C, K, R, TB, nh, O2, &pl);
-    if (err != cudaSuccess) return (int)err;
-    int limit = 0;
-    if ((err = bandpipe::device_limits(&limit, nullptr)) != cudaSuccess)
-        return (int)err;
-    pipe::Plan p1, p4;
-    if (!bandpipe::contrib_plan(C, K, R, pl.geo, g, limit, &p1)
-        || !bandpipe::dg_plan(C, K, R, pl.geo, scratch + pl.dc_at, limit,
-                              &p4))
-        return (int)cudaErrorInvalidValue;
-    const int rows = n_mesh * N;
-    const int RM = R * 2 * K * C;
-    const int DC = bandpipe::dc_cols(C, K, R);
-    float* contrib = scratch;
-    float* dc = scratch + pl.dc_at;
-    float* part = scratch + pl.part_at;
-    unsigned char* occ = reinterpret_cast<unsigned char*>(scratch + pl.occ_at);
-    cudaStream_t s = (cudaStream_t)stream;
-
-    err = bandpipe::launch_occ(sten, occ, n_mesh, R, pl.geo, s);
-    if (err != cudaSuccess) return (int)err;
-    err = bandpipe::launch_contrib(g, sten, occ, contrib, n_mesh, C, K, R,
-                                   pl.geo, p1, s);
-    if (err != cudaSuccess) return (int)err;
-    err = band::launch_dw(contrib, dy, part, dw, rows, RM, O2, pl.dws, s);
-    if (err != cudaSuccess) return (int)err;
-    const float* wdc = wmat;                 // W's rows in dc's order
-    if (bandpipe::dg_by_k(K)) {
-        float* wcm = scratch + pl.wcm_at;
-        err = bandpipe::launch_cm_w(wmat, wcm, C, K, R, O2, s);
-        if (err != cudaSuccess) return (int)err;
-        wdc = wcm;
-    }
-    err = panel::launch_dc(dy, wdc, dc, rows, DC, O2, s);
-    if (err != cudaSuccess) return (int)err;
-    return (int)bandpipe::launch_dg(dc, sten, occ, dg, n_mesh, C, K, R,
-                                    pl.geo, p4, s);
+    return bandcall::fused_bwd<false>(
+        dy, g, sten, wmat, dg, dw, scratch, n_mesh, C, K, R, O2,
+        bandpipe::band_geo(N, TB, nh, R + 2 * K), (cudaStream_t)stream);
 }

@@ -24,8 +24,8 @@
 // the serving shape) and all of g in VMEM.  Here the band is walked as
 // panels (band_pipe.cuh): panel j of block b is its window's j-th TB × TB
 // square, reading source block b − nh + j, visited only when that block
-// exists.  Three kernels, on a scratch buffer the caller owns
-// (band_fused_fwd_scratch_floats):
+// exists.  Three kernels (band_call.cuh), on a scratch buffer the caller
+// owns (band_fused_fwd_scratch_floats):
 //
 //   1. occupancy: one byte a slot (any radial weight nonzero), written
 //      panel by panel with 16-byte aligned rows (band_pipe.cuh::occ_kernel);
@@ -67,38 +67,7 @@
 // per-panel steps.  Measured on an H100 at that shape: 0.42 ms, the walk
 // 0.30 of it, the filter 0.09 (chip_smoke.py; PERF.md).
 
-#include "band_pipe.cuh"
-#include "panel_gemm.cuh"
-
-#include <cstddef>
-
-namespace {
-
-// How one call is cut up, and where the scratch's parts lie (floats from
-// its start, each 16-byte aligned): contrib (rows, R·M), the filter's
-// partial sums (slices of j), the occupancy bytes.
-struct Layout {
-    bandpipe::BandGeo geo;
-    int slices;
-    size_t part_at, occ_at, floats;
-};
-
-Layout layout(int n_mesh, int N, int C, int K, int R, int TB, int nh,
-              int O2, int sms)
-{
-    Layout l;
-    l.geo = bandpipe::band_geo(N, TB, nh, R, K);
-    const int rows = n_mesh * N, RM = R * 2 * K * C;
-    l.slices = panel::filter_slices(rows, RM, O2, sms);
-    l.part_at = bandpipe::round4((size_t)rows * RM);
-    l.occ_at = l.part_at
-        + (l.slices > 1 ? bandpipe::round4((size_t)l.slices * rows * O2)
-                        : 0);
-    l.floats = l.occ_at + (bandpipe::occ_bytes(n_mesh, l.geo) + 15) / 16 * 4;
-    return l;
-}
-
-}  // namespace
+#include "band_call.cuh"
 
 // Floats of the scratch buffer band_fused_fwd needs for these sizes (0 for
 // sizes it does not take).
@@ -106,11 +75,10 @@ extern "C" long long band_fused_fwd_scratch_floats(int n_mesh, int N, int C,
                                                    int K, int R, int TB,
                                                    int nh, int O2)
 {
-    int limit = 0, sms = 0;
-    if (!bandpipe::shapes_supported(n_mesh, N, C, K, R, TB, nh, O2)
-        || bandpipe::device_limits(&limit, &sms) != cudaSuccess)
+    if (!bandpipe::shapes_supported(n_mesh, N, C, K, R, TB, nh, O2))
         return 0;
-    return (long long)layout(n_mesh, N, C, K, R, TB, nh, O2, sms).floats;
+    return bandcall::fwd_scratch_floats(
+        n_mesh, C, K, R, O2, bandpipe::band_geo(N, TB, nh, R + 2 * K));
 }
 
 // Launches the three kernels on `stream` and returns cudaGetLastError() (0
@@ -125,21 +93,7 @@ extern "C" int band_fused_fwd(const float* g, const float* sten,
 {
     if (!bandpipe::shapes_supported(n_mesh, N, C, K, R, TB, nh, O2))
         return (int)cudaErrorInvalidValue;
-    int limit = 0, sms = 0;
-    cudaError_t err = bandpipe::device_limits(&limit, &sms);
-    if (err != cudaSuccess) return (int)err;
-    const Layout l = layout(n_mesh, N, C, K, R, TB, nh, O2, sms);
-    pipe::Plan p;
-    if (!bandpipe::contrib_plan(C, K, R, l.geo, g, limit, &p))
-        return (int)cudaErrorInvalidValue;
-    unsigned char* occ = reinterpret_cast<unsigned char*>(scratch + l.occ_at);
-    cudaStream_t s = (cudaStream_t)stream;
-    err = bandpipe::launch_occ(sten, occ, n_mesh, R, l.geo, s);
-    if (err != cudaSuccess) return (int)err;
-    err = bandpipe::launch_contrib(g, sten, occ, scratch, n_mesh, C, K, R,
-                                   l.geo, p, s);
-    if (err != cudaSuccess) return (int)err;
-    return (int)panel::launch_filter_split(scratch, wmat, y,
-                                           scratch + l.part_at, n_mesh * N,
-                                           R * 2 * K * C, O2, l.slices, s);
+    return bandcall::fused_fwd<false>(
+        g, sten, wmat, y, scratch, n_mesh, C, K, R, O2,
+        bandpipe::band_geo(N, TB, nh, R + 2 * K), (cudaStream_t)stream);
 }

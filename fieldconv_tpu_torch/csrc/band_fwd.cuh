@@ -1,9 +1,8 @@
-// The fused banded forward shared by K4 (band_cfused_fwd.cu, compressed
-// stencil), K8 (band_sparse_fwd.cu, block-sparse stencil) and K9
-// (halo_fused_fwd.cu, HALO: a shard's targets over its halo-extended rows;
-// dense stencil): one CTA per tile of targets of one block of one mesh
-// forms the tile's contrib over the window (band_window.cuh), then applies
-// W.  It computes K1's function (band_fused_fwd.cu) on those layouts.
+// The fused banded forward of K8 (band_sparse_fwd.cu, block-sparse
+// stencil: block b's window is its NJ listed source blocks): one CTA per
+// tile of targets of one block of one mesh forms the tile's contrib over
+// the window (band_window.cuh, SPARSE), then applies W.  It computes K1's
+// function (band_fused_fwd.cu) on that layout.
 //
 // Design.  A CTA owns T = 256 / C targets (8 at C = 32), one thread a
 // (target, channel) item with all K·R complex sums in registers; the
@@ -24,27 +23,24 @@
 
 namespace band {
 
-// SPARSE: nh is NJ and nbr the meshes' (n_mesh, nb, NJ) source blocks.
-// HALO: the blocks hr.lo .. hr.hi − 1 over g of hr.n_src rows a mesh
-// (band_window.cuh, HaloRange); y keeps N rows a mesh.
-template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false,
-          bool HALO = false>
+// NJ: the source blocks a target block lists, nbr the meshes' (n_mesh, nb,
+// NJ) source blocks.
+template <int KMAX, int RMAX>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_fwd_kernel(const float* __restrict__ g,
                  const float* __restrict__ sten,
                  const float* __restrict__ wmat,
                  float* __restrict__ y,
-                 int N, int C, int K, int R, int TB, int nh, int O2, int T,
-                 panel::Knots kn, const int* __restrict__ nbr, HaloRange hr)
+                 int N, int C, int K, int R, int TB, int NJ, int O2, int T,
+                 const int* __restrict__ nbr)
 {
     const int M = 2 * K * C;
     const int RM = R * M;
-    const int P = COMPRESSED ? 5 : R + 2 * K;   // stencil planes
-    const int Wp = (SPARSE ? nh : 2 * nh + 1) * TB;
+    const int P = R + 2 * K;               // stencil planes
+    const int Wp = NJ * TB;
     const int nb = N / TB;
     const int tiles = (TB + T - 1) / T;
-    const int blk = (HALO ? hr.lo : 0) + blockIdx.x / tiles;
-    const int n_src = HALO ? hr.n_src : N;     // rows of g a mesh
+    const int blk = blockIdx.x / tiles;
     const int t0 = (blockIdx.x % tiles) * T;
     const int nt = min(T, TB - t0);
     const int m = blockIdx.y;
@@ -54,7 +50,7 @@ fused_fwd_kernel(const float* __restrict__ g,
     float* contrib = smem;                 // [R·M][kTile], after the window
     float* red = smem + RM * kTile;        // [JG][T][O2]
 
-    const float* gm = g + (size_t)m * n_src * M;
+    const float* gm = g + (size_t)m * N * M;
     const float* sb = sten + ((size_t)m * nb + blk) * (size_t)P * TB * Wp;
 
     const int item = tid;                  // (t, c) = (item / C, item % C)
@@ -63,10 +59,9 @@ fused_fwd_kernel(const float* __restrict__ g,
     const int ic = active ? item % C : 0;
 
     float are[KMAX][RMAX], aim[KMAX][RMAX];
-    window_contrib<KMAX, RMAX, COMPRESSED, SPARSE>(
-        are, aim, smem, gm, sb, n_src, C, K, R, TB, nh, T, t0, nt,
-        HALO ? blk + hr.blk_off + nh : blk, active, it, ic, kn,
-        SPARSE ? nbr + ((size_t)m * nb + blk) * nh : nullptr);
+    window_contrib<KMAX, RMAX, true>(
+        are, aim, smem, gm, sb, N, C, K, R, TB, NJ, T, t0, nt, blk, active,
+        it, ic, nbr + ((size_t)m * nb + blk) * NJ);
 
     // contrib[j][t] with j = r·M + k·2C + (p·C + c), targets padded to kTile
     if (active) {
@@ -118,69 +113,55 @@ fused_fwd_kernel(const float* __restrict__ g,
     }
 }
 
-inline size_t fused_fwd_smem_bytes(int C, int K, int R, int O2, int T,
-                                   bool compressed)
+inline size_t fused_fwd_smem_bytes(int C, int K, int R, int O2, int T)
 {
     const size_t M = 2 * (size_t)K * C;
     const size_t P = R + 2 * (size_t)K;
     const size_t JG = std::max(1, kThreads / O2);
-    const size_t stages = window_stage_floats((int)M, (int)P, T,
-                                              compressed);
+    const size_t stages = window_stage_floats((int)M, (int)P, T);
     const size_t filter = (size_t)R * M * kTile + JG * (size_t)T * O2;
     return std::max(stages, filter) * sizeof(float);
 }
 
-template <int KMAX, int RMAX, bool COMPRESSED, bool SPARSE = false,
-          bool HALO = false>
+template <int KMAX, int RMAX>
 int launch_fused_fwd(const float* g, const float* sten, const float* wmat,
                      float* y, int n_mesh, int N, int C, int K, int R, int TB,
-                     int nh, int O2, int T, size_t smem, cudaStream_t stream,
-                     const int* nbr, HaloRange hr)
+                     int NJ, int O2, int T, size_t smem, cudaStream_t stream,
+                     const int* nbr)
 {
-    auto kernel = fused_fwd_kernel<KMAX, RMAX, COMPRESSED, SPARSE, HALO>;
-    const panel::Knots kn = COMPRESSED ? panel::ring_knots(R) : panel::Knots{};
+    auto kernel = fused_fwd_kernel<KMAX, RMAX>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const int blocks = HALO ? hr.hi - hr.lo : N / TB;
-    const dim3 grid(blocks * ((TB + T - 1) / T), n_mesh);
+    const dim3 grid(N / TB * ((TB + T - 1) / T), n_mesh);
     kernel<<<grid, kThreads, smem, stream>>>(g, sten, wmat, y, N, C, K, R,
-                                             TB, nh, O2, T, kn, nbr, hr);
+                                             TB, NJ, O2, T, nbr);
     return (int)cudaGetLastError();
 }
 
-// Launches K4's (COMPRESSED), K8's (SPARSE: nh is NJ, nbr
-// the (n_mesh, nb, NJ) source blocks) or K9's (HALO: hr's range) forward
-// on `stream`; returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for shapes it does not take (K > 5, i.e. band
-// limit > 2; R > 8, or R > 6 with K > 3; C > 256; R > 6 when compressed;
-// a HALO range outside the stencil's blocks).
-template <bool COMPRESSED, bool SPARSE = false, bool HALO = false>
-int fused_fwd(const float* g, const float* sten, const float* wmat, float* y,
-              int n_mesh, int N, int C, int K, int R, int TB, int nh, int O2,
-              cudaStream_t stream, const int* nbr = nullptr,
-              HaloRange hr = HaloRange{})
+// Launches K8's forward (NJ listed source blocks a target block, nbr the
+// (n_mesh, nb, NJ) source blocks) on `stream`; returns cudaGetLastError()
+// (0 on success), or cudaErrorInvalidValue for shapes it does not take
+// (K > 5, i.e. band limit > 2; R > 8, or R > 6 with K > 3; C > 256).
+inline int fused_fwd(const float* g, const float* sten, const float* wmat,
+                     float* y, int n_mesh, int N, int C, int K, int R, int TB,
+                     int NJ, int O2, cudaStream_t stream, const int* nbr)
 {
-    if (!shapes_supported(n_mesh, N, C, K, R, TB, nh, O2)
-        || (COMPRESSED && R > panel::kMaxRings)
-        || (HALO && !halo_supported(N, TB, hr)))
+    if (!shapes_supported(n_mesh, N, C, K, R, TB, NJ, O2))
         return (int)cudaErrorInvalidValue;
     int limit = 0;
     const cudaError_t err = smem_limit(&limit);
     if (err != cudaSuccess) return (int)err;
     int T = std::min(kTile, kThreads / C);
-    while (T > 1 && fused_fwd_smem_bytes(C, K, R, O2, T, COMPRESSED)
-                        > (size_t)limit)
+    while (T > 1 && fused_fwd_smem_bytes(C, K, R, O2, T) > (size_t)limit)
         T /= 2;
-    const size_t smem = fused_fwd_smem_bytes(C, K, R, O2, T, COMPRESSED);
+    const size_t smem = fused_fwd_smem_bytes(C, K, R, O2, T);
     if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
     if (K <= 3)
-        return launch_fused_fwd<3, 8, COMPRESSED, SPARSE, HALO>(
-            g, sten, wmat, y, n_mesh, N, C, K, R, TB, nh, O2, T, smem, stream,
-            nbr, hr);
-    return launch_fused_fwd<5, 6, COMPRESSED, SPARSE, HALO>(
-        g, sten, wmat, y, n_mesh, N, C, K, R, TB, nh, O2, T, smem, stream,
-        nbr, hr);
+        return launch_fused_fwd<3, 8>(g, sten, wmat, y, n_mesh, N, C, K, R,
+                                      TB, NJ, O2, T, smem, stream, nbr);
+    return launch_fused_fwd<5, 6>(g, sten, wmat, y, n_mesh, N, C, K, R, TB,
+                                  NJ, O2, T, smem, stream, nbr);
 }
 
 }  // namespace band

@@ -1,7 +1,9 @@
-// K1's band on the pipelined panel walk (panel_pipe.cuh): the forward's
-// contrib and the backward's pass 1 (by target), and the backward's dG
-// (by source).  See band_fused_fwd.cu and band_fused_bwd.cu for what they
-// compute and their design.
+// The banded convs on the pipelined panel walk (panel_pipe.cuh): K1 (the
+// dense band), K9 (a shard's range of it over a halo-extended source
+// array) and K4 (the compressed band): the forward's contrib and the
+// backward's pass 1 (by target), and the backward's dG (by source).
+// band_call.cuh runs them as a call; band_fused_fwd.cu and band_fused_bwd.cu
+// say what they compute and why the design is so.
 //
 // A dense band is (2nh+1) square TB × TB panels a target block: panel j of
 // block b is sten_band[m, b, :, :, j·TB:(j+1)·TB], R+2K planes whose rows
@@ -10,7 +12,14 @@
 // virtual blocks of TBv = TB / np rows (np the fewest pieces for which TBv
 // ≤ 128 divides TB): virtual target block (b, h) reads the virtual source
 // blocks of b's window, each a TBv × TBv piece of the band.  Panels whose
-// source block lies outside [0, nb) are never visited.
+// source block lies outside the source array are never visited.
+//
+// A launch's range (BandGeo).  K9 launches target blocks lo .. hi − 1 of
+// a shard's band, block b's window starting at block b + boff of a source
+// array of nsb blocks a mesh; K1 is lo = 0, hi = nb, boff = −nh over g
+// itself, and runs the same code.  contrib, dc and dy hold the range's
+// rows; dG every row of the source array, a source block that no target
+// of the range reads getting zeros.
 //
 // Occupancy.  The walk finds a panel's occupied slots in a slab that it
 // copies ahead of the panel.  K5's dense mode stages the R hat planes
@@ -26,6 +35,14 @@
 // padding, whatever TB is.  A slot's image copies its R + 2K planes (hats
 // too) at occupied slots only, 4 bytes each by cp.async from the band's
 // strided rows, and the consumers read it back as float4s.
+//
+// A compressed band (K4: 5 planes r, e^{iθ}, wxp) runs the same walks: the
+// first kernel writes K1's occupancy bytes from the r plane, a slot
+// occupied where r_lo < r < r_hi on the outermost ring knots (every slot
+// with a nonzero hat; one whose hats are all 0 adds exact zeros;
+// R_SENTINEL lies outside), a slot's image copies its 5 words, and once a
+// pass has landed its slots are expanded into K1's dense image (hats,
+// f_k), which K1's consumers read (expand_pass; band_cfused_fwd.cu).
 //
 // dG at K = 5.  The dc rows a source tile stages hold R·M floats (7.7 KB
 // at C = 32, R = 6), which left one CTA an SM and its consumers a branch a
@@ -48,126 +65,246 @@ namespace bandpipe {
 
 using pipe::Plan;
 
-// The band's shape and its virtual blocks.
+// The band's shape, its virtual blocks, and the launch's range: target
+// blocks lo .. lo + nr − 1 of each mesh's nb, block b's window starting at
+// source block b + boff of a source array of nsb blocks a mesh (K1: the
+// whole band over g itself, lo = 0, nr = nb, boff = −nh, nsb = nb; K9: a
+// shard's range over its halo-extended rows).
 struct BandGeo {
-    int nb;          // blocks of a mesh (N / TB)
+    int nb;          // stencil blocks of a mesh (N / TB)
     int nh, TB, Wp;  // W' = (2nh+1)·TB
-    int P;           // planes, R + 2K
+    int P;           // planes: R + 2K, or 5 (compressed)
     int np, TBv;     // pieces a block, rows a virtual block (TB / np)
-    int TBvp;        // occupancy row: TBv rounded up to 16 bytes
+    int TBvp;        // slab row: TBv rounded up to 16 elements
     int Jv;          // virtual panels a window: (2nh+1)·np
+    int lo, nr;      // the launch's target blocks
+    int boff, nsb;   // window start − target block; source blocks a mesh
 };
 
-inline BandGeo band_geo(int N, int TB, int nh, int R, int K)
+inline BandGeo band_geo(int N, int TB, int nh, int P)
 {
     BandGeo g;
     g.nb = N / TB;
     g.nh = nh;
     g.TB = TB;
     g.Wp = (2 * nh + 1) * TB;
-    g.P = R + 2 * K;
+    g.P = P;
     g.np = (TB + pipe::kMaxTB - 1) / pipe::kMaxTB;
     while (TB % g.np) ++g.np;
     g.TBv = TB / g.np;
     g.TBvp = (g.TBv + 15) / 16 * 16;
     g.Jv = (2 * nh + 1) * g.np;
+    g.lo = 0;
+    g.nr = g.nb;
+    g.boff = -nh;
+    g.nsb = g.nb;
     return g;
 }
 
-// Bytes of the occupancy array of n_mesh meshes.
-inline size_t occ_bytes(int n_mesh, const BandGeo& g)
+// The band of a K9 launch: target blocks [lo, hi) over a source array of
+// n_src rows a mesh whose block b + blk_off starts block b's window.
+inline BandGeo range_geo(BandGeo g, int n_src, int blk_off, int lo, int hi)
 {
-    return (size_t)n_mesh * g.nb * g.np * g.Jv * g.TBv * g.TBvp;
+    g.nsb = n_src / g.TB;
+    g.boff = blk_off;
+    g.lo = lo;
+    g.nr = hi - lo;
+    return g;
 }
 
-// occ[((tv·Jv + jv)·TBv + t')·TBvp + s'] = 1 where any of the R hat planes
-// of the band's slot (row t = h·TBv + t' of block b, window slot w = jv·TBv
-// + s') is nonzero, tv = (m·nb + b)·np + h; V slots a thread (4 where rows
-// and pieces allow float4 loads).
-template <int V>
+// Bytes of the occupancy array of n_mesh meshes (the launch's target
+// blocks).
+inline size_t occ_bytes(int n_mesh, const BandGeo& g)
+{
+    return (size_t)n_mesh * g.nr * g.np * g.Jv * g.TBv * g.TBvp;
+}
+
+// The occupancy array, panel-major: slot (row t = h·TBv + t' of target
+// block b, window slot w = jv·TBv + s') at [((tv·Jv + jv)·TBv + t')·TBvp +
+// s'], tv = (m·nr + b − lo)·np + h, 1 where any of the R hat planes is
+// nonzero (COMP, a compressed band: where r_lo < r < r_hi, r its plane 0).
+// V slots a thread (4 where rows and pieces allow float4 loads).
+template <int V, bool COMP>
 __global__ void __launch_bounds__(256)
 occ_kernel(const float* __restrict__ sten, unsigned char* __restrict__ occ,
-           long long items, int R, BandGeo g)
+           long long items, int R, BandGeo g, float r_lo, float r_hi)
 {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= items) return;
     const int wv = g.Wp / V;
-    const long long row = i / wv;            // (m·nb + b)·TB + t
+    const long long row = i / wv;            // (m·nr + b − lo)·TB + t
     const int w = (int)(i - row * wv) * V;
-    const long long gb = row / g.TB;
-    const int t = (int)(row - gb * g.TB);
+    const long long rb = row / g.TB;         // m·nr + b − lo
+    const int t = (int)(row - rb * g.TB);
+    long long gb = rb;                       // m·nb + b (the whole band: rb)
+    if (g.nr != g.nb) {
+        const long long m = rb / g.nr;
+        gb = m * g.nb + g.lo + (rb - m * g.nr);
+    }
     const float* s = sten + ((size_t)gb * g.P * g.TB + t) * g.Wp + w;
+    const long long tv = rb * g.np + t / g.TBv;
+    const int jv = w / g.TBv;
+    unsigned char* o = occ
+        + (((size_t)tv * g.Jv + jv) * g.TBv + t % g.TBv) * g.TBvp + w % g.TBv;
     const size_t plane = (size_t)g.TB * g.Wp;
     bool nz[V];
 #pragma unroll
     for (int v = 0; v < V; ++v) nz[v] = false;
-    for (int r = 0; r < R; ++r) {
+    auto occupied = [&](float x) {
+        return COMP ? x > r_lo && x < r_hi : x != 0.f;
+    };
+    for (int r = 0; r < (COMP ? 1 : R); ++r) {
         if constexpr (V == 4) {
             const float4 x =
                 __ldg(reinterpret_cast<const float4*>(s + r * plane));
-            nz[0] |= x.x != 0.f;
-            nz[1] |= x.y != 0.f;
-            nz[2] |= x.z != 0.f;
-            nz[3] |= x.w != 0.f;
+            nz[0] |= occupied(x.x);
+            nz[1] |= occupied(x.y);
+            nz[2] |= occupied(x.z);
+            nz[3] |= occupied(x.w);
         } else {
-            nz[0] |= __ldg(s + r * plane) != 0.f;
+            nz[0] |= occupied(__ldg(s + r * plane));
         }
     }
-    const long long tv = gb * g.np + t / g.TBv;
-    const int jv = w / g.TBv;
-    unsigned char* o = occ
-        + (((size_t)tv * g.Jv + jv) * g.TBv + t % g.TBv) * g.TBvp + w % g.TBv;
     if constexpr (V == 4)
-        *reinterpret_cast<uchar4*>(o) =
-            make_uchar4(nz[0], nz[1], nz[2], nz[3]);
+        *reinterpret_cast<uchar4*>(o) = make_uchar4(nz[0], nz[1], nz[2], nz[3]);
     else
         *o = nz[0];
 }
 
-inline cudaError_t launch_occ(const float* sten, unsigned char* occ,
-                              int n_mesh, int R, const BandGeo& g,
-                              cudaStream_t stream)
+template <bool COMP>
+cudaError_t launch_occ(const float* sten, unsigned char* occ, int n_mesh,
+                       int R, const BandGeo& g, cudaStream_t stream)
 {
     const bool vec = g.TBv % 4 == 0 && (uintptr_t)sten % 16 == 0;
-    const long long slots = (long long)n_mesh * g.nb * g.TB * g.Wp;
+    const long long slots = (long long)n_mesh * g.nr * g.TB * g.Wp;
     const long long items = vec ? slots / 4 : slots;
     const unsigned blocks = (unsigned)((items + 255) / 256);
+    // the outermost ring knots (compressed)
+    const panel::Knots kn = COMP ? panel::ring_knots(R) : panel::Knots{};
+    const float r_lo = kn.lo[0], r_hi = COMP ? kn.hi[R - 1] : 0.f;
     if (vec)
-        occ_kernel<4><<<blocks, 256, 0, stream>>>(sten, occ, items, R, g);
+        occ_kernel<4, COMP><<<blocks, 256, 0, stream>>>(sten, occ, items, R,
+                                                         g, r_lo, r_hi);
     else
-        occ_kernel<1><<<blocks, 256, 0, stream>>>(sten, occ, items, R, g);
+        occ_kernel<1, COMP><<<blocks, 256, 0, stream>>>(sten, occ, items, R,
+                                                         g, r_lo, r_hi);
     return cudaGetLastError();
 }
 
-// The run of a walk block: by target virtual block blk = tv (global over
-// the meshes) and the virtual source blocks of its window inside the mesh;
-// by source virtual block blk = sv and the virtual target blocks whose
-// window holds it (original blocks b = s − nh .. s + nh inside [0, nb), all
-// np pieces of each), ascending.  Far rows: g's (by target) or dc's (by
-// source) rows, n_mesh·N of them; far index u of other block o is row
+// --- compressed slots -----------------------------------------------------------------------
+//
+// A compressed band's slot image, as the walk builds it, is [e^{iθ} re,
+// im, wxp re, im, r] (BandRun::kRawR).  Once a pass has landed, the
+// consuming group rewrites each occupied slot of it in place, once
+// (expand_pass), into the dense image [R hats | f_k re, im for the walk's
+// KG frequencies k0 ..]: the hats on the ring knots (panel_walk.cuh::hat)
+// and f_k from e^{iθ} and wxp as panel_pipe.cuh::phasors forms them
+// (uncontracted, correctly rounded, by |k − B| products from f_B = wxp).
+// The consumers then read it as they read a dense band's: the hats and
+// phasor powers cost a slot once, not once a slot and channel, and the
+// image is no wider than K1's (max(5, R + 2·KG) words rounded to 4,
+// walk_plan), so dG's passes hold as many far rows as K1's.  Measured on
+// an H100 (K = 5, R = 6, C = 32 and 48, versions side by side): the f_k
+// formed in each consumer ran the contrib walk 1.6x and dG 1.5x K1's; the
+// r plane as the slab (the building threads forming the hats, images of
+// 4 + R words) left dG 10 far rows a pass where K1 has 19, 7-13% slower
+// than this; the producer warps forming the f_k by source, once their copies
+// landed, ran dG 7-17% slower than the consumers' expansion.
+
+template <int KMAX>
+__device__ __forceinline__ void expand_slot(uint32_t* slot, int R, int K,
+                                            int KG, int k0,
+                                            const pipe::Knots& kn)
+{
+    const float4 raw = *reinterpret_cast<const float4*>(slot);
+    const float rv = __uint_as_float(slot[4]);
+    float h[panel::kMaxRings];
+#pragma unroll
+    for (int r = 0; r < panel::kMaxRings; ++r)
+        h[r] = r < R ? panel::hat(rv, r, kn) : 0.f;
+    float fre[KMAX], fim[KMAX];
+    if (KG == 1) {                           // f_k0 alone
+        float cr = raw.z, ci = raw.w;
+        const int dk = k0 - K / 2;
+        for (int q = 0; q < dk; ++q) {
+            const float nr = __fsub_rn(__fmul_rn(cr, raw.x),
+                                       __fmul_rn(ci, raw.y));
+            const float ni = __fadd_rn(__fmul_rn(cr, raw.y),
+                                       __fmul_rn(ci, raw.x));
+            cr = nr; ci = ni;
+        }
+        for (int q = 0; q < -dk; ++q) {
+            const float nr = __fadd_rn(__fmul_rn(cr, raw.x),
+                                       __fmul_rn(ci, raw.y));
+            const float ni = __fsub_rn(__fmul_rn(ci, raw.x),
+                                       __fmul_rn(cr, raw.y));
+            cr = nr; ci = ni;
+        }
+        fre[0] = cr;
+        fim[0] = ci;
+    } else if (K == 5) {
+        if constexpr (KMAX >= 5)
+            pipe::phasors<2, KMAX>(fre, fim, raw.x, raw.y, raw.z, raw.w);
+    } else if (K == 3) {
+        if constexpr (KMAX >= 3)
+            pipe::phasors<1, KMAX>(fre, fim, raw.x, raw.y, raw.z, raw.w);
+    } else {
+        pipe::phasors<0, KMAX>(fre, fim, raw.x, raw.y, raw.z, raw.w);
+    }
+    float* out = reinterpret_cast<float*>(slot);
+#pragma unroll
+    for (int r = 0; r < panel::kMaxRings; ++r)
+        if (r < R) out[r] = h[r];
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k)
+        if (k < KG) {
+            out[R + 2 * k] = fre[k];
+            out[R + 2 * k + 1] = fim[k];
+        }
+}
+
+// The run of a walk block: by target virtual block blk = tv (over the
+// launch's range of every mesh) and the virtual source blocks of its window
+// inside the source array, s = b + boff .. b + boff + 2nh inside [0, nsb);
+// by source virtual block blk = sv (over the source arrays) and the virtual
+// target blocks whose window holds it, b = s − boff − 2nh .. s − boff inside
+// [lo, lo + nr), all np pieces of each, ascending.  Far rows: g's (by
+// target, the source arrays' n_mesh·nsb·TB rows) or dc's (by source, the
+// range's n_mesh·nr·TB target rows); far index u of other block o is row
 // o·TBv + u.  See panel_pipe.cuh::MetaRun for the interface.
-template <bool BYSRC>
+template <bool BYSRC, bool COMP = false>
 struct BandRun {
+    // a compressed band: a slot image holds its 5 words (expand_pass)
+    static constexpr bool kRawR = COMP;
     BandGeo g;
     int nb_far = 0;                // (GATHER only)
     int fk0 = 0;                   // a frequency group's first f_k plane − R
     int n = 0;
-    int mbase = 0;                 // the mesh's first virtual block
+    int tbase = 0, sbase = 0;      // the mesh's first target / source block
     int lo = 0;                    // the run's first other block
     int self = 0, m = 0;           // blk; its mesh
 
     __device__ __forceinline__ void init(int blk)
     {
-        const int nbv = g.nb * g.np;
-        m = blk / nbv;
-        mbase = m * nbv;
+        const int ntv = g.nr * g.np, nsv = g.nsb * g.np;
         self = blk;
-        const int lv = blk - mbase;
-        const int b = lv / g.np;            // its original block
-        const int b_lo = max(0, b - g.nh);
-        const int b_hi = min(g.nb - 1, b + g.nh);
-        lo = mbase + b_lo * g.np;
-        n = (b_hi - b_lo + 1) * g.np;
+        int first, last;                    // original blocks of the run
+        if constexpr (BYSRC) {
+            m = blk / nsv;
+            const int s = (blk - m * nsv) / g.np;
+            first = max(g.lo, s - g.boff - 2 * g.nh);
+            last = min(g.lo + g.nr - 1, s - g.boff);
+            lo = (m * g.nr + first - g.lo) * g.np;
+        } else {
+            m = blk / ntv;
+            const int b = g.lo + (blk - m * ntv) / g.np;
+            first = max(0, b + g.boff);
+            last = min(g.nsb - 1, b + g.boff + 2 * g.nh);
+            lo = (m * g.nsb + first) * g.np;
+        }
+        n = max(0, last - first + 1) * g.np;
+        tbase = m * ntv;
+        sbase = m * nsv;
     }
     __device__ __forceinline__ int pid(int k) const { return k; }
     __device__ __forceinline__ int other(int k) const { return lo + k; }
@@ -176,16 +313,16 @@ struct BandRun {
     __device__ __forceinline__ int src(int o) const { return BYSRC ? self : o; }
     __device__ __forceinline__ size_t img(int, int o) const
     {
-        const int tl = tgt(o) - mbase, svl = src(o) - mbase;
-        const int b = tl / g.np, h = tl - b * g.np;
+        const int tl = tgt(o) - tbase, svl = src(o) - sbase;
+        const int b = g.lo + tl / g.np, h = tl % g.np;
         return ((size_t)(m * g.nb + b) * g.P * g.TB + (size_t)h * g.TBv)
                    * g.Wp
-            + (long long)svl * g.TBv - (long long)(b - g.nh) * g.TB;
+            + ((long long)svl * g.TBv - (long long)(b + g.boff) * g.TB);
     }
     __device__ __forceinline__ size_t slab(int, int o) const
     {
-        const int tv = tgt(o), tl = tv - mbase, svl = src(o) - mbase;
-        const int jv = svl - (tl / g.np - g.nh) * g.np;
+        const int tv = tgt(o), tl = tv - tbase, svl = src(o) - sbase;
+        const int jv = svl - (g.lo + tl / g.np + g.boff) * g.np;
         return ((size_t)tv * g.Jv + jv) * g.TBv * g.TBvp;
     }
     __device__ __forceinline__ int far0(int o) const { return o * g.TBv; }
@@ -330,21 +467,49 @@ __device__ __forceinline__ void consume_dg(
     }
 }
 
+// Expands a compressed band's pass buffer b: its occupied slots (local rows
+// < nt), each once (expand_slot).  Every thread of the consuming group
+// calls it (WS: the pl.nthr consumers, then their named barrier 2; else the
+// CTA, then __syncthreads).
+template <int KMAX, bool WS>
+__device__ __forceinline__ void expand_pass(unsigned char* smem,
+                                            const Plan& pl, int b, int R,
+                                            int K, int KG, int k0, int nt,
+                                            const pipe::Knots& kn)
+{
+    uint32_t* img = reinterpret_cast<uint32_t*>(smem + pl.off_img)
+        + (size_t)b * pl.img_words;
+    const uint32_t* pmask =
+        reinterpret_cast<const uint32_t*>(smem + pl.off_pmask) + b * pl.T;
+    const int n = WS ? pl.nthr : (int)blockDim.x;
+    for (int i = threadIdx.x; i < nt * pl.UCAP; i += n) {
+        const int l = i / pl.UCAP, pc = i - l * pl.UCAP;
+        if ((pmask[l] >> pc) & 1u)
+            expand_slot<KMAX>(img + (size_t)i * pl.NIMG, R, K, KG, k0, kn);
+    }
+    if constexpr (WS)
+        asm volatile("bar.sync 2, %0;\n" :: "r"(pl.nthr) : "memory");
+    else
+        __syncthreads();
+}
+
 // --- contrib by target (the forward, and the backward's pass 1) ---------------------------
 
-// contrib of every target row of the band: one CTA per tile of T targets
+// contrib of every target row of the launch: one CTA per tile of T targets
 // of a virtual block, MT a thread, written as (rows, R·M) row-major with
-// column j = r·M + k·2C + (p·C + c) (panel_pipe.cuh::contrib_tile).  WS:
-// warp-specialized (the walk's producer warps after pl.nthr consumers),
-// CPT channels a consumer thread.
-template <int KMAX, int RMAX, int MT, int CPT, bool WS>
+// column j = r·M + k·2C + (p·C + c) (panel_pipe.cuh::contrib_tile), rows
+// the range's.  WS: warp-specialized (the walk's producer warps after
+// pl.nthr consumers), CPT channels a consumer thread.  COMP: a compressed
+// band, each landed pass expanded into the dense image (expand_pass, the
+// hats on the knots kn).
+template <int KMAX, int RMAX, int MT, int CPT, bool WS, bool COMP>
 __global__ void __launch_bounds__(
     WS ? pipe::kCompactThreads + 32 * pipe::kProducerWarps : pipe::kThreads,
     WS ? 1 : 2)
 contrib_kernel(const float* __restrict__ g, const float* __restrict__ sten,
                const unsigned char* __restrict__ occ,
                float* __restrict__ contrib, int C, int K, int R, BandGeo geo,
-               Plan pl)
+               Plan pl, pipe::Knots kn)
 {
     const int M = 2 * K * C;
     const int RM = R * M;
@@ -372,10 +537,12 @@ contrib_kernel(const float* __restrict__ g, const float* __restrict__ sten,
                     are[m][k][r][c] = 0.f;
                     aim[m][k][r][c] = 0.f;
                 }
-    BandRun<false> run{geo};
+    BandRun<false, COMP> run{geo};
     pipe::walk<false, WS, RMAX, float, false, unsigned char>(
         smem, pl, sten, occ, run, g, R, K, 0, blk, l0, nt, pipe::Knots{},
         [&](int b) {
+            if constexpr (COMP)
+                expand_pass<KMAX, WS>(smem, pl, b, R, K, K, 0, nt, kn);
             bandpipe::consume_fwd<KMAX, RMAX, MT, CPT>(
                 are, aim, smem, pl, b, C, K, R, nt, active, qi, ic);
         });
@@ -421,11 +588,12 @@ inline int contrib_cpt(int C, int K, int R)
 // with a one-byte occupancy slab (one plane, rows TBvp bytes by target; by
 // source the tile's columns from a 16-byte boundary), every stage by bulk
 // copy, and far rows of fw floats read from rows fs apart, a frequency's
-// at goff floats from the last's.
+// at goff floats from the last's; comp: a compressed band's slot images
+// (its 5 words, expanded in place into K1's).
 inline bool walk_plan(int bysrc, int tpt, int KG, int R, const BandGeo& geo,
                       int t_target, int mt, int threads, int fw, int fs,
                       int goff, const void* far, int limit, size_t budget,
-                      Plan* p)
+                      Plan* p, bool comp)
 {
     if (!pipe::tile_plan(bysrc, tpt, KG, R, geo.TBv, geo.TBv, 0, 1, t_target,
                          mt, fw, far, nullptr, p, threads))
@@ -433,6 +601,8 @@ inline bool walk_plan(int bysrc, int tpt, int KG, int R, const BandGeo& geo,
     p->W = 1;
     p->SW = bysrc ? std::min((p->T + 30) / 16 * 16, geo.TBvp) : geo.TBvp;
     p->bulk = 1;
+    if (comp)                            // the slot expanded (expand_pass)
+        p->NIMG = (std::max(5, R + 2 * KG) + 3) / 4 * 4;
     p->FS = fs;
     const bool a16 = (uintptr_t)far % 16 == 0, a8 = (uintptr_t)far % 8 == 0;
     p->FV = fw % 4 == 0 && fs % 4 == 0 && goff % 4 == 0 && a16 ? 4
@@ -444,7 +614,7 @@ inline bool walk_plan(int bysrc, int tpt, int KG, int R, const BandGeo& geo,
 // target a thread (the instantiations launch_contrib has), warp-specialized
 // at K ≤ 3 with K6's 512 consumers.
 inline bool contrib_plan(int C, int K, int R, const BandGeo& geo,
-                         const void* g, int limit, Plan* p)
+                         const void* g, int limit, Plan* p, bool comp)
 {
     const bool ws = contrib_ws(K);
     const pipe::Inst in{pipe::contrib_inst(K, R).t_target, 1};
@@ -452,35 +622,39 @@ inline bool contrib_plan(int C, int K, int R, const BandGeo& geo,
     for (int mt = cpt == 2 ? 1 : in.mt_max; mt >= 1; mt /= 2)
         if (walk_plan(0, C / cpt, K, R, geo, in.t_target, mt,
                       ws ? pipe::kCompactThreads : pipe::kThreads, M, M, M,
-                      g, limit, ws ? (size_t)limit : pipe::kSmemBudget, p))
+                      g, limit, ws ? (size_t)limit : pipe::kSmemBudget, p,
+                      comp))
             return true;
     return false;
 }
 
-inline cudaError_t launch_contrib(const float* g, const float* sten,
-                                  const unsigned char* occ, float* contrib,
-                                  int n_mesh, int C, int K, int R,
-                                  const BandGeo& geo, const Plan& p,
-                                  cudaStream_t stream)
+template <bool COMP>
+cudaError_t launch_contrib(const float* g, const float* sten,
+                           const unsigned char* occ, float* contrib, int n_mesh,
+                           int C, int K, int R, const BandGeo& geo,
+                           const Plan& p, cudaStream_t stream)
 {
     const bool ws = contrib_ws(K);
-    const unsigned grid = (unsigned)((long long)n_mesh * geo.nb * geo.np
+    const unsigned grid = (unsigned)((long long)n_mesh * geo.nr * geo.np
                                      * ((geo.TBv + p.T - 1) / p.T));
+    const pipe::Knots kn = COMP ? panel::ring_knots(R) : pipe::Knots{};
     auto go = [&](auto kernel) {
         cudaError_t err = pipe::set_smem(kernel, p);
         if (err != cudaSuccess) return err;
         kernel<<<grid, p.nthr + (ws ? 32 * pipe::kProducerWarps : 0),
-                 p.bytes, stream>>>(g, sten, occ, contrib, C, K, R, geo, p);
+                 p.bytes, stream>>>(g, sten, occ, contrib, C, K, R, geo, p,
+                                    kn);
         return cudaGetLastError();
     };
     // the serving and training shapes' instantiations (K = 5, R = 6; K = 3,
-    // R = 3) and one for every other ring count at K ≤ 3
-    if (!ws) return go(contrib_kernel<5, 6, 1, 1, false>);
+    // R = 3) and one for every other ring count at K ≤ 3 (a compressed
+    // band's knots hold 6 rings)
+    if (!ws) return go(contrib_kernel<5, 6, 1, 1, false, COMP>);
     if (R <= 3)
         return contrib_cpt(C, K, R) == 2
-            ? go(contrib_kernel<3, 3, 1, 2, true>)
-            : go(contrib_kernel<3, 3, 1, 1, true>);
-    return go(contrib_kernel<3, 8, 1, 1, true>);
+            ? go(contrib_kernel<3, 3, 1, 2, true, COMP>)
+            : go(contrib_kernel<3, 3, 1, 1, true, COMP>);
+    return go(contrib_kernel<3, COMP ? 6 : 8, 1, 1, true, COMP>);
 }
 
 // --- dG by source (the backward's last pass) ----------------------------------------------
@@ -592,13 +766,15 @@ __device__ __forceinline__ void consume_dg_cm(
 // dG sums in registers (every frequency's, or BYK frequency blockIdx.y's),
 // and four producer warps (panel_pipe.cuh::walk, warp-specialized) that
 // stage its dc columns of the target rows its sources need, a panel at a
-// time.  Every dg element is written once, by its owner.
-template <int KMAX, int RMAX, int MT, bool BYK>
+// time.  Every dg element is written once, by its owner: a source block
+// whose run holds no panel writes zeros.  COMP: a compressed band, as
+// contrib_kernel's (the consumers expand each landed pass).
+template <int KMAX, int RMAX, int MT, bool BYK, bool COMP>
 __global__ void __launch_bounds__(
     pipe::kThreads + 32 * pipe::kProducerWarps, 2)
 dg_kernel(const float* __restrict__ dc, const float* __restrict__ sten,
           const unsigned char* __restrict__ occ, float* __restrict__ dg,
-          int C, int K, int R, BandGeo geo, Plan pl)
+          int C, int K, int R, BandGeo geo, Plan pl, pipe::Knots kn)
 {
     const int M = 2 * K * C;
     const int k0 = BYK ? blockIdx.y : 0;
@@ -619,11 +795,13 @@ dg_kernel(const float* __restrict__ dc, const float* __restrict__ sten,
     for (int m = 0; m < MT; ++m)
 #pragma unroll
         for (int k = 0; k < KMAX; ++k) { gre[m][k] = 0.f; gim[m][k] = 0.f; }
-    BandRun<true> run{geo};
+    BandRun<true, COMP> run{geo};
     run.fk0 = 2 * k0;
     pipe::walk<true, true, RMAX, float, false, unsigned char>(
         smem, pl, sten, occ, run, dc + (size_t)k0 * C * kQS, R, KG, 0, blk,
         l0, nt, pipe::Knots{}, [&](int b) {
+            if constexpr (COMP)
+                expand_pass<KMAX, true>(smem, pl, b, R, K, KG, k0, nt, kn);
             if constexpr (BYK) {
                 consume_dg_cm<RMAX, MT>(gre, gim, smem, pl, b, R, nt, active,
                                         qi, ic);
@@ -652,66 +830,80 @@ dg_kernel(const float* __restrict__ dc, const float* __restrict__ sten,
 // 3 with R > 3, launch_dg's instantiation), narrower where the dc rows leave
 // no room.
 inline bool dg_plan(int C, int K, int R, const BandGeo& geo, const void* dc,
-                    int limit, Plan* p)
+                    int limit, Plan* p, bool comp)
 {
     const bool byk = dg_by_k(K);
     const int fw = byk ? C * kQS : R * 2 * K * C;
     for (int mt = !byk && R > 3 ? 1 : 4; mt >= 1; mt /= 2)
         if (walk_plan(1, C, byk ? 1 : K, R, geo, 32, mt, pipe::kThreads, fw,
-                      dc_cols(C, K, R), fw, dc, limit, pipe::kSmemBudget, p))
+                      dc_cols(C, K, R), fw, dc, limit, pipe::kSmemBudget, p,
+                      comp))
             return true;
     return false;
 }
 
-// (MT = 1 only at K ≤ 3 with R > 3: dg_plan)
-template <int KMAX, int RMAX, bool BYK>
+// Launches dG over every virtual source block of the source arrays (MT = 1
+// only at K ≤ 3 with R > 3: dg_plan).
+template <int KMAX, int RMAX, bool BYK, bool COMP>
 cudaError_t launch_dg_mt(const float* dc, const float* sten,
-                         const unsigned char* occ, float* dg, int n_mesh,
-                         int C, int K, int R, const BandGeo& geo,
-                         const Plan& p, cudaStream_t stream)
+                         const unsigned char* occ, float* dg, int n_mesh, int C,
+                         int K, int R, const BandGeo& geo, const Plan& p,
+                         cudaStream_t stream)
 {
-    const dim3 grid((unsigned)((long long)n_mesh * geo.nb * geo.np
+    const dim3 grid((unsigned)((long long)n_mesh * geo.nsb * geo.np
                                * ((geo.TBv + p.T - 1) / p.T)),
                     BYK ? K : 1);
+    const pipe::Knots kn = COMP ? panel::ring_knots(R) : pipe::Knots{};
     auto go = [&](auto kernel) {
         cudaError_t err = pipe::set_smem(kernel, p);
         if (err != cudaSuccess) return err;
         kernel<<<grid, p.nthr + 32 * pipe::kProducerWarps, p.bytes,
-                 stream>>>(dc, sten, occ, dg, C, K, R, geo, p);
+                 stream>>>(dc, sten, occ, dg, C, K, R, geo, p, kn);
         return cudaGetLastError();
     };
     if constexpr (BYK || RMAX <= 3) {
-        if (p.MT == 4) return go(dg_kernel<KMAX, RMAX, 4, BYK>);
-        if (p.MT == 2) return go(dg_kernel<KMAX, RMAX, 2, BYK>);
+        if (p.MT == 4) return go(dg_kernel<KMAX, RMAX, 4, BYK, COMP>);
+        if (p.MT == 2) return go(dg_kernel<KMAX, RMAX, 2, BYK, COMP>);
     }
-    return go(dg_kernel<KMAX, RMAX, 1, BYK>);
+    return go(dg_kernel<KMAX, RMAX, 1, BYK, COMP>);
 }
 
-inline cudaError_t launch_dg(const float* dc, const float* sten,
-                             const unsigned char* occ, float* dg, int n_mesh,
-                             int C, int K, int R, const BandGeo& geo,
-                             const Plan& p, cudaStream_t stream)
+template <bool COMP>
+cudaError_t launch_dg(const float* dc, const float* sten,
+                      const unsigned char* occ, float* dg, int n_mesh, int C,
+                      int K, int R, const BandGeo& geo, const Plan& p,
+                      cudaStream_t stream)
 {
     if (dg_by_k(K))
-        return launch_dg_mt<1, 6, true>(dc, sten, occ, dg, n_mesh, C, K, R,
-                                        geo, p, stream);
+        return launch_dg_mt<1, 6, true, COMP>(dc, sten, occ, dg, n_mesh, C,
+                                              K, R, geo, p, stream);
     if (R <= 3)
-        return launch_dg_mt<3, 3, false>(dc, sten, occ, dg, n_mesh, C, K, R,
-                                         geo, p, stream);
-    return launch_dg_mt<3, 8, false>(dc, sten, occ, dg, n_mesh, C, K, R, geo,
-                                     p, stream);
+        return launch_dg_mt<3, 3, false, COMP>(dc, sten, occ, dg, n_mesh, C,
+                                               K, R, geo, p, stream);
+    return launch_dg_mt<3, COMP ? 6 : 8, false, COMP>(
+        dc, sten, occ, dg, n_mesh, C, K, R, geo, p, stream);
 }
 
 // --- shapes and device limits --------------------------------------------------------------
 
-// K1's shapes: K ≤ 5 (band limit ≤ 2); R ≤ 8, or R ≤ 6 with K > 3; C ≤ 256;
-// N a multiple of TB; nh ≥ 0; n_mesh ≤ 65535.
+// The shapes: K ≤ 5 (band limit ≤ 2); R ≤ 8, or R ≤ 6 with K > 3 or a
+// compressed band (its ring knots); C ≤ 256; N a multiple of TB; nh ≥ 0;
+// n_mesh ≤ 65535.
 inline bool shapes_supported(int n_mesh, int N, int C, int K, int R, int TB,
-                             int nh, int O2)
+                             int nh, int O2, bool comp = false)
 {
     return !(n_mesh < 1 || N < 1 || C < 1 || C > pipe::kThreads || K < 1
-             || K > 5 || R < 1 || R > (K <= 3 ? 8 : 6) || TB < 1
+             || K > 5 || R < 1
+             || R > (comp ? panel::kMaxRings : K <= 3 ? 8 : 6) || TB < 1
              || N % TB != 0 || nh < 0 || O2 < 1 || n_mesh > 65535);
+}
+
+// A K9 launch's range: a source array of a positive multiple of TB rows,
+// 0 ≤ lo < hi ≤ N / TB.
+inline bool range_supported(int N, int TB, int n_src, int lo, int hi)
+{
+    return n_src >= TB && n_src % TB == 0 && lo >= 0 && lo < hi
+        && hi <= N / TB;
 }
 
 // The current device's opt-in shared memory a block and its SM count, read

@@ -46,8 +46,7 @@ extern "C" long long band_sparse_bwd_scratch_floats(int n_mesh, int N, int C,
                                                     int K, int R, int TB,
                                                     int nj, int O2)
 {
-    return band::fused_bwd_scratch_floats(n_mesh, N, C, K, R, TB, nj, O2,
-                                          false);
+    return band::fused_bwd_scratch_floats(n_mesh, N, C, K, R, TB, nj, O2);
 }
 
 // Launches the five kernels on `stream` and returns cudaGetLastError() (0
@@ -63,8 +62,7 @@ extern "C" int band_sparse_bwd(const float* dy, const float* g,
                                void* stream)
 {
     if (nj < 1) return (int)cudaErrorInvalidValue;
-    return band::fused_bwd<false, true>(dy, g, sten, wmat, dg, dw, scratch,
-                                        n_mesh, N, C, K, R, TB, nj, O2,
-                                        (cudaStream_t)stream, nbr, inv_ptr,
-                                        inv_bj);
+    return band::fused_bwd(dy, g, sten, wmat, dg, dw, scratch, n_mesh, N, C,
+                           K, R, TB, nj, O2, (cudaStream_t)stream, nbr,
+                           inv_ptr, inv_bj);
 }

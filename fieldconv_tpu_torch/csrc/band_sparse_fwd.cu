@@ -49,7 +49,6 @@ extern "C" int band_sparse_fwd(const float* g, const float* sten,
                                int nj, int O2, void* stream)
 {
     if (nj < 1) return (int)cudaErrorInvalidValue;
-    return band::fused_fwd<false, true>(g, sten, wmat, y, n_mesh, N, C, K, R,
-                                        TB, nj, O2, (cudaStream_t)stream,
-                                        nbr);
+    return band::fused_fwd(g, sten, wmat, y, n_mesh, N, C, K, R, TB, nj, O2,
+                           (cudaStream_t)stream, nbr);
 }

@@ -1,8 +1,9 @@
-// The banded-window contraction shared by K3 (band_contrib_fwd.cu), K4
-// (band_cfused_fwd.cu, band_cfused_bwd.cu), K8 (band_sparse_fwd.cu,
-// band_sparse_bwd.cu) and K9 (halo_*.cu): staging of the block window
-// through shared memory and the per-thread contrib accumulation.  (K1
-// walks its band's panels instead: band_pipe.cuh.)
+// The banded-window contraction shared by K3 (band_contrib_fwd.cu,
+// band_contrib_bwd.cu), K8 (band_sparse_fwd.cu, band_sparse_bwd.cu) and
+// K9's contrib (halo_contrib_fwd.cu, halo_contrib_bwd.cu): staging of the
+// block window through shared memory and the per-thread contrib
+// accumulation.  (K1, K4 and K9's fused conv walk their band's panels
+// instead: band_pipe.cuh.)
 //
 // For mesh m, target n = blk·TB + t0 + it of a tile of nt ≤ T targets,
 // channel ic, ring r and frequency k it forms
@@ -16,17 +17,8 @@
 // with rs_r = plane r and f_k = planes (R+2k, R+2k+1) of the block's stencil
 // (R+2K, TB, W') and G the k-major rotated-source tensor (N, M = K·2C).
 // Slots whose source row lies outside [0, N) count zero and are never read.
-//
-// A compressed stencil (K4) holds 5 planes (r, e^{iθ} re/im, wxp re/im;
-// r = R_SENTINEL at empty slots) in the same slot layout; each staged chunk
-// is expanded once per (target, slot) into the R hats and K factors f_k
-// (panel_walk.cuh's hat and phasor_powers, correctly rounded in the plain
-// version's order), shared by the tile's channels, and then contracted as a
-// dense chunk.
 
 #pragma once
-
-#include "panel_walk.cuh"
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -47,8 +39,8 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src,
     __pipeline_memcpy_async(dst, src, kBytes, valid ? 0 : kBytes);
 }
 
-// A launch over a halo-extended source array (K9, HALO; the halo kernels
-// of halo_fused_fwd.cu and its siblings): target blocks [lo, hi) of the
+// A launch over a halo-extended source array (K9's contrib, HALO:
+// halo_contrib_fwd.cu, halo_contrib_bwd.cu): target blocks [lo, hi) of the
 // stencil's nb = N / TB are launched; block b's window starts at source
 // block b + blk_off of g, which holds n_src rows per mesh (a shard's rows
 // with its neighbours' nh·TB halo rows on each side, blk_off = 0, or a
@@ -105,64 +97,35 @@ __device__ __forceinline__ void stage_chunk(
 }
 
 // Floats of shared memory window_contrib stages: two buffers, each a
-// chunk of g rows and the tile's staged stencil planes (5 when compressed,
-// else R + 2K), and for a compressed stencil the expanded chunk.
-inline size_t window_stage_floats(int M, int P, int T, bool compressed = false)
+// chunk of g rows and the tile's R + 2K stencil planes.
+inline size_t window_stage_floats(int M, int P, int T)
 {
-    const int staged = compressed ? 5 : P;
-    return 2 * ((size_t)kChunk * M + (size_t)T * staged * kChunk)
-        + (compressed ? (size_t)T * P * kChunk : 0);
-}
-
-// Expands one staged compressed slot (its 5 planes at sp, `stride` apart)
-// into its R hats and K factors at xp (`stride` apart); a slot that is not
-// valid gets zero hats.  Returns whether any hat is nonzero.
-template <int RMAX>
-__device__ __forceinline__ bool expand_slot(float* xp, const float* sp,
-                                            int stride, bool valid, int R,
-                                            int K, const panel::Knots& kn)
-{
-    const float rv = sp[0];
-    bool nz = false;
-#pragma unroll
-    for (int r = 0; r < RMAX; ++r) {
-        if (r < R && r < panel::kMaxRings) {
-            const float h = valid ? panel::hat(rv, r, kn) : 0.f;
-            xp[r * stride] = h;
-            nz |= h != 0.f;
-        }
-    }
-    panel::phasor_powers(xp + R * stride, stride, sp[stride], sp[2 * stride],
-                         sp[3 * stride], sp[4 * stride], K / 2);
-    return nz;
+    return 2 * ((size_t)kChunk * M + (size_t)T * P * kChunk);
 }
 
 // Every thread of the CTA must call this (it synchronises); inactive
 // threads keep zero sums.  gm: mesh m's g (N, M), whose rows from
 // (blk − nh)·TB on make the window (a HALO caller passes its source
 // array's n_src as N and blk + blk_off + nh as blk); sb: the target
-// block's stencil (P = R+2K planes, or 5 when COMPRESSED, × TB × W'); SPARSE: nh is NJ and
-// nbr_b block blk's NJ source blocks; smem:
-// window_stage_floats(M, R+2K, T, COMPRESSED) floats, free again on
-// return; kn: the ring knots (COMPRESSED only).  The window streams
+// block's stencil (R+2K planes × TB × W'); SPARSE: nh is NJ and nbr_b
+// block blk's NJ source blocks; smem: window_stage_floats(M, R+2K, T)
+// floats, free again on return.  The window streams
 // through shared memory kChunk slots at a time, double-buffered with
 // cp.async; a chunk whose radial weights are all zero for the tile is
 // skipped, and so is a slot whose radial weights are all zero for the
 // thread's target (no edge there).
-template <int KMAX, int RMAX, bool COMPRESSED = false, bool SPARSE = false>
+template <int KMAX, int RMAX, bool SPARSE = false>
 __device__ __forceinline__ void window_contrib(
     float (&are)[KMAX][RMAX], float (&aim)[KMAX][RMAX], float* smem,
     const float* gm, const float* sb, int N, int C, int K, int R, int TB,
     int nh, int T, int t0, int nt, int blk, bool active, int it, int ic,
-    const panel::Knots& kn = panel::Knots{}, const int* nbr_b = nullptr)
+    const int* nbr_b = nullptr)
 {
     const int M = 2 * K * C;
     const int P = R + 2 * K;
-    const int PS = COMPRESSED ? 5 : P;     // planes staged per target
     const int Wp = (SPARSE ? nh : 2 * nh + 1) * TB;
     const int tid = threadIdx.x;
-    const int stage_floats = kChunk * M + T * PS * kChunk;
-    float* sx = smem + 2 * stage_floats;   // COMPRESSED: the expanded chunk
+    const int stage_floats = kChunk * M + T * P * kChunk;
     const long row0 = (long)(blk - nh) * TB;
     // 16-byte copies when every row start is 16-byte aligned
     const bool vec = (M % 4 == 0) && (Wp % 4 == 0);
@@ -179,10 +142,10 @@ __device__ __forceinline__ void window_contrib(
         const int nw = min(kChunk, Wp - w0);
         if (vec && nw == kChunk)
             stage_chunk<16, SPARSE>(buf, buf + kChunk * M, gm, sb, row0, w0,
-                                    nw, N, M, PS, TB, Wp, t0, nt, T, nbr_b);
+                                    nw, N, M, P, TB, Wp, t0, nt, T, nbr_b);
         else
             stage_chunk<4, SPARSE>(buf, buf + kChunk * M, gm, sb, row0, w0,
-                                   nw, N, M, PS, TB, Wp, t0, nt, T, nbr_b);
+                                   nw, N, M, P, TB, Wp, t0, nt, T, nbr_b);
         __pipeline_commit();
     };
 
@@ -198,30 +161,16 @@ __device__ __forceinline__ void window_contrib(
         const float* ss = gs + kChunk * M;
         const int nw = min(kChunk, Wp - ci * kChunk);
 
+        // the barrier that publishes the chunk also votes on whether any
+        // radial weight of the tile is nonzero in it; each thread reads back
+        // only the stencil elements its own copies wrote (complete after its
+        // wait), in stage_chunk's order
         int nz = 0;
-        if constexpr (COMPRESSED) {
-            // every thread's copies of the chunk are visible after the
-            // barrier; a thread per (target, slot) expands it into sx, and
-            // the barrier that publishes sx votes on any nonzero hat
-            __syncthreads();
-            for (int i = tid; i < T * kChunk; i += kThreads) {
-                const int t = i / kChunk, wi = i - t * kChunk;
-                nz |= expand_slot<RMAX>(sx + t * P * kChunk + wi,
-                                        ss + t * 5 * kChunk + wi, kChunk,
-                                        t < nt && wi < nw, R, K, kn);
-            }
-            ss = sx;
-        } else {
-            // the barrier that publishes the chunk also votes on whether
-            // any radial weight of the tile is nonzero in it; each thread
-            // reads back only the stencil elements its own copies wrote
-            // (complete after its wait), in stage_chunk's order
-            const int V = (vec && nw == kChunk) ? 4 : 1;
-            const int cv = kChunk / V;
-            for (int i = tid; i < T * P * cv; i += kThreads) {
-                if ((i / cv) % P < R)
-                    for (int v = 0; v < V; ++v) nz |= ss[i * V + v] != 0.f;
-            }
+        const int V = (vec && nw == kChunk) ? 4 : 1;
+        const int cv = kChunk / V;
+        for (int i = tid; i < T * P * cv; i += kThreads) {
+            if ((i / cv) % P < R)
+                for (int v = 0; v < V; ++v) nz |= ss[i * V + v] != 0.f;
         }
         if (__syncthreads_or(nz) && active) {
             const float* st = ss + it * P * kChunk;

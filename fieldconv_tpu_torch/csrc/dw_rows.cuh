@@ -1,5 +1,5 @@
 // dW = Σ_rows contribᵀ · dy in a fixed order, shared by the backwards of
-// K1 (band_fused_bwd.cu), K4, K8 and K9 (band_bwd.cuh, passes 3-4), K5
+// K1, K9 and K4 (band_call.cuh), K8 (band_bwd.cuh, passes 3-4), K5
 // (band_panel_bwd.cu) and K6 (band_compact_bwd.cu): contrib
 // (rows, RM) and dy (rows, O2) row-major, dW (RM, O2).
 //

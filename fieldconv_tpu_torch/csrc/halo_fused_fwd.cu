@@ -27,35 +27,68 @@
 // blk_off = 0, blocks 0 .. nh − 1; the tail [last 2nh blocks | right
 // halo], blk_off = nh − nb, blocks nb − nh .. nb − 1).
 //
-// Design.  K1's kernel (band_fwd.cuh) with the window walk's source policy
-// HALO (band_window.cuh, HaloRange): the launch covers hi − lo blocks,
-// each CTA takes its window from row (b + blk_off)·TB of g and its stencil
-// from block b, and writes y at block b, so the overlapped path's three
-// launches fill one y without a concatenation.  Everything else (a CTA per
-// tile of 8 targets at C = 32, a thread per (target, channel), cp.async
-// double buffering, empty chunks skipped, the filter contraction from
-// shared memory) is K1's.  The TPU kernels read g through NJ BlockSpecs
-// shifted by j blocks; here the window is staged kChunk slots at a time.
+// Design.  K1's pipeline (band_fused_fwd.cu) on the launch's range: the
+// band's run policy (band_pipe.cuh::BandRun) takes the range and the
+// source array, so block b of the range walks the panels of source blocks
+// max(0, b + blk_off) .. min(n_src / TB − 1, b + blk_off + 2nh), and K1 is
+// the range [0, nb) over g with blk_off = −nh.  Three kernels on a scratch
+// buffer the caller owns (halo_fused_fwd_scratch_floats; band_call.cuh):
+// the occupancy bytes of the range's blocks (panel-major rows of 16 bytes,
+// laid out from the range's first block, so their alignment does not
+// depend on lo or blk_off); contrib of the range's targets by
+// panel_pipe.cuh's pipelined walk (g rows staged by bulk copy, one a row:
+// aligned wherever the range starts, since a row is M floats); the filter
+// GEMM split over j, whose rows land in rows lo·TB .. hi·TB of each mesh's
+// y (panel_gemm.cuh's rows a mesh and mesh stride), so the overlapped
+// path's three launches fill one y without a copy or a concatenation.
+// Every output has one writer and a fixed sum order: no atomics, two
+// calls agree bitwise.  The TPU kernels read g through NJ BlockSpecs
+// shifted by j blocks; here the walk stages each g row once a tile and
+// panel.
 //
-// What bounds it.  As K1 over the shard: the stencil of its hi − lo blocks,
-// its window's rows of g (local targets plus 2nh·TB halo rows when the
-// range reaches an end) and W, and the operations the stencil's edges need
-// (chip_smoke.py::k9_bound counts both from the run's data).
+// What bounds it.  As K1 over the shard: the stencil of its hi − lo
+// blocks, its window's rows of g (local targets plus 2nh·TB halo rows
+// when the range reaches an end) and W, and the operations the stencil's
+// edges need (chip_smoke.py::k9_bound counts both from the run's data).
+// Measured on an H100, the serial seg_n2048_b4 shard (C = 48, O2 = 96)
+// and the head and tail ranges of nh blocks: PERF.md (chip_smoke.py).
 
-#include "band_fwd.cuh"
+#include "band_call.cuh"
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for shapes the kernel does not take (K1's: K > 5;
-// R > 8, or R > 6 with K > 3; C > 256; and n_src a positive multiple of
-// TB, 0 ≤ lo < hi ≤ N / TB).
-extern "C" int halo_fused_fwd(const float* g, const float* sten,
-                              const float* wmat, float* y, int n_mesh, int N,
-                              int n_src, int C, int K, int R, int TB, int nh,
-                              int O2, int blk_off, int lo, int hi,
-                              void* stream)
+// Floats of the scratch buffer halo_fused_fwd needs for these sizes (0 for
+// sizes it does not take).
+extern "C" long long halo_fused_fwd_scratch_floats(int n_mesh, int N,
+                                                   int n_src, int C, int K,
+                                                   int R, int TB, int nh,
+                                                   int O2, int blk_off,
+                                                   int lo, int hi)
 {
-    return band::fused_fwd<false, false, true>(
-        g, sten, wmat, y, n_mesh, N, C, K, R, TB, nh, O2,
-        (cudaStream_t)stream, nullptr,
-        band::HaloRange{n_src, blk_off, lo, hi});
+    if (!bandpipe::shapes_supported(n_mesh, N, C, K, R, TB, nh, O2)
+        || !bandpipe::range_supported(N, TB, n_src, lo, hi))
+        return 0;
+    return bandcall::fwd_scratch_floats(
+        n_mesh, C, K, R, O2,
+        bandpipe::range_geo(bandpipe::band_geo(N, TB, nh, R + 2 * K), n_src,
+                            blk_off, lo, hi));
+}
+
+// Launches the three kernels on `stream` and returns cudaGetLastError() (0
+// on success), or cudaErrorInvalidValue for shapes they do not take (K1's:
+// K > 5; R > 8, or R > 6 with K > 3; C > 256; and n_src a positive
+// multiple of TB, 0 ≤ lo < hi ≤ N / TB).  scratch holds
+// halo_fused_fwd_scratch_floats floats, owned by the caller.
+extern "C" int halo_fused_fwd(const float* g, const float* sten,
+                              const float* wmat, float* y, float* scratch,
+                              int n_mesh, int N, int n_src, int C, int K,
+                              int R, int TB, int nh, int O2, int blk_off,
+                              int lo, int hi, void* stream)
+{
+    if (!bandpipe::shapes_supported(n_mesh, N, C, K, R, TB, nh, O2)
+        || !bandpipe::range_supported(N, TB, n_src, lo, hi))
+        return (int)cudaErrorInvalidValue;
+    return bandcall::fused_fwd<false>(
+        g, sten, wmat, y, scratch, n_mesh, C, K, R, O2,
+        bandpipe::range_geo(bandpipe::band_geo(N, TB, nh, R + 2 * K), n_src,
+                            blk_off, lo, hi),
+        (cudaStream_t)stream);
 }

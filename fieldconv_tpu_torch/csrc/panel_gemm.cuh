@@ -1,10 +1,11 @@
 // The panel convs' two dense products with W, viewed as (R·M, O2): the
-// forward's filter y = contrib·W (K5's and K6's forwards, after their
-// contrib walk) and the backward's dc = dy·Wᵀ (pass 3 of K5's and K6's
-// backwards).  contrib and dc share one layout, (rows, R·M) row-major with
-// column j = r·M + k·2C + (p·C + c) (p: re then im), so that a row of
-// contrib and the same row of dc lie at one address in the backward's
-// scratch.  Each sums in a fixed order: two calls agree bitwise.
+// forward's filter y = contrib·W (K5's, K6's, K1's, K9's and K4's
+// forwards, after their contrib walk) and the backward's dc = dy·Wᵀ (in
+// those kernels' backwards).  contrib and dc share one layout, (rows, R·M)
+// row-major with column j = r·M + k·2C + (p·C + c) (p: re then im), so
+// that a row of contrib and the same row of dc lie at one address in the
+// backward's scratch.  Each sums in a fixed order: two calls agree
+// bitwise.
 
 #pragma once
 
@@ -21,6 +22,9 @@ namespace {
 // summed over j in order; tiles of contrib (transposed) and W through
 // shared memory, two of each in turn.  Split over j (blockIdx.z, jlen
 // each): slice z's partial sums go to y + z·rows·O2, for filter_combine.
+// Row `row` of the product lands in row (row / rpm)·ys + row % rpm of y:
+// rpm rows a mesh, meshes ys rows apart (K9 writes its range's rows of each
+// mesh's y); ys = 0 means y's own rows.
 
 constexpr int kFiltRows = 128;
 constexpr int kFiltCols = 64;
@@ -29,7 +33,7 @@ constexpr int kFiltDepth = 16;
 __global__ void __launch_bounds__(256)
 filter_kernel(const float* __restrict__ contrib,
               const float* __restrict__ wmat, float* __restrict__ y,
-              int rows, int RM, int O2, int jlen)
+              int rows, int RM, int O2, int jlen, int rpm, int ys)
 {
     // two tiles of each in turn: the next one's loads are in flight (in
     // registers) while this one's products are summed
@@ -99,24 +103,32 @@ filter_kernel(const float* __restrict__ contrib,
     for (int x = 0; x < 8; ++x) {
         const int row = r0 + ty * 8 + x;
         if (row >= rows) continue;
+        float* yr = y + (ys ? (size_t)(row / rpm) * ys + row % rpm
+                            : (size_t)row) * O2;
 #pragma unroll
         for (int z = 0; z < 4; ++z) {
             const int o = o0 + tx * 4 + z;
-            if (o < O2) y[(size_t)row * O2 + o] = acc[x][z];
+            if (o < O2) yr[o] = acc[x][z];
         }
     }
 }
 
-// y[e] = Σ_z part[z·n + e] over the filter's j slices, in slice order.
+// y at (row, o) = Σ_z part[z·n + row·O2 + o] over the filter's j slices,
+// in slice order (rows placed as filter_kernel places them).
 __global__ void __launch_bounds__(256)
 filter_combine(const float* __restrict__ part, float* __restrict__ y,
-               int slices, long long n)
+               int slices, long long n, int O2, int rpm, int ys)
 {
     const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (e >= n) return;
     float sum = 0.f;
     for (int z = 0; z < slices; ++z) sum += part[z * n + e];
-    y[e] = sum;
+    if (ys == 0) {                       // y's own rows
+        y[e] = sum;
+        return;
+    }
+    const long long row = e / O2;
+    y[((row / rpm) * ys + row % rpm) * O2 + (e - row * O2)] = sum;
 }
 
 // dc[row, j] = Σ_o dy[row, o] · W[j, o] with W viewed as (R·M, O2): a CTA
@@ -175,14 +187,17 @@ bwd_dc_kernel(const float* __restrict__ dy, const float* __restrict__ wmat,
 
 }  // namespace
 
-// Launches the filter on `stream`: y (rows, O2) = contrib (rows, RM) · W.
+// Launches the filter on `stream`: y (rows, O2) = contrib (rows, RM) · W,
+// row `row` of it into row (row / rpm)·ys + row % rpm of y (rpm 0: y's own
+// rows, without the divisions).
 inline cudaError_t launch_filter(const float* contrib, const float* wmat,
                                  float* y, int rows, int RM, int O2,
-                                 cudaStream_t stream)
+                                 cudaStream_t stream, int rpm = 0, int ys = 0)
 {
     filter_kernel<<<dim3((rows + kFiltRows - 1) / kFiltRows,
                          (O2 + kFiltCols - 1) / kFiltCols), 256, 0,
-                    stream>>>(contrib, wmat, y, rows, RM, O2, RM);
+                    stream>>>(contrib, wmat, y, rows, RM, O2, RM,
+                              rpm > 0 ? rpm : rows, rpm > 0 ? ys : 0);
     return cudaGetLastError();
 }
 
@@ -196,25 +211,29 @@ inline int filter_slices(int rows, int RM, int O2, int sms)
 }
 
 // The filter split over `slices` slices of j (filter_slices), summed in
-// slice order: part holds slices·rows·O2 floats (unused for one slice).
+// slice order: part holds slices·rows·O2 floats (unused for one slice);
+// y's rows placed as launch_filter places them.
 inline cudaError_t launch_filter_split(const float* contrib,
                                        const float* wmat, float* y,
                                        float* part, int rows, int RM, int O2,
-                                       int slices, cudaStream_t stream)
+                                       int slices, cudaStream_t stream,
+                                       int rpm = 0, int ys = 0)
 {
     if (slices <= 1)
-        return launch_filter(contrib, wmat, y, rows, RM, O2, stream);
+        return launch_filter(contrib, wmat, y, rows, RM, O2, stream, rpm,
+                             ys);
     const int jlen = ((RM + slices - 1) / slices + kFiltDepth - 1)
         / kFiltDepth * kFiltDepth;
     slices = (RM + jlen - 1) / jlen;
     filter_kernel<<<dim3((rows + kFiltRows - 1) / kFiltRows,
                          (O2 + kFiltCols - 1) / kFiltCols, slices), 256, 0,
-                    stream>>>(contrib, wmat, part, rows, RM, O2, jlen);
+                    stream>>>(contrib, wmat, part, rows, RM, O2, jlen, rows,
+                              0);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const long long n = (long long)rows * O2;
     filter_combine<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-        part, y, slices, n);
+        part, y, slices, n, O2, rpm > 0 ? rpm : rows, rpm > 0 ? ys : 0);
     return cudaGetLastError();
 }
 

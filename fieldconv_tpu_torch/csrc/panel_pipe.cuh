@@ -1,8 +1,8 @@
 // The pipelined panel walk of K5 (band_panel_fwd.cu, band_panel_bwd.cu),
-// K6 (band_compact_fwd.cu, band_compact_bwd.cu) and K1 (band_fused_fwd.cu,
-// band_fused_bwd.cu, over its band's panels: band_pipe.cuh): contrib by
-// target (the forwards and the backwards' pass 1) and dG by source (K5's
-// and K1's backwards).
+// K6 (band_compact_fwd.cu, band_compact_bwd.cu), and K1, K9 and K4 over
+// their band's panels (band_pipe.cuh): contrib by target (the forwards and
+// the backwards' pass 1) and dG by source (K5's, K1's, K9's and K4's
+// backwards).
 //
 // A CTA owns a tile of T ≤ 32 "local" rows of one block: targets of a
 // target block, or sources of a source block.  It walks the block's run of
@@ -309,8 +309,9 @@ __device__ __forceinline__ float slab_value(__nv_bfloat16 v)
 }
 
 // f_k = wxp·e^{i(k−B)θ} for k < 2B + 1 from the unit phasor (pr, pi) and
-// wxp (fr, fi), as panel_walk.cuh::phasor_powers forms them, into
-// registers (B a constant).
+// wxp (fr, fi) into registers (B a constant): by repeated multiplication
+// from f_B = wxp, uncontracted and correctly rounded, in
+// ops/band_conv.py::_phasor_pairs' order.
 template <int B, int KMAX>
 __device__ __forceinline__ void phasors(float (&fre)[KMAX], float (&fim)[KMAX],
                                         float pr, float pi, float fr,
@@ -407,6 +408,9 @@ __device__ __forceinline__ int nth_bit(uint32_t x, int k)
 // (the same in the array the slab is copied from), far0 (the far row of
 // far index 0) and far_ok (whether the far block exists).  A panel's rows
 // lie img_rs (slab_rs) elements apart, its planes img_plane (slab_plane).
+// kRawR (an occupancy-byte slab over a compressed stencil): a slot's image
+// is its e^{iθ}, wxp and r words, copied as they are, from which the
+// consumers form its coefficients (band_pipe.cuh::expand_pass).
 //
 // K5's and K6's runs come from meta: by target meta (4, P) rows (tgt, src,
 // ...), sorted by tgt; by source meta_s (4, P) rows (pid, tgt, src, ...),
@@ -415,6 +419,7 @@ __device__ __forceinline__ int nth_bit(uint32_t x, int k)
 // K1's band is arithmetic (band_pipe.cuh::BandRun).
 template <bool BYSRC>
 struct MetaRun {
+    static constexpr bool kRawR = false;
     const int* meta;
     int P, nb_far, TB, rs;     // rs: TS by target, TB by source
     size_t plane;
@@ -695,7 +700,12 @@ __device__ __forceinline__ void walk(
             // a slot's hats (from the slab, or copied) and raw planes
             // (copied) into image word at
             auto put_slot = [&](uint32_t* at, int row, int c, size_t e0) {
-                if constexpr (OCC) {
+                if constexpr (OCC && Run::kRawR) {
+                    // e^{iθ} and wxp (planes 1-4), then r (plane 0)
+                    for (int q = 0; q < 5; ++q)
+                        __pipeline_memcpy_async(
+                            at + q, raw_word(sten, e0 + (q + 1) % 5 * ip), 4);
+                } else if constexpr (OCC) {
                     // the hats, then planes fk0 on of the f_k (a walk over
                     // a group of frequencies)
                     for (int q = 0; q < R + 2 * K; ++q)

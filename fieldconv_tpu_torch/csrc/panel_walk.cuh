@@ -1,11 +1,10 @@
-// The coefficients of a compressed slot, shared by the panel and banded
-// kernels: K5 and K6 (panel_pipe.cuh) and K4 (band_window.cuh, and through
-// it K1, K3, K8 and K9).  A slot's R radial hats come from r (the hat on
-// the ring knots, ops/band_conv.py::_hats_from_r) and its K complex
-// factors f_k = wxp·e^{i(k−B)θ} from the unit phasor e^{iθ} and wxp, built
-// by repeated multiplication in _phasor_pairs' order; both are formed with
-// uncontracted, correctly rounded operations in the plain version's order.
-// Also the binary search that finds a block's run of panels.
+// The ring knots and hats of a compressed slot, shared by the kernels that
+// read compressed stencils on panel_pipe.cuh's walk: K5, K6 and K4
+// (band_pipe.cuh).  A slot's R radial hats come from r (the hat on the ring
+// knots, ops/band_conv.py::_hats_from_r), formed with uncontracted,
+// correctly rounded operations in the plain version's order (its K complex
+// factors f_k = wxp·e^{i(k−B)θ}: panel_pipe.cuh::phasors).  Also the
+// binary search that finds a block's run of panels.
 
 #pragma once
 
@@ -60,30 +59,6 @@ __device__ __forceinline__ float hat(float rv, int r, const Knots& kn)
     const float a = __fmul_rn(__fsub_rn(rv, kn.lo[r]), kn.up[r]);
     const float b = __fmul_rn(__fsub_rn(kn.hi[r], rv), kn.dn[r]);
     return fminf(fmaxf(fminf(a, b), 0.f), 1.f);
-}
-
-// f_k = wxp·e^{i(k−B)θ} re/im for k = 0..2B into cf[2k·stride] and
-// cf[(2k+1)·stride], from the unit phasor (pr, pi) and wxp (fr, fi): built
-// by repeated multiplication in _phasor_pairs' order and rounding (K4,
-// band_window.cuh; panel_pipe.cuh::phasors is the same in registers).
-__device__ __forceinline__ void phasor_powers(float* cf, int stride, float pr,
-                                              float pi, float fr, float fi,
-                                              int B)
-{
-    float cpr = fr, cpi = fi, cmr = fr, cmi = fi;
-    cf[2 * B * stride] = cpr;
-    cf[(2 * B + 1) * stride] = cpi;
-    for (int kk = 1; kk <= B; ++kk) {
-        const float npr = __fsub_rn(__fmul_rn(cpr, pr), __fmul_rn(cpi, pi));
-        const float npi = __fadd_rn(__fmul_rn(cpr, pi), __fmul_rn(cpi, pr));
-        const float nmr = __fadd_rn(__fmul_rn(cmr, pr), __fmul_rn(cmi, pi));
-        const float nmi = __fsub_rn(__fmul_rn(cmi, pr), __fmul_rn(cmr, pi));
-        cpr = npr; cpi = npi; cmr = nmr; cmi = nmi;
-        cf[2 * (B + kk) * stride] = cpr;
-        cf[(2 * (B + kk) + 1) * stride] = cpi;
-        cf[2 * (B - kk) * stride] = cmr;
-        cf[(2 * (B - kk) + 1) * stride] = cmi;
-    }
 }
 
 }  // namespace panel

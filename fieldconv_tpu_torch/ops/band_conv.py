@@ -204,29 +204,27 @@ def band_fused_bwd_reference(dy, g, sten_band, wmat, tb: int, nh: int):
 
 @functools.cache
 def _k1_entry():
-    """(kernel entry, floats of scratch it needs for given sizes)."""
-    lib = kernels.library("band_fused_fwd")
-    fn = lib.band_fused_fwd
+    """The kernel entry of csrc/band_fused_fwd.cu."""
+    fn = kernels.library("band_fused_fwd").band_fused_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    size = lib.band_fused_fwd_scratch_floats
-    size.argtypes = [ctypes.c_int] * 8
-    size.restype = ctypes.c_longlong
-    return fn, size
+    return fn
 
 
 @functools.cache
-def _k1_scratch_floats(bwd: bool, device: int, *sizes) -> int:
-    """Floats of scratch K1's forward (or backward) takes at these sizes
-    (n_mesh, N, C, K, R, tb, nh, O2) on a device: asked of the kernel's
-    library once a shape, not once a call.  Raises (and so caches
-    nothing) where the library takes no such shape or cannot read the
-    device."""
-    name = "band_fused_bwd" if bwd else "band_fused_fwd"
-    floats = (_k1_bwd_entry if bwd else _k1_entry)()[1](*sizes)
+def _scratch_floats(name: str, device, *sizes) -> int:
+    """Floats of scratch the kernel of csrc/<name>.cu takes at these sizes
+    (its ``<name>_scratch_floats``, ints) on a device: asked of its library
+    once a shape and device, not once a call (the calls of a small request
+    or step are host-bound).  Raises (and so caches nothing) where the
+    library takes no such shape or cannot read the device."""
+    size = getattr(kernels.library(name), f"{name}_scratch_floats")
+    size.argtypes = [ctypes.c_int] * len(sizes)
+    size.restype = ctypes.c_longlong
+    floats = size(*sizes)
     if floats <= 0:
-        raise RuntimeError(f"{name} takes no shape {sizes} (n_mesh, N, C, "
-                           "K, R, tb, nh, O2) on this device")
+        raise RuntimeError(f"{name} takes no shape {sizes} on device "
+                           f"{device}")
     return floats
 
 
@@ -273,12 +271,12 @@ def _k1_check(name, g, sten_band, wmat, tb: int, nh: int, *more):
 def _band_fused_fwd_cuda(g, sten_band, wmat, tb: int, nh: int):
     _k1_check("band_fused_fwd", g, sten_band, wmat, tb, nh)
     n_mesh, N, M, R, K, C, O2 = _k1_dims(g, sten_band, wmat)
-    fn, _ = _k1_entry()
+    fn = _k1_entry()
     sizes = (n_mesh, N, C, K, R, tb, nh, O2)
     y = torch.empty((n_mesh, N, O2), dtype=torch.float32, device=g.device)
     # contrib of every target row, which the filter then contracts with W,
     # and the band's occupancy bytes
-    floats = _k1_scratch_floats(False, g.device.index, *sizes)
+    floats = _scratch_floats("band_fused_fwd", g.device.index, *sizes)
     scratch = torch.empty((floats,), dtype=torch.float32, device=g.device)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = fn(g.data_ptr(), sten_band.data_ptr(), wmat.data_ptr(),
@@ -304,15 +302,11 @@ def band_fused_fwd(g, sten_band, wmat, tb: int, nh: int):
 
 @functools.cache
 def _k1_bwd_entry():
-    """(kernel entry, floats of scratch it needs for given sizes)."""
-    lib = kernels.library("band_fused_bwd")
-    fn = lib.band_fused_bwd
+    """The kernel entry of csrc/band_fused_bwd.cu."""
+    fn = kernels.library("band_fused_bwd").band_fused_bwd
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    size = lib.band_fused_bwd_scratch_floats
-    size.argtypes = [ctypes.c_int] * 8
-    size.restype = ctypes.c_longlong
-    return fn, size
+    return fn
 
 
 def _band_fused_bwd_cuda(dy, g, sten_band, wmat, tb: int, nh: int):
@@ -321,14 +315,14 @@ def _band_fused_bwd_cuda(dy, g, sten_band, wmat, tb: int, nh: int):
         raise ValueError(f"band_fused_bwd: dy {tuple(dy.shape)}, want "
                          f"{(n_mesh, N, O2)}")
     _k1_check("band_fused_bwd", g, sten_band, wmat, tb, nh, ("dy", dy))
-    fn, _ = _k1_bwd_entry()
+    fn = _k1_bwd_entry()
     sizes = (n_mesh, N, C, K, R, tb, nh, O2)
     f32 = dict(dtype=torch.float32, device=g.device)
     dg = torch.empty((n_mesh, N, M), **f32)
     dw = torch.empty((R, M, O2), **f32)
     # contrib, then dcontrib, of every target, the dW partial sums and the
     # band's occupancy bytes
-    floats = _k1_scratch_floats(True, g.device.index, *sizes)
+    floats = _scratch_floats("band_fused_bwd", g.device.index, *sizes)
     scratch = torch.empty((floats,), **f32)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = fn(dy.data_ptr(), g.data_ptr(), sten_band.data_ptr(),
@@ -1003,8 +997,9 @@ def _k4_check(name, g, wmat, sten_band, tb, nh, n_rings, band_limit, *more):
 
 @functools.cache
 def _k4_entry():
+    """The kernel entry of csrc/band_cfused_fwd.cu."""
     fn = kernels.library("band_cfused_fwd").band_cfused_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -1026,10 +1021,15 @@ def band_cfused_fwd(g, wmat, sten_band, tb: int, nh: int, n_rings: int,
               band_limit)
     n_mesh, N, M, R, K, C, O2 = _k4_dims(g, wmat, n_rings, band_limit)
     fn = _k4_entry()
+    sizes = (n_mesh, N, C, K, R, tb, nh, O2)
     y = torch.empty((n_mesh, N, O2), dtype=torch.float32, device=g.device)
+    # contrib of every target row, the filter's partial sums and the
+    # band's occupancy bytes
+    floats = _scratch_floats("band_cfused_fwd", g.device.index, *sizes)
+    scratch = torch.empty((floats,), dtype=torch.float32, device=g.device)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = fn(g.data_ptr(), sten_band.data_ptr(), wmat.data_ptr(),
-             y.data_ptr(), n_mesh, N, C, K, R, tb, nh, O2, stream)
+             y.data_ptr(), scratch.data_ptr(), *sizes, stream)
     if err != 0:
         raise RuntimeError(f"band_cfused_fwd launch failed: cudaError {err}")
     kernels.launches["band_cfused_fwd"] += 1
@@ -1038,15 +1038,11 @@ def band_cfused_fwd(g, wmat, sten_band, tb: int, nh: int, n_rings: int,
 
 @functools.cache
 def _k4_bwd_entry():
-    """(kernel entry, floats of scratch it needs for given sizes)."""
-    lib = kernels.library("band_cfused_bwd")
-    fn = lib.band_cfused_bwd
+    """The kernel entry of csrc/band_cfused_bwd.cu."""
+    fn = kernels.library("band_cfused_bwd").band_cfused_bwd
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    size = lib.band_cfused_bwd_scratch_floats
-    size.argtypes = [ctypes.c_int] * 8
-    size.restype = ctypes.c_longlong
-    return fn, size
+    return fn
 
 
 def band_cfused_bwd(dy, g, wmat, sten_band, tb: int, nh: int, n_rings: int,
@@ -1068,14 +1064,15 @@ def band_cfused_bwd(dy, g, wmat, sten_band, tb: int, nh: int, n_rings: int,
                          f"{(n_mesh, N, O2)}")
     _k4_check("band_cfused_bwd", g, wmat, sten_band, tb, nh, n_rings,
               band_limit, ("dy", dy))
-    fn, scratch_floats = _k4_bwd_entry()
+    fn = _k4_bwd_entry()
     sizes = (n_mesh, N, C, K, R, tb, nh, O2)
     f32 = dict(dtype=torch.float32, device=g.device)
     dg = torch.empty((n_mesh, N, M), **f32)
     dw = torch.empty((R, M, O2), **f32)
-    # contrib, then dcontrib, of every target, the dW partial sums and the
-    # band's occupancy bytes
-    scratch = torch.empty((max(1, scratch_floats(*sizes)),), **f32)
+    # contrib, then dcontrib, of every target, the dW partial sums, W's rows
+    # in dc's order and the band's occupancy bytes
+    floats = _scratch_floats("band_cfused_bwd", g.device.index, *sizes)
+    scratch = torch.empty((floats,), **f32)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = fn(dy.data_ptr(), g.data_ptr(), sten_band.data_ptr(),
              wmat.data_ptr(), dg.data_ptr(), dw.data_ptr(), scratch.data_ptr(),

@@ -11,7 +11,8 @@ cotangents of the halo rows too, which go back to their owners and are
 added there.
 
 The kernels (K9) are K1's forward and backward over a halo-extended
-source array and a range of target blocks: ``csrc/halo_fused_fwd.cu``
+source array and a range of target blocks (K1's pipelined panel walk,
+``csrc/band_pipe.cuh``, on the launch's range): ``csrc/halo_fused_fwd.cu``
 replaces the TPU kernels ``_halo_fused_fwd`` and ``_fused_fwd_shard``,
 ``csrc/halo_fused_bwd.cu`` replaces ``_halo_fused_bwd`` and
 ``_bwd_fused_shard`` (with their shift combines), ``csrc/halo_contrib_fwd.cu``
@@ -39,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from ..ops.band_conv import (_band_shapes, _window_contrib,
+from ..ops.band_conv import (_band_shapes, _scratch_floats, _window_contrib,
                              _window_transpose, filters_to_wmat)
 from ..ops.field_conv import filter_coefficients
 from ..precomp.banded import BandedTable
@@ -266,20 +267,14 @@ def _stream(t):
 
 
 @functools.cache
-def _entry(name: str, n_ptr: int, n_int: int, scratch: int = 0):
+def _entry(name: str, n_ptr: int, n_int: int):
     """The C entry of csrc/<name>.cu (n_ptr pointers, n_int ints, the
-    stream), and with ``scratch`` ints its scratch-size function."""
-    lib = kernels.library(name)
-    fn = getattr(lib, name)
+    stream)."""
+    fn = getattr(kernels.library(name), name)
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    if not scratch:
-        return fn, None
-    size = getattr(lib, f"{name}_scratch_floats")
-    size.argtypes = [ctypes.c_int] * scratch
-    size.restype = ctypes.c_longlong
-    return fn, size
+    return fn
 
 
 def _launched(name, err):
@@ -320,10 +315,15 @@ def halo_fused_fwd(g, sten_band, wmat, tb: int, nh: int, blk_off: int,
             n_mesh, nb * tb, O2):
         raise ValueError(f"{name}: wmat {tuple(wmat.shape)}, out "
                          f"{tuple(out.shape)} for g {tuple(g.shape)}")
-    fn, _ = _entry(name, 4, 12)
+    fn = _entry(name, 5, 12)
+    sizes = (n_mesh, nb * tb, g.shape[1], M // (2 * K), K, R, tb, nh, O2,
+             blk_off, lo, hi)
+    # contrib of the range's targets, the filter's partial sums and the
+    # range's occupancy bytes
+    scratch = torch.empty((_scratch_floats(name, g.device.index, *sizes),),
+                          dtype=torch.float32, device=g.device)
     err = fn(g.data_ptr(), sten_band.data_ptr(), wmat.data_ptr(),
-             out.data_ptr(), n_mesh, nb * tb, g.shape[1], M // (2 * K), K, R,
-             tb, nh, O2, blk_off, lo, hi, _stream(g))
+             out.data_ptr(), scratch.data_ptr(), *sizes, _stream(g))
     _launched(name, err)
     return out
 
@@ -350,14 +350,16 @@ def halo_fused_bwd(dy, g, sten_band, wmat, tb: int, nh: int, blk_off: int,
     if tuple(dy.shape) != (n_mesh, (hi - lo) * tb, O2) or M != g.shape[-1]:
         raise ValueError(f"{name}: dy {tuple(dy.shape)}, want "
                          f"{(n_mesh, (hi - lo) * tb, O2)}")
-    fn, scratch_floats = _entry(name, 7, 12, scratch=12)
+    fn = _entry(name, 7, 12)
     sizes = (n_mesh, sten_band.shape[1] * tb, n_src, M // (2 * K), K, R, tb,
              nh, O2, blk_off, lo, hi)
     f32 = dict(dtype=torch.float32, device=g.device)
     dg = torch.empty((n_mesh, n_src, M), **f32)
     dw = torch.empty((R, M, O2), **f32)
-    # contrib and dcontrib of the range's targets, and the dW partial sums
-    scratch = torch.empty((max(1, scratch_floats(*sizes)),), **f32)
+    # contrib and dcontrib of the range's targets, the dW partial sums, W's
+    # rows in dc's order and the range's occupancy bytes
+    scratch = torch.empty((_scratch_floats(name, g.device.index, *sizes),),
+                          **f32)
     err = fn(dy.data_ptr(), g.data_ptr(), sten_band.data_ptr(),
              wmat.data_ptr(), dg.data_ptr(), dw.data_ptr(), scratch.data_ptr(),
              *sizes, _stream(g))
@@ -381,7 +383,7 @@ def halo_contrib_fwd(g, sten_band, tb: int, nh: int, n_rings: int,
     n_mesh, n_src, M = g.shape
     out = torch.empty((n_mesh, (hi - lo) * n_rings * tb, M),
                       dtype=torch.float32, device=g.device)
-    fn, _ = _entry(name, 3, 11)
+    fn = _entry(name, 3, 11)
     err = fn(g.data_ptr(), sten_band.data_ptr(), out.data_ptr(), n_mesh,
              sten_band.shape[1] * tb, n_src, M // (2 * k_width), k_width,
              n_rings, tb, nh, blk_off, lo, hi, _stream(g))
@@ -409,13 +411,14 @@ def halo_contrib_bwd(dout, sten_band, tb: int, nh: int, n_rings: int,
                          f" rings of blocks [{lo}, {hi})")
     _k9_check(name, (n_mesh, n_src, M), sten_band, tb, nh, n_rings, lo, hi,
               ("dout", dout))
-    fn, scratch_floats = _entry(name, 4, 11, scratch=11)
+    fn = _entry(name, 4, 11)
     sizes = (n_mesh, sten_band.shape[1] * tb, n_src, M // (2 * k_width),
              k_width, n_rings, tb, nh, blk_off, lo, hi)
     f32 = dict(dtype=torch.float32, device=dout.device)
     dg = torch.empty((n_mesh, n_src, M), **f32)
     # the cotangent in the dG pass's channel-major layout
-    scratch = torch.empty((max(1, scratch_floats(*sizes)),), **f32)
+    scratch = torch.empty(
+        (_scratch_floats(name, dout.device.index, *sizes),), **f32)
     err = fn(dout.data_ptr(), sten_band.data_ptr(), dg.data_ptr(),
              scratch.data_ptr(), *sizes, _stream(dout))
     _launched(name, err)

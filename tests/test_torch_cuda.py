@@ -36,7 +36,7 @@ from fieldconv_tpu_torch.train.trainer import (batched_apply,
 # odd widths with O2 = 10; O2 = 60 as conv_out with 3 meshes; serving
 # widths with a window past both ends; the segmentation width (C = 48,
 # O2 = 96) and the correspondence ones (K = 3, R = 3, O2 = 24, 32, 64)
-SHAPES = pytest.mark.parametrize("C,O,R,B,tb,nh,n_mesh", [
+_SHAPES = [
     (3, 5, 2, 1, 8, 1, 1),
     (4, 30, 6, 2, 8, 2, 3),
     (32, 32, 6, 2, 16, 3, 2),
@@ -44,7 +44,26 @@ SHAPES = pytest.mark.parametrize("C,O,R,B,tb,nh,n_mesh", [
     (16, 12, 3, 1, 16, 2, 1),
     (32, 16, 3, 1, 16, 1, 1),
     (32, 32, 3, 1, 16, 2, 1),
-])
+]
+SHAPES = pytest.mark.parametrize("C,O,R,B,tb,nh,n_mesh", _SHAPES)
+# K4's walk (csrc/band_pipe.cuh, the compressed slot mode): K = 1 with R =
+# 3 and 6, K = 3 with R = 6, K = 5 with R = 3, 4 and 5 (slots narrower than
+# the instantiation's), TB = 256 (two virtual blocks of 128) at K = 5 and K
+# = 3, TB = 12 (rows of 12 slots: no float4 copy of r, padded slab rows),
+# nh = 0 and 3, C = 1 and 256
+K4_EDGE = [
+    (16, 12, 3, 0, 16, 1, 2),
+    (3, 10, 6, 0, 8, 2, 1),
+    (32, 32, 6, 1, 16, 1, 2),
+    (48, 48, 3, 2, 16, 1, 2),
+    (16, 24, 4, 2, 8, 2, 1),
+    (32, 64, 5, 2, 16, 3, 3),
+    (32, 32, 6, 2, 256, 1, 1),
+    (16, 24, 3, 1, 256, 1, 2),
+    (8, 16, 3, 1, 12, 1, 2),
+    (1, 4, 6, 1, 16, 0, 1),
+    (256, 16, 6, 2, 16, 1, 1),
+]
 
 
 def _need_card():
@@ -147,12 +166,13 @@ def _k4_stencil(R, B, tb, nh, n_mesh):
 
 
 @pytest.mark.cuda
-@SHAPES
+@pytest.mark.parametrize("C,O,R,B,tb,nh,n_mesh", _SHAPES + K4_EDGE)
 def test_k4_kernel_matches_plain_on_card(C, O, R, B, tb, nh, n_mesh):
     """K4 (compressed stencil) forward and backward equal their plain
     versions on the card (y, dg and dw each to 1e-4 of its scale: f32 sums
     in another order), one launch each, and two backward calls are bitwise
-    equal (no atomics)."""
+    equal (no atomics).  The stencil's slots past both ends of g hold
+    values too, which the kernel must not read."""
     _need_card()
     g, _, wmat, dy = _k1_inputs(C, O, R, B, tb, nh, n_mesh)
     sten = _k4_stencil(R, B, tb, nh, n_mesh)
@@ -172,6 +192,7 @@ def test_k4_kernel_matches_plain_on_card(C, O, R, B, tb, nh, n_mesh):
         assert err <= 1e-4 * w.abs().max().item(), err
     dg2, dw2 = tbc.band_cfused_bwd(dy, g, wmat, *args)
     assert torch.equal(dg, dg2) and torch.equal(dw, dw2)
+    assert torch.equal(y, tbc.band_cfused_fwd(g, wmat, *args))
 
 
 @pytest.mark.cuda
@@ -1364,12 +1385,25 @@ def _k9_ranges(nb, nh):
     return out
 
 
+# K9's walk (csrc/band_pipe.cuh on the launch's range): every range of a
+# shard with several meshes, K = 1, K = 3 with R = 6, K = 5 with R = 3-5
+# (slots narrower than the instantiation's), shards of nb ≤ 2nh blocks
+# (serial only: nb = 3 with nh = 2, nb = 2 with nh = 1), TB = 256 (two
+# virtual blocks of 128), C = 1
 @pytest.mark.cuda
 @pytest.mark.parametrize("C,O,R,B,tb,nh,n_mesh,nb", [
     (3, 5, 2, 1, 8, 1, 1, 4),
     (4, 30, 6, 2, 8, 2, 3, 3),
     (48, 48, 6, 2, 16, 1, 2, 4),
     (32, 32, 3, 1, 16, 2, 1, 5),
+    (16, 12, 3, 0, 16, 1, 2, 4),
+    (32, 32, 6, 1, 16, 1, 3, 5),
+    (32, 32, 3, 2, 16, 1, 2, 4),
+    (16, 24, 4, 2, 8, 2, 2, 5),
+    (48, 48, 5, 2, 16, 1, 3, 3),
+    (32, 64, 6, 2, 16, 1, 2, 2),
+    (8, 16, 3, 1, 256, 1, 2, 3),
+    (1, 4, 6, 1, 16, 1, 1, 4),
 ])
 def test_k9_kernels_match_plain_on_card(C, O, R, B, tb, nh, n_mesh, nb):
     """K9 (parallel/halo.py) each way over every range a shard launches,
@@ -1421,6 +1455,47 @@ def test_k9_kernels_match_plain_on_card(C, O, R, B, tb, nh, n_mesh, nb):
             dgc = halo.halo_contrib_bwd(dout, sten, *bargs)
             close(dgc, halo.halo_contrib_bwd_reference(dout, sten, *bargs))
             assert torch.equal(dgc, halo.halo_contrib_bwd(dout, sten, *bargs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,tb,nh,nb,n_src,blk_off,lo,hi", [
+    (2, 6, 16, 1, 4, 8, 1, 0, 4),
+    (1, 3, 16, 2, 5, 12, 2, 1, 4),
+    (0, 3, 8, 1, 4, 7, -1, 2, 4),
+])
+def test_k9_unread_source_rows_get_zero_dg_on_card(B, R, tb, nh, nb, n_src,
+                                                   blk_off, lo, hi):
+    """K9 over a source array (two meshes) with blocks that no window of the
+    range reads: dG there is exactly zero, every other row within 1e-4 of
+    the plain version's scale, y outside the range untouched."""
+    from fieldconv_tpu_torch.parallel import halo
+
+    _need_card()
+    C, O2, n_mesh, K = 16, 24, 2, 2 * B + 1
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dev = torch.device("cuda")
+    sten = torch.randn(n_mesh, nb, R + 2 * K, tb, (2 * nh + 1) * tb,
+                       device=dev, generator=gen)
+    wmat = torch.randn(R, K * 2 * C, O2, device=dev, generator=gen)
+    g = torch.randn(n_mesh, n_src * tb, K * 2 * C, device=dev, generator=gen)
+    dy = torch.randn(n_mesh, (hi - lo) * tb, O2, device=dev, generator=gen)
+    args = (tb, nh, blk_off, lo, hi)
+    read = range(max(0, lo + blk_off), min(n_src, hi + blk_off + 2 * nh))
+    assert len(read) < n_src
+    y = halo.halo_fused_fwd(g, sten, wmat, *args,
+                            out=torch.full((n_mesh, nb * tb, O2), 7.0,
+                                           device=dev))
+    dg, dw = halo.halo_fused_bwd(dy, g, sten, wmat, *args)
+    torch.cuda.synchronize()
+    assert bool((y[:, :lo * tb] == 7.0).all())
+    assert bool((y[:, hi * tb:] == 7.0).all())
+    _held((y[:, lo * tb:hi * tb],),
+          (halo.halo_fused_fwd_reference(g, sten, wmat, *args),), "K9")
+    _held((dg, dw), halo.halo_fused_bwd_reference(dy, g, sten, wmat, *args),
+          "K9 bwd")
+    for s in range(n_src):
+        if s not in read:
+            assert not bool(dg[:, s * tb:(s + 1) * tb].any()), s
 
 
 def _rewindow(sten, tb, nh, nh2):
